@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``sbr_tpu_torch/csrc``, holds each against its
-plain PyTorch version on the card, drives the explicit-agent simulation at
-full width (10^6 agents on a ~10^7-edge Erdős–Rényi graph, 200 steps) with
-both engines, checks the card against the CPU end to end and the
-dense-graph limit against the logistic, and prints one JSON line per phase.
+plain PyTorch version on the card, and drives both ported paths at full
+width: the explicit-agent simulation (10^6 agents on a ~10^7-edge
+Erdős–Rényi graph, 200 steps, both engines) and the Bayesian-observer
+channel of the information models (2×10^6 agents on a ~2×10^7-edge graph
+generated on the card, 100 steps). It checks the card against the CPU end
+to end for both paths and for the graph generator, and the dense-graph
+limit against the logistic, and prints one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -33,6 +36,19 @@ OPS_PER_AGENT = 120
 
 N_FULL = 1_000_000
 STEPS_FULL = 200
+
+# The belief step: ~10 floating-point operations an agent (a division, two
+# fused multiply-adds, three products and sums, a comparison), against the
+# float32 vector rate and the published float64 rate outside the tensor
+# cores (34 TFLOP/s).
+BELIEF_OPS_PER_AGENT = 10
+F64_OPS_PER_S = 34e12
+
+# The bayes channel at the repo's accelerator shape for it (bench.py's
+# infomodel bench): 2×10^6 agents, Erdős–Rényi mean degree 10, 100 steps
+# of dt 0.05, reentry 3.0, x0 0.01, seed 1, float32.
+N_BAYES = 2_000_000
+STEPS_BAYES = 100
 
 
 def emit(phase: str, **fields) -> None:
@@ -72,6 +88,18 @@ def bound_ms(n: int, dtype: torch.dtype):
     size = torch.finfo(dtype).bits // 8
     bytes_ms = n * (1 + size + 4 + size + size + 1 + size) / HBM_BYTES_PER_S * 1e3
     ops_ms = n * OPS_PER_AGENT / VECTOR_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def belief_bound_ms(n: int, dtype: torch.dtype):
+    """Least time for the belief step on n agents: the larger of its bytes
+    (informed 1 B, t_inf, belief, counts 4 B, awareness, deg, θ read;
+    informed' 1 B, t_inf', belief' written: 34 B in f32, 62 B in f64) over
+    the memory rate and its operations over the rate of its type."""
+    size = torch.finfo(dtype).bits // 8
+    bytes_ms = n * (6 + 7 * size) / HBM_BYTES_PER_S * 1e3
+    rate = VECTOR_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S
+    ops_ms = n * BELIEF_OPS_PER_AGENT / rate * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -234,45 +262,60 @@ def phase_main_path() -> int:
     return main_launches
 
 
-def phase_profile() -> None:
-    """Where the main path's time goes: one steady full-width run of each
-    engine under torch.profiler. Device time is the sum of the kernels'
-    self times (one stream, so they do not overlap); the profiler's own
-    cost inflates the wall time it is compared with."""
-    import sbr_tpu_torch as st
+def _profiled(run, kernel: str) -> dict:
+    """One steady call of ``run`` under torch.profiler, after a warm-up
+    call. Device time is the sum of the kernels' self times (one stream,
+    so they do not overlap); the profiler's own cost inflates the wall time
+    it is compared with."""
     from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # device-side events only: an operator's row repeats its kernels' time
+    rows = [
+        (e.key, e.self_device_time_total, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    device_s = sum(r[1] for r in rows) / 1e6
+    if device_s <= 0:
+        raise AssertionError("the profiler saw no device time")
+    rows.sort(key=lambda r: -r[1])
+    ours = [r for r in rows if kernel in r[0]]
+    return dict(
+        wall_s=wall_s, device_s=device_s, device_busy_share=device_s / wall_s,
+        kernel=kernel, kernel_ms=sum(r[1] for r in ours) / 1e3,
+        kernel_calls=sum(r[2] for r in ours),
+        top=[{"kernel": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in rows[:8]],
+    )
+
+
+def phase_profile() -> None:
+    """Where each main path's time goes: one steady full-width run of each
+    agent engine, and of the bayes channel on a prepared graph."""
+    import sbr_tpu_torch as st
 
     src, dst = st.erdos_renyi_edges(N_FULL, 10.0, seed=0)
     cfg = st.AgentSimConfig(n_steps=STEPS_FULL, dt=0.1)
     for engine in ("incremental", "gather"):
         pg = st.prepare_agent_graph(1.0, src, dst, N_FULL, config=cfg, engine=engine,
                                     dtype=np.float32)
-        st.simulate_agents(prepared=pg, x0=1e-4, config=cfg, seed=0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            st.simulate_agents(prepared=pg, x0=1e-4, config=cfg, seed=0)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        # device-side events only: an operator's row repeats its kernels' time
-        rows = [
-            (e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-        ]
-        device_s = sum(r[1] for r in rows) / 1e6
-        if device_s <= 0:
-            raise AssertionError("the profiler saw no device time")
-        rows.sort(key=lambda r: -r[1])
-        ours = [r for r in rows if "infection_update_kernel" in r[0]]
-        emit(
-            "profile", engine=engine, n=N_FULL, steps=STEPS_FULL, wall_s=wall_s,
-            device_s=device_s, device_busy_share=device_s / wall_s,
-            infection_kernel_ms=sum(r[1] for r in ours) / 1e3,
-            infection_kernel_calls=sum(r[2] for r in ours),
-            top=[{"kernel": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in rows[:8]],
-        )
+        prof = _profiled(lambda: st.simulate_agents(prepared=pg, x0=1e-4, config=cfg, seed=0),
+                         "infection_update_kernel")
+        emit("profile", path="agents", engine=engine, n=N_FULL, steps=STEPS_FULL, **prof)
         del pg
+    spec = st.InfoModelSpec(channel="bayes")
+    graph = st.ErdosRenyiSpec(N_BAYES, 10.0)
+    cfg = _bayes_config()
+    pg = st.prepare_generated_graph(graph, seed=1, config=cfg, engine="gather")
+    prof = _profiled(lambda: st.simulate_info(spec, graph, x0=0.01, config=cfg, seed=1,
+                                              prepared=pg), "belief_update_kernel")
+    emit("profile", path="bayes", engine="gather", n=N_BAYES, steps=STEPS_BAYES, **prof)
 
 
 def phase_cpu_vs_card() -> None:
@@ -299,6 +342,171 @@ def phase_cpu_vs_card() -> None:
                 raise AssertionError(f"{engine}: float64 CPU and card runs differ")
 
 
+def _belief_inputs(n: int, np_dtype, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    informed = rng.random(n) < 0.1
+    t_inf = np.where(informed, rng.uniform(-1.0, 5.0, n), np.inf).astype(np_dtype)
+    deg = rng.integers(0, 21, n)
+    counts = np.minimum(rng.integers(0, 21, n), deg).astype(np.int32)
+    arrays = (informed, t_inf, rng.normal(0.5, 2.0, n).astype(np_dtype), counts,
+              rng.uniform(0.5, 3.0, n).astype(np_dtype), np.maximum(deg, 1).astype(np_dtype),
+              rng.logistic(3.0, 1.5, n).astype(np_dtype))
+    return tuple(torch.from_numpy(a).to("cuda") for a in arrays)
+
+
+def phase_belief_kernel_vs_plain() -> list:
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.social import fused
+
+    rows = []
+    for n in (2_000_003, 10_000_019):
+        for np_dtype, dtype in ((np.float32, torch.float32), (np.float64, torch.float64)):
+            ins = _belief_inputs(n, np_dtype)
+            llr0, llr1 = (float(np_dtype(v)) for v in st.InfoModelSpec(channel="bayes").llr)
+            args = (*ins, float(np_dtype(18) * np_dtype(0.05)), 0.05, llr0, llr1)
+            got = fused._belief_cuda(*args)
+            want = fused._belief_plain(*args)
+            torch.cuda.synchronize()
+            mism = {name: int((g != w).sum()) for name, g, w in
+                    zip(("informed", "t_inf", "belief"), got, want)}
+            both = torch.isfinite(got[1]) & torch.isfinite(want[1])
+            err = max(float((got[2] - want[2]).abs().max()),
+                      float((got[1] - want[1])[both].abs().max()) if bool(both.any()) else 0.0)
+            crossed = int((got[0] & ~ins[0]).sum())
+            del got, want
+            kernel_ms = time_ms(lambda: fused._belief_cuda(*args))
+            plain_ms = time_ms(lambda: fused._belief_plain(*args))
+            b_ms, b_by = belief_bound_ms(n, dtype)
+            row = {
+                "n": n, "dtype": str(dtype).removeprefix("torch."),
+                "mismatches": sum(mism.values()), "mismatches_by_output": mism,
+                "max_abs_err": err, "newly_crossed": crossed,
+                "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "memory": "DRAM (working set over 50 MB)",
+            }
+            emit("belief_kernel_vs_plain", **row)
+            if row["mismatches"]:
+                raise AssertionError(f"belief kernel and plain version disagree: {row}")
+            rows.append(row)
+            del ins, args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _bayes_config():
+    import sbr_tpu_torch as st
+
+    return st.AgentSimConfig(n_steps=STEPS_BAYES, dt=0.05, reentry_delay=3.0)
+
+
+def phase_bayes_main_path() -> int:
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL
+
+    spec = st.InfoModelSpec(channel="bayes")
+    graph = st.ErdosRenyiSpec(N_BAYES, 10.0)
+    cfg = _bayes_config()
+    runs, launches = [], []
+    for call in range(2):
+        # the counts are set to 0 just before the main path runs and read
+        # just after it: one simulate_info call, graph generation included
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = st.simulate_info(spec, graph, x0=0.01, config=cfg, seed=1)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches.append(_build.LAUNCHES[BELIEF_KERNEL])
+        if launches[-1] != STEPS_BAYES:
+            raise AssertionError(f"call {call}: {launches[-1]} belief launches, want {STEPS_BAYES}")
+        runs.append((res, call_s))
+    (first, first_s), (res, call_s) = runs
+    for f in ("informed", "t_inf", "belief", "informed_frac", "withdrawn_frac"):
+        if not torch.equal(getattr(first, f), getattr(res, f)):
+            raise AssertionError(f"two bayes calls of one seed differ in {f}")
+    # the layers apart: the graph build on the card, then the step loop alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg = st.prepare_generated_graph(graph, seed=1, config=cfg, engine="gather")
+    torch.cuda.synchronize()
+    graph_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alone = st.simulate_info(spec, graph, x0=0.01, config=cfg, seed=1, prepared=pg)
+    torch.cuda.synchronize()
+    simulate_s = time.perf_counter() - t0
+    if not torch.equal(alone.belief, res.belief):
+        raise AssertionError("the run on a prepared graph differs from the full call")
+    g = res.informed_frac.cpu().numpy()
+    informed0 = int(round(float(g[0]) * N_BAYES))
+    crossed = int(res.informed.sum()) - informed0
+    if not (np.all(np.diff(g) >= 0) and crossed > 0):
+        raise AssertionError(f"bayes run: informed_frac {g[:3]}..{g[-3:]}, crossed {crossed}")
+    if not (res.informed.shape == (N_BAYES,) and bool(torch.isfinite(res.belief).all())
+            and bool(torch.isfinite(res.t_inf[res.informed]).all())):
+        raise AssertionError("bayes run: bad final state")
+    emit(
+        "bayes_main_path", n=N_BAYES, edges=pg.n_edges, steps=STEPS_BAYES,
+        dtype="float32", kernel_launches=launches, graph_build_s=graph_build_s,
+        first_call_s=first_s, call_s=call_s, simulate_s=simulate_s,
+        belief_updates_per_s=N_BAYES * STEPS_BAYES / simulate_s,
+        belief_updates_per_s_with_build=N_BAYES * STEPS_BAYES / call_s,
+        crossed=crossed, final_informed_frac=float(g[-1]),
+        final_withdrawn_frac=float(res.withdrawn_frac[-1]),
+    )
+    return launches[0]
+
+
+def phase_bayes_cpu_vs_card() -> None:
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.infomodels import engine
+
+    n = 20_000
+    spec = st.InfoModelSpec(channel="bayes", groups=((0.3, 2.0, 1.0), (0.7, 3.5, 3.0)))
+    graph = st.ErdosRenyiSpec(n, 8.0)
+    cfg = st.AgentSimConfig(n_steps=60, dt=0.05, reentry_delay=1.0)
+    for np_dtype in (np.float32, np.float64):
+        cpu_f = [f.numpy() for f in engine._agent_fields(spec, n, 2, 0.9, np_dtype, "cpu")]
+        card_f = [f.cpu().numpy() for f in engine._agent_fields(spec, n, 2, 0.9, np_dtype, "cuda")]
+        kw = dict(x0=0.01, config=cfg, seed=2, dtype=np_dtype)
+        out = {
+            dev: st.simulate_info(spec, graph, device=dev,
+                                  fields=engine.agent_fields_from_numpy(*cpu_f, dev), **kw)
+            for dev in ("cpu", "cuda")
+        }
+        a, b = out["cpu"], out["cuda"]
+        same = {f: bool(torch.equal(getattr(a, f), getattr(b, f).cpu())) for f in
+                ("informed", "t_inf", "belief", "informed_frac", "withdrawn_frac")}
+        thr_gap = np.abs(cpu_f[1].astype(np.float64) - card_f[1])
+        emit("bayes_cpu_vs_card", n=n, steps=cfg.n_steps, dtype=np.dtype(np_dtype).name,
+             bitwise=same, crossed=int(b.informed.sum()),
+             fields_betas_equal=bool(np.array_equal(cpu_f[0], card_f[0])),
+             fields_awareness_equal=bool(np.array_equal(cpu_f[2], card_f[2])),
+             fields_thresholds_differing=int((thr_gap > 0).sum()),
+             fields_thresholds_max_abs_diff=float(thr_gap.max()))
+        if not all(same.values()):
+            raise AssertionError(f"{np.dtype(np_dtype).name}: bayes CPU and card runs differ: {same}")
+
+
+def phase_graphgen_cpu_vs_card() -> None:
+    import sbr_tpu_torch as st
+
+    n = 100_000
+    for spec in (st.ErdosRenyiSpec(n, 10.0), st.ScaleFreeSpec(n, 10.0),
+                 st.StochasticBlockSpec(n, 10.0)):
+        out = {dev: st.prepare_generated_graph(spec, seed=5, engine="incremental", device=dev)
+               for dev in ("cpu", "cuda")}
+        a, b = out["cpu"], out["cuda"]
+        names = ("src", "row_ptr", "indeg", "dst2", "out_ptr", "outdeg")
+        same = {k: bool(torch.equal(x, y.cpu())) for k, x, y in
+                zip(names, (a.src, a.row_ptr, a.indeg, *a.inc), (b.src, b.row_ptr, b.indeg, *b.inc))}
+        emit("graphgen_cpu_vs_card", spec=type(spec).__name__, n=n, edges=b.n_edges,
+             bitwise=same)
+        if not all(same.values()):
+            raise AssertionError(f"{type(spec).__name__}: CPU and card graphs differ: {same}")
+
+
 def phase_physics() -> None:
     import sbr_tpu_torch as st
 
@@ -319,7 +527,7 @@ def phase_physics() -> None:
         raise AssertionError("dense-graph limit misses the logistic")
 
 
-PHASES = ("kernel", "main", "cpu", "physics")
+PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen")
 
 
 def main(argv) -> int:
@@ -343,11 +551,18 @@ def main(argv) -> int:
         phase_cpu_vs_card()
     if "physics" in wanted:
         phase_physics()
+    belief_rows = phase_belief_kernel_vs_plain() if "belief" in wanted else []
+    belief_launches = phase_bayes_main_path() if "bayes" in wanted else None
+    if "bayes_cpu" in wanted:
+        phase_bayes_cpu_vs_card()
+    if "graphgen" in wanted:
+        phase_graphgen_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
         return 0
     main_row = next(r for r in rows if r["n"] == 1_000_003 and r["dtype"] == "float32")
+    belief_row = next(r for r in belief_rows if r["n"] == 2_000_003 and r["dtype"] == "float32")
     kernels = [{
         "name": "infection_update",
         "route": "cuda",
@@ -363,6 +578,21 @@ def main(argv) -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shapes": rows,
+    }, {
+        "name": "belief_update",
+        "route": "cuda",
+        "source": "sbr_tpu_torch/csrc/belief_update.cu",
+        "replaces": "sbr_tpu/social/fused.py:231",
+        "replaces_function": "sbr_tpu/social/fused.py::_pallas_belief",
+        "launches": belief_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
+        "mismatches": sum(r["mismatches"] for r in belief_rows),
+        "ms": belief_row["ms"],
+        "plain_ms": belief_row["plain_ms"],
+        "bound_ms": belief_row["bound_ms"],
+        "bound_by": belief_row["bound_by"],
+        "library_ms": None,
+        "shapes": belief_rows,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,15 @@ ported module is held to ``sbr_tpu`` on the same inputs by the tests.
 ``sbr_tpu_torch/X/y.py`` is the port of ``sbr_tpu/X/y.py``. The package
 imports ``torch`` and ``numpy``, never ``jax`` or ``sbr_tpu``.
 
-Ported so far: the explicit-agent simulation on one device
-(``social.agents``), with the fused infection step as a CUDA kernel for
-Hopper (``social.fused``, ``csrc/infection_update.cu``).
+Ported so far, each on one device:
+
+- slice 1, the explicit-agent simulation (``social.agents``), whose fused
+  infection step is a CUDA kernel for Hopper (``social.fused``,
+  ``csrc/infection_update.cu``);
+- slice 2, the information-model simulation (``infomodels``: the spec and
+  `simulate_info`, gossip and bayes channels on static graphs) on graphs
+  generated on the device (``social.graphgen``), whose fused belief step
+  is a second CUDA kernel (``csrc/belief_update.cu``).
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every
@@ -15,6 +21,12 @@ kernel wrapper runs its plain PyTorch version; on CUDA tensors it launches
 the kernel or raises.
 """
 
+from sbr_tpu_torch.infomodels import (
+    InfoModelSpec,
+    InfoSimResult,
+    default_spec,
+    simulate_info,
+)
 from sbr_tpu_torch.social.agents import (
     AgentSimConfig,
     AgentSimResult,
@@ -28,19 +40,35 @@ from sbr_tpu_torch.social.agents import (
     scale_free_edges,
     simulate_agents,
 )
+from sbr_tpu_torch.social.graphgen import (
+    ErdosRenyiSpec,
+    ScaleFreeSpec,
+    StochasticBlockSpec,
+    generate_edges,
+    prepare_generated_graph,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AgentSimConfig",
     "AgentSimResult",
+    "ErdosRenyiSpec",
+    "InfoModelSpec",
+    "InfoSimResult",
     "PreparedAgentGraph",
+    "ScaleFreeSpec",
+    "StochasticBlockSpec",
     "default_device",
+    "default_spec",
     "erdos_renyi_edges",
+    "generate_edges",
     "load_agent_state",
     "prepare_agent_graph",
+    "prepare_generated_graph",
     "prepared_from_numpy",
     "save_agent_state",
     "scale_free_edges",
     "simulate_agents",
+    "simulate_info",
 ]

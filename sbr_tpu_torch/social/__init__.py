@@ -1,6 +1,7 @@
 """Social-learning extension, PyTorch port: the explicit-agent simulation
-(:mod:`agents`), its counter RNG (:mod:`rng`) and the fused infection step
-(:mod:`fused`)."""
+(:mod:`agents`), its counter RNG (:mod:`rng`), the fused infection and
+belief steps (:mod:`fused`) and graphs generated on the device
+(:mod:`graphgen`)."""
 
 from sbr_tpu_torch.social.agents import (
     AgentSimConfig,
@@ -14,14 +15,26 @@ from sbr_tpu_torch.social.agents import (
     scale_free_edges,
     simulate_agents,
 )
+from sbr_tpu_torch.social.graphgen import (
+    ErdosRenyiSpec,
+    ScaleFreeSpec,
+    StochasticBlockSpec,
+    generate_edges,
+    prepare_generated_graph,
+)
 
 __all__ = [
     "AgentSimConfig",
     "AgentSimResult",
+    "ErdosRenyiSpec",
     "PreparedAgentGraph",
+    "ScaleFreeSpec",
+    "StochasticBlockSpec",
     "erdos_renyi_edges",
+    "generate_edges",
     "load_agent_state",
     "prepare_agent_graph",
+    "prepare_generated_graph",
     "prepared_from_numpy",
     "save_agent_state",
     "scale_free_edges",

@@ -73,3 +73,74 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
         torch.bool, torch.float32, torch.int64, torch.float32, torch.float32)]
     with pytest.raises(ValueError, match="counts"):
         fused._update_cuda(*ts, 0, 1, 2, 0.1, 0.1)
+
+
+def _belief_inputs(n, np_dtype, device):
+    g = np.random.default_rng(n + 1)
+    informed = g.random(n) < 0.1
+    t_inf = np.where(informed, g.uniform(-1.0, 2.0, n), np.inf).astype(np_dtype)
+    deg = g.integers(0, 15, n)
+    counts = np.minimum(g.integers(0, 15, n), deg).astype(np.int32)
+    arrays = (informed, t_inf, g.normal(0.5, 2.0, n).astype(np_dtype), counts,
+              g.uniform(0.5, 3.0, n).astype(np_dtype), np.maximum(deg, 1).astype(np_dtype),
+              g.logistic(3.0, 1.5, n).astype(np_dtype))
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("np_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 1000, 100_003])
+def test_belief_kernel_matches_plain(cuda_device, np_dtype, n):
+    ts = _belief_inputs(n, np_dtype, cuda_device)
+    llr0, llr1 = (float(np_dtype(v)) for v in st.InfoModelSpec(channel="bayes").llr)
+    args = (float(np_dtype(1.8)), 0.05, llr0, llr1)
+    before = _build.LAUNCHES[fused.BELIEF_KERNEL]
+    got = fused._belief_cuda(*ts, *args)
+    want = fused._belief_plain(*ts, *args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fused.BELIEF_KERNEL] == before + 1
+    for w, k in zip(want, got):
+        assert torch.equal(w, k)
+
+
+@pytest.mark.parametrize("np_dtype", [np.float32, np.float64])
+def test_bayes_on_card_equals_cpu_with_carried_fields(cuda_device, np_dtype):
+    from sbr_tpu_torch.infomodels import engine
+
+    spec = st.InfoModelSpec(channel="bayes")
+    graph = st.ErdosRenyiSpec(3000, 8.0)
+    cfg = st.AgentSimConfig(n_steps=30, dt=0.1, reentry_delay=2.0)
+    fields = [f.numpy() for f in engine._agent_fields(spec, graph.n, 1, 0.9, np_dtype, "cpu")]
+    kw = dict(x0=0.01, config=cfg, seed=1, dtype=np_dtype)
+    cpu = st.simulate_info(spec, graph, device="cpu",
+                           fields=engine.agent_fields_from_numpy(*fields, "cpu"), **kw)
+    before = _build.LAUNCHES[fused.BELIEF_KERNEL]
+    card = st.simulate_info(spec, graph, device=cuda_device,
+                            fields=engine.agent_fields_from_numpy(*fields, cuda_device), **kw)
+    assert _build.LAUNCHES[fused.BELIEF_KERNEL] == before + cfg.n_steps
+    for f in ("informed", "t_inf", "belief", "informed_frac", "withdrawn_frac"):
+        assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
+
+
+@pytest.mark.parametrize("engine", ["gather", "incremental"])
+@pytest.mark.parametrize("kind", ["er", "sf", "sbm"])
+def test_generated_graph_on_card_equals_cpu(cuda_device, kind, engine):
+    spec = {"er": st.ErdosRenyiSpec(5000, 6.0), "sf": st.ScaleFreeSpec(5000, 6.0),
+            "sbm": st.StochasticBlockSpec(5000, 6.0)}[kind]
+    cpu = st.prepare_generated_graph(spec, seed=3, engine=engine, device="cpu")
+    card = st.prepare_generated_graph(spec, seed=3, engine=engine, device=cuda_device)
+    assert card.engine == cpu.engine
+    for a, b in zip((cpu.src, cpu.row_ptr, cpu.indeg, *(cpu.inc or ())),
+                    (card.src, card.row_ptr, card.indeg, *(card.inc or ()))):
+        assert torch.equal(a, b.cpu())
+
+
+def test_belief_kernel_refuses_what_it_does_not_take(cuda_device):
+    args = (1.0, 0.1, -0.4, 5.8)
+    ts = _belief_inputs(8, np.float32, cuda_device)
+    half = [t.to(torch.float16) if t.is_floating_point() else t for t in ts]
+    with pytest.raises(NotImplementedError):
+        fused._belief_cuda(*half, *args)
+    wrong = list(ts)
+    wrong[3] = wrong[3].to(torch.int64)
+    with pytest.raises(ValueError, match="counts"):
+        fused._belief_cuda(*wrong, *args)
