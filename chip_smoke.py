@@ -10,7 +10,11 @@ Erdős–Rényi graph, 200 steps, both engines) and the Bayesian-observer
 channel of the information models (2×10^6 agents on a ~2×10^7-edge graph
 generated on the card, 100 steps). It checks the card against the CPU end
 to end for both paths and for the graph generator, and the dense-graph
-limit against the logistic, and prints one JSON line per phase.
+limit against the logistic. It then drives the flagship equilibrium solve,
+which runs no kernel of its own: the golden scalars of Figure 3, the
+Figure-4 u-sweep, the 500×500 Figure-5 heatmap and the 640×640 grid of the
+repo's benchmark, in both numerics modes, and a Figure-5 subgrid on the
+card against the CPU. It prints one JSON line per phase.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -262,11 +266,12 @@ def phase_main_path() -> int:
     return main_launches
 
 
-def _profiled(run, kernel: str) -> dict:
+def _profiled(run, kernel: str = "") -> dict:
     """One steady call of ``run`` under torch.profiler, after a warm-up
     call. Device time is the sum of the kernels' self times (one stream,
     so they do not overlap); the profiler's own cost inflates the wall time
-    it is compared with."""
+    it is compared with. ``kernel`` names the kernel whose share is
+    reported apart (empty: none)."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -286,7 +291,7 @@ def _profiled(run, kernel: str) -> dict:
     if device_s <= 0:
         raise AssertionError("the profiler saw no device time")
     rows.sort(key=lambda r: -r[1])
-    ours = [r for r in rows if kernel in r[0]]
+    ours = [r for r in rows if kernel and kernel in r[0]]
     return dict(
         wall_s=wall_s, device_s=device_s, device_busy_share=device_s / wall_s,
         kernel=kernel, kernel_ms=sum(r[1] for r in ours) / 1e3,
@@ -316,6 +321,8 @@ def phase_profile() -> None:
     prof = _profiled(lambda: st.simulate_info(spec, graph, x0=0.01, config=cfg, seed=1,
                                               prepared=pg), "belief_update_kernel")
     emit("profile", path="bayes", engine="gather", n=N_BAYES, steps=STEPS_BAYES, **prof)
+    del pg
+    phase_sweeps_profile()
 
 
 def phase_cpu_vs_card() -> None:
@@ -527,7 +534,321 @@ def phase_physics() -> None:
         raise AssertionError("dense-graph limit misses the logistic")
 
 
-PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen")
+# The flagship equilibrium solve. Its stages are plain PyTorch operations,
+# batched over every cell; no kernel of the port runs on this path. The
+# golden scalars come from the high-precision oracle (tests/oracle.py).
+GOLDEN = {"xi": 10.215436, "tau_bar_in_unc": 7.327538, "tau_bar_out_unc": 10.446095,
+          "aw_max": 0.618231}
+GOLDEN_BETA3_XI = 3.256394
+# The port's float tolerances against the reference (tests/test_torch_*.py),
+# to which the card is held against the CPU.
+SWEEP_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
+# Back-to-back calls of the sustained measurement (bench.py's protocol).
+SUSTAINED_REPS = 8
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _figure5_axes(n: int):
+    """The Figure-5 domain: β = 1/amt with amt = linspace(1e-4, 1, n),
+    u = linspace(0.001, 1, n) (figures/master.py, bench.py)."""
+    return 1.0 / np.linspace(1e-4, 1.0, n), np.linspace(0.001, 1.0, n)
+
+
+def phase_equilibrium() -> None:
+    """The golden scalars on the card at SolverConfig() (n_grid 4096, 90
+    iterations, refinement on, float64), in both numerics modes, beside the
+    same solves on the CPU."""
+    from sbr_tpu_torch.baseline.learning import solve_learning
+    from sbr_tpu_torch.baseline.solver import solve_equilibrium_baseline
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params, with_overrides
+
+    for numerics in ("adaptive", "fixed"):
+        cfg = SolverConfig(numerics=numerics)
+        out = {}
+        for name, kw in (("figure3", {}), ("beta3", {"beta": 3.0}), ("u5", {"u": 5.0})):
+            m = with_overrides(make_model_params(), **kw)
+            out[name] = {}
+            for dev in ("cuda", "cpu"):
+                ls = solve_learning(m.learning, cfg, device=dev)
+                out[name][dev] = solve_equilibrium_baseline(ls, m.economic, cfg)
+        r = out["figure3"]["cuda"]
+        got = {k: float(getattr(r, k)) for k in GOLDEN}
+        err = max(abs(got[k] - v) for k, v in GOLDEN.items())
+        beta3_err = abs(float(out["beta3"]["cuda"].xi) - GOLDEN_BETA3_XI)
+        u5 = out["u5"]["cuda"]
+        gap = max(
+            abs(float(getattr(out[n]["cuda"], k)) - float(getattr(out[n]["cpu"], k)))
+            for n in ("figure3", "beta3") for k in GOLDEN
+        )
+        same_status = all(int(out[n]["cuda"].status) == int(out[n]["cpu"].status) for n in out)
+        emit("equilibrium", numerics=numerics, n_grid=cfg.n_grid, bisect_iters=cfg.bisect_iters,
+             refine_crossings=cfg.refine_crossings, dtype="float64", device=str(r.xi.device),
+             **got, max_err_vs_golden=err, beta3_xi=float(out["beta3"]["cuda"].xi),
+             beta3_err=beta3_err, u5_status=int(u5.status), u5_xi=float(u5.xi),
+             card_vs_cpu_max_abs=gap, card_vs_cpu_status_equal=same_status,
+             solve_time_s=r.solve_time, iterations=int(r.health.iterations),
+             flags=int(r.health.flags))
+        if not (err < 1e-6 and beta3_err < 1e-6 and int(u5.status) == 1
+                and np.isnan(float(u5.xi)) and same_status and gap <= SWEEP_TOL[torch.float64]):
+            raise AssertionError(f"{numerics}: golden scalars on the card are off")
+
+
+def _sweep_outputs(res):
+    """(status, xi, AW_max, health) of a grid or u-sweep result."""
+    if hasattr(res, "collapse_times"):  # u-sweep
+        return res.status, res.collapse_times, res.max_withdrawals, res.health
+    if hasattr(res, "max_aw"):  # β×u grid
+        return res.status, res.xi, res.max_aw, res.health
+    return res.status, res.xi, res.aw_max, res.health  # one equilibrium
+
+
+def _timed(run, cells: int) -> dict:
+    """One call of ``run(rep)`` cold, one fenced steady call, then
+    SUSTAINED_REPS back-to-back calls whose device-side reductions are
+    summed on the card and read once (bench.py's sustained protocol); the
+    allocator's peak over all of them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(0)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = run(0)
+    torch.cuda.synchronize()
+    fenced_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fences = []
+    for rep in range(1, SUSTAINED_REPS + 1):
+        status, xi, aw, _ = _sweep_outputs(run(rep))
+        fences.append(status.sum() + torch.nansum(xi) + torch.nansum(aw))
+    total = float(torch.stack(fences).sum())
+    sustained_s = (time.perf_counter() - t0) / SUSTAINED_REPS
+    if not np.isfinite(total):
+        raise AssertionError(f"sustained fence reduced to {total}")
+    return res, dict(
+        cells=cells, cold_s=cold_s, fenced_s=fenced_s, cells_per_s=cells / fenced_s,
+        sustained_s=sustained_s, cells_per_s_sustained=cells / sustained_s,
+        sustained_reps=SUSTAINED_REPS, peak_bytes=torch.cuda.max_memory_allocated(),
+    )
+
+
+def _sweep_shapes():
+    """The four shapes of the flagship path, each at the size its users
+    run: (name, dtype, cells, make_run(numerics) -> run(rep))."""
+    from sbr_tpu_torch.baseline.learning import solve_learning
+    from sbr_tpu_torch.baseline.solver import solve_equilibrium_baseline
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params, with_overrides
+    from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid, u_sweep
+
+    base = make_model_params()
+
+    def figure3(numerics):
+        cfg = SolverConfig(numerics=numerics)
+
+        def run(rep):
+            m = with_overrides(base, u=0.1 + rep * 1e-6)
+            return solve_equilibrium_baseline(solve_learning(m.learning, cfg), m.economic, cfg)
+        return run
+
+    def figure4(numerics):
+        cfg = SolverConfig(numerics=numerics)
+        ls = solve_learning(base.learning, cfg)
+        return lambda rep: u_sweep(ls, np.linspace(0.001, 0.2, 5000) + rep * 1e-6,
+                                   base.economic, cfg)
+
+    def grid(n, dtype, **kw):
+        betas, us = _figure5_axes(n)
+
+        def make(numerics):
+            cfg = SolverConfig(refine_crossings=False, numerics=numerics, **kw)
+            return lambda rep: beta_u_grid(betas, us + rep * 1e-6, base, cfg, dtype=dtype)
+        return make
+
+    return [
+        ("figure3_scalar", torch.float64, 1, figure3),
+        ("figure4_u_sweep", torch.float64, 5000, figure4),
+        ("figure5_grid", torch.float32, 500 * 500, grid(500, torch.float32)),
+        ("figure5_grid", torch.float64, 500 * 500, grid(500, torch.float64)),
+        ("bench_grid", torch.float32, 640 * 640,
+         grid(640, torch.float32, n_grid=1024, bisect_iters=60)),
+    ]
+
+
+def phase_sweeps_main_path() -> None:
+    """Each shape of the flagship path in both numerics modes: cells/s of
+    one fenced call and sustained, status counts, fixed against adaptive,
+    mean adaptive iterations, peak memory. The path launches no kernel of
+    the port; the counts, set to 0 before it and read after, say so."""
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+    from sbr_tpu_torch.utils.status import status_counts
+
+    _build.reset_launches()
+    for name, dtype, cells, make_run in _sweep_shapes():
+        out = {}
+        for numerics in ("adaptive", "fixed"):
+            res, timing = _timed(make_run(numerics), cells)
+            out[numerics] = res
+            status, xi, aw, health = _sweep_outputs(res)
+            emit("sweeps_main_path", shape=name, dtype=_dtype_name(dtype), numerics=numerics,
+                 **timing, status_counts=status_counts(status),
+                 mean_iterations=float(health.iterations.double().mean()),
+                 max_iterations=int(health.iterations.max()),
+                 finite_xi=int(torch.isfinite(xi).sum()))
+            run_cells = status == 0
+            finite_on_run = bool(torch.isfinite(xi[run_cells]).all()) and bool(
+                torch.isfinite(aw[run_cells]).all())
+            if not finite_on_run or bool(torch.isfinite(xi[~run_cells]).any()):
+                raise AssertionError(f"{name}: ξ/AW_max finite exactly on RUN cells fails")
+        sa, sf = out["adaptive"].status, out["fixed"].status
+        differ = torch.nonzero(sa != sf)
+        xa, xf = _sweep_outputs(out["adaptive"])[1], _sweep_outputs(out["fixed"])[1]
+        both = torch.isfinite(xa) & torch.isfinite(xf)
+        xi_gap = float((xa - xf)[both].abs().max()) if bool(both.any()) else 0.0
+        # each differing cell with both statuses and residuals |AW−κ|, which
+        # says how near the root tolerance the deciding quantity lies
+        listed = [
+            {"cell": c, "adaptive": int(sa[tuple(c)]), "fixed": int(sf[tuple(c)]),
+             "residual_adaptive": float(out["adaptive"].health.residual[tuple(c)]),
+             "residual_fixed": float(out["fixed"].health.residual[tuple(c)])}
+            for c in differ[:20].tolist()
+        ]
+        emit("sweeps_fixed_vs_adaptive", shape=name, dtype=_dtype_name(dtype),
+             status_equal=not len(differ), differing_cells=len(differ), differing=listed,
+             xi_max_abs=xi_gap)
+        if dtype == torch.float64 and len(differ):
+            raise AssertionError(f"{name}: fixed and adaptive statuses differ on {len(differ)} cells")
+    launches = {k: _build.LAUNCHES[k] for k in (KERNEL, BELIEF_KERNEL)}
+    emit("sweeps_kernel_launches", launches=launches)
+    if any(launches.values()):
+        raise AssertionError(f"the flagship path launched a kernel: {launches}")
+
+
+def phase_sweeps_cpu_vs_card() -> None:
+    """A 64×64 subgrid of Figure 5 at n_grid 1024 on the card and on the
+    CPU, float64 and float32, both numerics modes. float64: statuses and
+    flags equal, floats within the port's tolerance. float32: differing
+    statuses are counted and listed with their residuals |AW−κ|; more than
+    0.1% of the cells fails."""
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+    from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid
+
+    betas, us = _figure5_axes(500)
+    idx = np.linspace(0, 499, 64).astype(int)
+    betas, us = betas[idx], us[idx]
+    for dtype in (torch.float64, torch.float32):
+        for numerics in ("adaptive", "fixed"):
+            cfg = SolverConfig(n_grid=1024, refine_crossings=False, numerics=numerics)
+            res = {dev: beta_u_grid(betas, us, make_model_params(), cfg, dtype=dtype, device=dev)
+                   for dev in ("cpu", "cuda")}
+            a, b = res["cpu"], res["cuda"]
+            bs = b.status.cpu()
+            differ = torch.nonzero(a.status != bs).tolist()
+            flags_differ = int((a.health.flags != b.health.flags.cpu()).sum())
+            gaps = {}
+            for f in ("xi", "max_aw"):
+                x, y = getattr(a, f), getattr(b, f).cpu()
+                both = torch.isfinite(x) & torch.isfinite(y)
+                gaps[f] = float((x - y)[both].abs().max()) if bool(both.any()) else 0.0
+            listed = [
+                {"cell": c, "beta": float(betas[c[0]]), "u": float(us[c[1]]),
+                 "cpu": int(a.status[c[0], c[1]]), "card": int(bs[c[0], c[1]]),
+                 "residual_cpu": float(a.health.residual[c[0], c[1]]),
+                 "residual_card": float(b.health.residual[c[0], c[1]])}
+                for c in differ[:20]
+            ]
+            tol = SWEEP_TOL[dtype]
+            emit("sweeps_cpu_vs_card", shape="figure5_subgrid_64x64", n_grid=1024,
+                 dtype=_dtype_name(dtype), numerics=numerics, differing_status=len(differ),
+                 differing=listed, differing_flags=flags_differ, max_abs=gaps, tolerance=tol,
+                 iterations_equal_share=float((a.health.iterations == b.health.iterations.cpu())
+                                              .double().mean()))
+            if dtype == torch.float64 and (differ or flags_differ):
+                raise AssertionError(f"float64 {numerics}: CPU and card statuses differ")
+            if len(differ) > 0.001 * a.status.numel() or max(gaps.values()) > tol:
+                raise AssertionError(f"{_dtype_name(dtype)} {numerics}: CPU and card disagree: {gaps}")
+
+
+def _stage_split(betas, us, cfg, dtype) -> dict:
+    """Device-timeline milliseconds of each stage of one β×u grid, between
+    CUDA events: Stage 1 + hazard per β, buffer crossings, ξ root-find,
+    classification with AW_max. The stages are `solve_equilibrium_core`'s,
+    called one by one."""
+    from sbr_tpu_torch.baseline import solver as S
+    from sbr_tpu_torch.baseline.learning import solve_learning
+    from sbr_tpu_torch.models.params import make_model_params
+    from sbr_tpu_torch.sweeps.baseline_sweeps import _RowLearning
+
+    base = make_model_params()
+    e = base.economic
+    dev = torch.device("cuda")
+    b = torch.as_tensor(betas, dtype=dtype, device=dev).unsqueeze(-1)
+    u = torch.as_tensor(us, dtype=dtype, device=dev)
+    t0, t1, x0 = (torch.tensor(v, dtype=dtype, device=dev)
+                  for v in (*base.learning.tspan, base.learning.x0))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    ls = solve_learning(_RowLearning(b, (t0, t1), x0), cfg, dtype=dtype, device=dev)
+    tau_grid, hr, _, _ = S._hazard_parts(e.p, e.lam, ls, e.eta, cfg)
+    ev[1].record()
+    t_in, t_out, _ = S.optimal_buffer(u, tau_grid, hr, t1, with_health=True, adaptive=cfg.adaptive)
+    ev[2].record()
+    xi_c, err, root_ok, inc, _ = S.compute_xi(t_in, t_out, ls, e.kappa, cfg, with_health=True)
+    ev[3].record()
+    run, _, _, _ = S.classify_cell(t_in == t_out, root_ok, inc, err, dtype)
+    xi = torch.where(run, xi_c, float("nan"))
+    S._aw_max_exact(xi, t_in, t_out, torch.tensor(e.eta, dtype=dtype, device=dev), ls)
+    ev[4].record()
+    torch.cuda.synchronize()
+    names = ("stage1_and_hazard_ms", "buffer_crossings_ms", "xi_rootfind_ms", "classification_ms")
+    return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+
+
+def phase_sweeps_profile() -> None:
+    """Where the flagship grid's time goes: the stage split and a profiler
+    trace of one steady call, at the Figure-5 tile and at the benchmark's
+    shape, both numerics modes."""
+    from sbr_tpu_torch.core import rootfind
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+    from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid
+
+    # the host checks of Chandrupatla's loop: the adaptive Figure-5 tile with
+    # a check every iteration, every 4th and never, in turns (the results
+    # are the same, tests/test_torch_core.py)
+    betas, us = _figure5_axes(500)
+    cfg = SolverConfig(refine_crossings=False, numerics="adaptive")
+    chosen = rootfind.CHECK_EVERY
+    costs = {}
+    try:
+        for every in (1, 4, 10**6, 4, 1):
+            rootfind.CHECK_EVERY = every
+            _, timing = _timed(lambda rep: beta_u_grid(betas, us + rep * 1e-6, make_model_params(),
+                                                       cfg, dtype=torch.float32), 500 * 500)
+            costs.setdefault(str(every), []).append(timing["fenced_s"])
+    finally:
+        rootfind.CHECK_EVERY = chosen
+    emit("profile", path="chandrupatla_host_checks", n=500, dtype="float32",
+         check_every_chosen=chosen, fenced_s_by_check_every=costs)
+
+    for n, dtype, kw in ((500, torch.float32, {}), (500, torch.float64, {}),
+                         (640, torch.float32, {"n_grid": 1024, "bisect_iters": 60})):
+        betas, us = _figure5_axes(n)
+        for numerics in ("adaptive", "fixed"):
+            cfg = SolverConfig(refine_crossings=False, numerics=numerics, **kw)
+            _stage_split(betas, us, cfg, dtype)  # warm-up
+            split = _stage_split(betas, us, cfg, dtype)
+            prof = _profiled(lambda: beta_u_grid(betas, us, make_model_params(), cfg, dtype=dtype))
+            emit("profile", path="beta_u_grid", n=n, n_grid=cfg.n_grid, dtype=_dtype_name(dtype),
+                 numerics=numerics, **split, **prof)
+
+
+PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
+          "equilibrium", "sweeps", "sweeps_cpu")
 
 
 def main(argv) -> int:
@@ -557,6 +878,12 @@ def main(argv) -> int:
         phase_bayes_cpu_vs_card()
     if "graphgen" in wanted:
         phase_graphgen_cpu_vs_card()
+    if "equilibrium" in wanted:
+        phase_equilibrium()
+    if "sweeps" in wanted:
+        phase_sweeps_main_path()
+    if "sweeps_cpu" in wanted:
+        phase_sweeps_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):

@@ -13,7 +13,13 @@ Ported so far, each on one device:
 - slice 2, the information-model simulation (``infomodels``: the spec and
   `simulate_info`, gossip and bayes channels on static graphs) on graphs
   generated on the device (``social.graphgen``), whose fused belief step
-  is a second CUDA kernel (``csrc/belief_update.cu``).
+  is a second CUDA kernel (``csrc/belief_update.cu``);
+- slice 3, the flagship equilibrium solve (``models``, ``diag``, ``core``,
+  ``baseline``, ``sweeps``): Stage 1 in closed form, the hazard and the
+  buffer crossings, the ξ root-find and the classification, and the
+  Figure-4 u-sweep and Figure-5 β×u grid over them, batched over cells in
+  plain PyTorch (it has no kernel of its own). Its entry points compute in
+  float64 unless given ``dtype=torch.float32``.
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every
@@ -21,11 +27,21 @@ kernel wrapper runs its plain PyTorch version; on CUDA tensors it launches
 the kernel or raises.
 """
 
+from sbr_tpu_torch.baseline import solve_equilibrium_baseline, solve_learning
 from sbr_tpu_torch.infomodels import (
     InfoModelSpec,
     InfoSimResult,
     default_spec,
     simulate_info,
+)
+from sbr_tpu_torch.models import (
+    EquilibriumResult,
+    LearningSolution,
+    ModelParams,
+    SolverConfig,
+    Status,
+    make_model_params,
+    with_overrides,
 )
 from sbr_tpu_torch.social.agents import (
     AgentSimConfig,
@@ -48,22 +64,31 @@ from sbr_tpu_torch.social.graphgen import (
     prepare_generated_graph,
 )
 
+from sbr_tpu_torch.sweeps import beta_u_grid, solve_param_cell, u_sweep
+
 __version__ = "0.1.0"
 
 __all__ = [
     "AgentSimConfig",
     "AgentSimResult",
+    "EquilibriumResult",
     "ErdosRenyiSpec",
     "InfoModelSpec",
     "InfoSimResult",
+    "LearningSolution",
+    "ModelParams",
     "PreparedAgentGraph",
     "ScaleFreeSpec",
+    "SolverConfig",
+    "Status",
     "StochasticBlockSpec",
+    "beta_u_grid",
     "default_device",
     "default_spec",
     "erdos_renyi_edges",
     "generate_edges",
     "load_agent_state",
+    "make_model_params",
     "prepare_agent_graph",
     "prepare_generated_graph",
     "prepared_from_numpy",
@@ -71,4 +96,9 @@ __all__ = [
     "scale_free_edges",
     "simulate_agents",
     "simulate_info",
+    "solve_equilibrium_baseline",
+    "solve_learning",
+    "solve_param_cell",
+    "u_sweep",
+    "with_overrides",
 ]

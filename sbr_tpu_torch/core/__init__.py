@@ -1,0 +1,29 @@
+"""Numerics substrate of the port (``sbr_tpu.core``): grids and
+interpolation, quadrature, crossings and bracketing root-finds, all
+batched over cells (`interp` states the shapes)."""
+
+from sbr_tpu_torch.core.integrate import cumtrapz, cumulative_gauss_legendre, trapz
+from sbr_tpu_torch.core.interp import interp, interp_guided, interp_shared, interp_uniform, linspace
+from sbr_tpu_torch.core.rootfind import (
+    bisect,
+    chandrupatla,
+    first_upcrossing,
+    last_downcrossing,
+    threshold_crossings_masked,
+)
+
+__all__ = [
+    "bisect",
+    "chandrupatla",
+    "cumtrapz",
+    "cumulative_gauss_legendre",
+    "first_upcrossing",
+    "interp",
+    "interp_guided",
+    "interp_shared",
+    "interp_uniform",
+    "last_downcrossing",
+    "linspace",
+    "threshold_crossings_masked",
+    "trapz",
+]

@@ -1,0 +1,79 @@
+"""Quadrature primitives: the port of ``sbr_tpu.core.integrate``.
+
+Cumulative integrals along the last axis end in ``torch.cumsum``, whose
+summation order differs from XLA's (and between the CPU and the card), so
+they agree with the reference to the last bits, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sbr_tpu_torch.diag.health import Health
+
+
+def _quad_health(values, csum, n_panels: int) -> Health:
+    """Health of one cumulative quadrature: NaN among the integrand samples
+    and non-finite values in the cumulative result; iterations counts
+    panels. Reduced over the last axis, so batched rows keep their own."""
+    return Health.of_nan_probe(
+        nan_in=torch.isnan(values).any(-1),
+        nonfinite_out=(~torch.isfinite(csum)).any(-1),
+        iterations=n_panels,
+        dtype=csum.dtype,
+    )
+
+
+def trapz(y, x=None, dx=1.0):
+    """Trapezoid integral along the last axis."""
+    d = torch.diff(x, dim=-1) if x is not None else dx
+    return (0.5 * (y[..., 1:] + y[..., :-1]) * d).sum(-1)
+
+
+def _cum_from_zero(inc: torch.Tensor) -> torch.Tensor:
+    csum = torch.cumsum(inc, dim=-1)
+    return torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
+
+
+def cumtrapz(y, x=None, dx=1.0, with_health: bool = False):
+    """Cumulative trapezoid along the last axis, zero at the first knot:
+    ``int[i] = int[i-1] + 0.5·(y[i-1] + y[i])·(x[i] − x[i-1])``. With
+    ``with_health`` returns ``(out, Health)``."""
+    d = torch.diff(x, dim=-1) if x is not None else dx
+    out = _cum_from_zero(0.5 * (y[..., 1:] + y[..., :-1]) * d)
+    if with_health:
+        return out, _quad_health(y, out, int(y.shape[-1]) - 1)
+    return out
+
+
+def cumulative_gauss_legendre(f, grid: torch.Tensor, order: int = 8, with_health: bool = False):
+    """Cumulative integral of callable ``f`` at the knots of ``grid``
+    (shape R + (n,)), zero at ``grid[..., 0]``.
+
+    Composite Gauss-Legendre with ``order`` nodes per interval. The node
+    sum of each panel runs in node order, one node at a time, so it rounds
+    the same way on every device and never holds more than one node's
+    evaluations. With ``with_health`` also returns a `Health` flagging NaN
+    integrand samples and a non-finite result."""
+    nodes, weights = np.polynomial.legendre.leggauss(order)
+    a = grid[..., :-1]
+    b = grid[..., 1:]
+    half = 0.5 * (b - a)
+    mid = 0.5 * (a + b)
+    acc = None
+    nan_in = torch.zeros(grid.shape[:-1], dtype=torch.bool, device=grid.device)
+    for node, weight in zip(nodes, weights):
+        node_t = torch.full((), float(node), dtype=grid.dtype, device=grid.device)
+        weight_t = torch.full((), float(weight), dtype=grid.dtype, device=grid.device)
+        vals = f(mid + half * node_t)
+        if with_health:
+            nan_in = nan_in | torch.isnan(vals).any(-1)
+        term = weight_t * vals
+        acc = term if acc is None else acc + term
+    out = _cum_from_zero(half * acc)
+    if with_health:
+        return out, Health.of_nan_probe(
+            nan_in, (~torch.isfinite(out)).any(-1), int(grid.shape[-1]) - 1, out.dtype
+        )
+    return out

@@ -144,3 +144,86 @@ def test_belief_kernel_refuses_what_it_does_not_take(cuda_device):
     wrong[3] = wrong[3].to(torch.int64)
     with pytest.raises(ValueError, match="counts"):
         fused._belief_cuda(*wrong, *args)
+
+
+# -- the flagship equilibrium solve (no kernel: plain PyTorch on the card) --
+
+
+def test_argmax_of_masks_takes_the_first_true_on_card(cuda_device):
+    """The crossing indices rest on argmax of a uint8 mask returning its
+    first maximal index (0 for an all-False row), on the card as on the
+    CPU, for long rows split across thread blocks too."""
+    from sbr_tpu_torch.core import rootfind
+
+    g = np.random.default_rng(0)
+    m = g.random((64, 4096)) < 0.002
+    m[3] = False
+    m[5] = True
+    mask = torch.from_numpy(m)
+    for f in (rootfind._first_true, rootfind._last_true):
+        assert torch.equal(f(mask.to(cuda_device)).cpu(), f(mask))
+    assert int(rootfind._first_true(mask.to(cuda_device))[3]) == 0
+
+
+@pytest.mark.parametrize("numerics", ["fixed", "adaptive"])
+def test_golden_scalars_on_card(cuda_device, numerics):
+    from sbr_tpu_torch.baseline.learning import solve_learning
+    from sbr_tpu_torch.baseline.solver import solve_equilibrium_baseline
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params, with_overrides
+
+    cfg = SolverConfig(numerics=numerics)
+    out = {}
+    for name, kw in (("fig3", {}), ("beta3", {"beta": 3.0}), ("u5", {"u": 5.0})):
+        m = with_overrides(make_model_params(), **kw)
+        ls = solve_learning(m.learning, cfg)
+        assert ls.device.type == "cuda"
+        out[name] = solve_equilibrium_baseline(ls, m.economic, cfg)
+    r = out["fig3"]
+    for got, want in ((r.xi, 10.215436), (r.tau_bar_in_unc, 7.327538),
+                      (r.tau_bar_out_unc, 10.446095), (r.aw_max, 0.618231)):
+        assert abs(float(got) - want) < 1e-6
+    assert abs(float(out["beta3"].xi) - 3.256394) < 1e-6
+    assert int(out["u5"].status) == 1 and np.isnan(float(out["u5"].xi))
+
+
+@pytest.mark.parametrize("numerics", ["fixed", "adaptive"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grid_on_card_equals_cpu(cuda_device, dtype, numerics):
+    """A 24×24 subgrid of Figure 5 at n_grid 512: equal statuses, and ξ
+    and AW_max within the port's tolerances against the reference
+    (float64 1e-12, float32 2e-5): the card's exp and log round apart from
+    the CPU's."""
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+    from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid
+
+    idx = np.linspace(0, 499, 24).astype(int)
+    betas = (1.0 / np.linspace(1e-4, 1.0, 500))[idx]
+    us = np.linspace(0.001, 1.0, 500)[idx]
+    cfg = SolverConfig(n_grid=512, bisect_iters=60, refine_crossings=False, numerics=numerics)
+    cpu = beta_u_grid(betas, us, make_model_params(), cfg, dtype=dtype, device="cpu")
+    card = beta_u_grid(betas, us, make_model_params(), cfg, dtype=dtype)
+    assert card.status.device.type == "cuda"
+    assert torch.equal(card.status.cpu(), cpu.status)
+    assert torch.equal(card.health.flags.cpu(), cpu.health.flags)
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+    for f in ("xi", "max_aw"):
+        a, b = getattr(cpu, f), getattr(card, f).cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(a)
+        assert float((a[ok] - b[ok]).abs().max()) <= tol
+
+
+def test_u_sweep_on_card_equals_cpu(cuda_device):
+    from sbr_tpu_torch.baseline.learning import solve_learning
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+    from sbr_tpu_torch.sweeps.baseline_sweeps import u_sweep
+
+    m = make_model_params()
+    cfg = SolverConfig(n_grid=1024)
+    us = np.linspace(0.001, 0.2, 200)
+    cpu = u_sweep(solve_learning(m.learning, cfg, device="cpu"), us, m.economic, cfg)
+    card = u_sweep(solve_learning(m.learning, cfg, device=cuda_device), us, m.economic, cfg)
+    assert torch.equal(card.status.cpu(), cpu.status)
+    a, b = cpu.collapse_times, card.collapse_times.cpu()
+    ok = ~torch.isnan(a)
+    assert torch.equal(torch.isnan(a), torch.isnan(b)) and float((a[ok] - b[ok]).abs().max()) <= 1e-12
