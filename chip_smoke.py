@@ -14,7 +14,14 @@ limit against the logistic. It then drives the flagship equilibrium solve,
 which runs no kernel of its own: the golden scalars of Figure 3, the
 Figure-4 u-sweep, the 500×500 Figure-5 heatmap and the 640×640 grid of the
 repo's benchmark, in both numerics modes, and a Figure-5 subgrid on the
-card against the CPU. It prints one JSON line per phase.
+card against the CPU. Last, the social-learning extension: the Figure-12
+fixed point on the card (held to the numpy oracle of tests/oracle.py), and
+`close_loop` at the sizes its users run, which feeds the solved withdrawal
+window into the agents and so drives both kernels: the Figure-13 closure on
+a 200,000-agent host graph, a 10^6-agent graph generated on the card shared
+by four members, and the bayes closure on 10^6 agents; then the fixed point
+and a closure on the card against the CPU. It prints one JSON line per
+phase.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -55,8 +62,12 @@ N_BAYES = 2_000_000
 STEPS_BAYES = 100
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    elapsed = time.perf_counter() - T_START
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": elapsed}), flush=True)
 
 
 def time_ms(fn, reps: int = 100) -> float:
@@ -294,6 +305,7 @@ def _profiled(run, kernel: str = "") -> dict:
     ours = [r for r in rows if kernel and kernel in r[0]]
     return dict(
         wall_s=wall_s, device_s=device_s, device_busy_share=device_s / wall_s,
+        device_kernels=sum(r[2] for r in rows),
         kernel=kernel, kernel_ms=sum(r[1] for r in ours) / 1e3,
         kernel_calls=sum(r[2] for r in ours),
         top=[{"kernel": k[:90], "ms": us / 1e3, "calls": c} for k, us, c in rows[:8]],
@@ -847,8 +859,289 @@ def phase_sweeps_profile() -> None:
                  numerics=numerics, **split, **prof)
 
 
+# The social-learning extension (slice 4): the Figure-12 fixed point and the
+# Figure-13 closure at the paper's calibration (scripts/4_social_learning.jl
+# :36-56, figures/master.py:275-331). The fixed point runs no kernel; the
+# closures end every step in the infection kernel (gossip) or the belief
+# kernel (bayes).
+FIG12 = dict(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
+FIG12_GRID = 4096
+PROFILE_ITERS = 10
+# test_social's envelope against the oracle, and its closure bounds
+ORACLE_XI_SHARE, ORACLE_AW_SUP = 2e-3, 5e-3
+FIG13 = dict(n_agents=200_000, avg_degree=60.0, dt=0.05, t_max=16.0, g0=0.02)
+FIG13_BOUNDS = {"err_aw_rms": 0.03, "err_g_rms": 0.03, "err_aw_sup": 0.06}
+GEN_LOOP = dict(n_agents=1_000_000, avg_degree=20.0, dt=0.05, t_max=16.0, g0=0.02)
+GEN_SEEDS = (0, 1, 2, 3)
+BAYES_LOOP = dict(n_agents=1_000_000, avg_degree=15.0, dt=0.05, t_max=8.0, g0=0.2)
+BAYES_LOOP_G_RMS = 0.06
+# the port's float tolerance of the fixed point against the reference
+# (tests/test_torch_social.py), to which the card is held against the CPU
+FP_TOL = 1e-10
+
+
+def _social_oracle():
+    """tests/oracle.py's numpy/scipy mirror of the damped fixed point."""
+    sys.path.insert(0, (__file__.rpartition("/")[0] or ".") + "/tests")
+    from oracle import solve_social_oracle
+
+    return solve_social_oracle
+
+
+class _CallTimes:
+    """Seconds spent in each (module, name) function while the block runs,
+    fenced on the card before and after each call: ``with _CallTimes(...)
+    as spent`` gives {name: [s, ...]}."""
+
+    def __init__(self, *targets):
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+        self.spent = {name: [] for _, name in targets}
+
+    def _timed(self, fn, name):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.spent[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def __enter__(self) -> dict:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._timed(fn, name))
+        return self.spent
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_social() -> dict:
+    """The Figure-12 fixed point on the card in float64 and float32, both
+    numerics: ξ, iterations, the cold and one fenced call, ms per outer
+    iteration, and the launches and busy share of one profiled call; ξ and
+    AW held to the oracle. Then the no-run march (u 50). Returns the
+    float64 fixed-numerics fixed point for the closures."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    m = st.make_model_params(**FIG12)
+    eta = m.economic.eta
+    ora = _social_oracle()(beta=0.9, x0=1e-4, u=0.5, p=0.99, kappa=0.25, lam=0.25, eta=eta,
+                           tol=1e-4, max_iter=500)
+    if not (ora.bankrun and ora.converged):
+        raise AssertionError("the social oracle found no converged run")
+    out = {}
+    _build.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        for numerics in ("fixed", "adaptive"):
+            cfg = st.SolverConfig(n_grid=FIG12_GRID, numerics=numerics)
+
+            def run():
+                return st.solve_equilibrium_social(m, cfg, tol=1e-4, max_iter=500, dtype=dtype)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            cold_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fp = run()
+            fenced_s = time.perf_counter() - t0
+            it = int(fp.iterations)
+            # The profiler's own analysis costs ~70 µs an event (~40 s for
+            # the 5×10^5 events of one fixed call), so float64 profiles the
+            # whole call and float32 its first PROFILE_ITERS iterations.
+            if dtype == torch.float64:
+                prof = _profiled(run)
+                launches = {"launches_per_call": prof["device_kernels"],
+                            "launches_per_iteration": prof["device_kernels"] / it}
+            else:
+                prof = _profiled(lambda: st.solve_equilibrium_social(
+                    m, cfg, tol=1e-4, max_iter=PROFILE_ITERS, dtype=dtype))
+                per_it = prof["device_kernels"] / PROFILE_ITERS
+                launches = {"launches_per_iteration": per_it,
+                            "launches_per_call_scaled": per_it * it,
+                            "profiled_iterations": PROFILE_ITERS}
+            xi_err = abs(float(fp.xi) - ora.xi)
+            aw = np.interp(ora.grid, fp.grid.double().cpu().numpy(), fp.aw.double().cpu().numpy())
+            aw_sup = float(np.max(np.abs(aw - ora.aw)))
+            emit("social", dtype=_dtype_name(dtype), numerics=numerics, n_grid=FIG12_GRID,
+                 xi=float(fp.xi), oracle_xi=ora.xi, xi_err=xi_err, xi_limit=ORACLE_XI_SHARE * eta,
+                 aw_sup_vs_oracle=aw_sup, aw_limit=ORACLE_AW_SUP, iterations=it,
+                 converged=bool(fp.converged), aborted=bool(fp.aborted), error=float(fp.error),
+                 flags=int(fp.health.flags), cold_s=cold_s, fenced_ms=fenced_s * 1e3,
+                 solve_time_s=fp.solve_time, ms_per_iteration=fenced_s * 1e3 / it, **launches,
+                 profiled_wall_s=prof["wall_s"], device_s=prof["device_s"],
+                 device_busy_share=prof["device_busy_share"], top=prof["top"][:4])
+            if not (bool(fp.converged) and bool(fp.equilibrium.bankrun)
+                    and xi_err < ORACLE_XI_SHARE * eta and aw_sup < ORACLE_AW_SUP):
+                raise AssertionError(f"{_dtype_name(dtype)} {numerics}: the fixed point misses "
+                                     f"the oracle: ξ {float(fp.xi)} vs {ora.xi}, AW sup {aw_sup}")
+            out[(_dtype_name(dtype), numerics)] = fp
+    no_run = st.with_overrides(m, u=50.0)
+    fp = st.solve_equilibrium_social(no_run, st.SolverConfig(n_grid=1024), max_iter=600)
+    march = int(fp.iterations) * eta / 500.0
+    emit("social_no_run", n_grid=1024, xi=float(fp.xi), iterations=int(fp.iterations),
+         march_xi=march, converged=bool(fp.converged), bankrun=bool(fp.equilibrium.bankrun),
+         aw_spread=float(fp.aw.max() - fp.aw.min()), flags=int(fp.health.flags),
+         solve_time_s=fp.solve_time)
+    if not (bool(fp.converged) and not bool(fp.equilibrium.bankrun)
+            and abs(float(fp.xi) - march) <= 1e-9 * march):
+        raise AssertionError("the no-run march did not converge flat at iterations·η/500")
+    launches = {k: _build.LAUNCHES[k] for k in (KERNEL, BELIEF_KERNEL)}
+    if any(launches.values()):
+        raise AssertionError(f"the fixed point launched a kernel: {launches}")
+    return out[("float64", "fixed")]
+
+
+def _loop_row(comp, members: int, kernel: str, launches: int, prepare_s: float,
+              simulate_s: float, **extra) -> dict:
+    """The closure's JSON row: the window, the errors, the kernel's launches
+    against steps × members, and the step loop's time apart from the graph's
+    preparation."""
+    steps = len(comp.t)
+    return dict(
+        n=comp.n_agents, members=members, steps=steps, exit_delay=comp.exit_delay,
+        reentry_delay=comp.reentry_delay, err_aw_sup=comp.err_aw_sup, err_aw_rms=comp.err_aw_rms,
+        err_g_rms=comp.err_g_rms, kernel=kernel, kernel_launches=launches,
+        expected_launches=steps * members, prepare_s=prepare_s, simulate_s=simulate_s,
+        agent_steps_per_s=comp.n_agents * steps * members / simulate_s,
+        final_g=float(comp.g_sim[-1]), max_aw=float(comp.aw_sim.max()), **extra,
+    )
+
+
+def _check_loop(name: str, row: dict, bounds: dict) -> None:
+    emit("closure", path=name, **row)
+    if row["kernel_launches"] != row["expected_launches"]:
+        raise AssertionError(f"{name}: {row['kernel_launches']} launches, want "
+                             f"{row['expected_launches']} (steps × members)")
+    for k, limit in bounds.items():
+        if not row[k] < limit:
+            raise AssertionError(f"{name}: {k} = {row[k]} not under {limit}")
+
+
+def phase_closure(fp=None) -> dict:
+    """`close_loop` at its users' sizes from the Figure-12 fixed point:
+    the Figure-13 closure (host graph), a graph generated on the card and
+    shared by four members, and the bayes closure from its own mean-field
+    fixed point. Each kernel's launches, set to 0 before a closure and
+    read after it, must equal its steps × members. Returns the launches by
+    kernel."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.infomodels import engine
+    from sbr_tpu_torch.social import agents, closure, graphgen
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    m = st.make_model_params(**FIG12)
+    if fp is None:
+        fp = st.solve_equilibrium_social(m, st.SolverConfig(n_grid=FIG12_GRID), max_iter=500)
+    totals = {KERNEL: 0, BELIEF_KERNEL: 0}
+
+    # Figure 13 as the paper draws it: host Erdős–Rényi, one member; the
+    # host-graph simulate_agents prepares its graph inside
+    _build.reset_launches()
+    with _CallTimes((closure, "erdos_renyi_edges"), (closure, "simulate_agents"),
+                     (agents, "prepare_agent_graph")) as spent:
+        t0 = time.perf_counter()
+        comp = st.close_loop(m, fp=fp, **FIG13)
+        call_s = time.perf_counter() - t0
+    launches = _build.LAUNCHES[KERNEL]
+    totals[KERNEL] += launches
+    prepare_s = sum(spent["prepare_agent_graph"])
+    _check_loop("figure13", _loop_row(
+        comp, 1, KERNEL, launches, prepare_s, sum(spent["simulate_agents"]) - prepare_s,
+        graph="host Erdos-Renyi", avg_degree=FIG13["avg_degree"],
+        graph_gen_s=sum(spent["erdos_renyi_edges"]), call_s=call_s,
+    ), FIG13_BOUNDS)
+
+    # the graph generated on the card once, shared by four members
+    _build.reset_launches()
+    graph = st.ErdosRenyiSpec(GEN_LOOP["n_agents"], GEN_LOOP["avg_degree"])
+    with _CallTimes((graphgen, "prepare_generated_graph"), (closure, "simulate_agents")) as spent:
+        t0 = time.perf_counter()
+        comp = st.close_loop(m, fp=fp, graph=graph, seeds=list(GEN_SEEDS), **GEN_LOOP)
+        call_s = time.perf_counter() - t0
+    launches = _build.LAUNCHES[KERNEL]
+    totals[KERNEL] += launches
+    builds = len(spent["prepare_generated_graph"])
+    _check_loop("generated_graph_seeds", _loop_row(
+        comp, len(GEN_SEEDS), KERNEL, launches, sum(spent["prepare_generated_graph"]),
+        sum(spent["simulate_agents"]), graph="ErdosRenyiSpec on the card",
+        avg_degree=GEN_LOOP["avg_degree"], graph_builds=builds, call_s=call_s,
+        member_aw_spread=float(np.ptp(comp.aw_seeds, axis=0).max()),
+    ), {})
+    if builds != 1:
+        raise AssertionError(f"seeds=: the graph was built {builds} times, want 1")
+
+    # the bayes closure against its own mean-field fixed point
+    spec = st.InfoModelSpec(channel="bayes")
+    t0 = time.perf_counter()
+    bfp = st.solve_fixed_point_info(spec, m, max_iter=500)
+    fp_s = time.perf_counter() - t0
+    _build.reset_launches()
+    with _CallTimes((engine, "prepare_generated_graph"), (engine, "simulate_info")) as spent:
+        t0 = time.perf_counter()
+        comp = st.close_loop(m, fp=bfp, infomodel=spec, **BAYES_LOOP)
+        call_s = time.perf_counter() - t0
+    launches = _build.LAUNCHES[BELIEF_KERNEL]
+    totals[BELIEF_KERNEL] += launches
+    prepare_s = sum(spent["prepare_generated_graph"])
+    _check_loop("bayes", _loop_row(
+        comp, 1, BELIEF_KERNEL, launches, prepare_s, sum(spent["simulate_info"]) - prepare_s,
+        graph="ErdosRenyiSpec on the card", avg_degree=BAYES_LOOP["avg_degree"], call_s=call_s,
+        fixed_point_s=fp_s, fixed_point_iterations=int(bfp.iterations),
+        fixed_point_xi=float(bfp.xi),
+    ), {"err_g_rms": BAYES_LOOP_G_RMS})
+    return totals
+
+
+def phase_social_cpu_vs_card() -> None:
+    """The fixed point at n_grid 1024 in float64 on the card and the CPU,
+    both numerics: iterations, flags and statuses equal, floats within the
+    port's tolerance. Then a 20,000-agent gossip closure from one fixed
+    point on both: the window equal; its float32 curves compared."""
+    import sbr_tpu_torch as st
+
+    m = st.make_model_params(**FIG12)
+    fps = {}
+    for numerics in ("fixed", "adaptive"):
+        cfg = st.SolverConfig(n_grid=1024, numerics=numerics)
+        out = {dev: st.solve_equilibrium_social(m, cfg, max_iter=500, device=dev)
+               for dev in ("cpu", "cuda")}
+        a, b = out["cpu"], out["cuda"]
+        ints = {k: [int(x), int(y.cpu())] for k, x, y in (
+            ("iterations", a.iterations, b.iterations), ("converged", a.converged, b.converged),
+            ("aborted", a.aborted, b.aborted), ("status", a.equilibrium.status, b.equilibrium.status),
+            ("flags", a.health.flags, b.health.flags),
+            ("health_iterations", a.health.iterations, b.health.iterations))}
+        gaps = {k: float((x - y.cpu()).abs().max()) for k, x, y in (
+            ("xi", a.xi, b.xi), ("aw", a.aw, b.aw), ("g", a.learning.cdf, b.learning.cdf))}
+        emit("social_cpu_vs_card", numerics=numerics, n_grid=1024, dtype="float64",
+             discrete=ints, max_abs=gaps, tolerance=FP_TOL)
+        differ = [k for k, (x, y) in ints.items()
+                  if x != y and not (k == "health_iterations" and numerics == "adaptive")]
+        if differ or max(gaps.values()) > FP_TOL:
+            raise AssertionError(f"{numerics}: the fixed point on the card and the CPU differ: "
+                                 f"{ints} {gaps}")
+        fps[numerics] = a
+    kw = dict(fp=fps["fixed"], n_agents=20_000, avg_degree=15.0, dt=0.1, t_max=12.0, n_reps=2)
+    out = {dev: st.close_loop(m, device=dev, **kw) for dev in ("cpu", "cuda")}
+    a, b = out["cpu"], out["cuda"]
+    emit("social_cpu_vs_card", path="close_loop", n=20_000, members=2, steps=len(a.t),
+         dtype="float32", window_equal=(a.exit_delay, a.reentry_delay) == (b.exit_delay, b.reentry_delay),
+         aw_sim_identical=bool(np.array_equal(a.aw_sim, b.aw_sim)),
+         g_sim_identical=bool(np.array_equal(a.g_sim, b.g_sim)),
+         aw_sim_max_abs=float(np.abs(a.aw_sim - b.aw_sim).max()),
+         g_sim_max_abs=float(np.abs(a.g_sim - b.g_sim).max()),
+         err_aw_rms=[a.err_aw_rms, b.err_aw_rms])
+    if (a.exit_delay, a.reentry_delay) != (b.exit_delay, b.reentry_delay):
+        raise AssertionError("one fixed point gave two windows")
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
-          "equilibrium", "sweeps", "sweeps_cpu")
+          "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu")
 
 
 def main(argv) -> int:
@@ -884,19 +1177,28 @@ def main(argv) -> int:
         phase_sweeps_main_path()
     if "sweeps_cpu" in wanted:
         phase_sweeps_cpu_vs_card()
+    fp = phase_social() if "social" in wanted else None
+    loop_launches = phase_closure(fp) if "closure" in wanted else {}
+    if "social_cpu" in wanted:
+        phase_social_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
         return 0
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
     main_row = next(r for r in rows if r["n"] == 1_000_003 and r["dtype"] == "float32")
     belief_row = next(r for r in belief_rows if r["n"] == 2_000_003 and r["dtype"] == "float32")
+    # each path's launches: the agents' and the bayes main paths, and the
+    # closures that end every step in the same kernels
     kernels = [{
         "name": "infection_update",
         "route": "cuda",
         "source": "sbr_tpu_torch/csrc/infection_update.cu",
         "replaces": "sbr_tpu/social/fused.py:114",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
-        "launches": launches,
+        "launches": launches + loop_launches[KERNEL],
+        "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -911,7 +1213,8 @@ def main(argv) -> int:
         "source": "sbr_tpu_torch/csrc/belief_update.cu",
         "replaces": "sbr_tpu/social/fused.py:231",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_belief",
-        "launches": belief_launches,
+        "launches": belief_launches + loop_launches[BELIEF_KERNEL],
+        "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],

@@ -19,7 +19,13 @@ Ported so far, each on one device:
   buffer crossings, the ξ root-find and the classification, and the
   Figure-4 u-sweep and Figure-5 β×u grid over them, batched over cells in
   plain PyTorch (it has no kernel of its own). Its entry points compute in
-  float64 unless given ``dtype=torch.float32``.
+  float64 unless given ``dtype=torch.float32``;
+- slice 4, the social-learning extension (``social.dynamics``,
+  ``social.solver``, ``social.closure``, ``infomodels.meanfield``): the
+  forced learning law, the damped fixed point as a Python loop over the
+  device, the information models' mean-field fixed points, and
+  `close_loop`, which feeds a solved equilibrium's withdrawal window to
+  the agent simulation and so drives both kernels. It adds no kernel.
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every
@@ -33,6 +39,7 @@ from sbr_tpu_torch.infomodels import (
     InfoSimResult,
     default_spec,
     simulate_info,
+    solve_fixed_point_info,
 )
 from sbr_tpu_torch.models import (
     EquilibriumResult,
@@ -56,6 +63,8 @@ from sbr_tpu_torch.social.agents import (
     scale_free_edges,
     simulate_agents,
 )
+from sbr_tpu_torch.social.closure import LoopComparison, close_loop, equilibrium_window
+from sbr_tpu_torch.social.dynamics import solve_forced_learning
 from sbr_tpu_torch.social.graphgen import (
     ErdosRenyiSpec,
     ScaleFreeSpec,
@@ -63,7 +72,11 @@ from sbr_tpu_torch.social.graphgen import (
     generate_edges,
     prepare_generated_graph,
 )
-
+from sbr_tpu_torch.social.solver import (
+    SocialFixedPointResult,
+    fixed_point_from_numpy,
+    solve_equilibrium_social,
+)
 from sbr_tpu_torch.sweeps import beta_u_grid, solve_param_cell, u_sweep
 
 __version__ = "0.1.0"
@@ -76,16 +89,21 @@ __all__ = [
     "InfoModelSpec",
     "InfoSimResult",
     "LearningSolution",
+    "LoopComparison",
     "ModelParams",
     "PreparedAgentGraph",
     "ScaleFreeSpec",
+    "SocialFixedPointResult",
     "SolverConfig",
     "Status",
     "StochasticBlockSpec",
     "beta_u_grid",
+    "close_loop",
     "default_device",
     "default_spec",
+    "equilibrium_window",
     "erdos_renyi_edges",
+    "fixed_point_from_numpy",
     "generate_edges",
     "load_agent_state",
     "make_model_params",
@@ -97,6 +115,9 @@ __all__ = [
     "simulate_agents",
     "simulate_info",
     "solve_equilibrium_baseline",
+    "solve_equilibrium_social",
+    "solve_fixed_point_info",
+    "solve_forced_learning",
     "solve_learning",
     "solve_param_cell",
     "u_sweep",

@@ -340,16 +340,25 @@ def test_port_imports_no_jax_and_no_sbr_tpu():
     assert out.stdout.startswith("ok")
 
 
-def test_chip_smoke_imports_only_torch_numpy_and_the_port():
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+def _import_roots(path):
     roots = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_only_torch_numpy_and_the_port():
+    # besides the port, chip_smoke.py loads the repo's numpy/scipy oracle
+    # (tests/oracle.py) to hold the social fixed point to it; that module
+    # must import no JAX either
+    roots = _import_roots(REPO / "chip_smoke.py")
     assert roots <= {"__future__", "json", "subprocess", "sys", "time", "numpy", "torch",
-                     "sbr_tpu_torch"}, roots
+                     "sbr_tpu_torch", "oracle"}, roots
+    assert _import_roots(REPO / "tests" / "oracle.py") <= {
+        "__future__", "dataclasses", "numpy", "scipy"}
 
 
 def test_entry_points_need_cuda_unless_told_cpu(graph, monkeypatch):

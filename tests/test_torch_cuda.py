@@ -227,3 +227,66 @@ def test_u_sweep_on_card_equals_cpu(cuda_device):
     a, b = cpu.collapse_times, card.collapse_times.cpu()
     ok = ~torch.isnan(a)
     assert torch.equal(torch.isnan(a), torch.isnan(b)) and float((a[ok] - b[ok]).abs().max()) <= 1e-12
+
+
+FIG12 = dict(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
+
+
+@pytest.mark.parametrize("numerics", ["fixed", "adaptive"])
+def test_social_fixed_point_on_card_equals_cpu(cuda_device, numerics):
+    """The Figure-12 fixed point at n_grid 1024 in float64: iterations,
+    flags and statuses equal; ξ and AW within 1e-10, the port's tolerance
+    against the reference (the card's exp rounds apart from the CPU's)."""
+    m = st.make_model_params(**FIG12)
+    cfg = st.SolverConfig(n_grid=1024, numerics=numerics)
+    cpu = st.solve_equilibrium_social(m, cfg, max_iter=500, device="cpu")
+    card = st.solve_equilibrium_social(m, cfg, max_iter=500)
+    assert card.aw.device.type == "cuda" and bool(card.converged)
+    for a, b in ((cpu.iterations, card.iterations), (cpu.converged, card.converged),
+                 (cpu.aborted, card.aborted), (cpu.equilibrium.status, card.equilibrium.status),
+                 (cpu.health.flags, card.health.flags)):
+        assert int(a) == int(b.cpu())
+    for a, b in ((cpu.xi, card.xi), (cpu.aw, card.aw), (cpu.learning.cdf, card.learning.cdf)):
+        assert float((a - b.cpu()).abs().max()) <= 1e-10
+
+
+def test_gossip_close_loop_on_card_launches_the_kernel_each_step(cuda_device):
+    """From one fixed point, the host-graph closure on the card launches the
+    infection kernel once a step and a member, and its curves lie within a
+    few agents' share of the CPU's (float32 simulation: the card's expf
+    may flip a draw at the threshold)."""
+    m = st.make_model_params(**FIG12)
+    fp = st.solve_equilibrium_social(m, st.SolverConfig(n_grid=1024), max_iter=500, device="cpu")
+    kw = dict(fp=fp, n_agents=5000, avg_degree=15.0, dt=0.1, t_max=12.0, n_reps=2)
+    cpu = st.close_loop(m, device="cpu", **kw)
+    before = _build.LAUNCHES[fused.KERNEL]
+    card = st.close_loop(m, **kw)
+    assert _build.LAUNCHES[fused.KERNEL] - before == 2 * len(card.t)
+    assert (cpu.exit_delay, cpu.reentry_delay) == (card.exit_delay, card.reentry_delay)
+    assert np.abs(cpu.g_sim - card.g_sim).max() <= 0.02
+    assert card.err_aw_rms < 0.1
+
+
+def test_bayes_close_loop_on_card_equals_cpu_with_carried_fields(cuda_device, monkeypatch):
+    """The bayes closure with the CPU's per-agent fields on both devices:
+    bit for bit, one belief launch a step and a member."""
+    from sbr_tpu_torch.infomodels import engine
+
+    m = st.make_model_params(**FIG12)
+    spec = st.InfoModelSpec(channel="bayes")
+    fp = st.solve_fixed_point_info(spec, m, config=st.SolverConfig(n_grid=512), max_iter=500,
+                                   device="cpu")
+    draw = engine._agent_fields
+
+    def cpu_fields(spec_, n, seed, beta, dtype, device):
+        return tuple(f.to(device) for f in draw(spec_, n, seed, beta, dtype, "cpu"))
+
+    monkeypatch.setattr(engine, "_agent_fields", cpu_fields)
+    kw = dict(fp=fp, infomodel=spec, n_agents=4000, avg_degree=15.0, dt=0.05, g0=0.2,
+              t_max=4.0, n_reps=2)
+    cpu = st.close_loop(m, device="cpu", **kw)
+    before = _build.LAUNCHES[fused.BELIEF_KERNEL]
+    card = st.close_loop(m, **kw)
+    assert _build.LAUNCHES[fused.BELIEF_KERNEL] - before == 2 * len(card.t)
+    np.testing.assert_array_equal(cpu.aw_sim, card.aw_sim)
+    np.testing.assert_array_equal(cpu.g_sim, card.g_sim)
