@@ -20,8 +20,13 @@ fixed point on the card (held to the numpy oracle of tests/oracle.py), and
 window into the agents and so drives both kernels: the Figure-13 closure on
 a 200,000-agent host graph, a 10^6-agent graph generated on the card shared
 by four members, and the bayes closure on 10^6 agents; then the fixed point
-and a closure on the card against the CPU. It prints one JSON line per
-phase.
+and a closure on the card against the CPU. Then the serving engine, which
+runs no kernel of its own either: each bucket's solve captured into a CUDA
+graph and held bit for bit to the eager solve (capture, replay and eager
+times, kernels a dispatch, busy share, peak memory), the repo benchmark's
+serving shape, a cold stream of 4,096 distinct queries, the HTTP endpoint,
+and a pool served on the card against the CPU. It prints one JSON line per
+phase, and beside the serving numbers the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -1140,8 +1145,374 @@ def phase_social_cpu_vs_card() -> None:
     if (a.exit_delay, a.reentry_delay) != (b.exit_delay, b.reentry_delay):
         raise AssertionError("one fixed point gave two windows")
 
+# ---------------------------------------------------------------------------
+# Slice 5: the serving engine
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = (1, 8, 64, 512)
+SERVE_REPLAYS = 20
+SERVE_EAGER_REPS = 5
+
+
+def _serve_cols(seed: int, n: int, np_dtype):
+    from sbr_tpu_torch.serve.engine import _query_columns
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    pool = build_pool(seed, n)
+    return pool, _query_columns(pool, np_dtype)
+
+
+def _eager_outputs(cols, cfg, dtype) -> torch.Tensor:
+    """The port's own `solve_param_cell` on the card, eagerly (with its
+    host checks), stacked as the served program stacks its six outputs."""
+    from sbr_tpu_torch.sweeps.baseline_sweeps import solve_param_cell
+
+    xi, tau_in, aw_max, status, health = solve_param_cell(
+        *torch.from_numpy(cols).to("cuda"), cfg, dtype, "cuda")
+    return torch.stack([xi, tau_in, aw_max, status.to(dtype), health.flags.to(dtype),
+                        health.residual])
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit, NaNs by position (a NaN's payload may change
+    between a device and a Python float)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b)) and a[~nan].tobytes() == b[~nan].tobytes())
+
+
+def _kernel_profile(run) -> dict:
+    """Kernels and device time of one call of ``run`` (after a warm-up)
+    from torch.profiler: the count of device kernels, their summed time
+    and its share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_s = sum(e.self_device_time_total for e in rows) / 1e6
+    return {"kernels": sum(e.count for e in rows), "device_ms": device_s * 1e3,
+            "wall_ms": wall_s * 1e3, "busy_share": device_s / wall_s}
+
+
+def _serve_bucket_rows(card: str) -> list:
+    """Per-bucket dispatch at the engine default (n_grid 4096, 90
+    iterations, refinement off) in f64/f32 × fixed/adaptive: the capture,
+    20 dispatches (median), the same bucket run eagerly, kernels a
+    dispatch, the device-busy share, peak memory; every replay bitwise
+    equal to the eager `solve_param_cell`."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+
+    rows = []
+    for numerics in ("fixed", "adaptive"):
+        for dtype in (torch.float64, torch.float32):
+            cfg = SolverConfig(refine_crossings=False, numerics=numerics)
+            np_dtype = np.dtype(_dtype_name(dtype))
+            engine = Engine(config=cfg, dtype=dtype, serve=ServeConfig(buckets=SERVE_BUCKETS),
+                            device="cuda")
+            try:
+                for bucket in SERVE_BUCKETS:
+                    pool, cols = _serve_cols(bucket, bucket, np_dtype)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    program = engine._program(bucket, cols)
+                    capture_s = time.perf_counter() - t0
+                    replay_s, replay_dev_ms = [], []
+                    out = None
+                    for _ in range(SERVE_REPLAYS):
+                        t0 = time.perf_counter()
+                        out = engine._dispatch(pool)
+                        replay_s.append(time.perf_counter() - t0)
+                    # the replay alone, between CUDA events
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    for _ in range(5):
+                        start.record()
+                        program.graph.replay()
+                        end.record()
+                        end.synchronize()
+                        replay_dev_ms.append(start.elapsed_time(end))
+                    served = program(cols)
+                    peak = torch.cuda.max_memory_allocated()
+                    eager_s = []
+                    for _ in range(SERVE_EAGER_REPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        eager = _eager_outputs(cols, cfg, dtype).cpu().numpy()
+                        eager_s.append(time.perf_counter() - t0)
+                    if not _bits_equal(served, eager):
+                        raise AssertionError(
+                            f"serve {numerics} {dtype} bucket {bucket}: replay differs from "
+                            "the eager solve_param_cell")
+                    if [r["status"] for r in out] != [int(v) for v in eager[3]]:
+                        raise AssertionError("served records differ from the eager statuses")
+                    eager_prof = _kernel_profile(lambda: _eager_outputs(cols, cfg, dtype).cpu())
+                    replay_prof = _kernel_profile(lambda: program(cols))
+                    dispatch_ms = float(np.median(replay_s)) * 1e3
+                    dev_ms = float(np.median(replay_dev_ms))
+                    row = dict(
+                        numerics=numerics, dtype=_dtype_name(dtype), bucket=bucket,
+                        n_grid=cfg.n_grid, bisect_iters=cfg.bisect_iters,
+                        capture_s=capture_s, dispatch_ms_median=dispatch_ms,
+                        dispatch_ms_min=min(replay_s) * 1e3, replay_device_ms=dev_ms,
+                        replay_busy_share=dev_ms / dispatch_ms,
+                        eager_ms_median=float(np.median(eager_s)) * 1e3,
+                        eager_over_replay=float(np.median(eager_s)) * 1e3 / dispatch_ms,
+                        eager_kernels=eager_prof["kernels"],
+                        eager_busy_share=eager_prof["busy_share"],
+                        replay_profiled_kernels=replay_prof["kernels"],
+                        replay_profiled_busy_share=replay_prof["busy_share"],
+                        peak_bytes=peak, bitwise_equal_to_eager=True,
+                        statuses=np.bincount(eager[3].astype(int), minlength=4).tolist(),
+                        card=card,
+                    )
+                    emit("serve_bucket", **row)
+                    rows.append(row)
+                counters = engine.graphs.snapshot()
+                if counters["captures"] != len(SERVE_BUCKETS) or counters["eager_runs"]:
+                    raise AssertionError(f"graph counters off: {counters}")
+            finally:
+                engine.close()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _serve_bench_shape(card: str) -> dict:
+    """bench.py's serving shape on the card (bench.py:1137-1147, GPU
+    branch): pool 64, 2,048 mix queries in groups of 16, buckets 1/8/64,
+    n_grid 1024, 60 iterations, the engine started."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix
+
+    config = SolverConfig(n_grid=1024, bisect_iters=60, refine_crossings=False)
+    pool = build_pool(0, 64)
+    mix = query_mix(0, 64, 2048)
+    engine = Engine(config=config, serve=ServeConfig(buckets=(1, 8, 64)), device="cuda")
+    engine.start()
+    try:
+        t0 = time.perf_counter()
+        for i in range(0, len(pool), 16):
+            engine.query_many(pool[i : i + 16], scenario="warmup", timeout=600)
+        warmup_s = time.perf_counter() - t0
+        warm = engine.live.snapshot()
+        hist_before = engine.live.total_hist.copy()
+        t0 = time.perf_counter()
+        for i in range(0, len(mix), 16):
+            engine.query_many([pool[j] for j in mix[i : i + 16]], scenario="mix", timeout=600)
+        measured_s = time.perf_counter() - t0
+        snap = engine.live.snapshot()
+        diff = engine.live.total_hist.delta(hist_before)
+    finally:
+        engine.close()
+    totals, wt = snap["totals"], warm["totals"]
+    measured_q = totals["queries"] - wt["queries"]
+    hit_rate = (totals["cache_hits"] - wt["cache_hits"]) / measured_q
+    new_captures = snap["graphs"]["captures"] - warm["graphs"]["captures"]
+    row = dict(
+        pool=64, queries=measured_q, group=16, buckets=[1, 8, 64], n_grid=1024,
+        bisect_iters=60, numerics=config.numerics, dtype="float64",
+        p50_ms=diff.quantile(0.5), p99_ms=diff.quantile(0.99), cache_hit_rate=hit_rate,
+        qps=measured_q / measured_s, warmup_s=warmup_s, graphs=snap["graphs"],
+        post_warmup_graph_captures=new_captures, card=card,
+    )
+    emit("serve_bench_shape", **row)
+    if measured_q != 2048 or hit_rate < 0.5 or new_captures != 0:
+        raise AssertionError(f"bench serving shape: {row}")
+    if snap["graphs"]["eager_runs"] or snap["graphs"]["replays"] != totals["batches"]:
+        raise AssertionError("a dispatch did not replay a captured graph")
+    return row
+
+
+def _serve_cold_stream(card: str) -> dict:
+    """4,096 distinct queries in groups of 512 through the started engine
+    at its default (n_grid 4096, 90 iterations, buckets 1/8/64/512, f64),
+    every query a miss; answers held bitwise to the eager solve."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.engine import _query_columns
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    config = SolverConfig(refine_crossings=False)
+    pool = build_pool(1, 4096)
+    engine = Engine(config=config, serve=ServeConfig(buckets=SERVE_BUCKETS), device="cuda")
+    engine.start()
+    try:
+        t0 = time.perf_counter()
+        for n in SERVE_BUCKETS:  # captures the buckets before the timed stream
+            engine.query_many(build_pool(100 + n, n), timeout=600)
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = []
+        for i in range(0, len(pool), 512):
+            results += engine.query_many(pool[i : i + 512], scenario="cold", timeout=600)
+        cold_s = time.perf_counter() - t0
+        graphs = engine.graphs.snapshot()
+    finally:
+        engine.close()
+    if any(r.source != "computed" for r in results):
+        raise AssertionError("cold stream: a query did not miss")
+    eager = _eager_outputs(_query_columns(pool, np.float64), config, torch.float64).cpu().numpy()
+    served = np.array([[r.xi, r.tau_bar_in, r.aw_max, r.status, r.flags, r.residual]
+                       for r in results]).T
+    if not _bits_equal(served, eager):
+        raise AssertionError("cold stream: served answers differ from the eager solve")
+    row = dict(queries=len(pool), group=512, n_grid=config.n_grid,
+               bisect_iters=config.bisect_iters, numerics=config.numerics, dtype="float64",
+               warm_up_with_captures_s=capture_s, cold_s=cold_s,
+               equilibria_per_s=len(pool) / cold_s, graphs=graphs,
+               statuses=np.bincount(eager[3].astype(int), minlength=4).tolist(),
+               bitwise_equal_to_eager=True, card=card)
+    emit("serve_cold_stream", **row)
+    return row
+
+
+def _serve_endpoint(card: str) -> dict:
+    """Three POST /query requests and the /metrics, /healthz and /statz
+    scrapes over 127.0.0.1, against the started engine on the card."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint
+    from sbr_tpu_torch.serve.loadgen import build_pool, http_request, params_doc
+
+    config = SolverConfig(n_grid=1024, bisect_iters=60, refine_crossings=False)
+    pool = build_pool(5, 3)
+    engine = Engine(config=config, serve=ServeConfig(buckets=(1, 8)), device="cuda").start()
+    endpoint = ServeEndpoint(engine).start()
+    try:
+        latencies, answers = [], []
+        for p in pool:
+            t0 = time.perf_counter()
+            code, body, _ = http_request(endpoint.port, "/query", params_doc(p))
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise AssertionError(f"/query answered {code}: {body}")
+            answers.append(json.loads(body))
+        shed, _, hdrs = http_request(endpoint.port, "/query", params_doc(pool[0]),
+                              {"X-SBR-Deadline-Ms": "-1"})
+        m_code, metrics, _ = http_request(endpoint.port, "/metrics")
+        h_code, health, _ = http_request(endpoint.port, "/healthz")
+        s_code, statz, _ = http_request(endpoint.port, "/statz")
+        direct = [engine.query(p) for p in pool]
+    finally:
+        endpoint.close()
+        engine.close()
+    same = all(a["status"] == d.status and a["flags"] == d.flags and (
+        a["xi"] == d.xi or (a["xi"] is None and np.isnan(d.xi))) for a, d in zip(answers, direct))
+    row = dict(post_ms=latencies, sources=[a["source"] for a in answers], shed_code=shed,
+               retry_after=hdrs.get("Retry-After"), metrics_code=m_code, healthz_code=h_code,
+               healthz=json.loads(health), statz_code=s_code,
+               statz_graphs=json.loads(statz)["graphs"],
+               captures_line=[ln for ln in metrics.splitlines()
+                              if ln.startswith("sbr_serve_graph_captures_total")],
+               answers_equal_direct=same, card=card)
+    emit("serve_endpoint", **row)
+    if not (same and shed == 429 and m_code == 200 and s_code == 200 and h_code == 200):
+        raise AssertionError(f"endpoint: {row}")
+    return row
+
+
+def _serve_prefix_sums(card: str) -> dict:
+    """Why the card's cumulative integrals use the doubling prefix sum:
+    whether a row's bits under torch.cumsum, and under `prefix_sum`, stay
+    those of one 2,048-row call when fewer rows share the call."""
+    from sbr_tpu_torch.core.integrate import prefix_sum
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    row = {"card": card}
+    for dtype in (torch.float64, torch.float32):
+        x = torch.rand(2048, 4095, dtype=dtype, device="cuda", generator=g)
+        for name, fn in (("cumsum", lambda v: torch.cumsum(v, -1)), ("prefix_sum", prefix_sum)):
+            full = fn(x)
+            row[f"{name}_{_dtype_name(dtype)}_rows_bitwise_equal"] = {
+                rows: bool(torch.equal(fn(x[:rows].contiguous()), full[:rows]))
+                for rows in (1, 8, 64, 512, 1024)
+            }
+    emit("serve_prefix_sum", **row)
+    if not all(all(v.values()) for k, v in row.items() if k.startswith("prefix_sum")):
+        raise AssertionError("the doubling prefix sum depends on the row count")
+    return row
+
+
+def phase_serve(card: str) -> dict:
+    """The serving engine on the card: the per-bucket programs, bench.py's
+    serving shape, a cold stream and the HTTP endpoint. The serving path
+    launches neither kernel of the port; the counts, set to 0 before it
+    and read after, say so."""
+    from sbr_tpu_torch import _build
+
+    _build.reset_launches()
+    out = {
+        "prefix_sum": _serve_prefix_sums(card),
+        "buckets": _serve_bucket_rows(card),
+        "bench": _serve_bench_shape(card),
+        "cold": _serve_cold_stream(card),
+        "endpoint": _serve_endpoint(card),
+    }
+    launches = dict(_build.LAUNCHES)
+    emit("serve", kernel_launches=launches, card=card)
+    if any(launches.values()):
+        raise AssertionError(f"the serving path launched a kernel: {launches}")
+    return out
+
+
+def phase_serve_cpu_vs_card() -> None:
+    """A pool of 16 served on the card and on the CPU at the engine
+    default, f64/f32 × fixed/adaptive: statuses and flags equal; ξ, τ̄_IN,
+    AW_max, and the residual of every lane whose root-find converged,
+    within 1e-12 (f64) and 2e-5 (f32). A NO_ROOT lane's residual is where
+    a search that cannot converge stopped (adaptive: after 90 steps that
+    follow the last bits of f), so it is reported, not held."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.models.results import Status
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    pool = build_pool(7, 16)
+    for numerics in ("fixed", "adaptive"):
+        for dtype in (torch.float64, torch.float32):
+            cfg = SolverConfig(refine_crossings=False, numerics=numerics)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                with Engine(config=cfg, dtype=dtype, serve=ServeConfig(buckets=SERVE_BUCKETS),
+                            device=dev) as engine:
+                    out[dev] = engine.query_many(pool, timeout=600)
+            card, cpu = out["cuda"], out["cpu"]
+            ints_equal = all(a.status == b.status and a.flags == b.flags
+                             for a, b in zip(card, cpu))
+            no_root = np.array([r.status == int(Status.NO_ROOT) for r in cpu])
+            gaps = {}
+            for f in ("xi", "tau_bar_in", "aw_max", "residual"):
+                a = np.array([getattr(r, f) for r in card])
+                b = np.array([getattr(r, f) for r in cpu])
+                if not np.array_equal(np.isnan(a), np.isnan(b)):
+                    raise AssertionError(f"serve_cpu: NaN pattern of {f} differs")
+                d = np.where(np.isnan(a), 0.0, np.abs(a - b))
+                if f == "residual":
+                    gaps["residual_no_root"] = float(d[no_root].max(initial=0.0))
+                    d = d[~no_root]
+                gaps[f] = float(d.max(initial=0.0))
+            held = max(v for k, v in gaps.items() if k != "residual_no_root")
+            emit("serve_cpu_vs_card", numerics=numerics, dtype=_dtype_name(dtype),
+                 queries=len(pool), no_root_lanes=int(no_root.sum()),
+                 statuses_flags_equal=ints_equal, max_abs=held, max_abs_by_field=gaps,
+                 tol=SWEEP_TOL[dtype])
+            if not ints_equal or held > SWEEP_TOL[dtype]:
+                raise AssertionError(f"serve_cpu {numerics} {dtype}: card and CPU differ")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
-          "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu")
+          "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
+          "serve_cpu")
 
 
 def main(argv) -> int:
@@ -1181,6 +1552,10 @@ def main(argv) -> int:
     loop_launches = phase_closure(fp) if "closure" in wanted else {}
     if "social_cpu" in wanted:
         phase_social_cpu_vs_card()
+    if "serve" in wanted:
+        phase_serve(info["nvidia_smi"])
+    if "serve_cpu" in wanted:
+        phase_serve_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):

@@ -25,7 +25,13 @@ Ported so far, each on one device:
   forced learning law, the damped fixed point as a Python loop over the
   device, the information models' mean-field fixed points, and
   `close_loop`, which feeds a solved equilibrium's withdrawal window to
-  the agent simulation and so drives both kernels. It adds no kernel.
+  the agent simulation and so drives both kernels. It adds no kernel;
+- slice 5, the serving engine (``serve``): micro-batched queries padded
+  to a bucket ladder, a fingerprint-keyed result cache
+  (``utils.checkpoint``), one CUDA graph captured per bucket of
+  `solve_param_cell`, the HTTP endpoint and the load generator, with the
+  retry policy (``resilience``) and the latency histograms (``obs``). It
+  adds no kernel.
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every

@@ -37,8 +37,9 @@ def solve_learning(
 
     Returns a closed-form `LearningSolution` on ``device`` (default: the
     CUDA card) in ``dtype`` (default: float64). ``params`` may carry
-    tensors of a row shape R for ``beta`` (and the tspan ends), as the
-    β×u sweep does; the samples then have shape R + (n_grid,)."""
+    tensors of a row shape R for ``beta`` (and the tspan ends and x0), as
+    the β×u sweep and a served batch do; the samples then have shape
+    R + (n_grid,)."""
     if config is None:
         config = SolverConfig()
     dtype = torch.float64 if dtype is None else dtype
@@ -52,8 +53,9 @@ def solve_learning(
     if beta.dim() > 0:
         grid = grid.expand(*torch.broadcast_shapes(beta.shape, grid.shape[:-1]), grid.shape[-1])
     b = beta.unsqueeze(-1)
-    cdf = logistic_cdf(grid, b, x0)
-    pdf = logistic_pdf(grid, b, x0)
+    x0_col = x0.unsqueeze(-1) if x0.dim() > 0 else x0
+    cdf = logistic_cdf(grid, b, x0_col)
+    pdf = logistic_pdf(grid, b, x0_col)
     return LearningSolution(
         grid=grid,
         cdf=cdf,

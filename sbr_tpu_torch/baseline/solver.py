@@ -75,7 +75,7 @@ def _warped_grid(eta, beta, x0, n: int, warp: float, dtype):
     grid = torch.cat([t_uniform.expand(*rows, n_u), t_quant.expand(*rows, n_q)], dim=-1)
     grid = torch.sort(grid, dim=-1).values
     grid = torch.minimum(torch.clamp(grid, min=0.0), _col(eta).expand(*rows, 1))
-    grid[..., 0] = 0.0
+    grid[..., 0].fill_(0.0)
     grid[..., -1] = eta.expand(rows)
     return grid
 
@@ -169,8 +169,12 @@ def hazard_at_from_parts(tau, tau_grid, integ, int_eta, p, lam, beta, x0, nodes,
 def quad_nodes_weights(order: int, dtype, device="cpu"):
     """Gauss-Legendre nodes and weights as tensors of ``dtype``."""
     nodes, weights = np.polynomial.legendre.leggauss(order)
-    return (torch.as_tensor(nodes, dtype=dtype, device=device),
-            torch.as_tensor(weights, dtype=dtype, device=device))
+
+    def filled(values):
+        # filled on the device: a host copy cannot be captured in a CUDA graph
+        return torch.stack([torch.full((), float(v), dtype=dtype, device=device) for v in values])
+
+    return filled(nodes), filled(weights)
 
 
 def _make_hazard_at(p, lam, ls: LearningSolution, tau_grid, integ, int_eta, config: SolverConfig):

@@ -1,8 +1,13 @@
 """Quadrature primitives: the port of ``sbr_tpu.core.integrate``.
 
-Cumulative integrals along the last axis end in ``torch.cumsum``, whose
+Cumulative integrals along the last axis end in a prefix sum whose
 summation order differs from XLA's (and between the CPU and the card), so
-they agree with the reference to the last bits, not bit for bit.
+they agree with the reference to the last bits, not bit for bit. On the
+CPU it is ``torch.cumsum``, sequential along each row. On the card it is
+`prefix_sum`: ``torch.cumsum`` there picks its algorithm by the number of
+rows (on an H100 a row's bits change with the row count below 1,024
+rows), which would make a cell's answer depend on the cells batched with
+it; the doubling scan's bits do not.
 """
 
 from __future__ import annotations
@@ -31,8 +36,19 @@ def trapz(y, x=None, dx=1.0):
     return (0.5 * (y[..., 1:] + y[..., :-1]) * d).sum(-1)
 
 
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis by doubling (Hillis and
+    Steele): ⌈log2 n⌉ passes of elementwise adds, so each row's bits depend
+    on that row alone. Each sum has at most ⌈log2 n⌉ levels of rounding."""
+    k, n = 1, x.shape[-1]
+    while k < n:
+        x = torch.cat([x[..., :k], x[..., k:] + x[..., :-k]], dim=-1)
+        k *= 2
+    return x
+
+
 def _cum_from_zero(inc: torch.Tensor) -> torch.Tensor:
-    csum = torch.cumsum(inc, dim=-1)
+    csum = prefix_sum(inc) if inc.is_cuda else torch.cumsum(inc, dim=-1)
     return torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
 
 

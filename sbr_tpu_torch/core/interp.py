@@ -31,8 +31,12 @@ def linspace(start, stop, num: int, dtype: torch.dtype = torch.float64, device="
     ``start`` and ``stop`` may be tensors of a row shape R; the result has
     shape R + (num,).
     """
-    start = torch.as_tensor(start, dtype=dtype, device=device)
-    stop = torch.as_tensor(stop, dtype=dtype, device=device)
+    start, stop = (
+        v.to(dtype=dtype, device=device) if isinstance(v, torch.Tensor)
+        # filled on the device: a host copy cannot be captured in a CUDA graph
+        else torch.full((), float(v), dtype=dtype, device=device)
+        for v in (start, stop)
+    )
     shape = torch.broadcast_shapes(start.shape, stop.shape)
     start, stop = start.expand(shape), stop.expand(shape)
     if num == 1:

@@ -17,6 +17,8 @@ have the cell shape C (`core.interp` states the convention).
   stops once no lane is active (checked on the host every
   `CHECK_EVERY` iterations) or at the budget. Frozen lanes keep their
   state, so per-lane results do not depend on when the batch stops.
+  Inside `no_host_reads` it runs the whole budget without the check, the
+  form a CUDA graph can capture; its results are bitwise the same.
 
 Masks reach ``argmax`` as ``uint8`` views (``torch.argmax`` takes no
 ``bool``); it returns the first maximal index, so the first True, or 0
@@ -24,6 +26,9 @@ when there is none, as ``jnp.argmax`` of a mask does.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +53,21 @@ from sbr_tpu_torch.diag.health import (
 # 116-169 ms with a check every iteration, 120-167 ms every 4th and
 # 147-163 ms with none (`chip_smoke.py profile`).
 CHECK_EVERY = 1
+
+_NO_HOST_READS = contextvars.ContextVar("no_host_reads", default=False)
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Within this block (in this thread), `chandrupatla` never reads the
+    device from the host: it runs its whole budget, which a CUDA graph
+    can capture. Frozen lanes keep their state, so every output equals the
+    checked form's bit for bit."""
+    token = _NO_HOST_READS.set(True)
+    try:
+        yield
+    finally:
+        _NO_HOST_READS.reset(token)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -203,10 +223,10 @@ def chandrupatla(f, lo, hi, budget: int = 90, x0=None, atol=0.0, with_health: bo
     Inverse-quadratic interpolation where the iterates justify it,
     bisection otherwise. A lane freezes once its bracket shrinks below
     ``2·eps·|x| + atol`` or it hits an exact zero; the batch stops when
-    every lane has frozen (checked every `CHECK_EVERY` iterations) or at
-    ``budget``. With ``with_health`` returns ``(x, Health)`` from the loop
-    state: final |f(x)|, bracket width, per-lane iterations actually run
-    and the bracket and NaN flags."""
+    every lane has frozen (checked every `CHECK_EVERY` iterations, never
+    inside `no_host_reads`) or at ``budget``. With ``with_health`` returns
+    ``(x, Health)`` from the loop state: final |f(x)|, bracket width,
+    per-lane iterations actually run and the bracket and NaN flags."""
     b = lo
     a = hi
     dtype = torch.promote_types(a.dtype, b.dtype)
@@ -231,9 +251,10 @@ def chandrupatla(f, lo, hi, budget: int = 90, x0=None, atol=0.0, with_health: bo
 
     active = torch.ones(shape, dtype=torch.bool, device=a.device)
     iters = torch.zeros(shape, dtype=torch.int32, device=a.device)
+    check = not _NO_HOST_READS.get()
     it = 0
     while it < budget:
-        if it % CHECK_EVERY == 0 and it > 0 and not bool(active.any()):
+        if check and it % CHECK_EVERY == 0 and it > 0 and not bool(active.any()):
             break
         it += 1
         xt = a + t * (b - a)

@@ -18,6 +18,7 @@ from sbr_tpu_torch.infomodels.spec import (
     INFOMODEL_PROGRAM_VERSION,
     InfoModelSpec,
     default_spec,
+    infomodel_fingerprint,
 )
 
 __all__ = [
@@ -29,6 +30,7 @@ __all__ = [
     "agent_fields_from_numpy",
     "default_spec",
     "info_learning_curve",
+    "infomodel_fingerprint",
     "observed_fraction",
     "simulate_info",
     "solve_fixed_point_info",

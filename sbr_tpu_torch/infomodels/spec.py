@@ -14,8 +14,8 @@ Three orthogonal axes:
 - ``groups``: K groups of (weight, threshold, awareness), or ``()`` for a
   homogeneous population.
 
-``infomodel_fingerprint`` is not ported: it needs the checkpoint
-canonicalizer, which the port does not have yet.
+`infomodel_fingerprint` keys infomodel products on the spec, as the
+reference's does, and equals its hex on the same inputs.
 """
 
 from __future__ import annotations
@@ -24,6 +24,11 @@ import dataclasses
 import math
 import os
 from typing import Tuple
+
+import numpy as np
+import torch
+
+from sbr_tpu_torch.utils.checkpoint import params_fingerprint
 
 CHANNELS = ("gossip", "bayes")
 DYNAMICS = ("static", "rewire")
@@ -212,3 +217,29 @@ def default_spec() -> InfoModelSpec:
     if ep:
         kw["epoch_steps"] = int(ep)
     return InfoModelSpec(**kw)
+
+
+def _dtype_name(dtype) -> str:
+    """numpy's name of a torch or numpy dtype ("float32", "float64")."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
+
+
+def infomodel_fingerprint(
+    spec: InfoModelSpec, params=None, config=None, dtype=None, extra=None
+) -> str:
+    """Stable sha256 of (spec[, params, config, dtype, extra]), the key
+    infomodel products are cached and served under. It rides
+    `utils.checkpoint.params_fingerprint`, and the dtype enters as numpy's
+    name, so the hex equals the reference's on the same inputs."""
+    payload = [spec, INFOMODEL_PROGRAM_VERSION]
+    if params is not None:
+        payload.append(params)
+    if config is not None:
+        payload.append(config)
+    if dtype is not None:
+        payload.append(_dtype_name(dtype))
+    if extra is not None:
+        payload.append(extra)
+    return params_fingerprint(tuple(payload))

@@ -290,3 +290,103 @@ def test_bayes_close_loop_on_card_equals_cpu_with_carried_fields(cuda_device, mo
     assert _build.LAUNCHES[fused.BELIEF_KERNEL] - before == 2 * len(card.t)
     np.testing.assert_array_equal(cpu.aw_sim, card.aw_sim)
     np.testing.assert_array_equal(cpu.g_sim, card.g_sim)
+
+
+SERVE_BUCKETS = (1, 8, 64, 512)
+
+
+def _served_vs_eager(dtype, numerics, buckets):
+    """Dispatch one full bucket of distinct queries per bucket through a
+    card engine, and the same columns through the eager solve_param_cell;
+    returns the engine and the pairs (served, eager) of (6, bucket) arrays."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.engine import _query_columns
+    from sbr_tpu_torch.serve.loadgen import build_pool
+    from sbr_tpu_torch.sweeps.baseline_sweeps import solve_param_cell
+
+    cfg = SolverConfig(n_grid=1024, bisect_iters=60, refine_crossings=False, numerics=numerics)
+    engine = Engine(config=cfg, dtype=dtype, serve=ServeConfig(buckets=buckets), device="cuda")
+    pairs = []
+    try:
+        for b in buckets:
+            pool = build_pool(b, b)
+            recs = engine._dispatch(pool)
+            served = np.array([[r[k] for r in recs] for k in
+                               ("xi", "tau_bar_in", "aw_max", "status", "flags", "residual")])
+            cols = torch.from_numpy(_query_columns(pool, np.dtype(str(dtype)[6:]))).cuda()
+            xi, tau, aw, status, health = solve_param_cell(*cols, cfg, dtype, "cuda")
+            eager = torch.stack([xi, tau, aw, status.to(dtype), health.flags.to(dtype),
+                                 health.residual]).double().cpu().numpy()
+            pairs.append((served, eager))
+    finally:
+        engine.close()
+    return engine, pairs
+
+
+@pytest.mark.parametrize("numerics", ["fixed", "adaptive"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_served_graph_replay_equals_eager_solve(cuda_device, dtype, numerics):
+    """Every bucket's replayed CUDA graph answers bit for bit as the eager
+    solve_param_cell on the card (the adaptive root-find runs its whole
+    budget in the graph, its host checks in the eager call)."""
+    engine, pairs = _served_vs_eager(dtype, numerics, SERVE_BUCKETS)
+    for served, eager in pairs:
+        nan = np.isnan(eager)
+        assert np.array_equal(np.isnan(served), nan)
+        assert served[~nan].tobytes() == eager[~nan].tobytes()
+    assert engine.graphs.captured == {b: 1 for b in SERVE_BUCKETS}
+    assert engine.graphs.replays == len(SERVE_BUCKETS) and engine.graphs.eager_runs == 0
+
+
+def test_warm_engine_captures_nothing_new(cuda_device):
+    """A warm replay (new queries, buckets already captured) adds no
+    capture; a repeated query is an LRU hit."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    cfg = SolverConfig(n_grid=512, bisect_iters=40, refine_crossings=False)
+    with Engine(config=cfg, serve=ServeConfig(buckets=(1, 8)), device="cuda") as engine:
+        engine.query_many(build_pool(1, 8), timeout=300)
+        engine.query_many(build_pool(2, 1), timeout=300)
+        assert engine.graphs.captured == {1: 1, 8: 1}
+        fresh = engine.query_many(build_pool(3, 8) + build_pool(4, 1), timeout=300)
+        again = engine.query_many(build_pool(3, 8), timeout=300)
+        assert engine.graphs.captured == {1: 1, 8: 1}
+        assert engine.graphs.replays == engine.live.totals["batches"]
+    assert all(r.source == "computed" for r in fresh)
+    assert all(r.source == "lru" for r in again)
+
+
+def test_served_answers_do_not_depend_on_the_bucket(cuda_device):
+    """The same queries answered in buckets 1, 8, 64 and 512 on the card:
+    bit for bit (torch.cumsum's bits there depend on the row count, so the
+    cumulative integrals use the doubling prefix sum)."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    pool = build_pool(21, 8)
+    cfg = SolverConfig(n_grid=1024, bisect_iters=60, refine_crossings=False)
+    signatures = []
+    for buckets in ((1,), (8,), (64,), (512,)):
+        with Engine(config=cfg, serve=ServeConfig(buckets=buckets), device="cuda") as engine:
+            res = engine.query_many(pool, timeout=300)
+        signatures.append([(np.float64(r.xi).tobytes(), np.float64(r.tau_bar_in).tobytes(),
+                            np.float64(r.aw_max).tobytes(), r.status, r.flags) for r in res])
+    assert signatures[0] == signatures[1] == signatures[2] == signatures[3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cumulative_integrals_do_not_depend_on_the_row_count(cuda_device, dtype):
+    from sbr_tpu_torch.core import integrate
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(2048, 4095, dtype=dtype, device="cuda", generator=g)
+    full = integrate._cum_from_zero(x)
+    for rows in (1, 2, 8, 512):
+        assert torch.equal(integrate._cum_from_zero(x[:rows].contiguous()), full[:rows])
+    ref = np.cumsum(x.cpu().numpy().astype(np.longdouble), -1)  # extended precision
+    err = np.abs(full[:, 1:].cpu().numpy().astype(np.longdouble) - ref).max() / ref.max()
+    assert float(err) < (1e-15 if dtype == torch.float64 else 1e-6)
