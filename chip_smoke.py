@@ -25,7 +25,15 @@ runs no kernel of its own either: each bucket's solve captured into a CUDA
 graph and held bit for bit to the eager solve (capture, replay and eager
 times, kernels a dispatch, busy share, peak memory), the repo benchmark's
 serving shape, a cold stream of 4,096 distinct queries, the HTTP endpoint,
-and a pool served on the card against the CPU. It prints one JSON line per
+and a pool served on the card against the CPU. Then slice 6: the recount
+gather kernel against its plain version bit for bit (10^6 and 2×10^6 + 3
+agents, 10,092,544 edges, packed, packed with 2-D ids and unpacked, so
+that the mask is read from shared memory and through the read-only path),
+beside the library gather, and the port's ablation script end to end; the
+heterogeneous-learning model of Section 2, the interest-rate model of
+Section 3 and the (β, u, r) policy sweep at the stretch shape on the card
+in both numerics modes (held to the scipy oracle of tests/oracle.py), and
+each of them on the card against the CPU. It prints one JSON line per
 phase, and beside the serving numbers the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
@@ -1510,9 +1518,282 @@ def phase_serve_cpu_vs_card() -> None:
                 raise AssertionError(f"serve_cpu {numerics} {dtype}: card and CPU differ")
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: the recount gather, and the heterogeneity, interest-rate and
+# policy-sweep extensions
+# ---------------------------------------------------------------------------
+
+# The ablation script's shape (benchmarks/ablate_pallas_recount.py:114-125):
+# 10^6 agents and 10^7 edges, padded to 10,092,544; and 2×10^6 + 3 agents,
+# whose 250,001-byte packed mask exceeds a block's shared memory.
+RECOUNT_AGENTS = (1_000_000, 2_000_003)
+RECOUNT_EDGES = 10_000_000
+# an edge's integer operations: the shift and mask of its id, the range
+# check, the bit's shift and mask
+RECOUNT_OPS_PER_EDGE = 6
+
+
+def recount_bound_ms(mask_bytes: int, n_edges: int):
+    """Least time for the gather: its bytes (each 4-byte id read, each
+    4-byte result written, the mask read once) over the memory rate, or its
+    integer operations over the vector rate, whichever is larger."""
+    bytes_ms = (8 * n_edges + mask_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_edges * RECOUNT_OPS_PER_EDGE / VECTOR_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_recount() -> dict:
+    """The recount gather kernel against its plain version, bit for bit, on
+    both shapes and in all three variants (packed, packed with 2-D ids,
+    unpacked), with its time, the plain version's, the library gather's
+    (one ``torch.index_select`` on the mask as int32) and the bound; then
+    the port's ablation script end to end, with the counts set to 0 just
+    before it."""
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.benchmarks import ablate_pallas_recount as abl
+    from sbr_tpu_torch.social import recount
+
+    rows = []
+    for n in RECOUNT_AGENTS:
+        _, _, t = abl.make_inputs(n, RECOUNT_EDGES, "cuda")
+
+        def library(t=t):
+            return torch.index_select(t["wd_i32"], 0, t["src"])
+
+        want = library()
+        library_ms = time_ms(library)
+        for variant, gather, plain, mask, ids in (
+            ("packed", recount.bit_gather, recount.bit_gather_plain, t["packed"], t["src"]),
+            ("packed_2d", recount.bit_gather, recount.bit_gather_plain, t["packed"], t["src_2d"]),
+            ("unpacked", recount.bool_gather, recount.bool_gather_plain, t["wd_u8"], t["src"]),
+        ):
+            got = gather(mask, ids)
+            branch = recount.LAST_BRANCH["unpacked" if variant == "unpacked" else "packed"]
+            ref = plain(mask, ids)
+            torch.cuda.synchronize()
+            mism = int((got != ref).sum())
+            lib_mism = int((got.reshape(-1) != want).sum())
+            max_abs = int((got - ref).abs().max())
+            kernel_ms = time_ms(lambda: gather(mask, ids))
+            plain_ms = time_ms(lambda: plain(mask, ids))
+            b_ms, b_by = recount_bound_ms(mask.numel(), ids.numel())
+            row = {
+                "n_agents": n, "n_edges": ids.numel(), "variant": variant,
+                "mask_bytes": mask.numel(), "branch": branch,
+                "mismatches": mism + lib_mism, "max_abs_err": max_abs,
+                "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "edges_per_s": ids.numel() / (kernel_ms * 1e-3),
+            }
+            emit("recount_kernel_vs_plain", **row)
+            if mism or lib_mism:
+                raise AssertionError(f"recount kernel and plain version disagree: {row}")
+            rows.append(row)
+        del t, want
+        torch.cuda.empty_cache()
+    branches = {r["branch"] for r in rows}
+    if branches != {"shared", "global"}:
+        raise AssertionError(f"both ways of reading the mask must run, saw {branches}")
+    _build.reset_launches()
+    record = abl.run()
+    launches = _build.LAUNCHES[recount.KERNEL]
+    emit("recount_main_path", launches=launches, **record)
+    if launches == 0:
+        raise AssertionError("the ablation script launched no recount kernel")
+    return {"rows": rows, "launches": launches}
+
+
+# Section 2 of the paper's figures (sbr_tpu/figures/master.py:233-235) and
+# Section 3 (master.py:258-260); the policy sweep at the stretch shape
+# (benchmarks/stretch.py:122-140): 10 β in [0.5, 3], 10 u in [0, 0.45],
+# 10 r in [0, 0.09], refinement off.
+SECTION2 = dict(betas=(0.125, 12.5), dist=(0.9, 0.1), eta_bar=30.0, u=0.1, p=0.9, kappa=0.3,
+                lam=0.1)
+SECTION3 = dict(beta=1.0, eta_bar=15.0, u=0.0, p=0.5, kappa=0.6, lam=0.01, r=0.06, delta=0.1)
+STRETCH = (np.linspace(0.5, 3.0, 10), np.linspace(0.0, 0.45, 10), np.linspace(0.0, 0.09, 10))
+# tests/test_hetero.py's and tests/test_interest.py's bounds against the oracle
+EXT_ORACLE_XI = 1e-5
+# the interest scan is profiled at this n_grid: the profiler's analysis
+# costs ~0.2 ms a kernel, and the full-width scan runs ~10^6 kernels
+EXT_PROFILE_GRID = 256
+# values that pass through bs32: its own rtol bounds what a step decision
+# that rounds the other way can move (tests/test_torch_ode.py)
+BS32_TOL = 1e-6
+
+
+def _ext_case(name: str, numerics: str, device: str, dtype=torch.float64, axes=STRETCH,
+              n_grid: int = 4096) -> dict:
+    """One extension solve through its entry points: its outputs as a dict
+    of tensors (status, flags, the scalars)."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.hetero import get_aw_hetero, solve_equilibrium_hetero, solve_learning_hetero
+    from sbr_tpu_torch.interest import solve_equilibrium_interest
+    from sbr_tpu_torch.models import make_hetero_params, make_interest_params
+    from sbr_tpu_torch.sweeps.policy_sweeps import policy_sweep_interest
+
+    if name == "section2":
+        cfg = st.SolverConfig(numerics=numerics, n_grid=n_grid)
+        m = make_hetero_params(**SECTION2)
+        lsh = solve_learning_hetero(m.learning, cfg, dtype=dtype, device=device)
+        r = solve_equilibrium_hetero(lsh, m.economic, cfg)
+        return dict(status=r.status, flags=r.health.flags, xi=r.xi, tau_in=r.tau_bar_in_uncs,
+                    tau_out=r.tau_bar_out_uncs, aw_max=get_aw_hetero(r, lsh).aw_max, hrs=r.hrs)
+    if name == "section3":
+        cfg = st.SolverConfig(numerics=numerics, n_grid=n_grid)
+        m = make_interest_params(**SECTION3)
+        ls = st.solve_learning(m.learning, cfg, dtype=dtype, device=device)
+        r = solve_equilibrium_interest(ls, m.economic, cfg)
+        b = r.base
+        return dict(status=b.status, flags=b.health.flags, xi=b.xi, tau_in=b.tau_bar_in_unc,
+                    tau_out=b.tau_bar_out_unc, aw_max=b.aw_max, v=r.v)
+    cfg = st.SolverConfig(numerics=numerics, n_grid=n_grid, refine_crossings=False)
+    base = make_interest_params(u=0.0, delta=0.1)
+    r = policy_sweep_interest(*axes, base, cfg, dtype=dtype, device=device)
+    return dict(status=r.status, flags=r.health.flags, xi=r.xi, aw_max=r.aw_max)
+
+
+def _ext_oracles() -> dict:
+    """tests/oracle.py's scipy solves of Sections 2 and 3."""
+    sys.path.insert(0, (__file__.rpartition("/")[0] or ".") + "/tests")
+    from oracle import solve_hetero_oracle, solve_interest_oracle
+
+    return {"section2": solve_hetero_oracle([0.125, 12.5], [0.9, 0.1], n_scan=400).xi,
+            "section3": solve_interest_oracle(n_scan=400).xi}
+
+
+def phase_extensions() -> dict:
+    """Sections 2 and 3 and the stretch-shape policy sweep on the card at
+    full width (n_grid 4096), in both numerics modes (the sweep in float32
+    and float64): one cold call, then one fenced call (ms, equilibria/s,
+    peak memory); ξ held to the oracle, ξ and AW_max finite exactly on RUN
+    cells, fixed and adaptive statuses equal in float64. Then the interest
+    scan's kernels and device time from the profiler at n_grid
+    EXT_PROFILE_GRID, in both numerics, and the device's share of the
+    same call's wall time unprofiled. The path launches no kernel of the port; the
+    counts, set to 0 before it and read after, say so."""
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.diag.health import flag_names, or_reduce_flags
+    from sbr_tpu_torch.utils.status import status_counts
+
+    oracle = _ext_oracles()
+    _build.reset_launches()
+    out = {}
+    cases = [("section2", torch.float64, 1), ("section3", torch.float64, 1),
+             ("policy", torch.float32, 1000), ("policy", torch.float64, 1000)]
+    for name, dtype, cells in cases:
+        for numerics in ("fixed", "adaptive"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _ext_case(name, numerics, "cuda", dtype)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = _ext_case(name, numerics, "cuda", dtype)
+            torch.cuda.synchronize()
+            fenced_s = time.perf_counter() - t0
+            status, xi = res["status"], res["xi"]
+            run = status == 0
+            row = dict(case=name, dtype=_dtype_name(dtype), numerics=numerics, cells=cells,
+                       cold_s=cold_s, fenced_ms=fenced_s * 1e3, equilibria_per_s=cells / fenced_s,
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       status_counts=status_counts(status),
+                       flags=flag_names(int(or_reduce_flags(res["flags"]))))
+            if name in oracle:
+                row.update(xi=float(xi), oracle_xi=oracle[name],
+                           xi_err=abs(float(xi) - oracle[name]))
+                if not row["xi_err"] <= EXT_ORACLE_XI:
+                    raise AssertionError(f"{name} {numerics}: ξ is off the oracle: {row}")
+            emit("extensions", **row)
+            finite = bool(torch.isfinite(xi[run]).all()) and bool(torch.isfinite(res["aw_max"][run]).all())
+            if not finite or bool(torch.isfinite(xi[~run]).any()):
+                raise AssertionError(f"{name} {numerics}: ξ/AW_max finite exactly on RUN cells fails")
+            out[(name, _dtype_name(dtype), numerics)] = res
+        if dtype == torch.float64:
+            sf, sa = out[(name, "float64", "fixed")]["status"], out[(name, "float64", "adaptive")]["status"]
+            if not torch.equal(sf, sa):
+                raise AssertionError(f"{name}: fixed and adaptive statuses differ")
+    for numerics in ("fixed", "adaptive"):
+        def run(numerics=numerics):
+            return _ext_case("section3", numerics, "cuda", n_grid=EXT_PROFILE_GRID)
+
+        prof = _kernel_profile(run)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        emit("extensions_interest_profile", numerics=numerics, n_grid=EXT_PROFILE_GRID, **prof,
+             kernels_per_interval=prof["kernels"] / (EXT_PROFILE_GRID - 1),
+             wall_ms_unprofiled=wall_ms, busy_share_unprofiled=prof["device_ms"] / wall_ms)
+    launches = dict(_build.LAUNCHES)
+    emit("extensions_kernel_launches", launches=launches)
+    if any(launches.values()):
+        raise AssertionError(f"the extensions launched a kernel: {launches}")
+    return out
+
+
+def phase_extensions_cpu_vs_card() -> None:
+    """The port on the card against the port on the CPU: Sections 2 and 3
+    at n_grid 4096 in both numerics, and a 4×4×4 sub-grid of the stretch
+    policy sweep at n_grid 1024 in float32 and float64, both numerics.
+    Statuses and flags equal; floats within 1e-12 (f64) and 2e-5 (f32),
+    and values that pass through bs32 (adaptive Section 3 and adaptive
+    sweeps) within BS32_TOL."""
+    sub = tuple(a[np.linspace(0, 9, 4).astype(int)] for a in STRETCH)
+    cases = [("section2", torch.float64, 4096), ("section3", torch.float64, 4096),
+             ("policy", torch.float64, 1024), ("policy", torch.float32, 1024)]
+    for name, dtype, n_grid in cases:
+        for numerics in ("fixed", "adaptive"):
+            a, b = (_ext_case(name, numerics, dev, dtype, axes=sub, n_grid=n_grid)
+                    for dev in ("cpu", "cuda"))
+            ints_equal = all(torch.equal(a[k], b[k].cpu()) for k in ("status", "flags"))
+            gaps = {}
+            for k in a:
+                if k in ("status", "flags"):
+                    continue
+                x, y = a[k].double(), b[k].cpu().double()
+                nan_equal = torch.equal(torch.isnan(x), torch.isnan(y))
+                ok = ~torch.isnan(x)
+                gaps[k] = float((x[ok] - y[ok]).abs().max()) if nan_equal and bool(ok.any()) else (
+                    0.0 if nan_equal else float("inf"))
+            tol = SWEEP_TOL[dtype]
+            if numerics == "adaptive" and name != "section2" and dtype == torch.float64:
+                tol = BS32_TOL
+            held = max(gaps.values())
+            emit("extensions_cpu_vs_card", case=name, dtype=_dtype_name(dtype), numerics=numerics,
+                 n_grid=n_grid, statuses_flags_equal=ints_equal, max_abs_by_field=gaps,
+                 max_abs=held, tol=tol, within_1e12=held <= 1e-12)
+            if not ints_equal or held > tol:
+                raise AssertionError(f"extensions_cpu {name} {numerics} {dtype}: card and CPU differ")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
-          "serve_cpu")
+          "serve_cpu", "recount", "extensions", "extensions_cpu")
+
+
+def _recount_kernel_entry(recount: dict) -> dict:
+    """The recount kernel's entry of the kernels line, its numbers from the
+    production shape's packed row (10^6 agents, 10,092,544 edges)."""
+    rows = recount["rows"]
+    main_row = next(r for r in rows if r["n_agents"] == 1_000_000 and r["variant"] == "packed")
+    return {
+        "name": "recount_gather",
+        "route": "cuda",
+        "source": "sbr_tpu_torch/csrc/recount_gather.cu",
+        "replaces": "benchmarks/ablate_pallas_recount.py:55",
+        "replaces_function": "benchmarks/ablate_pallas_recount.py::_build_pallas_gather",
+        "launches": recount["launches"],
+        "launches_by_path": {"ablation": recount["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "mismatches": sum(r["mismatches"] for r in rows),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "shapes": rows,
+    }
 
 
 def main(argv) -> int:
@@ -1556,6 +1837,11 @@ def main(argv) -> int:
         phase_serve(info["nvidia_smi"])
     if "serve_cpu" in wanted:
         phase_serve_cpu_vs_card()
+    recount = phase_recount() if "recount" in wanted else None
+    if "extensions" in wanted:
+        phase_extensions()
+    if "extensions_cpu" in wanted:
+        phase_extensions_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -1598,7 +1884,7 @@ def main(argv) -> int:
         "bound_by": belief_row["bound_by"],
         "library_ms": None,
         "shapes": belief_rows,
-    }]
+    }, _recount_kernel_entry(recount)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

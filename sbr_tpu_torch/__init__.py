@@ -31,7 +31,14 @@ Ported so far, each on one device:
   (``utils.checkpoint``), one CUDA graph captured per bucket of
   `solve_param_cell`, the HTTP endpoint and the load generator, with the
   retry policy (``resilience``) and the latency histograms (``obs``). It
-  adds no kernel.
+  adds no kernel;
+- slice 6, the last TPU kernel and the extensions: the recount's bit
+  gather of the withdrawn mask, a CUDA kernel (``social.recount``,
+  ``csrc/recount_gather.cu``) measured by the port's ablation script
+  (``benchmarks.ablate_pallas_recount``); the ODE integrators
+  (``core.ode``); the heterogeneous-learning extension (``hetero``); the
+  positive-interest-rate extension (``interest``); and the (β, u, r)
+  policy sweep over it (``sweeps.policy_sweeps``).
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every
@@ -40,6 +47,7 @@ the kernel or raises.
 """
 
 from sbr_tpu_torch.baseline import solve_equilibrium_baseline, solve_learning
+from sbr_tpu_torch.hetero import get_aw_hetero, solve_equilibrium_hetero, solve_learning_hetero
 from sbr_tpu_torch.infomodels import (
     InfoModelSpec,
     InfoSimResult,
@@ -47,12 +55,15 @@ from sbr_tpu_torch.infomodels import (
     simulate_info,
     solve_fixed_point_info,
 )
+from sbr_tpu_torch.interest import solve_equilibrium_interest
 from sbr_tpu_torch.models import (
     EquilibriumResult,
     LearningSolution,
     ModelParams,
     SolverConfig,
     Status,
+    make_hetero_params,
+    make_interest_params,
     make_model_params,
     with_overrides,
 )
@@ -83,7 +94,7 @@ from sbr_tpu_torch.social.solver import (
     fixed_point_from_numpy,
     solve_equilibrium_social,
 )
-from sbr_tpu_torch.sweeps import beta_u_grid, solve_param_cell, u_sweep
+from sbr_tpu_torch.sweeps import beta_u_grid, policy_sweep_interest, solve_param_cell, u_sweep
 
 __version__ = "0.1.0"
 
@@ -111,8 +122,12 @@ __all__ = [
     "erdos_renyi_edges",
     "fixed_point_from_numpy",
     "generate_edges",
+    "get_aw_hetero",
     "load_agent_state",
+    "make_hetero_params",
+    "make_interest_params",
     "make_model_params",
+    "policy_sweep_interest",
     "prepare_agent_graph",
     "prepare_generated_graph",
     "prepared_from_numpy",
@@ -121,10 +136,13 @@ __all__ = [
     "simulate_agents",
     "simulate_info",
     "solve_equilibrium_baseline",
+    "solve_equilibrium_hetero",
+    "solve_equilibrium_interest",
     "solve_equilibrium_social",
     "solve_fixed_point_info",
     "solve_forced_learning",
     "solve_learning",
+    "solve_learning_hetero",
     "solve_param_cell",
     "u_sweep",
     "with_overrides",

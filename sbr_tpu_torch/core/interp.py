@@ -89,20 +89,23 @@ def searchsorted_right(seq: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
 def interp(x, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """Linear interpolation of ``fp`` sampled at 1-D sorted knots ``xp``,
-    ``jnp.interp`` bit for bit; clamps outside [xp[0], xp[-1]]."""
+    ``jnp.interp`` bit for bit; clamps outside [xp[0], xp[-1]]. ``fp`` may
+    carry leading row dims R (shape R + (n,)), which ``x`` broadcasts
+    against, as ``vmap`` of ``jnp.interp`` over rows does."""
     x = torch.as_tensor(x, dtype=xp.dtype, device=xp.device)
     n = xp.shape[0]
     i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, n - 1)
-    df = fp[i] - fp[i - 1]
+    f_lo = take_last(fp, i - 1)
+    df = take_last(fp, i) - f_lo
     dx = xp[i] - xp[i - 1]
     delta = x - xp[i - 1]
     eps = float(np.spacing(np.finfo(np.float32 if xp.dtype == torch.float32 else np.float64).eps))
     dx0 = dx.abs() <= eps
     # jnp.interp is jitted, and XLA fuses the blend into one multiply-add
     slope = delta / torch.where(dx0, torch.ones_like(dx), dx)
-    f = torch.where(dx0, fp[i - 1], _fma(slope, df, fp[i - 1]))
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
+    f = torch.where(dx0, f_lo, _fma(slope, df, f_lo))
+    f = torch.where(x < xp[0], fp[..., 0], f)
+    return torch.where(x > xp[-1], fp[..., -1], f)
 
 
 def _segment_blend(x, xp, fp, i0):
@@ -116,13 +119,18 @@ def _segment_blend(x, xp, fp, i0):
 
 
 def interp_shared(x, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """Linear interpolation of rows ``fp`` (..., n) sampled at SHARED sorted
-    1-D knots ``xp`` (n,), at ``x`` broadcastable against the rows; one
-    search serves every row. Duplicate knots: the left value wins."""
+    """Linear interpolation of rows ``fp`` (R + (n,)) sampled at SHARED
+    sorted 1-D knots ``xp`` (n,), every row at every ``x``: the result has
+    shape R + x.shape, and one search serves every row. Duplicate knots:
+    the left value wins."""
     x = torch.as_tensor(x, dtype=xp.dtype, device=xp.device)
     n = xp.shape[0]
     i0 = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True) - 1, 0, n - 2)
-    return _segment_blend(x, xp, fp, i0)
+    x0 = xp[i0]
+    x1 = xp[i0 + 1]
+    denom = torch.where(x1 > x0, x1 - x0, torch.ones_like(x1))
+    w = torch.clamp(((x - x0) / denom).to(fp.dtype), 0.0, 1.0)
+    return fp[..., i0] * (1.0 - w) + fp[..., i0 + 1] * w
 
 
 def interp_guided(x, xp: torch.Tensor, fp: torch.Tensor, i_guess) -> torch.Tensor:

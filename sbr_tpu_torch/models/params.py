@@ -1,7 +1,6 @@
 """Parameter structs with the reference's defaults, derivations, validation
 and copy-with-override semantics: the port of ``sbr_tpu.models.params``
-(baseline family; the hetero and interest families come with their
-slices).
+(the baseline, heterogeneous-learning and interest-rate families).
 
 - η = η̄ / β when η is not given; default tspan = (0, 2η).
 - Copy-with-overrides carries the RESOLVED η and tspan of the base unless
@@ -17,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional, Tuple
+
+import numpy as np
 
 
 def _check(cond, msg: str) -> None:
@@ -189,6 +190,131 @@ def pytree_to_params(tree: dict) -> ModelParams:
     )
 
 
+# ---------------------------------------------------------------------------
+# Heterogeneity family
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LearningParamsHetero:
+    """K-group learning inputs. ``betas`` and ``dist`` are tuples, so the
+    struct stays hashable; the solvers turn them into tensors."""
+
+    betas: Tuple[float, ...]
+    dist: Tuple[float, ...]
+    tspan: Tuple[float, float]
+    x0: float
+
+    def __post_init__(self):
+        _check(len(self.betas) > 0, "betas must be non-empty")
+        _check(all(b > 0 for b in self.betas), f"All learning rates must be positive, got {self.betas}")
+        _check(
+            len(self.dist) == len(self.betas),
+            f"Distribution length {len(self.dist)} must match betas length {len(self.betas)}",
+        )
+        _check(all(d >= 0 for d in self.dist), f"Distribution weights must be non-negative, got {self.dist}")
+        _check(
+            abs(sum(self.dist) - 1.0) < 1e-10,
+            f"Distribution must sum to 1, got sum = {sum(self.dist)}",
+        )
+        _check(self.tspan[0] >= 0 and self.tspan[1] > self.tspan[0], f"Bad tspan {self.tspan}")
+        _check(self.x0 >= 0, f"Initial condition x0 must be non-negative, got {self.x0}")
+
+    @property
+    def n_groups(self) -> int:
+        return len(self.betas)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelParamsHetero:
+    learning: LearningParamsHetero
+    economic: EconomicParams
+
+
+def make_hetero_params(
+    betas,
+    dist,
+    eta_bar: float = 15.0,
+    u: float = 0.1,
+    p: float = 0.5,
+    kappa: float = 0.6,
+    lam: float = 0.01,
+    tspan: Optional[Tuple[float, float]] = None,
+    x0: float = 0.0001,
+) -> ModelParamsHetero:
+    """Keyword constructor: η = η̄/⟨β⟩ with ⟨β⟩ the dist-weighted mean."""
+    betas = tuple(float(b) for b in betas)
+    dist = tuple(float(d) for d in dist)
+    beta_ave = float(np.dot(betas, dist))
+    eta = eta_bar / beta_ave
+    if tspan is None:
+        tspan = (0.0, 2.0 * eta)
+    return ModelParamsHetero(
+        learning=LearningParamsHetero(betas=betas, dist=dist, tspan=tspan, x0=x0),
+        economic=EconomicParams(u=u, p=p, kappa=kappa, lam=lam, eta_bar=eta_bar, eta=eta),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Interest-rate family
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EconomicParamsInterest(EconomicParams):
+    """Baseline economics plus the interest rate r and the maturity δ, with
+    r < δ."""
+
+    r: float = 0.0
+    delta: float = 0.1
+
+    def __post_init__(self):
+        super().__post_init__()
+        _check(self.r >= 0, f"Interest rate r must be non-negative, got {self.r}")
+        _check(self.delta > 0, f"Recovery rate delta must be positive, got {self.delta}")
+        _check(
+            self.r < self.delta,
+            f"Interest rate r must be less than recovery rate delta, got r={self.r}, delta={self.delta}",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelParamsInterest:
+    learning: LearningParams
+    economic: EconomicParamsInterest
+
+
+def make_interest_params(
+    beta: float = 1.0,
+    eta: Optional[float] = None,
+    eta_bar: float = 15.0,
+    u: float = 0.1,
+    p: float = 0.5,
+    kappa: float = 0.6,
+    lam: float = 0.01,
+    r: float = 0.0,
+    delta: float = 0.1,
+    tspan: Optional[Tuple[float, float]] = None,
+    x0: float = 0.0001,
+    insurance_cap: float = 0.0,
+    suspension_t: float = 0.0,
+    lolr_rate: float = 0.0,
+) -> ModelParamsInterest:
+    """Keyword constructor with the baseline's defaults and derivations."""
+    if eta is None:
+        eta = eta_bar / beta
+    if tspan is None:
+        tspan = (0.0, 2.0 * eta)
+    return ModelParamsInterest(
+        learning=LearningParams(beta=beta, tspan=tspan, x0=x0),
+        economic=EconomicParamsInterest(
+            u=u, p=p, kappa=kappa, lam=lam, eta_bar=eta_bar, eta=eta, r=r, delta=delta,
+            insurance_cap=insurance_cap, suspension_t=suspension_t,
+            lolr_rate=lolr_rate,
+        ),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Static numerics knobs.
@@ -206,8 +332,10 @@ class SolverConfig:
       inverse-CDF map, which resolves the 1/β-wide transition at large β
       (closed-form Stage 1 only; 0 disables).
     - numerics: ``"adaptive"`` runs the convergence-masked kernels
-      (`core.rootfind.chandrupatla`, `threshold_crossings_masked`);
-      ``"fixed"`` runs fixed-iteration bisection and the scan crossings.
+      (`core.rootfind.chandrupatla`, `threshold_crossings_masked`, and
+      `core.ode.bs32` for the hetero coupled-K ODE and the interest HJB);
+      ``"fixed"`` runs fixed-iteration bisection, the scan crossings and
+      fixed-substep RK4.
       ``"auto"`` resolves at construction from ``SBR_NUMERICS``
       (``adaptive`` when unset), so the stored value is always concrete.
     - ode_rtol / ode_atol: tolerances of the adaptive ODE pair.

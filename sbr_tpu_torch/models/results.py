@@ -126,3 +126,82 @@ class EquilibriumResult:
             f"τ̄_OUT={_fmt(self.tau_bar_out_unc)}, AW_max={_fmt(self.aw_max)}, "
             f"solve_time={_fmt(self.solve_time, 3)}s)"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class LearningSolutionHetero:
+    """K-group Stage-1 output: per-group CDF and PDF rows on one shared
+    time grid (warped under the exact Ω path), the group axis leading."""
+
+    grid: torch.Tensor  # (n,) shared time grid over tspan
+    cdfs: torch.Tensor  # (K, n) per-group G_k(t)
+    pdfs: torch.Tensor  # (K, n) per-group g_k(t)
+    t0: torch.Tensor  # grid start
+    dt: torch.Tensor  # FIRST grid spacing (use the local spacings of ``grid``)
+    betas: torch.Tensor  # (K,) group learning rates
+    dist: torch.Tensor  # (K,) group weights (simplex)
+    # Health flags of the adaptive coupled-K ODE (ODE_BUDGET when an
+    # interval exhausted its step budget); None on the other routes.
+    ode_flags: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.cdfs.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.cdfs.dtype
+
+    def cdf_at(self, t):
+        """G_k at time(s) t: shape (K, *t.shape), searchsorted
+        interpolation on the shared grid."""
+        from sbr_tpu_torch.core.interp import interp_shared
+
+        return interp_shared(t, self.grid, self.cdfs)
+
+    def pdf_at(self, t):
+        from sbr_tpu_torch.core.interp import interp_shared
+
+        return interp_shared(t, self.grid, self.pdfs)
+
+
+@dataclasses.dataclass(frozen=True)
+class EquilibriumResultHetero:
+    """K-group Stage-2/3 output. Group-resolved fields carry a leading K
+    axis; the first-crossing rejection of the hetero family maps onto
+    FALSE_EQ."""
+
+    xi: torch.Tensor
+    tau_bar_in_uncs: torch.Tensor  # (K,)
+    tau_bar_out_uncs: torch.Tensor  # (K,)
+    hrs: torch.Tensor  # (K, n) per-group hazard rates on tau_grid
+    tau_grid: torch.Tensor  # (n,) hazard grid on [0, η]
+    bankrun: torch.Tensor  # bool
+    status: torch.Tensor  # int32 Status code
+    converged: torch.Tensor  # bool
+    tolerance: torch.Tensor  # achieved |AW(ξ)-κ|
+    solve_time: float = 0.0
+    health: Optional[Health] = None
+
+    def replace(self, **changes) -> "EquilibriumResultHetero":
+        return dataclasses.replace(self, **changes)
+
+    def __repr__(self) -> str:
+        k = self.hrs.shape[0] if self.hrs.dim() >= 1 else "?"
+        return (
+            f"EquilibriumResultHetero(K={k}, ξ={_fmt(self.xi)}, "
+            f"bankrun={_fmt(self.bankrun)}, status={_fmt(self.status)}, "
+            f"solve_time={_fmt(self.solve_time, 3)}s)"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class AWHetero:
+    """Group-decomposed aggregate-withdrawal curves on the learning grid."""
+
+    t_grid: torch.Tensor  # (n,) learning grid
+    aw_cum: torch.Tensor  # (n,) Σ_k dist_k · AW_k
+    aw_out_groups: torch.Tensor  # (K, n)
+    aw_in_groups: torch.Tensor  # (K, n)
+    aw_groups: torch.Tensor  # (K, n) net per-group withdrawals
+    aw_max: torch.Tensor  # scalar

@@ -326,6 +326,12 @@ def test_port_imports_no_jax_and_no_sbr_tpu():
         "import sys\n"
         "import numpy as np\n"
         "import sbr_tpu_torch as st\n"
+        "import sbr_tpu_torch.benchmarks.ablate_pallas_recount\n"
+        "import sbr_tpu_torch.core.ode\n"
+        "import sbr_tpu_torch.hetero\n"
+        "import sbr_tpu_torch.interest\n"
+        "import sbr_tpu_torch.social.recount\n"
+        "import sbr_tpu_torch.sweeps.policy_sweeps\n"
         "src, dst = st.erdos_renyi_edges(300, 5.0, seed=0)\n"
         "r = st.simulate_agents(1.0, src, dst, 300, x0=0.05, device='cpu',\n"
         "    config=st.AgentSimConfig(n_steps=5))\n"

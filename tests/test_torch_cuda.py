@@ -390,3 +390,82 @@ def test_cumulative_integrals_do_not_depend_on_the_row_count(cuda_device, dtype)
     ref = np.cumsum(x.cpu().numpy().astype(np.longdouble), -1)  # extended precision
     err = np.abs(full[:, 1:].cpu().numpy().astype(np.longdouble) - ref).max() / ref.max()
     assert float(err) < (1e-15 if dtype == torch.float64 else 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: the recount gather kernel and the extensions on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("n,branch", [(1000, "shared"), (2_000_003, "global")])
+def test_recount_kernel_matches_plain(cuda_device, packed, n, branch):
+    from sbr_tpu_torch.benchmarks import ablate_pallas_recount as abl
+    from sbr_tpu_torch.social import recount
+
+    wd, src, t = abl.make_inputs(n, 300_000, cuda_device)
+    mask = t["packed"] if packed else t["wd_u8"]
+    gather = recount.bit_gather if packed else recount.bool_gather
+    plain = recount.bit_gather_plain if packed else recount.bool_gather_plain
+    for ids in (t["src"], t["src_2d"]):
+        before = _build.LAUNCHES[recount.KERNEL]
+        got = gather(mask, ids)
+        want = plain(mask, ids)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[recount.KERNEL] == before + 1
+        assert recount.LAST_BRANCH["packed" if packed else "unpacked"] == branch
+        assert got.shape == ids.shape and got.dtype == torch.int32
+        assert torch.equal(got, want)
+        assert np.array_equal(got.reshape(-1).cpu().numpy(), wd[src].astype(np.int32))
+
+
+def test_recount_kernel_refuses_what_it_does_not_take(cuda_device):
+    from sbr_tpu_torch.social import recount
+
+    packed = torch.zeros(16, dtype=torch.uint8, device=cuda_device)
+    ids = torch.zeros(256, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        recount.bit_gather(packed, ids.to(torch.int64))
+    with pytest.raises(ValueError, match="share a device"):
+        recount.bit_gather(packed.cpu(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        recount.bool_gather(packed, ids.view(16, 16).t())
+
+
+@pytest.mark.parametrize("numerics", ["fixed", "adaptive"])
+@pytest.mark.parametrize("case", ["section2", "section3", "policy"])
+def test_extensions_on_card_equal_cpu(cuda_device, case, numerics):
+    import sbr_tpu_torch.models as tm
+    from sbr_tpu_torch.hetero import solve_equilibrium_hetero, solve_learning_hetero
+    from sbr_tpu_torch.interest import solve_equilibrium_interest
+    from sbr_tpu_torch.sweeps.policy_sweeps import policy_sweep_interest
+
+    def solve(dev):
+        if case == "section2":
+            cfg = st.SolverConfig(n_grid=512, numerics=numerics)
+            m = tm.make_hetero_params(betas=(0.125, 12.5), dist=(0.9, 0.1), eta_bar=30.0, u=0.1,
+                                      p=0.9, kappa=0.3, lam=0.1)
+            r = solve_equilibrium_hetero(solve_learning_hetero(m.learning, cfg, device=dev),
+                                         m.economic, cfg)
+            return r.status, r.health.flags, (r.xi, r.tau_bar_in_uncs, r.hrs)
+        if case == "section3":
+            cfg = st.SolverConfig(n_grid=512, numerics=numerics)
+            m = tm.make_interest_params(u=0.0, r=0.06, delta=0.1)
+            r = solve_equilibrium_interest(st.solve_learning(m.learning, cfg, device=dev),
+                                           m.economic, cfg)
+            return r.base.status, r.base.health.flags, (r.base.xi, r.v, r.hr_effective)
+        cfg = st.SolverConfig(n_grid=256, numerics=numerics, refine_crossings=False)
+        r = policy_sweep_interest([0.5, 3.0], [0.0, 0.45], [0.0, 0.09],
+                                  tm.make_interest_params(u=0.0, delta=0.1), cfg, device=dev)
+        return r.status, r.health.flags, (r.xi, r.aw_max)
+
+    cpu, card = solve("cpu"), solve(cuda_device)
+    assert torch.equal(cpu[0], card[0].cpu()) and torch.equal(cpu[1], card[1].cpu())
+    # values that pass through bs32 may differ by a step decision
+    # (tests/test_torch_ode.py); the others are held to the port's 1e-12
+    tol = 1e-6 if (numerics == "adaptive" and case != "section2") else 1e-12
+    for a, b in zip(cpu[2], card[2]):
+        b = b.cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(a)
+        assert float((a[ok] - b[ok]).abs().max()) <= tol

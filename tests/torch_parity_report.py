@@ -1,6 +1,7 @@
 """Measured spreads of the port's solve against sbr_tpu on the CPU: the
 numbers behind the tolerances that tests/test_torch_{core,baseline,sweeps,
-social,closure}.py state. Prints one JSON line per comparison.
+social,closure,ode,hetero,interest,policy_sweeps}.py state. Prints one
+JSON line per comparison.
 
     python tests/torch_parity_report.py            # every section
     python tests/torch_parity_report.py social     # the named sections
@@ -8,8 +9,12 @@ social,closure}.py state. Prints one JSON line per comparison.
 Runs in a few minutes on one CPU core: scalar solves at n_grid 1024, the
 golden 12×12 axes at n_grid 512, an every-fifth 100×100 subgrid of the
 Figure-5 tile at n_grid 1024, a 200-point u-sweep, the social and
-information fixed points, and the rounding facts (``exp``, ``linspace``,
-the fixed point's compiled damping line and ξ march) the contracts rest on.
+information fixed points, the rounding facts (``exp``, ``linspace``,
+the fixed point's compiled damping line and ξ march) the contracts rest on,
+and (``extensions``, about a minute) the ODE integrators, the hetero and
+interest solves and the (β, u, r) policy sweep. ``ops`` (not in the
+default run: several minutes) counts the ops a full-width extension solve
+dispatches.
 """
 
 from __future__ import annotations
@@ -202,9 +207,134 @@ def social() -> None:
         fp_row("info_fixed_point", j, t, spec=name, n_grid=n_grid)
 
 
+def extensions() -> None:
+    from sbr_tpu.core import ode as jode
+    from sbr_tpu.hetero import learning as jhl, solver as jhs
+    from sbr_tpu.interest import solver as jis
+    from sbr_tpu.sweeps import policy_sweeps as jps
+    from sbr_tpu_torch.core import ode as tode
+    from sbr_tpu_torch.hetero import hetero_solution_from_numpy
+    from sbr_tpu_torch.hetero import learning as thl, solver as ths
+    from sbr_tpu_torch.interest import solver as tis
+    from sbr_tpu_torch.sweeps import policy_sweeps as tps
+
+    betas, dist, x0 = np.array([0.125, 12.5]), np.array([0.9, 0.1]), 1e-4
+    tb, td = torch.tensor(betas), torch.tensor(dist)
+    for n in (65, 257):
+        ts_ = np.linspace(0.0, 44.0, n)
+        jy, jh = jode.bs32(lambda t, g, a: (1 - g) * betas * jnp.dot(dist, g),
+                           jnp.full(2, x0), jnp.asarray(ts_), with_health=True)
+        ty, th = tode.bs32(lambda t, g, a: (1 - g) * tb * torch.dot(td, g),
+                           torch.full((2,), x0, dtype=torch.float64), torch.tensor(ts_),
+                           with_health=True)
+        emit("bs32_coupled_vs_compiled", n=n, max_abs=_gap(ty, jy),
+             attempts=[int(th.iterations), int(jh.iterations)],
+             count_spread=abs(int(th.iterations) - int(jh.iterations)) / int(jh.iterations))
+    sec2 = dict(betas=(0.125, 12.5), dist=(0.9, 0.1), eta_bar=30.0, u=0.1, p=0.9, kappa=0.3,
+                lam=0.1)
+    mild = dict(sec2, betas=(0.5, 2.0), dist=(0.5, 0.5), eta_bar=15.0)
+    for numerics, warp, model in (("fixed", 0.5, sec2), ("adaptive", 0.5, sec2),
+                                  ("fixed", 0.0, mild), ("adaptive", 0.0, sec2)):
+        kw = dict(n_grid=384, numerics=numerics, grid_warp=warp)
+        jm, tm = jp.make_hetero_params(**model), tp.make_hetero_params(**model)
+        jc, tc = jp.SolverConfig(**kw), tp.SolverConfig(**kw)
+        jlh = jhl.solve_learning_hetero(jm.learning, jc)
+        tlh = thl.solve_learning_hetero(tm.learning, tc, device="cpu")
+        jr = jhs.solve_equilibrium_hetero(jlh, jm.economic, jc)
+        own = ths.solve_equilibrium_hetero(tlh, tm.economic, tc)
+        carried = ths.solve_equilibrium_hetero(hetero_solution_from_numpy(
+            *(np.array(x) for x in (jlh.grid, jlh.cdfs, jlh.pdfs, jlh.t0, jlh.dt, jlh.betas,
+                                    jlh.dist)),
+            ode_flags=None if jlh.ode_flags is None else np.array(jlh.ode_flags),
+            device="cpu"), tm.economic, tc)
+        emit("hetero", numerics=numerics, grid_warp=warp, betas=model["betas"],
+             grid_max_abs=_gap(tlh.grid, jlh.grid), cdfs_max_abs=_gap(tlh.cdfs, jlh.cdfs),
+             own_xi_max_abs=_gap(own.xi, jr.xi), own_hrs_max_abs=_gap(own.hrs, jr.hrs),
+             carried_xi_max_abs=_gap(carried.xi, jr.xi),
+             carried_hrs_max_abs=_gap(carried.hrs, jr.hrs),
+             status=[int(own.status), int(jr.status)],
+             flags=[int(own.health.flags), int(jr.health.flags)])
+    for numerics in ("fixed", "adaptive"):
+        for model in (dict(beta=1.0, u=0.0, r=0.06), dict(beta=3.0, u=0.05, r=0.02)):
+            jm, tm = jp.make_interest_params(**model), tp.make_interest_params(**model)
+            jc, tc = (m.SolverConfig(n_grid=512, numerics=numerics) for m in (jp, tp))
+            jr = jis.solve_equilibrium_interest(jl.solve_learning(jm.learning, jc), jm.economic, jc)
+            tr = tis.solve_equilibrium_interest(
+                tl.solve_learning(tm.learning, tc, device="cpu"), tm.economic, tc)
+            emit("interest", numerics=numerics, **model, v_max_abs=_gap(tr.v, jr.v),
+                 xi_max_abs=_gap(tr.base.xi, jr.base.xi),
+                 tau_max_abs=max(_gap(tr.base.tau_bar_in_unc, jr.base.tau_bar_in_unc),
+                                 _gap(tr.base.tau_bar_out_unc, jr.base.tau_bar_out_unc)),
+                 status=[int(tr.base.status), int(jr.base.status)],
+                 flags=[int(tr.base.health.flags), int(jr.base.health.flags)])
+    axes = (np.linspace(0.5, 3.0, 3), np.linspace(0.0, 0.45, 3), np.linspace(0.0, 0.09, 3))
+    for numerics in ("fixed", "adaptive"):
+        for np_dtype, t_dtype in DTYPES:
+            jc, tc = (m.SolverConfig(n_grid=256, numerics=numerics, refine_crossings=False,
+                                     bisect_iters=60) for m in (jp, tp))
+            jr = jps.policy_sweep_interest(*axes, jp.make_interest_params(u=0.0, delta=0.1), jc,
+                                           dtype=np_dtype)
+            tr = tps.policy_sweep_interest(*axes, tp.make_interest_params(u=0.0, delta=0.1), tc,
+                                           dtype=t_dtype, device="cpu")
+            it_t, it_j = tr.health.iterations.numpy(), np.asarray(jr.health.iterations)
+            emit("policy_sweep", numerics=numerics, dtype=np_dtype.__name__,
+                 status_equal=bool(np.array_equal(tr.status.numpy(), np.asarray(jr.status))),
+                 flags_equal=bool(np.array_equal(tr.health.flags.numpy(),
+                                                 np.asarray(jr.health.flags))),
+                 xi_max_abs=_gap(tr.xi, jr.xi), aw_max_abs=_gap(tr.aw_max, jr.aw_max),
+                 iterations_equal_share=float((it_t == it_j).mean()),
+                 iterations_mean=[float(it_t.mean()), float(it_j.mean())])
+
+
+def ops() -> None:
+    """PyTorch ops (views apart) that one full-width extension solve
+    dispatches on the CPU: the count of kernels it launches on the card,
+    from which the chip runs' times are predicted. Several minutes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from sbr_tpu_torch.hetero import learning as thl, solver as ths
+    from sbr_tpu_torch.interest import solver as tis
+    from sbr_tpu_torch.sweeps import policy_sweeps as tps
+
+    views = ("aten::view", "aten::_unsafe_view", "aten::expand", "aten::slice", "aten::select",
+             "aten::unsqueeze", "aten::squeeze", "aten::t", "aten::permute", "aten::alias",
+             "aten::detach", "aten::reshape", "aten::transpose", "aten::split", "aten::unbind")
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func._schema.name.startswith(views):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def count(fn):
+        with Count() as c:
+            fn()
+        return c.n
+
+    sec2 = tp.make_hetero_params(betas=(0.125, 12.5), dist=(0.9, 0.1), eta_bar=30.0, u=0.1,
+                                 p=0.9, kappa=0.3, lam=0.1)
+    sec3 = tp.make_interest_params(u=0.0, r=0.06, delta=0.1)
+    base = tp.make_interest_params(u=0.0, delta=0.1)
+    axes = (np.linspace(0.5, 3.0, 10), np.linspace(0.0, 0.45, 10), np.linspace(0.0, 0.09, 10))
+    for numerics in ("fixed", "adaptive"):
+        cfg = tp.SolverConfig(numerics=numerics)
+        emit("ops", case="section2", numerics=numerics, ops=count(
+            lambda: ths.solve_equilibrium_hetero(
+                thl.solve_learning_hetero(sec2.learning, cfg, device="cpu"), sec2.economic, cfg)))
+        emit("ops", case="section3", numerics=numerics, ops=count(
+            lambda: tis.solve_equilibrium_interest(
+                tl.solve_learning(sec3.learning, cfg, device="cpu"), sec3.economic, cfg)))
+        cfg = tp.SolverConfig(numerics=numerics, refine_crossings=False)
+        emit("ops", case="policy_stretch_f32", numerics=numerics, ops=count(
+            lambda: tps.policy_sweep_interest(*axes, base, cfg, dtype=torch.float32,
+                                              device="cpu")))
+
+
 SECTIONS = {"facts": facts, "scalars": scalars, "grids": grids, "u_sweeps": u_sweeps,
-            "social": social}
+            "social": social, "extensions": extensions, "ops": ops}
 
 if __name__ == "__main__":
-    for name in sys.argv[1:] or SECTIONS:
+    for name in sys.argv[1:] or [k for k in SECTIONS if k != "ops"]:
         SECTIONS[name]()
