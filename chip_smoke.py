@@ -27,10 +27,11 @@ times, kernels a dispatch, busy share, peak memory), the repo benchmark's
 serving shape, a cold stream of 4,096 distinct queries, the HTTP endpoint,
 and a pool served on the card against the CPU. Then slice 6: the recount
 gather kernel against its plain version bit for bit (10^6 and 2×10^6 + 3
-agents, 10,092,544 edges, packed, packed with 2-D ids and unpacked, so
-that the mask is read from shared memory and through the read-only path),
-beside the library gather, and the port's ablation script end to end; the
-heterogeneous-learning model of Section 2, the interest-rate model of
+agents, 10,092,544 edges, packed, packed with 2-D ids and unpacked; every
+branch of its size rule, and both sides of the rule at bit tables up to
+8 MB), beside the library gather and torch's copy of the ids, and the
+port's ablation script end to end; the heterogeneous-learning model of
+Section 2, the interest-rate model of
 Section 3 and the (β, u, r) policy sweep at the stretch shape on the card
 in both numerics modes (held to the scipy oracle of tests/oracle.py), and
 each of them on the card against the CPU. It prints one JSON line per
@@ -1527,6 +1528,11 @@ def phase_serve_cpu_vs_card() -> None:
 # 10^6 agents and 10^7 edges, padded to 10,092,544; and 2×10^6 + 3 agents,
 # whose 250,001-byte packed mask exceeds a block's shared memory.
 RECOUNT_AGENTS = (1_000_000, 2_000_003)
+# Bit tables on both sides of the size rule's threshold
+# (recount.SHARED_MAX_BYTES, 524,288 bytes: 4,194,304 agents) and far
+# beyond it, where both sides of the rule are timed to place it: the same
+# 10^7 edges.
+RECOUNT_RULE_AGENTS = (2_500_000, 4_000_000, 8_000_000, 16_000_000, 64_000_000)
 RECOUNT_EDGES = 10_000_000
 # an edge's integer operations: the shift and mask of its id, the range
 # check, the bit's shift and mask
@@ -1542,58 +1548,97 @@ def recount_bound_ms(mask_bytes: int, n_edges: int):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def _recount_rows(n: int, t: dict, ids_key: str, n_ids: int, shape: str,
+                  other: bool = False) -> list:
+    """The recount kernel on the first ``n_ids`` rows of ``t[ids_key]``:
+    for each mask layout, the plan's own choice through the entry points
+    (`bit_gather`, `bool_gather`) and, with ``other``, the plan on the other
+    side of the size rule's threshold (shared or split against global),
+    through `recount.launch`. Each is held bit for bit to its plain version
+    and to the library gather, and timed beside the plain version, the
+    library gather (one ``torch.index_select`` on the mask as int32),
+    torch's copy of the ids into an int32 output (``copy_ms``, 8 bytes an
+    edge like the kernel) and the bound."""
+    from sbr_tpu_torch.social import recount
+
+    src = t[ids_key][:n_ids]
+    flat = src.reshape(-1)
+    want = torch.index_select(t["wd_i32"], 0, flat)
+    library_ms = time_ms(lambda: torch.index_select(t["wd_i32"], 0, flat))
+    copied = torch.empty(flat.shape, dtype=torch.int32, device=flat.device)
+    copy_ms = time_ms(lambda: copied.copy_(flat))
+    rows = []
+    layouts = (("packed", t["packed"], recount.bit_gather, recount.bit_gather_plain),
+               ("unpacked", t["wd_u8"], recount.bool_gather, recount.bool_gather_plain))
+    for layout, mask, entry, plain in layouts:
+        if ids_key == "src_2d" and layout == "unpacked":
+            continue
+        packed = layout == "packed"
+        plan = recount.plan_for(mask, src, packed=packed)
+        plain_ms = time_ms(lambda: plain(mask, src))
+        ref = plain(mask, src)
+        runs = [(plan, lambda: entry(mask, src))]
+        if other:
+            alt = recount.plan_for(mask, src, packed=packed,
+                                   shared_max=0 if plan.branch == "shared" else 1 << 40)
+            runs.append((alt, lambda: recount.launch(mask, src, alt, packed=packed)))
+        for want_plan, run in runs:
+            got = run()
+            ran = recount.LAST_PLAN[layout]
+            torch.cuda.synchronize()
+            mism = int((got != ref).sum()) + int((got.reshape(-1) != want).sum())
+            max_abs = int((got - ref).abs().max())
+            kernel_ms = time_ms(run)
+            b_ms, b_by = recount_bound_ms(mask.numel(), src.numel())
+            row = {
+                "n_agents": n, "n_edges": src.numel(), "shape": shape,
+                "variant": layout + ("_2d" if ids_key == "src_2d" else ""),
+                "mask_bytes": mask.numel(), "branch": ran.name, "cluster": ran.cluster,
+                "held": ran.held, "planned": want_plan is plan, "grid": ran.grid,
+                "threads": ran.threads, "smem": ran.smem, "mismatches": mism,
+                "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "copy_ms": copy_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "share_of_bound": b_ms / kernel_ms,
+                "edges_per_s": src.numel() / (kernel_ms * 1e-3),
+            }
+            emit("recount_kernel_vs_plain", **row)
+            if mism:
+                raise AssertionError(f"recount kernel and plain version disagree: {row}")
+            if ran != want_plan:
+                raise AssertionError(f"launched {ran}, the plan is {want_plan}")
+            rows.append(row)
+    return rows
+
+
 def phase_recount() -> dict:
-    """The recount gather kernel against its plain version, bit for bit, on
-    both shapes and in all three variants (packed, packed with 2-D ids,
-    unpacked), with its time, the plain version's, the library gather's
-    (one ``torch.index_select`` on the mask as int32) and the bound; then
-    the port's ablation script end to end, with the counts set to 0 just
-    before it."""
+    """The recount gather kernel against its plain version, bit for bit: at
+    both ablation shapes, the plan's own branch for the packed mask, the
+    packed mask with 2-D ids and the unpacked mask, and the branch on the
+    other side of the size rule for each mask; the staging's fixed cost at
+    one edge block (131,072 edges); both sides of the rule at the bit tables
+    of RECOUNT_RULE_AGENTS; then the port's ablation script end to end,
+    with the counts set to 0 just before it."""
     from sbr_tpu_torch import _build
     from sbr_tpu_torch.benchmarks import ablate_pallas_recount as abl
     from sbr_tpu_torch.social import recount
 
     rows = []
-    for n in RECOUNT_AGENTS:
+    for n in RECOUNT_AGENTS + RECOUNT_RULE_AGENTS:
         _, _, t = abl.make_inputs(n, RECOUNT_EDGES, "cuda")
-
-        def library(t=t):
-            return torch.index_select(t["wd_i32"], 0, t["src"])
-
-        want = library()
-        library_ms = time_ms(library)
-        for variant, gather, plain, mask, ids in (
-            ("packed", recount.bit_gather, recount.bit_gather_plain, t["packed"], t["src"]),
-            ("packed_2d", recount.bit_gather, recount.bit_gather_plain, t["packed"], t["src_2d"]),
-            ("unpacked", recount.bool_gather, recount.bool_gather_plain, t["wd_u8"], t["src"]),
-        ):
-            got = gather(mask, ids)
-            branch = recount.LAST_BRANCH["unpacked" if variant == "unpacked" else "packed"]
-            ref = plain(mask, ids)
-            torch.cuda.synchronize()
-            mism = int((got != ref).sum())
-            lib_mism = int((got.reshape(-1) != want).sum())
-            max_abs = int((got - ref).abs().max())
-            kernel_ms = time_ms(lambda: gather(mask, ids))
-            plain_ms = time_ms(lambda: plain(mask, ids))
-            b_ms, b_by = recount_bound_ms(mask.numel(), ids.numel())
-            row = {
-                "n_agents": n, "n_edges": ids.numel(), "variant": variant,
-                "mask_bytes": mask.numel(), "branch": branch,
-                "mismatches": mism + lib_mism, "max_abs_err": max_abs,
-                "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
-                "edges_per_s": ids.numel() / (kernel_ms * 1e-3),
-            }
-            emit("recount_kernel_vs_plain", **row)
-            if mism or lib_mism:
-                raise AssertionError(f"recount kernel and plain version disagree: {row}")
-            rows.append(row)
-        del t, want
+        e = t["src"].numel()
+        if n in RECOUNT_AGENTS:
+            rows += _recount_rows(n, t, "src", e, "full", other=True)
+            rows += _recount_rows(n, t, "src_2d", e // 128, "full")
+            rows += _recount_rows(n, t, "src", abl.EDGE_BLOCK, "prologue")
+        else:
+            rows += _recount_rows(n, t, "src", e, "rule", other=True)
+        del t
         torch.cuda.empty_cache()
-    branches = {r["branch"] for r in rows}
-    if branches != {"shared", "global"}:
-        raise AssertionError(f"both ways of reading the mask must run, saw {branches}")
+    # every branch the plan chooses at these shapes ran (and was the one
+    # launched: _recount_rows checks it)
+    planned = {r["branch"] for r in rows if r["planned"]}
+    if planned != {"shared", "split", "global"}:
+        raise AssertionError(f"the plan chose {sorted(planned)}, not every branch")
     _build.reset_launches()
     record = abl.run()
     launches = _build.LAUNCHES[recount.KERNEL]
@@ -1776,7 +1821,8 @@ def _recount_kernel_entry(recount: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
     rows = recount["rows"]
-    main_row = next(r for r in rows if r["n_agents"] == 1_000_000 and r["variant"] == "packed")
+    main_row = next(r for r in rows if r["n_agents"] == 1_000_000 and r["variant"] == "packed"
+                    and r["shape"] == "full" and r["planned"])
     return {
         "name": "recount_gather",
         "route": "cuda",

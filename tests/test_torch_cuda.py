@@ -397,26 +397,130 @@ def test_cumulative_integrals_do_not_depend_on_the_row_count(cuda_device, dtype)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("packed", [True, False])
-@pytest.mark.parametrize("n,branch", [(1000, "shared"), (2_000_003, "global")])
-def test_recount_kernel_matches_plain(cuda_device, packed, n, branch):
+# (agents, packed, branch, staging cluster): every branch the size rule
+# chooses, reached by the mask's size. Packed: 125 and 125,000 bytes (the
+# whole table in a block), 250,001 and 500,000 (split), 10^6 (global).
+# Unpacked: 1,000, 400,000 and 10^6 bytes (the whole table, staged by
+# clusters of 1, 2 and 4), 2,000,008 and 4,000,000 (split), 8,000,000
+# (global).
+RECOUNT_CASES = [
+    (1000, True, "shared", 1), (1_000_000, True, "shared", 1), (2_000_003, True, "split", 1),
+    (4_000_000, True, "split", 1), (8_000_000, True, "global", 1),
+    (1000, False, "shared", 1), (400_000, False, "shared", 2), (1_000_000, False, "shared", 4),
+    (2_000_003, False, "split", 4), (4_000_000, False, "split", 4),
+    (8_000_000, False, "global", 1),
+]
+
+
+@pytest.mark.parametrize("n,packed,branch,cluster", RECOUNT_CASES)
+def test_recount_kernel_matches_plain(cuda_device, n, packed, branch, cluster):
     from sbr_tpu_torch.benchmarks import ablate_pallas_recount as abl
     from sbr_tpu_torch.social import recount
 
     wd, src, t = abl.make_inputs(n, 300_000, cuda_device)
     mask = t["packed"] if packed else t["wd_u8"]
-    gather = recount.bit_gather if packed else recount.bool_gather
+    layout = "packed" if packed else "unpacked"
     plain = recount.bit_gather_plain if packed else recount.bool_gather_plain
+    entry = recount.bit_gather if packed else recount.bool_gather
     for ids in (t["src"], t["src_2d"]):
         before = _build.LAUNCHES[recount.KERNEL]
-        got = gather(mask, ids)
+        got = entry(mask, ids)
         want = plain(mask, ids)
         torch.cuda.synchronize()
         assert _build.LAUNCHES[recount.KERNEL] == before + 1
-        assert recount.LAST_BRANCH["packed" if packed else "unpacked"] == branch
+        plan = recount.plan_for(mask, ids, packed=packed)
+        assert recount.LAST_PLAN[layout] == plan and recount.LAST_BRANCH[layout] == branch
+        assert plan.cluster == cluster
         assert got.shape == ids.shape and got.dtype == torch.int32
         assert torch.equal(got, want)
         assert np.array_equal(got.reshape(-1).cpu().numpy(), wd[src].astype(np.int32))
+
+
+@pytest.mark.parametrize("n", [1_000_000, 8_000_000])
+@pytest.mark.parametrize("packed", [True, False])
+def test_recount_kernel_on_the_other_side_of_the_size_rule(cuda_device, packed, n):
+    # the branch the threshold does not choose, as chip_smoke.py times it
+    from sbr_tpu_torch.benchmarks import ablate_pallas_recount as abl
+    from sbr_tpu_torch.social import recount
+
+    _, _, t = abl.make_inputs(n, 300_000, cuda_device)
+    mask = t["packed"] if packed else t["wd_u8"]
+    plan = recount.plan_for(mask, t["src"], packed=packed)
+    other = recount.plan_for(mask, t["src"], packed=packed,
+                             shared_max=0 if plan.branch == "shared" else 1 << 30)
+    assert other.branch != plan.branch
+    got = recount.launch(mask, t["src"], other, packed=packed)
+    plain = recount.bit_gather_plain if packed else recount.bool_gather_plain
+    assert torch.equal(got, plain(mask, t["src"]))
+    assert recount.LAST_PLAN["packed" if packed else "unpacked"] == other
+
+
+@pytest.mark.parametrize("n", [200_000, 1_000_000])
+def test_recount_unpacked_bytes_other_than_0_and_1_read_as_they_are(cuda_device, n):
+    from sbr_tpu_torch.social import recount
+
+    g = np.random.default_rng(3)
+    mask = torch.from_numpy(g.choice(np.array([0, 1, 2, 255], np.uint8), n)).to(cuda_device)
+    ids = torch.from_numpy(g.integers(0, mask.numel(), 300_001).astype(np.int32)).to(cuda_device)
+    got = recount.bool_gather(mask, ids)
+    assert recount.LAST_BRANCH["unpacked"] == "shared"
+    assert recount.LAST_PLAN["unpacked"].cluster == (1 if n < 262_144 else 4)
+    assert torch.equal(got, recount.bool_gather_plain(mask, ids))
+    mask[mask > 1] = 1  # back to 0/1: the bit table again
+    assert torch.equal(recount.bool_gather(mask, ids), recount.bool_gather_plain(mask, ids))
+
+
+# (packed, mask bytes, branch): a mask view one byte in, of a length that
+# is no multiple of 16, for every branch (and each unpacked staging cluster)
+RAGGED_MASKS = [
+    (True, 1001, "shared"), (True, 250_001, "split"), (True, 600_001, "global"),
+    (False, 1001, "shared"), (False, 300_001, "shared"), (False, 600_001, "shared"),
+    (False, 2_000_009, "split"), (False, 4_200_001, "global"),
+]
+
+
+@pytest.mark.parametrize("n_edges", [1, 3, 131_071, 300_001])
+@pytest.mark.parametrize("packed,mask_bytes,branch", RAGGED_MASKS)
+def test_recount_kernel_on_ragged_views(cuda_device, packed, mask_bytes, branch, n_edges):
+    from sbr_tpu_torch.social import recount
+
+    # views one element in: ids 4 bytes off 16-byte alignment, the mask 1
+    # byte off
+    g = np.random.default_rng(n_edges)
+    mask_full = torch.from_numpy(
+        g.integers(0, 256 if packed else 2, mask_bytes + 1).astype(np.uint8)).to(cuda_device)
+    mask = mask_full[1:]
+    n_ids = mask.numel() * (8 if packed else 1)
+    src_full = torch.from_numpy(g.integers(0, n_ids, n_edges + 1).astype(np.int32))
+    layout = "packed" if packed else "unpacked"
+    entry = recount.bit_gather if packed else recount.bool_gather
+    plain = recount.bit_gather_plain if packed else recount.bool_gather_plain
+    for ids in (src_full[1:].to(cuda_device), src_full.to(cuda_device)[1:],
+                src_full.to(cuda_device)[1:].view(1, -1)):
+        before = _build.LAUNCHES[recount.KERNEL]
+        got = entry(mask, ids)
+        want = plain(mask, ids)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[recount.KERNEL] == before + 1
+        assert recount.LAST_PLAN[layout] == recount.plan_for(mask, ids, packed=packed)
+        assert recount.LAST_BRANCH[layout] == branch
+        assert got.shape == ids.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("packed,mask_bytes,branch", [
+    (True, 1000, "shared"), (True, 250_001, "split"), (True, 600_000, "global"),
+    (False, 1000, "shared"), (False, 2_000_008, "split"), (False, 4_200_000, "global"),
+])
+def test_recount_kernel_reads_zero_outside_the_mask(cuda_device, packed, mask_bytes, branch):
+    from sbr_tpu_torch.social import recount
+
+    mask = torch.full((mask_bytes,), 255 if packed else 1, dtype=torch.uint8, device=cuda_device)
+    n_ids = mask.numel() * (8 if packed else 1)
+    ids = torch.tensor([0, n_ids - 1, n_ids, -1, -(2 ** 31), 2 ** 31 - 1, 5] * 100,
+                       dtype=torch.int32, device=cuda_device)
+    got = (recount.bit_gather if packed else recount.bool_gather)(mask, ids)
+    assert recount.LAST_BRANCH["packed" if packed else "unpacked"] == branch
+    assert got.cpu().tolist() == [1, 1, 0, 0, 0, 0, 1] * 100
 
 
 def test_recount_kernel_refuses_what_it_does_not_take(cuda_device):
