@@ -34,8 +34,18 @@ port's ablation script end to end; the heterogeneous-learning model of
 Section 2, the interest-rate model of
 Section 3 and the (β, u, r) policy sweep at the stretch shape on the card
 in both numerics modes (held to the scipy oracle of tests/oracle.py), and
-each of them on the card against the CPU. It prints one JSON line per
-phase, and beside the serving numbers the card's name and power limit.
+each of them on the card against the CPU. Then slice 8, at bench.py's
+shapes: composed scenarios, which run no kernel (the 256×256 grid through
+`scenario_grid` with the reducible spec, bit for bit against
+`beta_u_grid`, with the policy and the interest modifiers; the 64-bank
+contagion ring; one `solve` of each composition family), population
+what-ifs, whose members end every step in the infection or belief kernel
+(bayes and gossip on 20,000 agents with 16 members, `vary="graph"`, gossip
+on 10^6 agents; each query's launches must be members × steps), a
+scenario and a population query through the engine and the HTTP
+endpoint, and a scenario subgrid, the ring and a population query on the
+card against the CPU. It prints one JSON line per phase, and beside the
+serving, scenario and population numbers the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -934,8 +944,8 @@ class _CallTimes:
 def phase_social() -> dict:
     """The Figure-12 fixed point on the card in float64 and float32, both
     numerics: ξ, iterations, the cold and one fenced call, ms per outer
-    iteration, and the launches and busy share of one profiled call; ξ and
-    AW held to the oracle. Then the no-run march (u 50). Returns the
+    iteration, and the launches and busy share of its first PROFILE_ITERS
+    iterations, profiled; ξ and AW held to the oracle. Then the no-run march (u 50). Returns the
     float64 fixed-numerics fixed point for the closures."""
     import sbr_tpu_torch as st
     from sbr_tpu_torch import _build
@@ -965,19 +975,14 @@ def phase_social() -> dict:
             fenced_s = time.perf_counter() - t0
             it = int(fp.iterations)
             # The profiler's own analysis costs ~70 µs an event (~40 s for
-            # the 5×10^5 events of one fixed call), so float64 profiles the
-            # whole call and float32 its first PROFILE_ITERS iterations.
-            if dtype == torch.float64:
-                prof = _profiled(run)
-                launches = {"launches_per_call": prof["device_kernels"],
-                            "launches_per_iteration": prof["device_kernels"] / it}
-            else:
-                prof = _profiled(lambda: st.solve_equilibrium_social(
-                    m, cfg, tol=1e-4, max_iter=PROFILE_ITERS, dtype=dtype))
-                per_it = prof["device_kernels"] / PROFILE_ITERS
-                launches = {"launches_per_iteration": per_it,
-                            "launches_per_call_scaled": per_it * it,
-                            "profiled_iterations": PROFILE_ITERS}
+            # the 5×10^5 events of one whole call), so each dtype profiles
+            # its first PROFILE_ITERS iterations.
+            prof = _profiled(lambda: st.solve_equilibrium_social(
+                m, cfg, tol=1e-4, max_iter=PROFILE_ITERS, dtype=dtype))
+            per_it = prof["device_kernels"] / PROFILE_ITERS
+            launches = {"launches_per_iteration": per_it,
+                        "launches_per_call_scaled": per_it * it,
+                        "profiled_iterations": PROFILE_ITERS}
             xi_err = abs(float(fp.xi) - ora.xi)
             aw = np.interp(ora.grid, fp.grid.double().cpu().numpy(), fp.aw.double().cpu().numpy())
             aw_sup = float(np.max(np.abs(aw - ora.aw)))
@@ -1812,9 +1817,484 @@ def phase_extensions_cpu_vs_card() -> None:
                 raise AssertionError(f"extensions_cpu {name} {numerics} {dtype}: card and CPU differ")
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: composed scenarios and population what-ifs
+# ---------------------------------------------------------------------------
+
+# bench.py's scenario workload at its accelerator shape (bench.py:1432-1446):
+# a 256×256 β×u grid at n_grid 1024 and 60 root-find iterations, float32,
+# and a 64-bank directed ring of exposures
+SCEN_N = 256
+SCEN_CFG = dict(n_grid=1024, bisect_iters=60, refine_crossings=False)
+SCEN_REPS = 3
+SCEN_BANKS = 64
+# the composed social × hetero × interest × policy case's budget at the
+# default n_grid, past which it runs at n_grid 1024
+SCEN_SOCIAL_BUDGET_S = 60.0
+# bench.py's population workload at its serving shape (bench.py:1564-1582)
+POP_N, POP_DEG, POP_SEEDS, POP_QUERIES = 20_000, 10.0, 16, 3
+POP_GRID = 256
+POP_GRAPH_SEEDS = 4
+POP_BIG_N, POP_BIG_SEEDS = 1_000_000, 4
+
+
+def _fenced(fn):
+    """(seconds, result) of one call of ``fn`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _scenario_grid_rows(card: str) -> None:
+    """bench_scenario's grid through `scenario_grid`: the reducible spec
+    bit for bit against `beta_u_grid` with the composed/plain time ratio
+    (calls in turns, the least of SCEN_REPS each), then the policy
+    modifiers, then the interest modifier on interest params."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.utils.status import status_counts
+
+    cfg = st.SolverConfig(**SCEN_CFG)
+    betas = np.linspace(0.25, 3.0, SCEN_N)
+
+    def us(rep):
+        return np.linspace(0.01, 0.99, SCEN_N) + rep * 1e-6
+
+    cases = (
+        ("reducible", st.ScenarioSpec(), st.make_model_params()),
+        ("policy", st.ScenarioSpec(modifiers=("insurance_cap", "suspension", "lolr")),
+         st.make_model_params(insurance_cap=0.2, suspension_t=8.0, lolr_rate=0.1)),
+        ("interest", st.ScenarioSpec(modifiers=("interest",)),
+         st.make_interest_params(r=0.02, delta=0.1)),
+    )
+    for name, spec, base in cases:
+        def composed(rep, spec=spec, base=base):
+            return st.scenario_grid(spec, betas, us(rep), base, config=cfg, dtype=torch.float32)
+
+        def plain(rep, base=base):
+            return st.beta_u_grid(betas, us(rep), base, config=cfg, dtype=torch.float32)
+
+        cold_s, res = _fenced(lambda: composed(0))
+        times = {"composed": [], "plain": []}
+        for rep in range(1, SCEN_REPS + 1):
+            times["composed"].append(_fenced(lambda: composed(rep))[0])
+            if name == "reducible":
+                times["plain"].append(_fenced(lambda: plain(rep))[0])
+        steady_s = min(times["composed"])
+        row = dict(case=name, spec=spec.to_doc(), cells=SCEN_N * SCEN_N, dtype="float32",
+                   numerics=cfg.numerics, n_grid=cfg.n_grid, bisect_iters=cfg.bisect_iters,
+                   cold_s=cold_s, steady_ms=steady_s * 1e3, cells_per_s=SCEN_N ** 2 / steady_s,
+                   status_counts=status_counts(res.status),
+                   finite_xi=int(torch.isfinite(res.xi).sum()), card=card)
+        run = res.status == 0
+        if not (bool(torch.isfinite(res.xi[run]).all())
+                and not bool(torch.isfinite(res.xi[~run]).any())):
+            raise AssertionError(f"scenario grid {name}: ξ finite exactly on RUN cells fails")
+        if name == "reducible":
+            want = plain(0)
+            same = {f: _bits_equal(getattr(res, f).cpu().numpy(), getattr(want, f).cpu().numpy())
+                    for f in ("xi", "max_aw", "status")}
+            same.update({f"health_{f}": _bits_equal(getattr(res.health, f).cpu().numpy(),
+                                                    getattr(want.health, f).cpu().numpy())
+                         for f in ("residual", "bracket_width", "iterations", "flags")})
+            plain_s = min(times["plain"])
+            row.update(bitwise_vs_beta_u_grid=same, plain_ms=plain_s * 1e3,
+                       composed_over_plain=steady_s / plain_s)
+            if not all(same.values()):
+                raise AssertionError(f"the reducible scenario grid is not beta_u_grid: {same}")
+        emit("scenario", **row)
+
+
+def _scenario_multibank_rows(card: str) -> None:
+    """bench_scenario's contagion solve: the 64-bank ring (weight 0.6),
+    every bank fragile enough that spillovers move κ, in float32 (the
+    bench's) and float64: one warm-up, then one fenced solve."""
+    import sbr_tpu_torch as st
+
+    cfg = st.SolverConfig(**SCEN_CFG)
+    ring = tuple((i, (i + 1) % SCEN_BANKS, 0.6) for i in range(SCEN_BANKS))
+    spec = st.ScenarioSpec(banks=SCEN_BANKS, exposure=ring, contagion_max_iter=12,
+                           contagion_tol=1e-5)
+    plist = [st.make_model_params(beta=1.0 + 0.5 * (i / (SCEN_BANKS - 1)), u=0.05)
+             for i in range(SCEN_BANKS)]
+    for dtype in (torch.float32, torch.float64):
+        cold_s, _ = _fenced(lambda: st.solve_multibank(spec, plist, config=cfg, dtype=dtype))
+        s, mb = _fenced(lambda: st.solve_multibank(spec, plist, config=cfg, dtype=dtype))
+        emit("scenario", case="multibank_ring", banks=SCEN_BANKS, dtype=_dtype_name(dtype),
+             numerics=cfg.numerics, n_grid=cfg.n_grid, iterations=mb.iterations,
+             converged=mb.converged, runs=int((mb.status == 0).sum()),
+             kappa_eff_min=float(mb.kappa_eff.min()), spillover_max=float(mb.spillover.max()),
+             cold_s=cold_s, fenced_s=s, bank_cells_per_s=mb.iterations * SCEN_BANKS / s,
+             ms_per_round=s * 1e3 / mb.iterations, card=card)
+
+
+def _hetero_interest_params(st, **econ_kw):
+    """K = 2 groups (β 0.8, 1.6, equal weights) with interest-typed
+    economics: the composition cases of tests/test_scenario.py."""
+    from sbr_tpu_torch.models.params import EconomicParamsInterest, ModelParamsHetero
+
+    hp = st.make_hetero_params(betas=(0.8, 1.6), dist=(0.5, 0.5), u=0.05)
+    e = hp.economic
+    econ = EconomicParamsInterest(u=e.u, p=e.p, kappa=e.kappa, lam=e.lam, eta_bar=e.eta_bar,
+                                  eta=e.eta, **econ_kw)
+    return ModelParamsHetero(learning=hp.learning, economic=econ)
+
+
+def _scenario_family_rows(card: str) -> None:
+    """`scenario.solve` once for each composition family at SolverConfig()
+    defaults (n_grid 4096, 90 iterations, refinement on, float64): each
+    reduction, the policy modifiers, interest, hetero and social
+    compositions, social × hetero × interest × policy, and a multi-bank
+    spec. One cold and one fenced call (the fenced one skipped past 20 s)."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import scenario
+
+    fig12 = st.make_model_params(**FIG12)
+    interest = st.make_interest_params(beta=1.0, u=0.05, r=0.02, delta=0.1, insurance_cap=0.1,
+                                       lolr_rate=0.05)
+    families = (
+        ("baseline", dict(), st.make_model_params(beta=1.2, u=0.08)),
+        ("interest", dict(modifiers=("interest",)), interest),
+        ("hetero", dict(learning="hetero"), _hetero_interest_params(st)),
+        ("social", dict(learning="social", social_max_iter=500), fig12),
+        ("policy", dict(modifiers=("insurance_cap", "suspension", "lolr")),
+         st.make_model_params(u=0.08, insurance_cap=0.1, suspension_t=8.0, lolr_rate=0.05)),
+        ("interest_policy", dict(modifiers=("interest", "insurance_cap", "lolr")), interest),
+        ("hetero_policy", dict(learning="hetero", modifiers=("insurance_cap", "lolr")),
+         _hetero_interest_params(st, insurance_cap=0.1, lolr_rate=0.05)),
+        ("hetero_interest", dict(learning="hetero", modifiers=("interest",)),
+         _hetero_interest_params(st, r=0.02, delta=0.1)),
+        ("social_policy", dict(learning="social", modifiers=("insurance_cap", "lolr"),
+                               social_max_iter=500),
+         st.with_overrides(fig12, insurance_cap=0.05, lolr_rate=0.05)),
+        ("social_hetero", dict(learning="social", social_max_iter=150),
+         _hetero_interest_params(st)),
+        ("social_hetero_interest_policy",
+         dict(learning="social", modifiers=("interest", "insurance_cap", "lolr"),
+              social_max_iter=150),
+         _hetero_interest_params(st, r=0.01, delta=0.1, insurance_cap=0.1, lolr_rate=0.05)),
+        ("multibank", dict(banks=3, exposure=((0, 1, 1.0), (0, 2, 1.0), (1, 2, 0.5)), lgd=0.9),
+         [st.make_model_params(beta=1.0, u=0.05),
+          st.make_model_params(beta=1.0, u=0.05, kappa=0.93),
+          st.make_model_params(beta=1.0, u=0.05, kappa=0.93)]),
+    )
+    hetero_interest_s = None
+    for name, spec_kw, params in families:
+        spec = st.ScenarioSpec(**spec_kw)
+        cfg = st.SolverConfig() if spec.banks == 1 else None
+        note = None
+        if name == "social_hetero_interest_policy":
+            # each outer iteration solves the hetero × interest pipeline: at
+            # ~45 iterations (the CPU test's 44) its estimated time decides
+            # the grid
+            estimate_s = 45 * hetero_interest_s
+            if estimate_s > SCEN_SOCIAL_BUDGET_S:
+                cfg = st.SolverConfig(n_grid=1024)
+                note = (f"n_grid 1024: at the default 4096 the estimate is {estimate_s:.0f} s "
+                        f"(45 iterations × {hetero_interest_s:.2f} s), past "
+                        f"{SCEN_SOCIAL_BUDGET_S:.0f} s")
+        cold_s, res = _fenced(lambda: scenario.solve(spec, params, config=cfg))
+        fenced_s = _fenced(lambda: scenario.solve(spec, params, config=cfg))[0] \
+            if cold_s < 20.0 else None
+        if name == "hetero_interest":
+            hetero_interest_s = fenced_s or cold_s
+        status, xi = res.status.cpu(), res.xi.cpu()
+        run = status == 0
+        row = dict(case="family", family=name, spec=spec.to_doc(),
+                   n_grid=(cfg or st.SolverConfig(refine_crossings=False)).n_grid,
+                   numerics=(cfg or st.SolverConfig()).numerics, dtype="float64",
+                   status=status.tolist(), xi=[None if not np.isfinite(v) else v
+                                               for v in xi.double().reshape(-1).tolist()],
+                   flags=res.health.flags.cpu().reshape(-1).tolist(), cold_s=cold_s,
+                   fenced_s=fenced_s, fingerprint=res.fingerprint[:16], note=note, card=card)
+        if isinstance(res, scenario.ScenarioResult) and spec.learning == "social":
+            d = res.detail
+            its = d["iterations"] if isinstance(d, dict) else d.iterations
+            conv = d["converged"] if isinstance(d, dict) else d.converged
+            row.update(iterations=int(its), converged=bool(conv))
+        if spec.banks > 1:
+            row.update(iterations=res.iterations, converged=res.converged)
+        emit("scenario", **row)
+        if not (bool(torch.isfinite(xi[run]).all()) and not bool(torch.isfinite(xi[~run]).any())):
+            raise AssertionError(f"scenario {name}: ξ finite exactly on RUN fails")
+
+
+def phase_scenario(card: str) -> None:
+    """Composed scenarios on the card (they run no kernel of the port: the
+    counts, set to 0 before and read after, say so): bench_scenario's grid
+    and contagion shapes, then one solve of each composition family."""
+    from sbr_tpu_torch import _build
+
+    _build.reset_launches()
+    _scenario_grid_rows(card)
+    _scenario_multibank_rows(card)
+    _scenario_family_rows(card)
+    launches = dict(_build.LAUNCHES)
+    emit("scenario_kernel_launches", launches=launches)
+    if any(launches.values()):
+        raise AssertionError(f"the scenario path launched a kernel: {launches}")
+
+
+def _busy_profile(run) -> dict:
+    """Busy share and kernels of one profiled call (`_profiled`)."""
+    prof = _profiled(run)
+    return {"busy_share": prof["device_busy_share"], "kernels": prof["device_kernels"],
+            "wall_s": prof["wall_s"]}
+
+
+def _population_row(card: str, name: str, spec, n: int, seeds: int, vary: str, queries: int,
+                    warm: bool, fixed_points: dict) -> int:
+    """One population what-if shape through `population_query` (from
+    scratch, ``g0=None``, as bench.py's): a warm-up query (when ``warm``),
+    then ``queries`` queries on distinct seeds,
+    each with its kernel counts set to 0 before and read after (they must
+    equal members × steps, the other kernel 0), giving queries/s and the
+    time in the mean-field fixed point. The device busy share is the
+    time-weighted one of the fixed point's first PROFILE_ITERS iterations
+    and of one member run from the solved fixed point, each profiled; the
+    fixed point and its profile are kept by channel in ``fixed_points``
+    (the model and grid are the same on every line). Returns the kernel's
+    launches in the timed queries."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.infomodels import meanfield, population_query
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    m = st.make_model_params(**FIG12)
+    cfg = st.SolverConfig(n_grid=POP_GRID)
+    graph = st.ErdosRenyiSpec(n, POP_DEG)
+    kernel, other = (BELIEF_KERNEL, KERNEL) if spec.channel == "bayes" else (KERNEL, BELIEF_KERNEL)
+    steps = max(int(round(float(m.economic.eta) / 0.1)), 2)
+    kw = dict(seeds=seeds, vary=vary, config=cfg, g0=None)
+    cold_s = None
+    if warm:
+        cold_s = _fenced(lambda: population_query(spec, graph, m, seed=0, **kw))[0]
+    launches, records = [], []
+    with _CallTimes((meanfield, "solve_fixed_point_info")) as spent:
+        t0 = time.perf_counter()
+        for q in range(queries):
+            _build.reset_launches()
+            records.append(population_query(spec, graph, m, seed=10_000 + q, **kw))
+            torch.cuda.synchronize()
+            launches.append((_build.LAUNCHES[kernel], _build.LAUNCHES[other]))
+        total_s = time.perf_counter() - t0
+    fp_s = sum(spent["solve_fixed_point_info"])
+    if spec.channel not in fixed_points:
+        fixed_points[spec.channel] = (
+            meanfield.solve_fixed_point_info(spec, m, config=cfg, max_iter=500),
+            _busy_profile(lambda: meanfield.solve_fixed_point_info(
+                spec, m, config=cfg, max_iter=PROFILE_ITERS)),
+        )
+    fp, fp_prof = fixed_points[spec.channel]
+    member_prof = _busy_profile(lambda: population_query(
+        spec, graph, m, seed=10_000, fp=fp, **{**kw, "seeds": 1, "vary": "sim"}))
+    members_s = total_s - fp_s
+    busy = (fp_prof["busy_share"] * fp_s + member_prof["busy_share"] * members_s) / total_s
+    expected = seeds * steps
+    rec = records[-1]
+    emit("population", path=name, channel=spec.channel, vary=vary, n_agents=n,
+         avg_degree=POP_DEG, members=seeds, steps=steps, n_grid=POP_GRID, queries=queries,
+         cold_s=cold_s, total_s=total_s, queries_per_s=queries / total_s,
+         fixed_point_s=fp_s, members_s=members_s,
+         agent_steps_per_s=n * steps * seeds * queries / members_s,
+         kernel=kernel, kernel_launches=[a for a, _ in launches], expected_launches=expected,
+         other_kernel_launches=[b for _, b in launches],
+         busy_share=busy, busy_share_fixed_point=fp_prof["busy_share"],
+         busy_share_members=member_prof["busy_share"],
+         fixed_point_kernels_per_iteration=fp_prof["kernels"] / PROFILE_ITERS,
+         member_kernels_per_step=member_prof["kernels"] / steps,
+         run_probability=rec["run_probability"], crossing_quantiles=rec["crossing_quantiles"],
+         xi_meanfield=rec["xi_meanfield"], err_aw_sup=rec["err_aw_sup"], card=card)
+    if any(a != expected or b for a, b in launches):
+        raise AssertionError(f"population {name}: launches {launches}, want ({expected}, 0) "
+                             f"a query (members × steps)")
+    for r in records:
+        t = [v for v in r["crossing_times"] if v is not None]
+        if len(r["crossing_times"]) != seeds or not all(0.0 <= v <= float(m.economic.eta)
+                                                        for v in t):
+            raise AssertionError(f"population {name}: bad record {r}")
+    return sum(a for a, _ in launches)
+
+
+def _served_scenario_population(card: str) -> dict:
+    """One scenario query and one population query through `Engine` and
+    through the HTTP endpoint on the card: asked a second time, each comes
+    back from the LRU. The population query's kernel launches, set to 0
+    before it and read after, must be members × steps."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint
+    from sbr_tpu_torch.serve.loadgen import http_request
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL
+
+    fig12_doc = {"beta": 0.9, "eta_bar": 30.0, "u": 0.5, "p": 0.99, "kappa": 0.25, "lam": 0.25}
+    pop = {"graph": {"model": "erdos_renyi", "n": POP_N, "avg_degree": POP_DEG},
+           "infomodel": {"channel": "bayes"}, "seeds": POP_SEEDS, "vary": "sim", "g0": None}
+    scen = {"modifiers": ["insurance_cap", "lolr"]}
+    m = st.make_model_params(**FIG12)
+    engine = Engine(config=st.SolverConfig(n_grid=POP_GRID), serve=ServeConfig(buckets=(1,)),
+                    device="cuda").start()
+    endpoint = ServeEndpoint(engine).start()
+    rows = {}
+    try:
+        def post(doc):
+            t0 = time.perf_counter()
+            code, body, _ = http_request(endpoint.port, "/query", doc)
+            if code != 200:
+                raise AssertionError(f"/query answered {code}: {body}")
+            return json.loads(body), (time.perf_counter() - t0) * 1e3
+
+        spec = st.ScenarioSpec(modifiers=("insurance_cap", "lolr"))
+        p = st.with_overrides(m, insurance_cap=0.05, lolr_rate=0.05)
+        first = engine.query_scenario(p, spec)
+        http, http_ms = post({**fig12_doc, "insurance_cap": 0.05, "lolr_rate": 0.05,
+                              "scenario": scen})
+        other, other_ms = post({**fig12_doc, "insurance_cap": 0.1, "lolr_rate": 0.05,
+                                "scenario": scen})
+        again = engine.query_scenario(st.with_overrides(m, insurance_cap=0.1, lolr_rate=0.05),
+                                      spec)
+        rows["scenario"] = dict(sources=[first["source"], http["source"], other["source"],
+                                         again["source"]],
+                                latency_ms=[first["latency_ms"], http_ms, other_ms,
+                                            again["latency_ms"]],
+                                status=[first["status"], other["status"]],
+                                same_answer=http["xi"] == first["xi"])
+        _build.reset_launches()
+        p_first = engine.query_population(m, pop)
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES[BELIEF_KERNEL]
+        p_http, p_http_ms = post({**fig12_doc, "population": pop})
+        rows["population"] = dict(sources=[p_first["source"], p_http["source"]],
+                                  latency_ms=[p_first["latency_ms"], p_http_ms],
+                                  belief_launches=launches,
+                                  same_answer=p_http["crossing_times"] == p_first["crossing_times"],
+                                  run_probability=p_first["run_probability"])
+    finally:
+        endpoint.close()
+        engine.close()
+    steps = max(int(round(float(m.economic.eta) / 0.1)), 2)
+    emit("population_served", **rows, expected_launches=POP_SEEDS * steps, card=card)
+    if not (rows["scenario"]["sources"] == ["computed", "lru", "computed", "lru"]
+            and rows["population"]["sources"] == ["computed", "lru"]
+            and rows["scenario"]["same_answer"] and rows["population"]["same_answer"]
+            and launches == POP_SEEDS * steps):
+        raise AssertionError(f"served scenario/population: {rows}")
+    return {"belief": launches}
+
+
+def phase_population(card: str) -> dict:
+    """Population what-ifs on the card at bench_infomodels' serving shape
+    (bayes, 20,000 agents, 16 members, n_grid 256: a warm-up and 3 queries
+    on distinct seeds), the same in the gossip channel, ``vary="graph"``
+    with 4 members, one gossip query at 10^6 agents and 4 members, and the
+    served routes. Every query launches its channel's kernel members ×
+    steps times. Returns the launches by kernel."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    bayes, gossip = st.InfoModelSpec(channel="bayes"), st.InfoModelSpec()
+    totals = {KERNEL: 0, BELIEF_KERNEL: 0}
+    fps = {}
+    totals[BELIEF_KERNEL] += _population_row(card, "bench_bayes", bayes, POP_N, POP_SEEDS, "sim",
+                                             POP_QUERIES, True, fps)
+    totals[KERNEL] += _population_row(card, "bench_gossip", gossip, POP_N, POP_SEEDS, "sim",
+                                      POP_QUERIES, True, fps)
+    totals[BELIEF_KERNEL] += _population_row(card, "vary_graph", bayes, POP_N, POP_GRAPH_SEEDS,
+                                             "graph", 1, False, fps)
+    totals[KERNEL] += _population_row(card, "gossip_1e6", gossip, POP_BIG_N, POP_BIG_SEEDS,
+                                      "sim", 1, False, fps)
+    totals[BELIEF_KERNEL] += _served_scenario_population(card)["belief"]
+    return totals
+
+
+def phase_scenario_cpu_vs_card() -> None:
+    """The card against the CPU, float64: a 24×24 scenario subgrid at
+    n_grid 1024 (the policy modifiers in both numerics, the interest
+    modifier under fixed numerics), the 64-bank ring, and a bayes
+    population query from one fixed point with the CPU's per-agent fields
+    on both devices. Statuses, flags, iterations and crossing times
+    exactly; floats within 1e-12."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.infomodels import engine, population_query
+
+    betas, us = np.linspace(0.25, 3.0, 24), np.linspace(0.01, 0.99, 24)
+    for name, spec, base, numerics in (
+        ("policy", st.ScenarioSpec(modifiers=("insurance_cap", "suspension", "lolr")),
+         st.make_model_params(insurance_cap=0.2, suspension_t=8.0, lolr_rate=0.1), "fixed"),
+        ("policy", st.ScenarioSpec(modifiers=("insurance_cap", "suspension", "lolr")),
+         st.make_model_params(insurance_cap=0.2, suspension_t=8.0, lolr_rate=0.1), "adaptive"),
+        ("interest", st.ScenarioSpec(modifiers=("interest",)),
+         st.make_interest_params(r=0.02, delta=0.1), "fixed"),
+    ):
+        cfg = st.SolverConfig(numerics=numerics, **SCEN_CFG)
+        out = {dev: st.scenario_grid(spec, betas, us, base, config=cfg, device=dev)
+               for dev in ("cpu", "cuda")}
+        a, b = out["cpu"], out["cuda"]
+        ints = {f: bool(torch.equal(x, y.cpu())) for f, x, y in (
+            ("status", a.status, b.status), ("flags", a.health.flags, b.health.flags))}
+        if numerics == "fixed":
+            ints["iterations"] = bool(torch.equal(a.health.iterations, b.health.iterations.cpu()))
+        gap = max(_nan_gap(x, y.cpu()) for x, y in ((a.xi, b.xi), (a.max_aw, b.max_aw)))
+        emit("scenario_cpu_vs_card", case="grid", spec=spec.to_doc(), numerics=numerics,
+             cells=24 * 24, n_grid=cfg.n_grid, equal=ints, max_abs=gap, tol=1e-12,
+             runs=int((b.status == 0).sum()))
+        if not all(ints.values()) or gap > 1e-12:
+            raise AssertionError(f"scenario grid {name} {numerics}: card and CPU differ")
+    cfg = st.SolverConfig(**SCEN_CFG)
+    ring = tuple((i, (i + 1) % SCEN_BANKS, 0.6) for i in range(SCEN_BANKS))
+    spec = st.ScenarioSpec(banks=SCEN_BANKS, exposure=ring, contagion_max_iter=12,
+                           contagion_tol=1e-5)
+    plist = [st.make_model_params(beta=1.0 + 0.5 * (i / (SCEN_BANKS - 1)), u=0.05)
+             for i in range(SCEN_BANKS)]
+    out = {dev: st.solve_multibank(spec, plist, config=cfg, device=dev) for dev in ("cpu", "cuda")}
+    a, b = out["cpu"], out["cuda"]
+    same = (a.iterations, a.converged) == (b.iterations, b.converged) and bool(
+        torch.equal(a.status, b.status.cpu())) and bool(torch.equal(a.health.flags,
+                                                                    b.health.flags.cpu()))
+    gap = max(_nan_gap(getattr(a, f), getattr(b, f).cpu())
+              for f in ("xi", "aw_max", "kappa_eff", "spillover"))
+    emit("scenario_cpu_vs_card", case="multibank_ring", banks=SCEN_BANKS,
+         iterations=[a.iterations, b.iterations], converged=[a.converged, b.converged],
+         discrete_equal=same, max_abs=gap, tol=1e-12)
+    if not same or gap > 1e-12:
+        raise AssertionError("multibank: card and CPU differ")
+
+    m = st.make_model_params(**FIG12)
+    spec = st.InfoModelSpec(channel="bayes")
+    fp = st.solve_fixed_point_info(spec, m, config=st.SolverConfig(n_grid=POP_GRID),
+                                   max_iter=500, device="cpu")
+    draw = engine._agent_fields
+
+    def cpu_fields(spec_, n, seed, beta, dtype, device):
+        return tuple(f.to(device) for f in draw(spec_, n, seed, beta, dtype, "cpu"))
+
+    engine._agent_fields = cpu_fields
+    try:
+        kw = dict(seeds=4, vary="sim", seed=7, g0=None, fp=fp)
+        graph = st.ErdosRenyiSpec(POP_N, POP_DEG)
+        recs = {dev: population_query(spec, graph, m, device=dev, **kw) for dev in ("cpu", "cuda")}
+    finally:
+        engine._agent_fields = draw
+    emit("scenario_cpu_vs_card", case="population", channel="bayes", n_agents=POP_N, members=4,
+         equal=recs["cpu"] == recs["cuda"], crossing_times=recs["cuda"]["crossing_times"])
+    if recs["cpu"] != recs["cuda"]:
+        raise AssertionError(f"population: card and CPU records differ: {recs}")
+
+
+def _nan_gap(a, b) -> float:
+    """Max |a − b| over the finite entries; raises if the NaNs differ."""
+    a, b = a.double(), b.double()
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        raise AssertionError("NaN positions differ")
+    ok = ~torch.isnan(a)
+    return float((a[ok] - b[ok]).abs().max()) if bool(ok.any()) else 0.0
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
-          "serve_cpu", "recount", "extensions", "extensions_cpu")
+          "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
+          "scenario_cpu")
 
 
 def _recount_kernel_entry(recount: dict) -> dict:
@@ -1888,6 +2368,11 @@ def main(argv) -> int:
         phase_extensions()
     if "extensions_cpu" in wanted:
         phase_extensions_cpu_vs_card()
+    if "scenario" in wanted:
+        phase_scenario(info["nvidia_smi"])
+    pop_launches = phase_population(info["nvidia_smi"]) if "population" in wanted else {}
+    if "scenario_cpu" in wanted:
+        phase_scenario_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -1904,8 +2389,9 @@ def main(argv) -> int:
         "source": "sbr_tpu_torch/csrc/infection_update.cu",
         "replaces": "sbr_tpu/social/fused.py:114",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
-        "launches": launches + loop_launches[KERNEL],
-        "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL]},
+        "launches": launches + loop_launches[KERNEL] + pop_launches[KERNEL],
+        "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
+                             "population": pop_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -1920,8 +2406,9 @@ def main(argv) -> int:
         "source": "sbr_tpu_torch/csrc/belief_update.cu",
         "replaces": "sbr_tpu/social/fused.py:231",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_belief",
-        "launches": belief_launches + loop_launches[BELIEF_KERNEL],
-        "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL]},
+        "launches": belief_launches + loop_launches[BELIEF_KERNEL] + pop_launches[BELIEF_KERNEL],
+        "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
+                             "population": pop_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],

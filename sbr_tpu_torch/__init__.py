@@ -38,7 +38,14 @@ Ported so far, each on one device:
   (``benchmarks.ablate_pallas_recount``); the ODE integrators
   (``core.ode``); the heterogeneous-learning extension (``hetero``); the
   positive-interest-rate extension (``interest``); and the (β, u, r)
-  policy sweep over it (``sweeps.policy_sweeps``).
+  policy sweep over it (``sweeps.policy_sweeps``);
+- slice 8, composed scenarios (``scenario``: `ScenarioSpec`, `solve`
+  through the stage hooks of the baseline and hetero solves,
+  `scenario_grid`, multi-bank contagion) and population what-ifs
+  (``infomodels.population``), with their serving routes. Scenarios run
+  no kernel; a population query runs S agent populations through
+  `close_loop`, so both agent kernels get a served path. It adds no
+  kernel.
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every
@@ -52,6 +59,7 @@ from sbr_tpu_torch.infomodels import (
     InfoModelSpec,
     InfoSimResult,
     default_spec,
+    population_query,
     simulate_info,
     solve_fixed_point_info,
 )
@@ -67,6 +75,7 @@ from sbr_tpu_torch.models import (
     make_model_params,
     with_overrides,
 )
+from sbr_tpu_torch.scenario import ScenarioSpec, scenario_grid, solve_multibank, spec_fingerprint
 from sbr_tpu_torch.social.agents import (
     AgentSimConfig,
     AgentSimResult,
@@ -110,6 +119,7 @@ __all__ = [
     "ModelParams",
     "PreparedAgentGraph",
     "ScaleFreeSpec",
+    "ScenarioSpec",
     "SocialFixedPointResult",
     "SolverConfig",
     "Status",
@@ -128,11 +138,13 @@ __all__ = [
     "make_interest_params",
     "make_model_params",
     "policy_sweep_interest",
+    "population_query",
     "prepare_agent_graph",
     "prepare_generated_graph",
     "prepared_from_numpy",
     "save_agent_state",
     "scale_free_edges",
+    "scenario_grid",
     "simulate_agents",
     "simulate_info",
     "solve_equilibrium_baseline",
@@ -143,7 +155,9 @@ __all__ = [
     "solve_forced_learning",
     "solve_learning",
     "solve_learning_hetero",
+    "solve_multibank",
     "solve_param_cell",
+    "spec_fingerprint",
     "u_sweep",
     "with_overrides",
 ]

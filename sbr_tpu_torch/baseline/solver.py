@@ -398,15 +398,30 @@ def solve_equilibrium_core(
     eta,
     tspan_end,
     config: SolverConfig | None = None,
+    hazard_transform=None,
+    kappa_transform=None,
     curves: bool = True,
 ) -> EquilibriumResult:
     """The equilibrium solve of every cell at once: u and κ have the cell
     shape C, p, λ, η and the learning solution the row shape R.
 
-    Faithful to the reference's ``solve_equilibrium_core`` without its
-    scenario hooks, including the no-crossing branch, expressed through
-    status codes. ``curves=False`` skips the (n,)-long AW curves per cell,
-    which the sweeps do not return (their fields are then ``None``)."""
+    Faithful to the reference's ``solve_equilibrium_core``, including the
+    no-crossing branch, expressed through status codes. ``curves=False``
+    skips the (n,)-long AW curves per cell, which the sweeps do not return
+    (their fields are then ``None``).
+
+    The scenario hooks, as in the reference:
+
+    - ``hazard_transform(tau_grid, hr, hazard_at)`` returns
+      ``(hr, hazard_at, extra_health)``. It rewrites the hazard between the
+      hazard stage and the buffer crossings; it sees the batched rows
+      (``hr`` of shape R + (n,)) and may return cell-shaped ones
+      (C + (n,)). ``extra_health`` is a tuple of `Health` merged after the
+      ξ stage's, in the reference's order.
+    - ``kappa_transform(kappa)`` rewrites the threshold before the ξ
+      root-find.
+
+    With both ``None`` the function is the hook-free solve, bit for bit."""
     if config is None:
         config = SolverConfig()
     dtype, device = ls.dtype, ls.device
@@ -419,6 +434,11 @@ def solve_equilibrium_core(
         if (ls.closed_form and config.refine_crossings)
         else None
     )
+    extra_health = ()
+    if hazard_transform is not None:
+        hr, hazard_at, extra_health = hazard_transform(tau_grid, hr, hazard_at)
+    if kappa_transform is not None:
+        kappa = kappa_transform(kappa)
     tau_in_unc, tau_out_unc, cross_health = optimal_buffer(
         u, tau_grid, hr, tspan_end, hazard_at=hazard_at, with_health=True,
         adaptive=config.adaptive,
@@ -428,7 +448,7 @@ def solve_equilibrium_core(
     xi_c, err, root_ok, increasing, xi_health = compute_xi(
         tau_in_unc, tau_out_unc, ls, kappa, config, with_health=True
     )
-    health = cross_health.merge(xi_health)
+    health = cross_health.merge(xi_health, *extra_health)
     run, status, converged, tolerance = classify_cell(no_crossing, root_ok, increasing, err, dtype)
     xi = torch.where(run, xi_c, nan)
 

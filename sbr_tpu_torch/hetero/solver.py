@@ -11,10 +11,9 @@
 - The first-crossing validation rejects a root before which the withdrawal
   path dips back below κ (a masked reduction over boolean transitions).
 
-The reference's ``axis_name`` (a sharded group axis), its
-``hazard_transform`` and ``kappa_transform`` hooks (which the scenario
-engine uses) and its telemetry calls are not ported yet: the first two
-raise unless ``None``.
+The scenario hooks ``hazard_transform`` and ``kappa_transform`` are the
+reference's. Its ``axis_name`` (a sharded group axis) and its telemetry
+calls are not ported yet: ``axis_name`` raises unless ``None``.
 """
 
 from __future__ import annotations
@@ -144,13 +143,16 @@ def solve_equilibrium_hetero(lsh: LearningSolutionHetero, econ: EconomicParams,
     """The full K-group equilibrium, branchless with status codes, on the
     learning solution's device. ``tspan_end`` defaults to the learning
     grid's end; the result carries the wall-clock ``solve_time``, taken
-    after the device has finished."""
+    after the device has finished.
+
+    The scenario hooks, as in the reference: ``hazard_transform(tau_grid,
+    hrs, None)`` returns ``(hrs, _, extra_health)`` and rewrites the (K, n)
+    hazard rows before the buffer crossings (the middle slot is unused:
+    the hetero family has no continuous-hazard refinement);
+    ``kappa_transform(kappa)`` gives the threshold of the ξ root-find.
+    ``extra_health`` merges after the crossing and ξ health. With both
+    ``None`` the solve is the hook-free one, bit for bit."""
     no_axis_name(axis_name)
-    if hazard_transform is not None or kappa_transform is not None:
-        raise NotImplementedError(
-            "the scenario hooks hazard_transform/kappa_transform are not ported yet "
-            "(ROADMAP.md 1.A item 5); pass None"
-        )
     if config is None:
         config = SolverConfig()
     t_start = time.perf_counter()
@@ -161,6 +163,10 @@ def solve_equilibrium_hetero(lsh: LearningSolutionHetero, econ: EconomicParams,
     nan = torch.full((), float("nan"), dtype=dtype, device=dev)
 
     tau_grid, hrs = hazard_rates_hetero(econ.p, econ.lam, lsh, econ.eta, config)
+    extra_health = ()
+    if hazard_transform is not None:
+        hrs, _, extra_health = hazard_transform(tau_grid, hrs, None)
+    kappa_eff = econ.kappa if kappa_transform is None else kappa_transform(econ.kappa)
     default = torch.as_tensor(tspan_end, dtype=dtype).to(dev)
     tau_in_uncs, h_in = first_upcrossing(tau_grid, hrs, u, default, with_health=True)
     tau_out_uncs, h_out = last_downcrossing(tau_grid, hrs, u, default, with_health=True)
@@ -168,12 +174,14 @@ def solve_equilibrium_hetero(lsh: LearningSolutionHetero, econ: EconomicParams,
     no_crossing = (tau_in_uncs != tau_out_uncs).sum() == 0
 
     xi_c, err, root_ok, increasing, first_ok, xi_health = compute_xi_hetero(
-        tau_in_uncs, tau_out_uncs, lsh, econ.kappa, config, with_health=True
+        tau_in_uncs, tau_out_uncs, lsh, kappa_eff, config, with_health=True
     )
     cross_flags = or_reduce_flags(h_in.flags | as_out_crossing(h_out).flags)
     if lsh.ode_flags is not None:
         cross_flags = cross_flags | lsh.ode_flags
     health = xi_health.replace(flags=xi_health.flags | cross_flags)
+    if extra_health:
+        health = health.merge(*extra_health)
 
     run, status, converged, tolerance = classify_cell(
         no_crossing, root_ok, increasing, err, dtype, first_ok=first_ok

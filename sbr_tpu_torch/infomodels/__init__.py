@@ -1,6 +1,7 @@
 """Information models, PyTorch port: the spec algebra (:mod:`spec`), the
 agent-level engine (:mod:`engine`) with its gossip and bayes channels on
-static graphs, and their mean-field fixed points (:mod:`meanfield`)."""
+static graphs, their mean-field fixed points (:mod:`meanfield`), and the
+population what-if queries over both (:mod:`population`)."""
 
 from sbr_tpu_torch.infomodels.engine import (
     InfoSimResult,
@@ -11,6 +12,12 @@ from sbr_tpu_torch.infomodels.meanfield import (
     info_learning_curve,
     observed_fraction,
     solve_fixed_point_info,
+)
+from sbr_tpu_torch.infomodels.population import (
+    crossing_times,
+    parse_population_doc,
+    population_fingerprint,
+    population_query,
 )
 from sbr_tpu_torch.infomodels.spec import (
     CHANNELS,
@@ -28,10 +35,14 @@ __all__ = [
     "InfoModelSpec",
     "InfoSimResult",
     "agent_fields_from_numpy",
+    "crossing_times",
     "default_spec",
     "info_learning_curve",
     "infomodel_fingerprint",
     "observed_fraction",
+    "parse_population_doc",
+    "population_fingerprint",
+    "population_query",
     "simulate_info",
     "solve_fixed_point_info",
 ]

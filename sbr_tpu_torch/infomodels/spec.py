@@ -25,10 +25,7 @@ import math
 import os
 from typing import Tuple
 
-import numpy as np
-import torch
-
-from sbr_tpu_torch.utils.checkpoint import params_fingerprint
+from sbr_tpu_torch.utils.checkpoint import dtype_name, params_fingerprint
 
 CHANNELS = ("gossip", "bayes")
 DYNAMICS = ("static", "rewire")
@@ -219,13 +216,6 @@ def default_spec() -> InfoModelSpec:
     return InfoModelSpec(**kw)
 
 
-def _dtype_name(dtype) -> str:
-    """numpy's name of a torch or numpy dtype ("float32", "float64")."""
-    if isinstance(dtype, torch.dtype):
-        return str(dtype).removeprefix("torch.")
-    return np.dtype(dtype).name
-
-
 def infomodel_fingerprint(
     spec: InfoModelSpec, params=None, config=None, dtype=None, extra=None
 ) -> str:
@@ -239,7 +229,7 @@ def infomodel_fingerprint(
     if config is not None:
         payload.append(config)
     if dtype is not None:
-        payload.append(_dtype_name(dtype))
+        payload.append(dtype_name(dtype))
     if extra is not None:
         payload.append(extra)
     return params_fingerprint(tuple(payload))

@@ -80,8 +80,10 @@ def solve_value_function(tau_grid, hr, delta, r, u, config: SolverConfig | None 
         return out
 
     substeps = max(config.ode_substeps, 4)
-    # the node times, interval axis first: (n−1, s, 3) + R
-    tg = tau_grid.movedim(-1, 0)
+    # the node times, interval axis first: (n−1, s, 3) + R, with R the rows
+    # of the grid and the hazard together (K hazard rows on one shared grid)
+    rows = torch.broadcast_shapes(tau_grid.shape[:-1], hr.shape[:-1])
+    tg = tau_grid.expand(*rows, tau_grid.shape[-1]).movedim(-1, 0)
     t0s = tg[:-1]
     h = (tg[1:] - t0s) / substeps
     j = torch.arange(substeps, dtype=dtype, device=dev).reshape((1, substeps) + (1,) * (tg.dim() - 1))

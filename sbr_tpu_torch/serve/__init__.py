@@ -5,6 +5,8 @@ long-lived query engine with live, queryable-while-alive metrics.
   queries padded to a bucket ladder, one CUDA graph captured per bucket
   of the sweeps' `solve_param_cell`, an LRU and an on-disk result cache
   keyed by `utils.checkpoint.params_fingerprint` and the backend tag;
+  composed-scenario and population queries (`Engine.query_scenario`,
+  `Engine.query_population`) in the same caches;
 - ``serve.live``: `LiveMetrics`, windowed and lifetime counters,
   log-bucket latency histograms and the CUDA-graph counters;
 - ``serve.endpoint``: `ServeEndpoint`, stdlib HTTP ``/metrics``,

@@ -12,12 +12,18 @@ A stdlib-only (``http.server``) thread serving four routes off an
 - ``GET /statz``: the full JSON live snapshot;
 - ``POST /query``: a JSON parameter document (``make_model_params``
   keywords, e.g. ``{"beta": 1.2, "u": 0.3}``, plus an optional
-  ``scenario`` tag) answered with one served equilibrium. The deadline
-  rides the ``X-SBR-Deadline-Ms`` header (or a ``deadline_ms`` field); a
-  query shed at admission gets ``429`` with a ``Retry-After`` header, a
-  failed dispatch ``503``, a malformed document ``400``. Scenario objects,
-  population objects and ``"grads": true`` are routes the port does not
-  have yet: they get ``501`` with the reason, never a wrong ``200``.
+  ``scenario`` tag) answered with one served equilibrium. A ``scenario``
+  object (a `scenario.ScenarioSpec` document) routes the query through
+  `Engine.query_scenario`, a ``population`` object through
+  `Engine.query_population`. The deadline rides the
+  ``X-SBR-Deadline-Ms`` header (or a ``deadline_ms`` field); a query shed
+  at admission gets ``429`` with a ``Retry-After`` header, a failed
+  dispatch ``503``, a malformed document ``400``. As in the reference, a
+  bad spec, a spec the params cannot serve, ``population`` beside
+  ``scenario``, ``grads`` on either, and a modifier's knob without its
+  modifier are all ``400``. Routes the port does not have yet get ``501``
+  with the reason, never a wrong ``200``: ``"grads": true`` on a plain
+  query, and a population of a ``rewire`` information model.
 
 Tracing headers wait for ``obs.trace`` (ROADMAP item E.20). ``port=0``
 binds an ephemeral port; the bound port is `.port`.
@@ -31,7 +37,8 @@ import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from sbr_tpu_torch.models.params import make_model_params
+from sbr_tpu_torch.models.params import make_interest_params, make_model_params
+from sbr_tpu_torch.scenario import ScenarioSpec
 from sbr_tpu_torch.serve.engine import DeadlineExceeded
 
 # The make_model_params keywords a /query document may carry (anything
@@ -134,6 +141,28 @@ class ServeEndpoint:
                 except (TypeError, ValueError):
                     self._json(400, {"error": "bad deadline"})
                     return
+                # ``scenario`` is a free-form tag, or a ScenarioSpec document
+                # that routes the query through the scenario engine
+                scenario_doc = doc.get("scenario")
+                spec = None
+                if isinstance(scenario_doc, dict):
+                    try:
+                        spec = ScenarioSpec.from_doc(scenario_doc)
+                    except (TypeError, ValueError) as err:
+                        self._json(400, {"error": f"bad scenario: {err}"})
+                        return
+                scenario = "default" if spec is not None else str(scenario_doc or "default")
+                population_doc = doc.get("population")
+                if population_doc is not None and spec is not None:
+                    self._json(400, {"error": "population and scenario are mutually exclusive"})
+                    return
+                grads = bool(doc.get("grads", False))
+                if grads and population_doc is not None:
+                    self._json(400, {"error": "grads are not supported on population queries"})
+                    return
+                if grads and spec is not None:
+                    self._json(400, {"error": "grads are not supported on scenario queries"})
+                    return
                 unknown = (
                     set(doc) - set(_PARAM_KEYS)
                     - {"scenario", "deadline_ms", "grads", "population"}
@@ -141,19 +170,14 @@ class ServeEndpoint:
                 if unknown:
                     self._json(400, {"error": f"unknown parameter(s): {sorted(unknown)}"})
                     return
-                if isinstance(doc.get("scenario"), dict):
-                    self._json(501, _not_ported("a composed-scenario query", "D.16"))
-                    return
-                if doc.get("population") is not None:
-                    self._json(501, _not_ported("a population query", "D.17/E.19"))
-                    return
-                if doc.get("grads"):
+                if grads:
                     self._json(501, _not_ported("a grads query", "D.18"))
                     return
-                scenario = str(doc.get("scenario") or "default")
                 try:
                     kw = {k: doc[k] for k in _PARAM_KEYS if k in doc}
-                    orphaned = sorted(k for k in _GATED if k in kw)
+                    active = spec.modifiers if spec is not None else ()
+                    orphaned = sorted(k for k, mod in _GATED.items()
+                                      if k in kw and mod not in active)
                     if orphaned:
                         raise ValueError(
                             f"parameter(s) {orphaned} require a scenario object with the "
@@ -161,11 +185,37 @@ class ServeEndpoint:
                         )
                     if "tspan" in kw:
                         kw["tspan"] = tuple(float(v) for v in kw["tspan"])
-                    params = make_model_params(**kw)
+                    interest = "r" in kw or "delta" in kw
+                    maker = make_interest_params if interest else make_model_params
+                    params = maker(**kw)
                 except (TypeError, ValueError) as err:
                     self._json(400, {"error": f"bad parameters: {err}"})
                     return
                 try:
+                    if population_doc is not None:
+                        try:
+                            rec = endpoint.engine.query_population(
+                                params, population_doc, deadline_ms=deadline_ms
+                            )
+                        except (TypeError, ValueError) as err:
+                            # a malformed population object is the client's
+                            # error: 400, never a retryable 503
+                            self._json(400, {"error": f"bad population query: {err}"})
+                            return
+                        self._json(200, rec)
+                        return
+                    if spec is not None:
+                        try:
+                            rec = endpoint.engine.query_scenario(
+                                params, spec, deadline_ms=deadline_ms
+                            )
+                        except (TypeError, ValueError) as err:
+                            # spec × params incompatible (the composition
+                            # matrix): no worker can serve it, so 400
+                            self._json(400, {"error": f"unservable scenario: {err}"})
+                            return
+                        self._json(200, rec)
+                        return
                     result = endpoint.engine.query(
                         params, scenario=scenario, deadline_ms=deadline_ms
                     )
@@ -176,6 +226,10 @@ class ServeEndpoint:
                          "retry_after_s": err.retry_after_s},
                         {"Retry-After": f"{err.retry_after_s:g}"},
                     )
+                    return
+                except NotImplementedError as err:
+                    # a query whose path is not ported (a rewire population)
+                    self._json(501, {"error": "not ported", "detail": str(err)})
                     return
                 except Exception as err:
                     # Solver down: an honest 503 a router can fail over on.

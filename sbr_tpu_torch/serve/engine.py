@@ -36,17 +36,26 @@
   deadline (``SBR_SERVE_DEADLINE_MS``) has passed or is shorter than the
   measured service time. A failed dispatch fails its tickets.
 
+- **Composed scenarios and population what-ifs** (`query_scenario`,
+  `query_population`) run in the calling thread, one solve a query (their
+  programs differ by spec, so they do not micro-batch), under the same
+  admission control and in the same LRU + verified disk cache, keyed by
+  `scenario.spec_fingerprint` / `infomodels.population_fingerprint` of the
+  query with the engine's tag. Their device work holds the dispatch lock,
+  so it never overlaps a bucket's capture or replay. A population query
+  launches the CUDA infection or belief kernel every step of every member.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-gradient queries (D.18), composed scenarios (D.16), population queries
-(D.17/E.19), run directories (E.20), and the audit, demand, prewarm and
-flight-recorder switches (E.20/E.21). The degradation ladder's tile-cache
-rung waits for the elastic tile cache (E.19).
+gradient queries (D.18), run directories (E.20), and the audit, demand,
+prewarm and flight-recorder switches (E.20/E.21). The degradation ladder's
+tile-cache rung waits for the elastic tile cache (E.19).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import queue
 import sys
@@ -54,7 +63,7 @@ import tempfile
 import threading
 import time
 from collections import OrderedDict
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -498,14 +507,100 @@ class Engine:
             self.live.queue_depth = self._queue.qsize()
         return [t.wait(timeout) for t in tickets]
 
+    # -- composed scenarios and population what-ifs ---------------------------
     def query_scenario(self, params, spec, deadline_ms: Optional[float] = None) -> dict:
-        """Composed-scenario queries wait for the scenario engine."""
-        raise _not_ported("query_scenario (composed scenarios)", "D.16")
+        """Serve one composed-scenario query (`scenario.ScenarioSpec`), the
+        `POST /query` route of a ``scenario`` object. Returns a JSON-ready
+        record (per-bank lists for a multi-bank spec, scalars otherwise)
+        with ``scenario_fingerprint``, ``source`` and ``latency_ms``. A spec
+        the params cannot serve raises ValueError."""
+        from sbr_tpu_torch.scenario import spec_fingerprint
+
+        self._admit(deadline_ms)
+        key = spec_fingerprint(spec, (params, self._cfg_tag), self.config, self.dtype_name)
+        return self._serve_record(key, "scenario_fingerprint", "spec",
+                                  lambda: self._solve_scenario(params, spec))
 
     def query_population(self, params, pop_doc: dict,
                          deadline_ms: Optional[float] = None) -> dict:
-        """Population what-if queries wait for infomodels.population."""
-        raise _not_ported("query_population (population what-ifs)", "D.17/E.19")
+        """Serve one population what-if query (`POST /query` with a
+        ``population`` object): S agent populations under an
+        `infomodels.InfoModelSpec` on a graphgen spec, reduced to
+        crossing-time quantiles and a run probability against the model's
+        mean-field fixed point (`infomodels.population_query`). Returns the
+        JSON-ready record with ``population_fingerprint``, ``source`` and
+        ``latency_ms``. A malformed ``pop_doc`` raises ValueError; a rewire
+        information model raises NotImplementedError (not ported)."""
+        from sbr_tpu_torch.infomodels import population as pop
+
+        kw = pop.parse_population_doc(pop_doc)
+        self._admit(deadline_ms)
+        key = pop.population_fingerprint(kw, (params, self._cfg_tag), self.config,
+                                         self.dtype_name)
+        g0 = {"g0": kw["g0"]} if "g0" in kw else {}
+        return self._serve_record(key, "population_fingerprint", "pop", lambda: (
+            pop.population_query(
+                kw["spec"], kw["graph"], params, seeds=kw["seeds"], vary=kw["vary"],
+                seed=kw["seed"], dt=kw["dt"], config=self.config, device=self.device, **g0,
+            )))
+
+    def _serve_record(self, key: str, field: str, tag: str, compute) -> dict:
+        """A record from the cache, else ``compute()``d with the device held
+        and stored verbatim with its fingerprint in ``field``; returned with
+        its ``source`` and ``latency_ms``."""
+        t0 = time.monotonic()
+        rec, source = self._cache_probe(key, self._parse_keyed_record(field))
+        if rec is None:
+            with self._on_device():
+                rec = compute()
+            rec[field] = key
+            self._store(key, rec)
+            source = "computed"
+        latency = time.monotonic() - t0
+        self.live.record_query(latency, source, scenario=f"{tag}:{key[:12]}")
+        return {**rec, "source": source, "latency_ms": round(latency * 1e3, 3)}
+
+    @contextmanager
+    def _on_device(self):
+        """The dispatch lock, with the engine's card current: device work
+        never overlaps a bucket's capture or replay."""
+        on_card = torch.cuda.device(self.device) if self.device.type == "cuda" else nullcontext()
+        with self._dispatch_lock, on_card:
+            yield
+
+    def _solve_scenario(self, params, spec) -> dict:
+        """One composed solve → the cacheable JSON record (non-finite
+        floats as None, the wire convention)."""
+        from sbr_tpu_torch import scenario
+
+        res = scenario.solve(spec, params, config=self.config, dtype=self.dtype,
+                             device=self.device)
+
+        def safe(v):
+            v = float(v)
+            return v if math.isfinite(v) else None
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        if spec.banks > 1:
+            return {
+                "xi": [safe(v) for v in host(res.xi)],
+                "status": [int(v) for v in host(res.status)],
+                "aw_max": [safe(v) for v in host(res.aw_max)],
+                "flags": [int(v) for v in host(res.health.flags)],
+                "kappa_eff": [safe(v) for v in host(res.kappa_eff)],
+                "iterations": int(res.iterations),
+                "converged": bool(res.converged),
+                "banks": spec.banks,
+            }
+        return {
+            "xi": safe(res.xi),
+            "status": int(res.status),
+            "flags": int(res.health.flags),
+            "residual": safe(res.health.residual),
+            "banks": 1,
+        }
 
     # -- health / exposition -------------------------------------------------
     def healthz(self, window: Optional[dict] = None) -> dict:
@@ -748,8 +843,7 @@ class Engine:
             )
         t_disp = time.monotonic()
         try:
-            on_card = torch.cuda.device(self.device) if self.device.type == "cuda" else nullcontext()
-            with self._dispatch_lock, on_card:
+            with self._on_device():
                 program = self._program(bucket, cols)
                 out = self._retry.call(
                     program, cols, scope=f"serve.dispatch[{bucket}]", budget=self.retry_budget
@@ -782,12 +876,14 @@ class Engine:
             return None
         return Path(self.serve.cache_dir) / "results" / key[:2] / f"{key}.json"
 
-    def _lookup(self, key: str) -> tuple:
-        """LRU hit first; else the disk layer, sha256-verified on read (a
-        mismatch is quarantined beside the cache and the query recomputes;
-        sidecar-less entries verify as "legacy" and stay trusted). An
-        unreadable or wrong-shaped entry (a torn write can leave valid
-        non-dict JSON) is a miss."""
+    def _cache_probe(self, key: str, parse_disk) -> tuple:
+        """The LRU + verified-disk probe every record kind shares: an LRU
+        hit first; else the disk layer, sha256-verified on read (a mismatch
+        is quarantined beside the cache and the query recomputes;
+        sidecar-less entries verify as "legacy" and stay trusted), then
+        ``parse_disk(path)``. A parser returning None or raising (an
+        unreadable or wrong-shaped entry: a torn write can leave valid
+        non-dict JSON) makes it a miss."""
         with self._lru_lock:
             rec = self._lru.get(key)
             if rec is not None:
@@ -800,11 +896,27 @@ class Engine:
             if heal.verify_file(path) == "mismatch":
                 heal.quarantine(path, reason="serve-cache-mismatch")
                 return None, None
-            rec = self._parse_plain_record(path)
+            rec = parse_disk(path)
         except (OSError, ValueError, KeyError, TypeError):
+            return None, None
+        if rec is None:
             return None, None
         self._store(key, rec, write_disk=False)
         return dict(rec), "disk"
+
+    def _lookup(self, key: str) -> tuple:
+        return self._cache_probe(key, self._parse_plain_record)
+
+    @staticmethod
+    def _parse_keyed_record(field: str):
+        """The disk parser of scenario and population records, stored
+        verbatim (their shape varies by query): a dict carrying ``field``,
+        its fingerprint, else a miss."""
+        def parse(path: Path):
+            rec = json.loads(path.read_text())
+            return rec if isinstance(rec, dict) and field in rec else None
+
+        return parse
 
     @staticmethod
     def _parse_plain_record(path: Path) -> dict:

@@ -14,6 +14,7 @@ import dataclasses
 import hashlib
 
 import numpy as np
+import torch
 
 
 def canonicalize(obj) -> str:
@@ -53,6 +54,14 @@ def canonicalize(obj) -> str:
         "canonical form rather than falling back to repr (addresses would "
         "make fingerprints process-local)"
     )
+
+
+def dtype_name(dtype) -> str:
+    """numpy's name of a torch or numpy dtype ("float32", "float64"): the
+    form the reference's fingerprints render a dtype in."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
 
 
 def params_fingerprint(params) -> str:

@@ -62,6 +62,18 @@ SPECS = {
 SMALL = dict(n_agents=5000, avg_degree=15.0, dt=0.1, t_max=12.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on one machine, and torch's default pool in each of them
+    oversubscribes the cores, where the agent engines' small CPU ops wait
+    on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

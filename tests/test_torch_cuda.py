@@ -292,6 +292,34 @@ def test_bayes_close_loop_on_card_equals_cpu_with_carried_fields(cuda_device, mo
     np.testing.assert_array_equal(cpu.g_sim, card.g_sim)
 
 
+@pytest.mark.parametrize("vary", ["sim", "graph"])
+def test_population_query_on_card_equals_cpu(cuda_device, monkeypatch, vary):
+    """A bayes population query from one fixed point, with the CPU's
+    per-agent fields on both devices: the record is the CPU's exactly, and
+    the belief kernel runs once a step and a member (no plain fallback)."""
+    from sbr_tpu_torch.infomodels import engine, population_query
+
+    m = st.make_model_params(**FIG12)
+    spec = st.InfoModelSpec(channel="bayes")
+    fp = st.solve_fixed_point_info(spec, m, config=st.SolverConfig(n_grid=256), max_iter=500,
+                                   device="cpu")
+    draw = engine._agent_fields
+
+    def cpu_fields(spec_, n, seed, beta, dtype, device):
+        return tuple(f.to(device) for f in draw(spec_, n, seed, beta, dtype, "cpu"))
+
+    monkeypatch.setattr(engine, "_agent_fields", cpu_fields)
+    kw = dict(seeds=3, vary=vary, seed=4, g0=None, fp=fp)
+    graph = st.ErdosRenyiSpec(3000, 10.0)
+    cpu = population_query(spec, graph, m, device="cpu", **kw)
+    _build.reset_launches()
+    card = population_query(spec, graph, m, device=cuda_device, **kw)
+    steps = int(round(float(m.economic.eta) / 0.1))
+    assert _build.LAUNCHES[fused.BELIEF_KERNEL] == 3 * max(steps, 2)
+    assert _build.LAUNCHES[fused.KERNEL] == 0
+    assert card == cpu
+
+
 SERVE_BUCKETS = (1, 8, 64, 512)
 
 

@@ -182,5 +182,14 @@ def test_params_and_not_ported_options():
     tl, *_ = _stage1(_key(SECTION2), "fixed", 0.5)
     with pytest.raises(NotImplementedError, match="axis_name"):
         ths.solve_equilibrium_hetero(tl, tm.economic, axis_name="k")
-    with pytest.raises(NotImplementedError, match="hazard_transform"):
-        ths.solve_equilibrium_hetero(tl, tm.economic, hazard_transform=lambda *a: a)
+    # the scenario hooks are ported: an identity hook is the hook-free
+    # solve bit for bit, and a hook's rows are the ones solved on
+    plain = ths.solve_equilibrium_hetero(tl, tm.economic)
+    ident = ths.solve_equilibrium_hetero(tl, tm.economic,
+                                         hazard_transform=lambda g, h, _: (h, None, ()),
+                                         kappa_transform=lambda k: k)
+    assert torch.equal(ident.hrs, plain.hrs) and torch.equal(ident.status, plain.status)
+    assert _np(ident.xi).tobytes() == _np(plain.xi).tobytes()
+    doubled = ths.solve_equilibrium_hetero(tl, tm.economic,
+                                           hazard_transform=lambda g, h, _: (2.0 * h, None, ()))
+    assert torch.equal(doubled.hrs, 2.0 * plain.hrs)

@@ -12,8 +12,9 @@ Contracts:
   into one lane;
 - the result key differs from the reference's (the backend tag) while the
   params fingerprint equals it;
-- the caches, admission, the breaker, /healthz, the HTTP routes and the
-  not-ported entry points behave as the reference's tests hold them;
+- the caches, admission, the breaker, /healthz, the HTTP routes (the
+  scenario and population objects among them) and the not-ported entry
+  points behave as the reference's tests hold them;
 - the served program reads nothing from the host and makes no host
   tensor, so a CUDA graph can capture it; the adaptive root-find's
   whole-budget form equals its checked form bit for bit.
@@ -419,16 +420,24 @@ def test_endpoint_routes_and_status_codes():
         assert http_request(port, "/query", {"beta": -1.0})[0] == 400
         assert http_request(port, "/query", {"beta": 1.0, "r": 0.02})[0] == 400
         assert http_request(port, "/query", {"beta": 1.0}, {"X-SBR-Deadline-Ms": "x"})[0] == 400
-        for doc in ({"scenario": {"modifiers": ["interest"]}}, {"population": {"seeds": 2}},
-                    {"grads": True}):
+        # the scenario and population routes answer: a spec the params cannot
+        # serve (interest without r/delta) and a population without a graph
+        # are the client's errors; grads stay not ported
+        for doc, reason in (({"scenario": {"modifiers": ["interest"]}}, "unservable scenario"),
+                            ({"population": {"seeds": 2}}, "bad population")):
             code, body, _ = http_request(port, "/query", doc)
-            assert code == 501 and "not ported" in body, doc
+            assert code == 400 and reason in json.loads(body)["error"], doc
+        code, body, _ = http_request(port, "/query", {"grads": True})
+        assert code == 501 and "not ported" in body
+        code, body, _ = http_request(port, "/query", {"u": 0.08, "lolr_rate": 0.1,
+                                                      "scenario": {"modifiers": ["lolr"]}})
+        assert code == 200 and json.loads(body)["source"] == "computed"
         code, metrics, _ = http_request(port, "/metrics")
-        assert code == 200 and "sbr_serve_queries_total 6" in metrics
+        assert code == 200 and "sbr_serve_queries_total 7" in metrics
         code, health, _ = http_request(port, "/healthz")
         assert code == 200 and json.loads(health)["status"] == "degraded"  # the 429 shed
         code, statz, _ = http_request(port, "/statz")
-        assert code == 200 and json.loads(statz)["totals"]["queries"] == 6
+        assert code == 200 and json.loads(statz)["totals"]["queries"] == 7
         assert http_request(port, "/nope")[0] == 404
         assert http_request(port, "/nope", {})[0] == 404
     finally:
@@ -579,8 +588,7 @@ def test_prefix_sum_is_row_independent_and_accurate():
 # Not ported
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("call", ["grads_query", "grads_many", "grads_submit", "scenario",
-                                  "population"])
+@pytest.mark.parametrize("call", ["grads_query", "grads_many", "grads_submit"])
 def test_unported_queries_raise(call):
     engine = _engine(buckets=(1,))
     p = tparams.make_model_params()
@@ -590,11 +598,40 @@ def test_unported_queries_raise(call):
                 "grads_query": lambda: engine.query(p, grads=True),
                 "grads_many": lambda: engine.query_many([p], grads=True),
                 "grads_submit": lambda: engine.submit(p, grads=True),
-                "scenario": lambda: engine.query_scenario(p, object()),
-                "population": lambda: engine.query_population(p, {}),
             }[call]()
     finally:
         engine.close()
+
+
+@pytest.mark.parametrize("call", ["scenario", "population"])
+def test_scenario_and_population_queries_are_served(call):
+    """The two routes that raised before they were ported: each answers,
+    a second time from the LRU, under the engine's admission control, and
+    a malformed query is the caller's ValueError."""
+    from sbr_tpu_torch.scenario import ScenarioSpec
+
+    engine = _engine(buckets=(1,))
+    p = tparams.make_model_params(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
+    pop = {"graph": {"n": 400, "avg_degree": 8}, "infomodel": {"channel": "bayes"},
+           "seeds": 2}
+    ask, bad = {
+        "scenario": (lambda: engine.query_scenario(p, ScenarioSpec(modifiers=("lolr",))),
+                     lambda: engine.query_scenario(p, ScenarioSpec(modifiers=("interest",)))),
+        "population": (lambda: engine.query_population(p, pop),
+                       lambda: engine.query_population(p, {})),
+    }[call]
+    try:
+        first, again = ask(), ask()
+        with pytest.raises(ValueError):
+            bad()
+        with pytest.raises(DeadlineExceeded):
+            (engine.query_scenario(p, ScenarioSpec(), deadline_ms=-1) if call == "scenario"
+             else engine.query_population(p, pop, deadline_ms=-1))
+    finally:
+        engine.close()
+    assert (first["source"], again["source"]) == ("computed", "lru")
+    key = f"{call}_fingerprint"
+    assert first[key] == again[key] and len(first[key]) == 64
 
 
 @pytest.mark.parametrize("kw", [{"run": object()}, {"run_dir": "runs/x"}])
