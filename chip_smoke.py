@@ -44,8 +44,17 @@ what-ifs, whose members end every step in the infection or belief kernel
 on 10^6 agents; each query's launches must be members × steps), a
 scenario and a population query through the engine and the HTTP
 endpoint, and a scenario subgrid, the ring and a population query on the
-card against the CPU. It prints one JSON line per phase, and beside the
-serving, scenario and population numbers the card's name and power limit.
+card against the CPU. Then slice 9: panic rewiring at the bayes path's
+shape in both channels (4 epochs of ~2×10^7 regenerated edges; exactly
+one launch a step of the channel's kernel; ms an epoch by layer; XLA's
+blocked prefix sum timed beside ``torch.cumsum``), a rewire population
+query a channel, the tilt tables, tilted sources and rewire runs on the
+card against the CPU bit for bit; and the gradient layer at bench.py's
+shapes (the 96×96 sensitivity surface, 120 calibration steps, a served
+grads stream from captured grads programs) with a sensitivity subgrid on
+the card against the CPU. It prints one JSON line per phase, and beside
+the serving, scenario, population, rewire and grad numbers the card's name
+and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -2282,6 +2291,331 @@ def phase_scenario_cpu_vs_card() -> None:
         raise AssertionError(f"population: card and CPU records differ: {recs}")
 
 
+# Panic rewiring at the bayes main path's shape (bench.py:1540-1553): 2×10^6
+# agents, Erdős–Rényi mean degree 10, 100 steps of dt 0.05, reentry 3.0,
+# x0 0.01, seed 1, float32; InfoModelSpec(dynamics="rewire") at its
+# defaults (epochs of 25 steps, bias 4.0), in both channels.
+REWIRE_N_CPU = 100_000
+
+
+def _rewire_run(spec, graph, cfg):
+    import sbr_tpu_torch as st
+
+    return st.simulate_info(spec, graph, x0=0.01, config=cfg, seed=1)
+
+
+def phase_rewire(card: str) -> dict:
+    """The rewire main path in each channel at full width: a cold call,
+    then a call with the kernel counts set to 0 before and read after (the
+    channel's kernel exactly n_steps times, the other never), a second
+    call held equal to it, one call with each layer fenced and timed (the
+    tilt table, the tilted sources, the host in-degree draw, the
+    simulation), and one profiled for the busy share. Then one rewire
+    population query a channel at bench_infomodels' shape (20,000 agents,
+    16 members, n_grid 256), its launches members × steps. Returns the
+    launches by kernel."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.infomodels import engine, population_query
+    from sbr_tpu_torch.social import agents, graphgen
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    from sbr_tpu_torch.core.integrate import xla_cumsum
+
+    graph = st.ErdosRenyiSpec(N_BAYES, 10.0)
+    cfg = _bayes_config()
+    totals = {KERNEL: 0, BELIEF_KERNEL: 0}
+    # the tilt table's prefix sum in XLA's order against torch's own, on
+    # the epoch table's shape (one float32 row of N_BAYES weights)
+    w = torch.rand(N_BAYES, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    emit("rewire_prefix_sum", n=N_BAYES, dtype="float32",
+         xla_cumsum_ms=time_ms(lambda: xla_cumsum(w), reps=20),
+         torch_cumsum_ms=time_ms(lambda: torch.cumsum(w, 0), reps=20), card=card)
+    for channel in ("gossip", "bayes"):
+        spec = st.InfoModelSpec(channel=channel, dynamics="rewire")
+        kernel, other = (BELIEF_KERNEL, KERNEL) if channel == "bayes" else (KERNEL, BELIEF_KERNEL)
+        cold_s = _fenced(lambda: _rewire_run(spec, graph, cfg))[0]
+        _build.reset_launches()
+        call_s, res = _fenced(lambda: _rewire_run(spec, graph, cfg))
+        launches = (_build.LAUNCHES[kernel], _build.LAUNCHES[other])
+        again = _rewire_run(spec, graph, cfg)
+        fields = ("informed", "t_inf", "informed_frac", "withdrawn_frac") + (
+            ("belief",) if channel == "bayes" else ())
+        same = all(torch.equal(getattr(res, f), getattr(again, f)) for f in fields)
+        sim = (engine, "_bayes_sim") if channel == "bayes" else (agents, "simulate_agents")
+        with _CallTimes((graphgen, "tilt_threshold_table"), (graphgen, "generate_tilted_sources"),
+                        (graphgen, "epoch_indegrees"), sim) as spent:
+            split_s = _fenced(lambda: _rewire_run(spec, graph, cfg))[0]
+        prof = _profiled(lambda: _rewire_run(spec, graph, cfg), kernel)
+        epochs = res.epochs
+        per_epoch = {name: 1e3 * sum(v) / epochs for name, v in spent.items()}
+        g = res.informed_frac.cpu().numpy()
+        rate_key = "belief_updates_per_s" if channel == "bayes" else "agent_steps_per_s"
+        emit("rewire", channel=channel, n=N_BAYES, steps=cfg.n_steps, dt=cfg.dt,
+             epoch_steps=spec.epoch_steps, rewire_bias=spec.rewire_bias, epochs=epochs,
+             edges_per_epoch=graph.edge_count(1), dtype="float32", cold_s=cold_s, call_s=call_s,
+             **{rate_key: N_BAYES * cfg.n_steps / call_s},
+             ms_per_epoch=1e3 * split_s / epochs,
+             ms_per_epoch_table=per_epoch["tilt_threshold_table"],
+             ms_per_epoch_sources=per_epoch["generate_tilted_sources"],
+             ms_per_epoch_indegrees_host=per_epoch["epoch_indegrees"],
+             ms_per_epoch_simulation=per_epoch[sim[1]],
+             busy_share=prof["device_busy_share"], device_kernels=prof["device_kernels"],
+             kernel=kernel, kernel_launches=launches[0], other_kernel_launches=launches[1],
+             kernel_ms_profiled=prof["kernel_ms"], top=prof["top"][:5],
+             two_calls_equal=same, final_informed_frac=float(g[-1]),
+             final_withdrawn_frac=float(res.withdrawn_frac[-1]), card=card)
+        if launches != (cfg.n_steps, 0) or not same or epochs != 4:
+            raise AssertionError(f"rewire {channel}: launches {launches}, equal {same}, "
+                                 f"epochs {epochs}")
+        if not (np.all(np.diff(g) >= 0) and bool(torch.isfinite(res.informed_frac).all())):
+            raise AssertionError(f"rewire {channel}: bad trajectory {g[:3]}..{g[-3:]}")
+        totals[kernel] += launches[0]
+
+    m = st.make_model_params(**FIG12)
+    steps = max(int(round(float(m.economic.eta) / 0.1)), 2)
+    for channel in ("bayes", "gossip"):
+        spec = st.InfoModelSpec(channel=channel, dynamics="rewire")
+        kernel, other = (BELIEF_KERNEL, KERNEL) if channel == "bayes" else (KERNEL, BELIEF_KERNEL)
+        _build.reset_launches()
+        query_s, rec = _fenced(lambda: population_query(
+            spec, st.ErdosRenyiSpec(POP_N, POP_DEG), m, seeds=POP_SEEDS, vary="sim", seed=3,
+            config=st.SolverConfig(n_grid=POP_GRID), g0=None))
+        launches = (_build.LAUNCHES[kernel], _build.LAUNCHES[other])
+        emit("rewire_population", channel=channel, n_agents=POP_N, members=POP_SEEDS,
+             steps=steps, n_grid=POP_GRID, query_s=query_s, kernel=kernel,
+             kernel_launches=launches[0], other_kernel_launches=launches[1],
+             expected_launches=POP_SEEDS * steps, run_probability=rec["run_probability"],
+             xi_meanfield=rec["xi_meanfield"], dynamics=rec["dynamics"], card=card)
+        if launches != (POP_SEEDS * steps, 0) or rec["dynamics"] != "rewire":
+            raise AssertionError(f"rewire population {channel}: launches {launches}")
+        totals[kernel] += launches[0]
+    return totals
+
+
+def phase_rewire_cpu_vs_card() -> None:
+    """The card against the CPU, bit for bit: the tilt table and the tilted
+    sources of Erdős–Rényi and scale-free bases at 10^5 agents (a random
+    withdrawn mask, bias 4), and whole rewire runs on 2×10^4 agents (4
+    epochs of 10 steps): gossip on both bases, bayes with the CPU's fields
+    on both devices, float32 and float64."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.infomodels import engine
+    from sbr_tpu_torch.social import graphgen
+
+    n = REWIRE_N_CPU
+    wd = torch.from_numpy(np.random.default_rng(4).random(n) < 0.2)
+    for spec in (st.ErdosRenyiSpec(n, 10.0), st.ScaleFreeSpec(n, 10.0)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            thr = graphgen.tilt_threshold_table(engine._base_source_weights(spec, dev),
+                                                wd.to(dev), 4.0)
+            src = graphgen.generate_tilted_sources(n, spec.edge_count(5),
+                                                   graphgen.epoch_key_words(5, 1), thr)
+            out[dev] = (thr.cpu(), src.cpu())
+        same = {"table": bool(torch.equal(out["cpu"][0], out["cuda"][0])),
+                "sources": bool(torch.equal(out["cpu"][1], out["cuda"][1]))}
+        emit("rewire_cpu_vs_card", case="table_sources", spec=type(spec).__name__, n=n,
+             edges=spec.edge_count(5), bitwise=same,
+             saturated_tail=int((out["cuda"][0] == 2**32 - 1).sum()))
+        if not all(same.values()):
+            raise AssertionError(f"{type(spec).__name__}: tilt table or sources differ: {same}")
+    n = 20_000
+    cfg = st.AgentSimConfig(n_steps=40, dt=0.05, reentry_delay=1.0)
+    for channel, graph, np_dtype in (
+        ("gossip", st.ErdosRenyiSpec(n, 8.0), np.float32),
+        ("gossip", st.ScaleFreeSpec(n, 8.0), np.float64),
+        ("bayes", st.ErdosRenyiSpec(n, 8.0), np.float32),
+        ("bayes", st.ErdosRenyiSpec(n, 8.0), np.float64),
+    ):
+        spec = st.InfoModelSpec(channel=channel, dynamics="rewire", epoch_steps=10)
+        cpu_f = [f.numpy() for f in engine._agent_fields(spec, n, 2, 1.5, np_dtype, "cpu")]
+        kw = dict(beta=1.5, x0=0.01, config=cfg, seed=2, dtype=np_dtype)
+        out = {dev: st.simulate_info(spec, graph, device=dev,
+                                     fields=engine.agent_fields_from_numpy(*cpu_f, dev), **kw)
+               for dev in ("cpu", "cuda")}
+        a, b = out["cpu"], out["cuda"]
+        names = ("informed", "t_inf", "informed_frac", "withdrawn_frac") + (
+            ("belief",) if channel == "bayes" else ())
+        same = {f: bool(torch.equal(getattr(a, f), getattr(b, f).cpu())) for f in names}
+        emit("rewire_cpu_vs_card", case="simulation", channel=channel,
+             spec=type(graph).__name__, n=n, steps=cfg.n_steps, epochs=b.epochs,
+             dtype=np.dtype(np_dtype).name, bitwise=same, informed=int(b.informed.sum()))
+        if not all(same.values()) or a.epochs != b.epochs:
+            raise AssertionError(f"rewire {channel}: CPU and card runs differ: {same}")
+
+
+# The gradient layer at bench_grad's accelerator shape (bench.py:1336-1390).
+GRAD_N = 96
+GRAD_CFG = dict(n_grid=1024, bisect_iters=60, refine_crossings=False)
+GRAD_CALIB_STEPS = 120
+GRAD_STREAM = 256  # distinct served grads queries
+GRAD_CPU_N = 16
+GRAD_CPU_RTOL = 1e-10
+
+
+def _grad_surface_rows(card: str) -> None:
+    """`sensitivity_surface` over 96×96 (β in [0.5, 2.5], u in [0.03, 0.3])
+    wrt (β, u, κ) on make_model_params(): a cold call, then 3 calls on
+    shifted u axes (bench.py's), the fastest giving partials/s; its ξ grid
+    against `beta_u_grid` on the same axes, bit for bit; a profiled call's
+    busy share; the peak memory."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import grad
+
+    cfg = st.SolverConfig(**GRAD_CFG)
+    base = st.make_model_params()
+    betas = np.linspace(0.5, 2.5, GRAD_N)
+
+    def dispatch(rep):
+        us = np.linspace(0.03, 0.3, GRAD_N) + rep * 1e-7
+        return grad.sensitivity_surface(betas, us, base, config=cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    cold_s, surf = _fenced(lambda: dispatch(0))
+    times = [_fenced(lambda r=rep: dispatch(r))[0] for rep in range(1, 4)]
+    peak = torch.cuda.max_memory_allocated()
+    grid = st.beta_u_grid(betas, np.linspace(0.03, 0.3, GRAD_N), base, config=cfg)
+    same = bool(torch.equal(torch.isnan(grid.xi), torch.isnan(surf.xi))) and bool(
+        torch.equal(torch.nan_to_num(grid.xi), torch.nan_to_num(surf.xi))) and bool(
+        torch.equal(grid.status, surf.status))
+    grid_s = _fenced(lambda: st.beta_u_grid(betas, np.linspace(0.03, 0.3, GRAD_N), base,
+                                            config=cfg))[0]
+    prof = _profiled(lambda: dispatch(5))
+    census = grad.flag_census(surf.status, surf.flags)
+    cells = GRAD_N * GRAD_N
+    emit("grad_surface", cells=cells, wrt=["beta", "u", "kappa"], numerics=cfg.numerics,
+         dtype="float64", cold_s=cold_s, call_s=min(times), calls_s=times,
+         partials_per_s=3 * cells / min(times), cells_per_s=cells / min(times),
+         beta_u_grid_s=grid_s, xi_equal_beta_u_grid=same, peak_bytes=peak,
+         busy_share=prof["device_busy_share"], device_kernels=prof["device_kernels"],
+         census=census, card=card)
+    finite = all(bool(torch.isfinite(g[(surf.flags == 0)]).all()) for g in surf.grads.values())
+    if not same or census["nonfinite_run"] or not finite or census["run_cells"] == 0:
+        raise AssertionError(f"sensitivity surface: xi equal {same}, census {census}")
+
+
+def _grad_calibration_rows(card: str) -> None:
+    """`fit_withdrawals` on the `synth_withdrawals` fixture (θ* β 1.4, u
+    0.12, κ 0.55; n_obs 48): bench.py's start (β 1.1, u 0.15, κ 0.62) for
+    120 steps at loss_tol 0 after one untimed step, giving steps/s (the
+    reference's own fit stalls from that start in a no-run region, and so
+    does the port's, test_torch_grad); then the start of the reference
+    tests' second fixture (1.2, 0.14, 0.6), which must converge to θ*."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import grad
+
+    cfg = st.SolverConfig(**GRAD_CFG)
+    truth = st.make_model_params(beta=1.4, u=0.12, kappa=0.55)
+    t_obs, aw_obs, xi_obs = grad.synth_withdrawals(truth, n_obs=48, config=cfg)
+    for name, start, steps, tol in (("bench", dict(beta=1.1, u=0.15, kappa=0.62),
+                                     GRAD_CALIB_STEPS, 0.0),
+                                    ("recovery", dict(beta=1.2, u=0.14, kappa=0.6), 400, 1e-12)):
+        init = st.with_overrides(truth, **start)
+        grad.fit_withdrawals(t_obs, aw_obs, init, xi_obs=xi_obs, steps=1, config=cfg)
+        fit_s, fit = _fenced(lambda: grad.fit_withdrawals(
+            t_obs, aw_obs, init, xi_obs=xi_obs, steps=steps, loss_tol=tol, config=cfg))
+        err = {k: abs(fit.params[k] - v) / v for k, v in (("beta", 1.4), ("u", 0.12),
+                                                           ("kappa", 0.55))}
+        emit("grad_calibration", fixture=name, start=start, n_obs=48, steps_budget=steps,
+             steps=fit.steps, seconds=fit_s, calib_steps_per_s=fit.steps / fit_s,
+             converged=fit.converged, loss=fit.loss, params=fit.params, rel_err=err,
+             numerics=cfg.numerics, card=card)
+        if name == "recovery" and not (fit.converged and max(err.values()) < 1e-3):
+            raise AssertionError(f"calibration did not recover θ*: {fit.params}")
+
+
+def _grad_served_stream(card: str) -> None:
+    """A stream of 256 distinct grads queries in groups of 16 through the
+    started engine at bench.py's serving config (n_grid 1024, 60
+    iterations, buckets 1/8/64; each bucket's grads program captured before
+    the stream), p50/p99 from the engine's latency histogram; then the
+    answers held bit for bit to `cell_value_and_grads` run eagerly on the
+    card, and ξ to the plain served answers."""
+    from sbr_tpu_torch.grad.api import WRT_DEFAULT, cell_value_and_grads
+    from sbr_tpu_torch.grad.cell import BASE_KEYS
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.engine import _query_columns
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    config = SolverConfig(**GRAD_CFG)
+    pool = build_pool(7, GRAD_STREAM)
+    engine = Engine(config=config, serve=ServeConfig(buckets=(1, 8, 64)), device="cuda")
+    engine.start()
+    try:
+        t0 = time.perf_counter()
+        for n in (1, 8, 64):
+            engine.query_many(build_pool(300 + n, n), grads=True, timeout=600)
+        capture_s = time.perf_counter() - t0
+        warm = engine.live.snapshot()
+        hist_before = engine.live.total_hist.copy()
+        t0 = time.perf_counter()
+        results = []
+        for i in range(0, len(pool), 16):
+            results += engine.query_many(pool[i : i + 16], grads=True, scenario="grads",
+                                         timeout=600)
+        stream_s = time.perf_counter() - t0
+        snap = engine.live.snapshot()
+        diff = engine.live.total_hist.delta(hist_before)
+        plain = engine.query_many(pool, timeout=600)
+    finally:
+        engine.close()
+    cols = torch.tensor(_query_columns(pool, np.float64), device="cuda")
+    _, _, grads, _, _, gflags = cell_value_and_grads(dict(zip(BASE_KEYS, cols)), WRT_DEFAULT,
+                                                     config, torch.float64)
+    eager = torch.stack([grads[k] for k in WRT_DEFAULT]).cpu().numpy()
+    served = np.array([[r.grads[k] for k in WRT_DEFAULT] for r in results]).T
+    same = _bits_equal(served, eager) and [r.grad_flags for r in results] == [
+        int(f) for f in gflags.cpu()]
+    xi_same = _bits_equal(np.array([r.xi for r in results]), np.array([r.xi for r in plain]))
+    new_captures = snap["graphs"]["captures"] - warm["graphs"]["captures"]
+    row = dict(queries=len(results), group=16, buckets=[1, 8, 64], n_grid=config.n_grid,
+               bisect_iters=config.bisect_iters, numerics=config.numerics, dtype="float64",
+               capture_s=capture_s, stream_s=stream_s, qps=len(results) / stream_s,
+               p50_ms=diff.quantile(0.5), p99_ms=diff.quantile(0.99), graphs=snap["graphs"],
+               post_warmup_graph_captures=new_captures, grads_equal_eager=same,
+               xi_equal_plain=xi_same, untrusted=sum(bool(r.grad_flags) for r in results),
+               card=card)
+    emit("grad_served_stream", **row)
+    if not (same and xi_same and new_captures == 0 and snap["graphs"]["eager_runs"] == 0
+            and all(r.source == "computed" for r in results)):
+        raise AssertionError(f"served grads: {row}")
+
+
+def phase_grad(card: str) -> None:
+    """The gradient layer on the card (it runs no kernel of the port): the
+    sensitivity surface, the calibration and a served grads stream."""
+    _grad_surface_rows(card)
+    _grad_calibration_rows(card)
+    _grad_served_stream(card)
+
+
+def phase_grad_cpu_vs_card() -> None:
+    """A 16×16 sensitivity subgrid of the surface's axes at its config on
+    the card and on the CPU: statuses and flags exactly, ξ within 1e-12,
+    the partials of trusted cells within GRAD_CPU_RTOL relative."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import grad
+
+    cfg = st.SolverConfig(**GRAD_CFG)
+    betas = np.linspace(0.5, 2.5, GRAD_CPU_N)
+    us = np.linspace(0.03, 0.3, GRAD_CPU_N)
+    out = {dev: grad.sensitivity_surface(betas, us, st.make_model_params(), config=cfg,
+                                         device=dev) for dev in ("cpu", "cuda")}
+    a, b = out["cpu"], out["cuda"]
+    ints = {"status": bool(torch.equal(a.status, b.status.cpu())),
+            "flags": bool(torch.equal(a.flags, b.flags.cpu()))}
+    trusted = (a.flags == 0) & (a.status == 0)
+    rel = max(float(((x - y.cpu()).abs() / x.abs())[trusted].max())
+              for x, y in ((a.grads[k], b.grads[k]) for k in a.grads))
+    gap = _nan_gap(a.xi, b.xi.cpu())
+    emit("grad_cpu_vs_card", cells=GRAD_CPU_N ** 2, trusted=int(trusted.sum()), equal=ints,
+         xi_max_abs=gap, grads_max_rel=rel, tol_xi=1e-12, tol_grads_rel=GRAD_CPU_RTOL)
+    if not all(ints.values()) or gap > 1e-12 or rel > GRAD_CPU_RTOL:
+        raise AssertionError(f"grads: card and CPU differ ({ints}, {gap}, {rel})")
+
+
 def _nan_gap(a, b) -> float:
     """Max |a − b| over the finite entries; raises if the NaNs differ."""
     a, b = a.double(), b.double()
@@ -2294,7 +2628,7 @@ def _nan_gap(a, b) -> float:
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
-          "scenario_cpu")
+          "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu")
 
 
 def _recount_kernel_entry(recount: dict) -> dict:
@@ -2373,6 +2707,13 @@ def main(argv) -> int:
     pop_launches = phase_population(info["nvidia_smi"]) if "population" in wanted else {}
     if "scenario_cpu" in wanted:
         phase_scenario_cpu_vs_card()
+    rewire_launches = phase_rewire(info["nvidia_smi"]) if "rewire" in wanted else {}
+    if "rewire_cpu" in wanted:
+        phase_rewire_cpu_vs_card()
+    if "grad" in wanted:
+        phase_grad(info["nvidia_smi"])
+    if "grad_cpu" in wanted:
+        phase_grad_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -2389,9 +2730,11 @@ def main(argv) -> int:
         "source": "sbr_tpu_torch/csrc/infection_update.cu",
         "replaces": "sbr_tpu/social/fused.py:114",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
-        "launches": launches + loop_launches[KERNEL] + pop_launches[KERNEL],
+        "launches": (launches + loop_launches[KERNEL] + pop_launches[KERNEL]
+                     + rewire_launches[KERNEL]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
-                             "population": pop_launches[KERNEL]},
+                             "population": pop_launches[KERNEL],
+                             "rewire": rewire_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -2406,9 +2749,11 @@ def main(argv) -> int:
         "source": "sbr_tpu_torch/csrc/belief_update.cu",
         "replaces": "sbr_tpu/social/fused.py:231",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_belief",
-        "launches": belief_launches + loop_launches[BELIEF_KERNEL] + pop_launches[BELIEF_KERNEL],
+        "launches": (belief_launches + loop_launches[BELIEF_KERNEL]
+                     + pop_launches[BELIEF_KERNEL] + rewire_launches[BELIEF_KERNEL]),
         "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
-                             "population": pop_launches[BELIEF_KERNEL]},
+                             "population": pop_launches[BELIEF_KERNEL],
+                             "rewire": rewire_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],

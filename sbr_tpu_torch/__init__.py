@@ -45,7 +45,14 @@ Ported so far, each on one device:
   (``infomodels.population``), with their serving routes. Scenarios run
   no kernel; a population query runs S agent populations through
   `close_loop`, so both agent kernels get a served path. It adds no
-  kernel.
+  kernel;
+- slice 9, panic rewiring (``dynamics="rewire"`` of `simulate_info`, its
+  closures and populations: the edge set regenerated every epoch with the
+  sources tilted toward the withdrawing agents, every step still ending
+  in the infection or belief kernel) and the gradient layer (``grad``:
+  implicit-function-theorem gradients of ξ as a ``torch.autograd``
+  function, sensitivity surfaces, calibration, stress search, and the
+  served ``grads`` route). It adds no kernel.
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every
@@ -54,6 +61,14 @@ the kernel or raises.
 """
 
 from sbr_tpu_torch.baseline import solve_equilibrium_baseline, solve_learning
+from sbr_tpu_torch.grad import (
+    fit_withdrawals,
+    interest_xi_and_grad,
+    sensitivity_surface,
+    stress_search,
+    synth_withdrawals,
+    xi_and_grad,
+)
 from sbr_tpu_torch.hetero import get_aw_hetero, solve_equilibrium_hetero, solve_learning_hetero
 from sbr_tpu_torch.infomodels import (
     InfoModelSpec,
@@ -130,9 +145,11 @@ __all__ = [
     "default_spec",
     "equilibrium_window",
     "erdos_renyi_edges",
+    "fit_withdrawals",
     "fixed_point_from_numpy",
     "generate_edges",
     "get_aw_hetero",
+    "interest_xi_and_grad",
     "load_agent_state",
     "make_hetero_params",
     "make_interest_params",
@@ -145,6 +162,7 @@ __all__ = [
     "save_agent_state",
     "scale_free_edges",
     "scenario_grid",
+    "sensitivity_surface",
     "simulate_agents",
     "simulate_info",
     "solve_equilibrium_baseline",
@@ -158,6 +176,9 @@ __all__ = [
     "solve_multibank",
     "solve_param_cell",
     "spec_fingerprint",
+    "stress_search",
+    "synth_withdrawals",
     "u_sweep",
     "with_overrides",
+    "xi_and_grad",
 ]

@@ -47,6 +47,41 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+# Row width of XLA's blocked cumulative sum (its reduce_window lowering).
+_XLA_SCAN_BASE = 16
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis in XLA's association, bit
+    for bit ``jnp.cumsum`` on the CPU, eager or under ``jit``.
+
+    XLA lowers a cumulative sum to a blocked scan of base 16: it pads the
+    row with zeros to a multiple of 16, views it as (m, 16), takes a
+    sequential prefix along each block row, scans the m block totals the
+    same way (recursively), and adds each row's exclusive carry, the total
+    of the rows before it (zero for the first). This function repeats that
+    order with elementwise adds only (15 column adds a level), so it gives
+    the same bits on the CPU and on the card, where ``torch.cumsum`` sums
+    in another order that changes with the row count. The panic-rewiring
+    tilt table (`social.graphgen.tilt_threshold_table`) quantizes such a
+    prefix into uint32 buckets, and needs it bit for bit."""
+    n = x.shape[-1]
+    if n == 0:
+        return x.clone()
+    m = -(-n // _XLA_SCAN_BASE)
+    xp = torch.nn.functional.pad(x, (0, m * _XLA_SCAN_BASE - n))
+    xp = xp.reshape(*x.shape[:-1], m, _XLA_SCAN_BASE)
+    cols = [xp[..., 0]]
+    for j in range(1, _XLA_SCAN_BASE):
+        cols.append(cols[-1] + xp[..., j])
+    rows = torch.stack(cols, dim=-1)
+    if m > 1:
+        totals = xla_cumsum(rows[..., -1])
+        carry = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]], dim=-1)
+        rows = rows + carry.unsqueeze(-1)
+    return rows.reshape(*x.shape[:-1], m * _XLA_SCAN_BASE)[..., :n]
+
+
 def _cum_from_zero(inc: torch.Tensor) -> torch.Tensor:
     csum = prefix_sum(inc) if inc.is_cuda else torch.cumsum(inc, dim=-1)
     return torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)

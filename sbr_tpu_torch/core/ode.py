@@ -53,15 +53,17 @@ def _probe_health(y0, ts, out, iterations, state_ndim: int, dtype) -> Health:
                                                 device=h.flags.device).expand(h.flags.shape))
 
 
-def run_passes(one_pass, state: dict, done) -> dict:
+def run_passes(one_pass, state: dict, done, eager: bool = False) -> dict:
     """Apply ``one_pass`` (a function from a state dict of tensors to the
     next) in chunks of `CHECK_EVERY` passes until ``done(state)``, which is
     asked between chunks. On the card the first chunk runs eagerly as a
     warm-up, then one chunk is captured into a CUDA graph over static
     copies of the state and replayed: the same kernels in the same order,
-    without the host's cost of launching each."""
+    without the host's cost of launching each. ``eager`` runs every pass
+    eagerly on the card too, as autograd needs (a replayed graph records
+    no backward); the results are the same bits."""
     first = next(iter(state.values()))
-    if first.device.type != "cuda":
+    if first.device.type != "cuda" or eager:
         while not done(state):
             for _ in range(CHECK_EVERY):
                 state = one_pass(state)

@@ -83,6 +83,16 @@ class Health:
     iterations: torch.Tensor  # int32
     flags: torch.Tensor  # int32
 
+    def __post_init__(self):
+        # Health is telemetry, never part of a differentiated computation:
+        # every leaf is cut from autograd at construction (identity on the
+        # values), so a caller folding health.residual into a loss gets no
+        # gradient through the residual's evaluation, as in the reference.
+        for field in ("residual", "bracket_width", "iterations", "flags"):
+            v = getattr(self, field)
+            if isinstance(v, torch.Tensor) and v.requires_grad:
+                object.__setattr__(self, field, v.detach())
+
     @classmethod
     def empty(cls, dtype=torch.float32, device="cpu") -> "Health":
         """A neutral health: nothing measured, nothing flagged."""

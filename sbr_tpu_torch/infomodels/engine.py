@@ -12,6 +12,16 @@ spec):
   (the reference's ``lax.scan``), each a `_seg_counts` recount of the
   withdrawn in-neighbours and one `social.fused.belief_update`, which
   launches the CUDA kernel for tensors on the card.
+- **dynamics="rewire"** wraps either channel in a host loop of epochs:
+  each epoch regenerates the edge set, born dst-sorted, with the source
+  marginal tilted toward the agents withdrawing at its start
+  (`graphgen.tilt_threshold_table`, `generate_tilted_sources`,
+  `epoch_indegrees`), then runs ``epoch_steps`` steps carrying (informed,
+  t_inf[, belief]) across the boundary. Gossip epochs ride
+  `simulate_agents` with the global step offset (so its counter stream
+  continues as under launch chunking), bayes epochs `_bayes_sim`; every
+  step still ends in the channel's CUDA kernel. One scalar read fences
+  each epoch.
 
 The per-agent fields (group, threshold, awareness) come from one Threefry
 block per agent keyed by SeedSequence((seed, 31)), as in the reference.
@@ -21,8 +31,9 @@ thresholds agree to within that; groups, awareness and β are equal bit for
 bit. `agent_fields_from_numpy` carries fields from elsewhere (the JAX
 package, or another device), so that two runs compute the same simulation.
 
-Not ported yet: ``dynamics="rewire"`` (raises ``NotImplementedError``), the
-mean-field and population modules, ``infomodel_fingerprint``.
+A rewire run equals ``sbr_tpu``'s bit for bit in both channels (the bayes
+channel with the fields carried), fractions, final state and epochs alike
+(tested).
 """
 
 from __future__ import annotations
@@ -35,8 +46,9 @@ import torch
 
 from sbr_tpu_torch.infomodels.spec import InfoModelSpec
 from sbr_tpu_torch.social import agents as A
+from sbr_tpu_torch.social import graphgen as G
 from sbr_tpu_torch.social.fused import belief_update
-from sbr_tpu_torch.social.graphgen import prepare_generated_graph
+from sbr_tpu_torch.social.graphgen import ErdosRenyiSpec, ScaleFreeSpec, prepare_generated_graph
 from sbr_tpu_torch.social.rng import _threefry2x32, _uniform_from_bits
 
 
@@ -151,6 +163,92 @@ def _bayes_sim(prepared: A.PreparedAgentGraph, awareness, thr, llr01, informed0,
     )
 
 
+def _gather_prepared(n: int, e: int, betas, src, row_ptr, indeg, dtype,
+                     device) -> A.PreparedAgentGraph:
+    """One epoch's arrays as a gather-engine `PreparedAgentGraph`, so a
+    rewired gossip epoch rides `simulate_agents` unchanged."""
+    return A.PreparedAgentGraph(
+        n=n, n_edges=e, dtype=np.dtype(dtype), device=device, engine="gather",
+        budget=0, max_degree=64, betas=betas, src=src, row_ptr=row_ptr,
+        indeg=indeg, inc=None,
+    )
+
+
+def _base_source_weights(graph, device) -> torch.Tensor:
+    """The base source marginal (float32) that the panic tilt multiplies:
+    uniform for Erdős–Rényi, the Chung–Lu weights for scale-free,
+    normalised in float64 and then rounded, as the reference does. SBM's
+    source law conditions on the destination's block, which no marginal
+    table expresses, so rewiring rejects it."""
+    if isinstance(graph, ErdosRenyiSpec):
+        return torch.ones(graph.n, dtype=torch.float32, device=device)
+    if isinstance(graph, ScaleFreeSpec):
+        w = np.arange(1, graph.n + 1, dtype=np.float64) ** (-1.0 / (graph.gamma - 1.0))
+        return torch.from_numpy((w / w.sum()).astype(np.float32)).to(device)
+    raise ValueError(
+        f"dynamics='rewire' supports ErdosRenyiSpec/ScaleFreeSpec base "
+        f"graphs (the SBM source law conditions on the destination block); "
+        f"got {type(graph).__name__}"
+    )
+
+
+def _simulate_rewire(spec: InfoModelSpec, graph, seed: int, config: A.AgentSimConfig,
+                     dtype: np.dtype, fields, llr01, informed, t_init, belief,
+                     chunk_edges, device) -> InfoSimResult:
+    """The panic-rewiring epoch loop of `simulate_info` (module docstring).
+    ``t_inf`` is carried with inf for the never-informed, as each epoch
+    returns it, and enters the next epoch with inf replaced by 0 (the
+    engines put inf back where the agent is uninformed)."""
+    n = graph.n
+    tdtype = A._TORCH_DTYPE[dtype]
+    betas_d, thr_d, aware_d = fields
+    e = G._check_edges(graph.edge_count(seed))
+    base_w = _base_source_weights(graph, device)
+    t_inf = torch.where(informed, t_init, float("inf")).to(tdtype)
+    gs_parts, aws_parts = [], []
+    done = n_epochs = 0
+    while done < config.n_steps:
+        this_len = min(spec.epoch_steps, config.n_steps - done)
+        # the epoch's start time rounds from the float64 product, as the
+        # reference's jnp.asarray(done * dt, dtype) does
+        t_now = float(dtype.type(done * config.dt))
+        wd_now = A._withdrawn(informed, t_inf, t_now, config.exit_delay, config.reentry_delay)
+        thr_table = G.tilt_threshold_table(base_w, wd_now, spec.rewire_bias)
+        src = G.generate_tilted_sources(
+            n, e, G.epoch_key_words(seed, n_epochs), thr_table, chunk_edges
+        )
+        indeg_h = G.epoch_indegrees(graph, seed, n_epochs, e)
+        row_ptr = torch.from_numpy(G._row_ptr_host(indeg_h)).to(device)
+        indeg = torch.from_numpy(indeg_h.astype(dtype)).to(device)
+        pg = _gather_prepared(n, e, betas_d, src, row_ptr, indeg, dtype, device)
+        cfg_ep = dataclasses.replace(config, n_steps=this_len, max_steps_per_launch=None)
+        t_start = torch.where(torch.isfinite(t_inf), t_inf, 0.0).to(tdtype)
+        if spec.channel == "gossip":
+            part = A.simulate_agents(
+                prepared=pg, config=cfg_ep, seed=seed, informed0=informed,
+                t_inf0=t_start, step_offset=done,
+            )
+            informed, t_inf = part.informed, part.t_inf
+            gs, aws = part.informed_frac, part.withdrawn_frac
+        else:
+            gs, aws, informed, t_inf, belief = _bayes_sim(
+                pg, aware_d, thr_d, llr01, informed, t_start, belief, done, cfg_ep
+            )
+        gs_parts.append(gs)
+        aws_parts.append(aws)
+        done += this_len
+        n_epochs += 1
+        float(gs[-1])  # one scalar fence an epoch boundary
+    bayes = spec.channel == "bayes"
+    return InfoSimResult(
+        t_grid=torch.from_numpy(A._step_times(config, 0, dtype)[:-1]).to(device),
+        informed_frac=torch.cat(gs_parts), withdrawn_frac=torch.cat(aws_parts),
+        informed=informed, t_inf=t_inf, belief=belief if bayes else None,
+        epochs=n_epochs, agent_steps=n * config.n_steps,
+        belief_updates=n * config.n_steps if bayes else 0,
+    )
+
+
 def simulate_info(
     spec: InfoModelSpec,
     graph,
@@ -181,14 +279,18 @@ def simulate_info(
     ``fields``: the (betas, thresholds, awareness) tensors of
     `agent_fields_from_numpy`, used instead of drawing them.
 
+    ``dynamics="rewire"`` regenerates the graph every epoch (module
+    docstring), so it takes no ``prepared``; ``engine`` does not apply.
+
     The gossip-reducible spec's result equals `simulate_agents` on the
     same prepared graph, and ``sbr_tpu``'s, bit for bit; with the same
-    fields, the bayes channel's equals ``sbr_tpu``'s bit for bit (tested)."""
-    if spec.dynamics == "rewire":
-        raise NotImplementedError(
-            "dynamics='rewire' is not ported: the reference quantizes an XLA "
-            "float32 cumsum, whose summation order torch.cumsum does not "
-            "follow, so the sources it draws would differ"
+    fields, the bayes channel's equals ``sbr_tpu``'s bit for bit, static
+    or rewired (tested)."""
+    rewire = spec.dynamics == "rewire"
+    if prepared is not None and rewire:
+        raise ValueError(
+            "prepared= conflicts with dynamics='rewire': rewiring regenerates "
+            "the edge set every epoch, so there is no graph to reuse"
         )
     if belief0 is not None and spec.channel != "bayes":
         raise ValueError("belief0= only applies to channel='bayes'")
@@ -201,7 +303,7 @@ def simulate_info(
     dtype = np.dtype(dtype)
     hetero = len(spec.group_table()[0]) > 1
 
-    if spec.channel == "gossip":
+    if spec.channel == "gossip" and not rewire:
         pg = prepared
         if pg is None:
             if fields is not None:
@@ -225,16 +327,18 @@ def simulate_info(
         )
 
     pg = prepared
-    if pg is None:
+    if pg is None and not rewire:
         pg = prepare_generated_graph(
             graph, seed=seed, betas=1.0, config=config, dtype=dtype,
             engine="gather", chunk_edges=chunk_edges, device=device,
         )
-    dtype = pg.dtype
+    if pg is not None:
+        dtype = pg.dtype
     tdtype = A._TORCH_DTYPE[dtype]
     if fields is None:
         fields = _agent_fields(spec, n, seed, beta, dtype, device)
-    _, thr_d, aware_d = (f.to(device=device, dtype=tdtype) for f in fields)
+    fields = tuple(f.to(device=device, dtype=tdtype) for f in fields)
+    _, thr_d, aware_d = fields
     llr01 = tuple(dtype.type(v) for v in spec.llr)
     if informed0 is None:
         informed0 = A._draw_seeds(np.random.default_rng(seed), n, x0, exact_seeds)
@@ -247,6 +351,9 @@ def simulate_info(
         belief_d = torch.zeros(n, dtype=tdtype, device=device)
     else:
         belief_d = A._tensor(np.broadcast_to(np.asarray(belief0, dtype), (n,)), device)
+    if rewire:
+        return _simulate_rewire(spec, graph, seed, config, dtype, fields, llr01, informed_d,
+                                t_init_d, belief_d, chunk_edges, device)
     gs, aws, informed, t_inf, belief = _bayes_sim(
         pg, aware_d, thr_d, llr01, informed_d, t_init_d, belief_d, 0, config
     )

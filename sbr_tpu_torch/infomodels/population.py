@@ -22,8 +22,9 @@ Two seed-variation modes:
 - ``vary="graph"``: S (graph, sim) seed pairs, each member generating its
   own graph on the device, the fixed point shared through ``fp=``.
 
-The ``dynamics="rewire"`` information models cannot run: `close_loop`
-raises `NotImplementedError` on them (their simulation is not ported).
+A ``dynamics="rewire"`` information model runs each member through the
+epoch loop of `infomodels.engine.simulate_info`: no graph is shared across
+members in either mode, since every epoch regenerates it.
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ shape C + (n,).
   as the in-loop path would (t0 + j·h; t + 0.5·h; t + h), and the
   substeps are unrolled. The loop over the n − 1 intervals is a loop of
   passes, one interval each, vectorised over the cells; on the card it
-  is replayed from a CUDA graph (`core.ode.run_passes`).
+  is replayed from a CUDA graph (`core.ode.run_passes`), unless an input
+  requires grad (`grad.cell.interest_cell`), when it runs eagerly so that
+  autograd records it: the fixed RK4 is the gradient path of the HJB.
 - Adaptive numerics: `core.ode.bs32` with the cells as lanes, the hazard
   interpolated at each attempt's node times.
 """
@@ -120,7 +122,12 @@ def solve_value_function(tau_grid, hr, delta, r, u, config: SolverConfig | None 
         return dict(j=j + 1, v=v1)
 
     march = dict(j=torch.zeros((), dtype=torch.int64, device=dev), v=v0.clone())
-    run_passes(one_pass, march, lambda s: int(s["j"]) >= n_int)
+    # autograd through V (the grad layer's interest cell) needs the passes
+    # recorded, so they run eagerly; otherwise they replay from a graph
+    differentiable = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (tau_grid, hr, delta, r, u)
+    )
+    run_passes(one_pass, march, lambda s: int(s["j"]) >= n_int, eager=differentiable)
     out = out[: n_int + 1].movedim(0, -1)
     if not with_health:
         return out

@@ -21,9 +21,8 @@ A stdlib-only (``http.server``) thread serving four routes off an
   dispatch ``503``, a malformed document ``400``. As in the reference, a
   bad spec, a spec the params cannot serve, ``population`` beside
   ``scenario``, ``grads`` on either, and a modifier's knob without its
-  modifier are all ``400``. Routes the port does not have yet get ``501``
-  with the reason, never a wrong ``200``: ``"grads": true`` on a plain
-  query, and a population of a ``rewire`` information model.
+  modifier are all ``400``. ``"grads": true`` on a plain query answers
+  with dξ/d{β, u, κ} (``grads``) and ``grad_flags`` beside ξ.
 
 Tracing headers wait for ``obs.trace`` (ROADMAP item E.20). ``port=0``
 binds an ephemeral port; the bound port is `.port`.
@@ -66,7 +65,7 @@ def _json_safe(value):
 
 def query_result_doc(result) -> dict:
     """The wire form of one `QueryResult`."""
-    return {
+    doc = {
         "xi": _json_safe(result.xi),
         "tau_bar_in": _json_safe(result.tau_bar_in),
         "aw_max": _json_safe(result.aw_max),
@@ -78,11 +77,12 @@ def query_result_doc(result) -> dict:
         "scenario": result.scenario,
         "latency_ms": round(result.latency_s * 1e3, 3),
     }
-
-
-def _not_ported(what: str, item: str) -> dict:
-    return {"error": "not ported", "detail": f"{what} is not ported to sbr_tpu_torch yet "
-            f"(ROADMAP item {item})"}
+    # sensitivities only on grads answers: plain answers stay grad-free
+    if result.grads is not None:
+        doc["grads"] = {k: _json_safe(v) for k, v in result.grads.items()}
+    if result.grad_flags is not None:
+        doc["grad_flags"] = int(result.grad_flags)
+    return doc
 
 
 class ServeEndpoint:
@@ -170,9 +170,6 @@ class ServeEndpoint:
                 if unknown:
                     self._json(400, {"error": f"unknown parameter(s): {sorted(unknown)}"})
                     return
-                if grads:
-                    self._json(501, _not_ported("a grads query", "D.18"))
-                    return
                 try:
                     kw = {k: doc[k] for k in _PARAM_KEYS if k in doc}
                     active = spec.modifiers if spec is not None else ()
@@ -217,7 +214,7 @@ class ServeEndpoint:
                         self._json(200, rec)
                         return
                     result = endpoint.engine.query(
-                        params, scenario=scenario, deadline_ms=deadline_ms
+                        params, scenario=scenario, deadline_ms=deadline_ms, grads=grads
                     )
                 except DeadlineExceeded as err:
                     self._json(
@@ -226,10 +223,6 @@ class ServeEndpoint:
                          "retry_after_s": err.retry_after_s},
                         {"Retry-After": f"{err.retry_after_s:g}"},
                     )
-                    return
-                except NotImplementedError as err:
-                    # a query whose path is not ported (a rewire population)
-                    self._json(501, {"error": "not ported", "detail": str(err)})
                     return
                 except Exception as err:
                     # Solver down: an honest 503 a router can fail over on.

@@ -36,6 +36,17 @@
   deadline (``SBR_SERVE_DEADLINE_MS``) has passed or is shorter than the
   measured service time. A failed dispatch fails its tickets.
 
+- **Sensitivities** (``grads=True``): the answer carries dξ/dβ, dξ/du and
+  dξ/dκ, the IFT gradients of `grad.api.cell_value_and_grads`, and their
+  grad-trust flags beside ξ. Grads queries dispatch through their own
+  program per bucket: the plain `solve_param_cell` (so the served ξ,
+  status and flags are the plain program's bit for bit) plus the
+  differentiable cell's forward and backward. That program is captured
+  into a CUDA graph on the card exactly as the plain one is, the autograd
+  backward inside the capture (the IFT backward reads nothing on the
+  host); there is no eager fallback. Its results are keyed apart from the
+  plain ones, by the grads bit and the resolved `grad.cell.aprime_tol`.
+
 - **Composed scenarios and population what-ifs** (`query_scenario`,
   `query_population`) run in the calling thread, one solve a query (their
   programs differ by spec, so they do not micro-batch), under the same
@@ -46,8 +57,8 @@
   launches the CUDA infection or belief kernel every step of every member.
 
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-gradient queries (D.18), run directories (E.20), and the audit, demand,
-prewarm and flight-recorder switches (E.20/E.21). The degradation ladder's
+run directories (E.20), and the audit, demand, prewarm and flight-recorder
+switches (E.20/E.21). The degradation ladder's
 tile-cache rung waits for the elastic tile cache (E.19).
 """
 
@@ -72,6 +83,8 @@ import torch
 
 from sbr_tpu_torch.core.rootfind import no_host_reads
 from sbr_tpu_torch.diag.health import DIVERGENT_MASK
+from sbr_tpu_torch.grad.api import WRT_DEFAULT, cell_value_and_grads
+from sbr_tpu_torch.grad.cell import BASE_KEYS, aprime_tol
 from sbr_tpu_torch.models.params import ModelParams, SolverConfig
 from sbr_tpu_torch.resilience import heal, retry
 from sbr_tpu_torch.serve.fleet import CircuitBreaker, default_deadline_ms
@@ -87,8 +100,11 @@ _BACKEND = "torch"
 
 _SHUTDOWN = object()
 
-# The outputs of one dispatch, rows of the program's (6, bucket) result.
+# The outputs of one dispatch, rows of the program's (6, bucket) result;
+# a grads program appends four rows.
 _OUTPUTS = ("xi", "tau_bar_in", "aw_max", "status", "flags", "residual")
+_GRAD_OUTPUTS = _OUTPUTS + ("dxi_dbeta", "dxi_du", "dxi_dkappa", "grad_flags")
+_INT_OUTPUTS = ("status", "flags", "grad_flags")
 
 # Switches of the reference's engine that need modules not ported yet.
 _UNPORTED_ENV = {
@@ -182,7 +198,9 @@ class ServeConfig:
 class QueryResult:
     """One served equilibrium: the lean per-cell outputs plus provenance.
     ``degraded`` marks a degradation-ladder answer, which the port does
-    not give yet (its ladder has no tile-cache rung), so it is False."""
+    not give yet (its ladder has no tile-cache rung), so it is False.
+    ``grads`` maps β, u and κ to dξ/dθ when the query asked for them, with
+    ``grad_flags`` the grad-trust bitmask (`diag.health.GRAD_*`)."""
 
     xi: float
     tau_bar_in: float
@@ -194,6 +212,8 @@ class QueryResult:
     scenario: str
     latency_s: float
     degraded: bool = False
+    grads: Optional[dict] = None  # {"beta": .., "u": .., "kappa": ..}
+    grad_flags: Optional[int] = None
 
     @property
     def divergent(self) -> bool:
@@ -201,14 +221,15 @@ class QueryResult:
 
 
 class _Ticket:
-    __slots__ = ("params", "scenario", "key", "t0", "t_popped", "deadline",
+    __slots__ = ("params", "scenario", "key", "grads", "t0", "t_popped", "deadline",
                  "event", "result", "error")
 
     def __init__(self, params: ModelParams, scenario: str, key: str,
-                 deadline: Optional[float] = None) -> None:
+                 deadline: Optional[float] = None, grads: bool = False) -> None:
         self.params = params
         self.scenario = scenario
         self.key = key
+        self.grads = grads
         self.t0 = time.monotonic()
         self.t_popped: Optional[float] = None  # when the batcher took it
         # Absolute monotonic deadline, or None. A ticket whose deadline
@@ -251,6 +272,9 @@ class BucketProgram:
     lanes, every parameter per lane, read from one static (9, bucket)
     input buffer, and its six outputs stacked into one (6, bucket) tensor
     (status and flags are small integers, exact in either float type).
+    With ``aprime_tol`` set it is the grads program: four more rows, dξ/dβ,
+    dξ/du, dξ/dκ and the grad flags, from `grad.api.cell_value_and_grads`
+    on the same lanes.
 
     On a CUDA device construction captures the program into a CUDA graph
     (after a warm-up on a side stream with ``cols`` as inputs, into the
@@ -261,18 +285,20 @@ class BucketProgram:
 
     def __init__(self, bucket: int, config: SolverConfig, dtype: torch.dtype,
                  device: torch.device, counters: GraphCounters, cols: np.ndarray,
-                 pool=None) -> None:
+                 pool=None, aprime_tol: Optional[float] = None) -> None:
         self.config = config
         self.dtype = dtype
         self.device = device
         self.counters = counters
+        self.aprime_tol = aprime_tol
         self.inputs = torch.tensor(cols, device=device)  # a copy: the static buffer
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[torch.Tensor] = None
         if device.type == "cuda":
             t0 = time.perf_counter()
             self._capture(pool)
-            counters.captured[bucket] = counters.captured.get(bucket, 0) + 1
+            captured = counters.captured if aprime_tol is None else counters.captured_grads
+            captured[bucket] = captured.get(bucket, 0) + 1
             counters.capture_s += time.perf_counter() - t0
 
     def solve(self) -> torch.Tensor:
@@ -281,10 +307,15 @@ class BucketProgram:
             xi, tau_in, aw_max, status, health = solve_param_cell(
                 *self.inputs, self.config, self.dtype, self.device
             )
-        return torch.stack([
-            xi, tau_in, aw_max, status.to(self.dtype), health.flags.to(self.dtype),
-            health.residual,
-        ])
+            rows = [xi, tau_in, aw_max, status.to(self.dtype), health.flags.to(self.dtype),
+                    health.residual]
+            if self.aprime_tol is not None:
+                _, _, grads, _, _, gflags = cell_value_and_grads(
+                    dict(zip(BASE_KEYS, self.inputs)), WRT_DEFAULT, self.config, self.dtype,
+                    aprime_tol_=self.aprime_tol,
+                )
+                rows += [grads["beta"], grads["u"], grads["kappa"], gflags.to(self.dtype)]
+        return torch.stack(rows)
 
     def _capture(self, pool) -> None:
         side = torch.cuda.Stream(self.device)
@@ -299,7 +330,8 @@ class BucketProgram:
         self.graph = graph
 
     def __call__(self, cols: np.ndarray) -> np.ndarray:
-        """Solve the (9, bucket) columns; returns the (6, bucket) outputs."""
+        """Solve the (9, bucket) columns; returns the (6, bucket) outputs
+        (10 rows for the grads program)."""
         self.inputs.copy_(torch.from_numpy(cols))
         if self.graph is None:
             self.counters.eager_runs += 1
@@ -457,11 +489,10 @@ class Engine:
                deadline_ms: Optional[float] = None, grads: bool = False) -> _Ticket:
         """Enqueue one query for the micro-batcher (requires `start()`).
         Raises once the engine is closed, and sheds (`DeadlineExceeded`)
-        when the deadline cannot be met."""
-        if grads:
-            raise _not_ported("grads=True (served sensitivities)", "D.18")
+        when the deadline cannot be met. With ``grads`` the answer carries
+        dξ/d{β, u, κ} beside ξ, cached under its own key."""
         deadline = self._admit(deadline_ms)
-        ticket = _Ticket(params, scenario, self._result_key(params), deadline)
+        ticket = _Ticket(params, scenario, self._result_key(params, grads), deadline, grads)
         with self._close_lock:
             if self._closed:
                 raise RuntimeError("engine is closed")
@@ -490,12 +521,11 @@ class Engine:
         """Solve a list of queries. Started engine: all enqueue at once (the
         natural micro-batch). Unstarted: processed inline in this thread,
         the deterministic, thread-free path."""
-        if grads:
-            raise _not_ported("grads=True (served sensitivities)", "D.18")
         if self._closed:
             raise RuntimeError("engine is closed")
         deadline = self._admit(deadline_ms)
-        tickets = [_Ticket(p, scenario, self._result_key(p), deadline) for p in params_list]
+        tickets = [_Ticket(p, scenario, self._result_key(p, grads), deadline, grads)
+                   for p in params_list]
         if self._thread is None:
             self._process(tickets)
         else:
@@ -773,12 +803,21 @@ class Engine:
                 groups.setdefault(t.key, []).append(t)
         unique = [g[0] for g in groups.values()]
         max_bucket = max(self.serve.buckets)
-        for i in range(0, len(unique), max_bucket):
-            self._process_chunk(unique[i : i + max_bucket], groups)
+        # plain and grads queries run different programs: partition first
+        # (their keys already keep cache entries and coalescing apart)
+        for part in ([t for t in unique if not t.grads], [t for t in unique if t.grads]):
+            for i in range(0, len(part), max_bucket):
+                self._process_chunk(part[i : i + max_bucket], groups)
 
     def _process_chunk(self, chunk: List[_Ticket], groups) -> None:
         try:
-            records = self._dispatch([t.params for t in chunk])
+            # positional for the plain path: `_dispatch(params)` is a
+            # stubbing point of the failure-injection tests
+            records = (
+                self._dispatch([t.params for t in chunk], grads=True)
+                if chunk[0].grads
+                else self._dispatch([t.params for t in chunk])
+            )
         except BaseException as err:
             # The port's degradation ladder has no tile-cache rung yet: a
             # failed dispatch fails its tickets (the endpoint's 503).
@@ -799,7 +838,16 @@ class Engine:
 
     def _fulfill(self, t: _Ticket, rec: dict, source: str) -> None:
         latency = time.monotonic() - t.t0
-        t.result = QueryResult(source=source, scenario=t.scenario, latency_s=latency, **rec)
+        rec = dict(rec)
+        # a grads record is a superset of the plain one: fold its dξ/dθ
+        # keys into the structured ``grads`` field
+        grads = None
+        grad_flags = rec.pop("grad_flags", None)
+        if "dxi_dbeta" in rec:
+            grads = {"beta": rec.pop("dxi_dbeta"), "u": rec.pop("dxi_du"),
+                     "kappa": rec.pop("dxi_dkappa")}
+        t.result = QueryResult(source=source, scenario=t.scenario, latency_s=latency,
+                               grads=grads, grad_flags=grad_flags, **rec)
         self.live.record_query(
             latency, source, scenario=t.scenario, divergent=t.result.divergent
         )
@@ -811,21 +859,28 @@ class Engine:
                 return b
         return max(self.serve.buckets)
 
-    def _program(self, bucket: int, cols: np.ndarray) -> BucketProgram:
+    def _program(self, bucket: int, cols: np.ndarray, grads: bool = False) -> BucketProgram:
         """The bucket's program, made (and on the card captured) on first
-        use, with ``cols`` as the warm-up's inputs."""
-        program = self._programs.get(bucket)
+        use, with ``cols`` as the warm-up's inputs. A grads program is kept
+        per resolved ill-conditioning tolerance, which its flags bake in."""
+        tol = self._aprime_tol() if grads else None
+        key = bucket if tol is None else ("grads", bucket, tol)
+        program = self._programs.get(key)
         if program is None:
             if self.device.type == "cuda" and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             program = BucketProgram(bucket, self.config, self.dtype, self.device,
-                                    self.graphs, cols, self._graph_pool)
-            self._programs[bucket] = program
+                                    self.graphs, cols, self._graph_pool, aprime_tol=tol)
+            self._programs[key] = program
         return program
 
-    def _dispatch(self, params_list: List[ModelParams]) -> List[dict]:
+    def _aprime_tol(self) -> float:
+        return aprime_tol(self.dtype)
+
+    def _dispatch(self, params_list: List[ModelParams], grads: bool = False) -> List[dict]:
         """One padded dispatch under the retry policy; returns one
-        plain-float record per query (the cacheable form). While the
+        plain-float record per query (the cacheable form; with ``grads``
+        the grads program's, dξ/dθ and the grad flags included). While the
         breaker is open it raises `SolverUnavailable` without touching the
         device, until the cooldown lets one half-open probe through."""
         self.retry_budget.maybe_refill()
@@ -844,7 +899,9 @@ class Engine:
         t_disp = time.monotonic()
         try:
             with self._on_device():
-                program = self._program(bucket, cols)
+                # `_program(bucket, cols)` is a stubbing point of the tests
+                program = (self._program(bucket, cols, grads=True) if grads
+                           else self._program(bucket, cols))
                 out = self._retry.call(
                     program, cols, scope=f"serve.dispatch[{bucket}]", budget=self.retry_budget
                 )
@@ -859,17 +916,23 @@ class Engine:
             else 0.3 * dur + 0.7 * self._service_ewma_s
         )
         self.live.record_batch(n, bucket)
+        names = _GRAD_OUTPUTS if grads else _OUTPUTS
         records = []
         for i in range(n):
-            rec = {name: float(out[k, i]) for k, name in enumerate(_OUTPUTS)}
-            rec["status"] = int(out[3, i])
-            rec["flags"] = int(out[4, i])
+            rec = {name: float(out[k, i]) for k, name in enumerate(names)}
+            for name in _INT_OUTPUTS:
+                if name in rec:
+                    rec[name] = int(rec[name])
             records.append(rec)
         return records
 
     # -- result cache --------------------------------------------------------
-    def _result_key(self, params: ModelParams) -> str:
-        return params_fingerprint((params, self._cfg_tag))
+    def _result_key(self, params: ModelParams, grads: bool = False) -> str:
+        # a grads record's flags depend on the resolved ill-conditioning
+        # tolerance, which joins its key: a cached answer never replays
+        # flags made under another SBR_GRAD_APRIME_TOL
+        tag = (self._cfg_tag, "grads", self._aprime_tol()) if grads else self._cfg_tag
+        return params_fingerprint((params, tag))
 
     def _result_path(self, key: str) -> Optional[Path]:
         if not self.serve.cache_dir:
@@ -921,7 +984,7 @@ class Engine:
     @staticmethod
     def _parse_plain_record(path: Path) -> dict:
         raw = json.loads(path.read_text())
-        return {
+        rec = {
             "xi": float(raw["xi"]),
             "tau_bar_in": float(raw["tau_bar_in"]),
             "aw_max": float(raw["aw_max"]),
@@ -929,6 +992,13 @@ class Engine:
             "flags": int(raw["flags"]),
             "residual": float(raw["residual"]),
         }
+        # a grads record keeps its sensitivities across a restart
+        for k in ("dxi_dbeta", "dxi_du", "dxi_dkappa"):
+            if k in raw:
+                rec[k] = float(raw[k])
+        if "grad_flags" in raw:
+            rec["grad_flags"] = int(raw["grad_flags"])
+        return rec
 
     def _store(self, key: str, rec: dict, write_disk: bool = True) -> None:
         with self._lru_lock:

@@ -77,23 +77,25 @@ _COUNTERS = (
 
 class GraphCounters:
     """The engine's per-bucket program counters: CUDA graphs captured (per
-    bucket), their replays, the seconds spent capturing, and the eager
+    bucket, plain and grads programs apart), their replays, the seconds spent capturing, and the eager
     runs of the program on the CPU. Written by the one thread that
     dispatches at a time (the engine serializes dispatches)."""
 
     def __init__(self) -> None:
         self.captured: Dict[int, int] = {}
+        self.captured_grads: Dict[int, int] = {}  # the grads programs'
         self.replays = 0
         self.capture_s = 0.0
         self.eager_runs = 0
 
     @property
     def captures(self) -> int:
-        return sum(self.captured.values())
+        return sum(self.captured.values()) + sum(self.captured_grads.values())
 
     def snapshot(self) -> dict:
         return {
             "captured": {str(b): n for b, n in sorted(self.captured.items())},
+            "captured_grads": {str(b): n for b, n in sorted(self.captured_grads.items())},
             "captures": self.captures,
             "replays": self.replays,
             "capture_s": round(self.capture_s, 6),

@@ -23,10 +23,11 @@ clock. The host parts are the reference's numpy: the seed choice, the
 ``sbr_tpu``'s bit for bit on the gossip paths, and on the bayes path with
 the same per-agent fields (tested).
 
-Not ported: ``mesh=`` (raises ``NotImplementedError``), information models
-with ``dynamics="rewire"`` (their simulation is not ported; raises
-``NotImplementedError``), and the ``obs`` census line of an information-
-model closure.
+A ``dynamics="rewire"`` information model closes against its tilted
+mean-field curve, each member regenerating its graph every epoch.
+
+Not ported: ``mesh=`` (raises ``NotImplementedError``) and the ``obs``
+census line of an information-model closure.
 """
 
 from __future__ import annotations
@@ -139,7 +140,7 @@ def close_loop(
       point's G reaches g0 (see the module docstring); None runs from
       scratch with x0·N founders.
     - ``fp``: a precomputed fixed point of the same ``model``.
-    - ``infomodel``: an `infomodels.InfoModelSpec` with static dynamics;
+    - ``infomodel``: an `infomodels.InfoModelSpec`, static or rewired;
       the loop then closes against its mean-field fixed point
       (`infomodels.meanfield.solve_fixed_point_info`). The bayes mid-start
       seeds the threshold-ordered prefix {i: a_i·M(t0) ≥ θ_i} with crossing
@@ -160,11 +161,6 @@ def close_loop(
         )
     if mesh is not None:
         raise NotImplementedError("the sharded agent engines (mesh=) are not ported yet")
-    if infomodel is not None and infomodel.dynamics == "rewire":
-        raise NotImplementedError(
-            "dynamics='rewire' closures are not ported: the rewiring simulation "
-            "is not (its mean-field curve is: infomodels.meanfield)"
-        )
     device = torch.device(device) if device is not None else default_device()
     if infomodel is not None:
         if graph is None:
@@ -223,9 +219,10 @@ def close_loop(
     n_reps = len(member_seeds)
 
     # the seeds= axis: the graph is prepared once, at the base seed, and
-    # every member reuses it; only per-member state varies
+    # every member reuses it; only per-member state varies. A rewire
+    # model regenerates its graph every epoch, so there is none to share.
     shared_pg = None
-    if seeds is not None:
+    if seeds is not None and (infomodel is None or infomodel.dynamics == "static"):
         from sbr_tpu_torch.infomodels import engine
         from sbr_tpu_torch.social.graphgen import prepare_generated_graph
 

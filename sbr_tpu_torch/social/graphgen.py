@@ -24,9 +24,14 @@ checks: `ErdosRenyiSpec`, `ScaleFreeSpec` (Chung–Lu, both endpoints ∝
 layout equals ``sbr_tpu``'s bit for bit (tested). The 32-bit words of the
 draws are kept in int64 tensors, as in ``social.rng``.
 
-Not ported yet: the sharded build (``mesh=`` raises ``NotImplementedError``)
-and the panic-rewiring helpers (``epoch_key_words``, ``epoch_indegrees``,
-``tilt_threshold_table``, ``generate_tilted_sources``).
+Panic rewiring (`infomodels.engine`'s ``dynamics="rewire"``) regenerates
+the edge set every epoch from the same factoring: `epoch_indegrees` redraws
+the destination marginal, `tilt_threshold_table` tilts the source marginal
+toward the withdrawing agents, and `generate_tilted_sources` draws the
+dst-sorted sources against it, keyed by `epoch_key_words`. The table and
+the sources equal ``sbr_tpu``'s bit for bit (tested).
+
+Not ported yet: the sharded build (``mesh=`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sbr_tpu_torch.core.integrate import xla_cumsum
 from sbr_tpu_torch.social import agents as A
 from sbr_tpu_torch.social.rng import _threefry2x32
 
@@ -46,9 +52,13 @@ __all__ = [
     "ErdosRenyiSpec",
     "ScaleFreeSpec",
     "StochasticBlockSpec",
+    "epoch_indegrees",
+    "epoch_key_words",
     "generate_edges",
+    "generate_tilted_sources",
     "plan_chunk_edges",
     "prepare_generated_graph",
+    "tilt_threshold_table",
 ]
 
 
@@ -186,6 +196,83 @@ def _indeg_host(spec, seed: int, e: int) -> np.ndarray:
             done += take
         return indeg.astype(np.int32)
     return rng.multinomial(e, w / w.sum()).astype(np.int32)
+
+
+def epoch_key_words(seed: int, epoch: int) -> Tuple[np.uint32, np.uint32]:
+    """Threefry key words of one panic-rewiring epoch, from
+    SeedSequence((seed, 23, epoch)): a stream per epoch, apart from the
+    base generation stream and the in-degree draws, the same in every
+    process."""
+    k0, k1 = np.random.SeedSequence((seed, 23, epoch)).generate_state(2, np.uint32)
+    return np.uint32(k0), np.uint32(k1)
+
+
+def epoch_indegrees(spec, seed: int, epoch: int, e: int) -> np.ndarray:
+    """The in-degree vector of one rewiring epoch: the base spec's
+    destination marginal, redrawn from SeedSequence((seed, 1, epoch)), so
+    epoch graphs are independent realizations, deterministic in (seed,
+    epoch). Uniform marginals draw at most 2^24 integers at a time, as the
+    reference does (the chunking is part of the stream)."""
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 1, epoch)))
+    w = _spec_weights(spec)
+    if w is None:
+        indeg = np.zeros(spec.n, np.int64)
+        done = 0
+        while done < e:
+            take = min(1 << 24, e - done)
+            indeg += np.bincount(rng.integers(0, spec.n, size=take), minlength=spec.n)
+            done += take
+        return indeg.astype(np.int32)
+    return rng.multinomial(e, w / w.sum()).astype(np.int32)
+
+
+def tilt_threshold_table(base_weights: torch.Tensor, wd: torch.Tensor, bias) -> torch.Tensor:
+    """uint32-quantized inverse CDF of the panic-tilted source marginal,
+    p(src = j) ∝ w_j·(1 + bias·wd_j), with ``wd`` the withdrawn mask: the
+    destination marginal is untouched, so an epoch's stream is still born
+    dst-sorted and only the source draw reads this table.
+
+    The reference's arithmetic, one rounded op at a time (it runs eagerly):
+    ``w * (1 + bias·wd)`` as three ops, never a fused multiply-add; XLA's
+    blocked prefix (`core.integrate.xla_cumsum`); division by the last
+    entry; the product with 2^32; the minimum with 4294967295.0, which
+    rounds to 2^32 in float32. XLA's float → uint32 conversion saturates,
+    so the last entries, where the CDF is 1, become 4294967295: the words
+    are held in int64 and clamped to [0, 2^32 − 1] after the cast, as the
+    other tables of this module are held. Returns an int64 tensor."""
+    w = base_weights
+    bias_t = torch.tensor(bias, dtype=w.dtype, device=w.device)
+    t = w * (1.0 + bias_t * wd.to(w.dtype))
+    cdf = xla_cumsum(t)
+    cdf = cdf / cdf[-1]
+    thr = torch.clamp(cdf * 4294967296.0, max=4294967295.0)
+    return torch.clamp(thr.to(torch.int64), 0, 2**32 - 1)
+
+
+def generate_tilted_sources(n: int, e: int, key_words, thr_table: torch.Tensor,
+                            chunk_edges=None) -> torch.Tensor:
+    """dst-sorted int32 sources of one rewired epoch, on the table's
+    device: E counter-Threefry draws (one block per edge id, keyed by the
+    epoch's ``key_words``) against the tilted inverse-CDF table, chunked
+    under `plan_chunk_edges`. Each position is a function of (key, edge
+    id) alone, so the result does not depend on the chunk."""
+    device = thr_table.device
+    out = torch.empty(e, dtype=torch.int32, device=device)
+    if e == 0:
+        return out
+    chunk = (
+        plan_chunk_edges(e, n, device=device)
+        if chunk_edges in (None, "auto")
+        else int(chunk_edges)
+    )
+    chunk = max(1, min(chunk, max(e, 1), _MAX_CHUNK))
+    k0, k1 = (int(k) for k in key_words)
+    for c0 in range(0, e, chunk):
+        count = min(chunk, e - c0)
+        eid = torch.arange(c0, c0 + count, dtype=torch.int64, device=device)
+        x0, _ = _threefry2x32(k0, k1, eid, torch.zeros_like(eid))
+        out[c0:c0 + count] = torch.clamp(_searchsorted32(thr_table, x0, "right"), max=n - 1)
+    return out
 
 
 def _spec_tables(spec) -> Tuple[np.ndarray, ...]:

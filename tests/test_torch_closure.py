@@ -301,8 +301,10 @@ def test_close_loop_validation(social_fp):
     with pytest.raises(ValueError, match="mesh= is not supported"):
         tc.close_loop(m, fp=fp, mesh=object(), infomodel=TSpec(channel="bayes"),
                       device=CPU, **SMALL)
-    with pytest.raises(NotImplementedError, match="rewire"):
-        tc.close_loop(m, infomodel=TSpec(dynamics="rewire"), device=CPU, **SMALL)
-    with pytest.raises(NotImplementedError, match="rewire"):
-        tc.close_loop(m, infomodel=TSpec(channel="bayes", dynamics="rewire"), device=CPU,
-                      **SMALL)
+    # rewire closures run; their SBM base has no source marginal to tilt
+    sbm = tg.StochasticBlockSpec(n=SMALL["n_agents"], avg_degree=SMALL["avg_degree"])
+    with pytest.raises(ValueError, match="rewire"):
+        tc.close_loop(m, infomodel=TSpec(dynamics="rewire"), graph=sbm, device=CPU, **SMALL)
+    with pytest.raises(ValueError, match="rewire"):
+        tc.close_loop(m, infomodel=TSpec(channel="bayes", dynamics="rewire"), graph=sbm,
+                      device=CPU, **SMALL)

@@ -601,3 +601,108 @@ def test_extensions_on_card_equal_cpu(cuda_device, case, numerics):
         assert torch.equal(torch.isnan(a), torch.isnan(b))
         ok = ~torch.isnan(a)
         assert float((a[ok] - b[ok]).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# Panic rewiring and the gradient layer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("graph", ["er", "sf"])
+@pytest.mark.parametrize("bias", [0.0, 4.0])
+def test_tilt_table_and_sources_on_card_equal_cpu(cuda_device, graph, bias):
+    """The tilt table (XLA's blocked prefix, its float32 divide, product and
+    saturating cast) and the tilted sources are the CPU's bit for bit."""
+    from sbr_tpu_torch.infomodels import engine
+    from sbr_tpu_torch.social import graphgen
+
+    n = 300_007
+    spec = st.ErdosRenyiSpec(n, 10.0) if graph == "er" else st.ScaleFreeSpec(n, 10.0)
+    wd = torch.from_numpy(np.random.default_rng(1).random(n) < 0.25)
+    out = []
+    for dev in ("cpu", cuda_device):
+        thr = graphgen.tilt_threshold_table(engine._base_source_weights(spec, dev), wd.to(dev),
+                                            bias)
+        src = graphgen.generate_tilted_sources(n, spec.edge_count(3),
+                                               graphgen.epoch_key_words(3, 2), thr,
+                                               chunk_edges=1 << 20)
+        out.append((thr.cpu(), src.cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    assert int(out[1][0][-1]) == 2**32 - 1
+
+
+@pytest.mark.parametrize("channel", ["gossip", "bayes"])
+def test_rewire_on_card_launches_steps_and_equals_cpu(cuda_device, channel):
+    """A rewire run launches its channel's kernel once a step and the
+    other never, and equals the CPU's bit for bit (fields carried)."""
+    from sbr_tpu_torch.infomodels import engine
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    n = 30_000
+    spec = st.InfoModelSpec(channel=channel, dynamics="rewire", epoch_steps=7)
+    graph = st.ErdosRenyiSpec(n, 8.0)
+    cfg = st.AgentSimConfig(n_steps=30, dt=0.05, reentry_delay=1.0)
+    fields = [f.numpy() for f in engine._agent_fields(spec, n, 4, 1.5, np.float32, "cpu")]
+    kw = dict(beta=1.5, x0=0.01, config=cfg, seed=4)
+    cpu = st.simulate_info(spec, graph, device="cpu",
+                           fields=engine.agent_fields_from_numpy(*fields, "cpu"), **kw)
+    kernel, other = (BELIEF_KERNEL, KERNEL) if channel == "bayes" else (KERNEL, BELIEF_KERNEL)
+    _build.reset_launches()
+    card = st.simulate_info(spec, graph, device=cuda_device,
+                            fields=engine.agent_fields_from_numpy(*fields, cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES[kernel], _build.LAUNCHES[other]) == (cfg.n_steps, 0)
+    assert card.epochs == cpu.epochs == 5
+    names = ("informed", "t_inf", "informed_frac", "withdrawn_frac") + (
+        ("belief",) if channel == "bayes" else ())
+    for f in names:
+        assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
+
+
+def test_grads_on_card_equal_cpu(cuda_device):
+    """A sensitivity subgrid on the card: statuses and flags the CPU's, ξ
+    within 1e-12, the partials of trusted cells within 1e-10 relative."""
+    from sbr_tpu_torch import grad
+
+    cfg = st.SolverConfig(n_grid=512, bisect_iters=60, refine_crossings=False)
+    betas, us = np.linspace(0.5, 2.5, 8), np.linspace(0.03, 0.3, 8)
+    out = [grad.sensitivity_surface(betas, us, st.make_model_params(), config=cfg, device=d)
+           for d in ("cpu", cuda_device)]
+    a, b = out[0], out[1]
+    assert torch.equal(a.status, b.status.cpu()) and torch.equal(a.flags, b.flags.cpu())
+    trusted = (a.flags == 0) & (a.status == 0)
+    assert int(trusted.sum()) > 0
+    for k in a.grads:
+        x, y = a.grads[k][trusted], b.grads[k].cpu()[trusted]
+        assert float(((x - y).abs() / x.abs()).max()) <= 1e-10, k
+    ok = ~torch.isnan(a.xi)
+    assert float((a.xi[ok] - b.xi.cpu()[ok]).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("numerics", ["fixed", "adaptive"])
+def test_served_grads_graph_replay_equals_eager(cuda_device, numerics):
+    """The grads program captured into a CUDA graph, its backward inside
+    the capture, answers bit for bit as `cell_value_and_grads` run
+    eagerly on the card, in every bucket."""
+    from sbr_tpu_torch.grad.api import WRT_DEFAULT, cell_value_and_grads
+    from sbr_tpu_torch.grad.cell import BASE_KEYS
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.engine import _query_columns
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    cfg = st.SolverConfig(n_grid=512, bisect_iters=40, refine_crossings=False,
+                          numerics=numerics)
+    pool = build_pool(9, 8)
+    cols = torch.tensor(_query_columns(pool, np.float64), device=cuda_device)
+    _, _, grads, _, _, gflags = cell_value_and_grads(dict(zip(BASE_KEYS, cols)), WRT_DEFAULT,
+                                                     cfg, torch.float64)
+    want = torch.stack([grads[k] for k in WRT_DEFAULT]).cpu().numpy()
+    for buckets in ((1,), (8,)):
+        with Engine(config=cfg, serve=ServeConfig(buckets=buckets), device="cuda") as engine:
+            res = engine.query_many(pool, grads=True, timeout=300)
+            assert engine.graphs.captured_grads == {buckets[0]: 1}
+            assert engine.graphs.eager_runs == 0
+        got = np.array([[r.grads[k] for k in WRT_DEFAULT] for r in res]).T
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        assert got[~np.isnan(got)].tobytes() == want[~np.isnan(want)].tobytes()
+        assert [r.grad_flags for r in res] == [int(f) for f in gflags.cpu()]

@@ -450,9 +450,11 @@ def test_gossip_groups_bitwise():
 def test_unported_and_device_rules(monkeypatch):
     graph = tg.ErdosRenyiSpec(200, 4.0)
     for channel in ("gossip", "bayes"):
-        with pytest.raises(NotImplementedError, match="cumsum"):
-            ti.simulate_info(ts.InfoModelSpec(channel=channel, dynamics="rewire"), graph,
+        # rewired runs are ported (tests/test_torch_rewire.py): 200 steps of
+        # 25 make 8 epochs
+        r = ti.simulate_info(ts.InfoModelSpec(channel=channel, dynamics="rewire"), graph,
                              device=CPU)
+        assert r.epochs == 8 and r.informed.device.type == CPU
     with pytest.raises(NotImplementedError):
         tg.prepare_generated_graph(graph, mesh=object(), device=CPU)
     pg = tg.prepare_generated_graph(graph, device=CPU)

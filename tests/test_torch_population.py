@@ -12,8 +12,8 @@ Contracts:
   between the frameworks, tests/test_torch_infomodels.py): the record
   equals the reference's exactly, in both ``vary`` modes and both
   channels;
-- a ``rewire`` information model raises (its simulation is not ported),
-  at the function, the engine and the endpoint (501);
+- a ``rewire`` information model is served at the function, the engine
+  and the endpoint (200);
 - the engine serves, caches (LRU, then the verified disk layer after a
   restart) and keys population records; the endpoint answers with the
   reference's codes.
@@ -132,11 +132,14 @@ def test_population_query_validation_and_rewire():
         tpop.population_query(TSpec(), graph, m, vary="chaos", device=CPU)
     with pytest.raises(ValueError, match="seeds"):
         tpop.population_query(TSpec(), graph, m, seeds=0, device=CPU)
-    with pytest.raises(NotImplementedError, match="rewire"):
-        tpop.population_query(TSpec(dynamics="rewire"), graph, m, seeds=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="rewire"):
-        tpop.population_query(TSpec(channel="bayes", dynamics="rewire"), graph, m, seeds=2,
-                              vary="graph", device=CPU)
+    # rewire models run (their records are held to the reference's in
+    # tests/test_torch_rewire.py)
+    cfg = TConfig(n_grid=256)
+    for spec, vary in ((TSpec(dynamics="rewire"), "sim"),
+                       (TSpec(channel="bayes", dynamics="rewire"), "graph")):
+        rec = tpop.population_query(spec, graph, m, seeds=2, vary=vary, config=cfg,
+                                    device=CPU)
+        assert rec["dynamics"] == "rewire" and len(rec["crossing_times"]) == 2
 
 
 @pytest.mark.parametrize("doc", [
@@ -259,9 +262,9 @@ def test_endpoint_population_route_and_codes(tmp_path):
             assert code == 400 and reason in body["error"], (bad, body)
         rewire = {**POP, "infomodel": {"dynamics": "rewire"}}
         code, body = post({**PARAMS_DOC, "population": rewire})
-        assert code == 501 and "rewire" in body["detail"]
+        assert code == 200 and body["dynamics"] == "rewire" and body["source"] == "computed"
         code, metrics, _ = http_request(port, "/metrics")
-        assert code == 200 and "sbr_serve_queries_total 2" in metrics
+        assert code == 200 and "sbr_serve_queries_total 3" in metrics
     finally:
         if endpoint is not None:
             endpoint.close()

@@ -679,7 +679,7 @@ def test_endpoint_scenario_routes_and_codes():
             code, body = post(doc)
             assert code == 400 and reason in body["error"], (doc, body)
         code, body = post({"u": 0.05, "grads": True})
-        assert code == 501 and body["error"] == "not ported"
+        assert code == 200 and set(body["grads"]) == {"beta", "u", "kappa"}
         code, statz, _ = http_request(port, "/statz")
         assert code == 200
     finally:

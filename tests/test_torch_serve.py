@@ -358,8 +358,8 @@ def test_statz_and_prometheus_carry_the_graph_counters():
         engine.query_many(pool + pool, timeout=WAIT)
         doc = engine.statz()
         assert doc["totals"]["queries"] == 6 and doc["window"]["hit_rate"] == 0.5
-        assert doc["graphs"] == {"captured": {}, "captures": 0, "replays": 0,
-                                 "capture_s": 0.0, "eager_runs": 1}
+        assert doc["graphs"] == {"captured": {}, "captured_grads": {}, "captures": 0,
+                                 "replays": 0, "capture_s": 0.0, "eager_runs": 1}
         assert doc["engine"]["aot"] == "unsupported (CUDA graphs are per-process)"
         assert doc["engine"]["backend"] == "torch" and doc["healthz"]["status"] == "ready"
         text = engine.prometheus()
@@ -422,22 +422,22 @@ def test_endpoint_routes_and_status_codes():
         assert http_request(port, "/query", {"beta": 1.0}, {"X-SBR-Deadline-Ms": "x"})[0] == 400
         # the scenario and population routes answer: a spec the params cannot
         # serve (interest without r/delta) and a population without a graph
-        # are the client's errors; grads stay not ported
+        # are the client's errors; a grads query answers with its partials
         for doc, reason in (({"scenario": {"modifiers": ["interest"]}}, "unservable scenario"),
                             ({"population": {"seeds": 2}}, "bad population")):
             code, body, _ = http_request(port, "/query", doc)
             assert code == 400 and reason in json.loads(body)["error"], doc
         code, body, _ = http_request(port, "/query", {"grads": True})
-        assert code == 501 and "not ported" in body
+        assert code == 200 and set(json.loads(body)["grads"]) == {"beta", "u", "kappa"}
         code, body, _ = http_request(port, "/query", {"u": 0.08, "lolr_rate": 0.1,
                                                       "scenario": {"modifiers": ["lolr"]}})
         assert code == 200 and json.loads(body)["source"] == "computed"
         code, metrics, _ = http_request(port, "/metrics")
-        assert code == 200 and "sbr_serve_queries_total 7" in metrics
+        assert code == 200 and "sbr_serve_queries_total 8" in metrics
         code, health, _ = http_request(port, "/healthz")
         assert code == 200 and json.loads(health)["status"] == "degraded"  # the 429 shed
         code, statz, _ = http_request(port, "/statz")
-        assert code == 200 and json.loads(statz)["totals"]["queries"] == 7
+        assert code == 200 and json.loads(statz)["totals"]["queries"] == 8
         assert http_request(port, "/nope")[0] == 404
         assert http_request(port, "/nope", {})[0] == 404
     finally:
@@ -590,17 +590,25 @@ def test_prefix_sum_is_row_independent_and_accurate():
 
 @pytest.mark.parametrize("call", ["grads_query", "grads_many", "grads_submit"])
 def test_unported_queries_raise(call):
+    """Grads queries raised before the gradient layer was ported; each way
+    in now answers with dξ/d{β, u, κ} beside the plain answer's ξ (their
+    values are held to grad.api in tests/test_torch_grad.py)."""
     engine = _engine(buckets=(1,))
+    if call == "grads_submit":
+        engine.start()
     p = tparams.make_model_params()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            {
-                "grads_query": lambda: engine.query(p, grads=True),
-                "grads_many": lambda: engine.query_many([p], grads=True),
-                "grads_submit": lambda: engine.submit(p, grads=True),
-            }[call]()
+        res = {
+            "grads_query": lambda: engine.query(p, grads=True),
+            "grads_many": lambda: engine.query_many([p], grads=True)[0],
+            "grads_submit": lambda: engine.submit(p, grads=True).wait(WAIT),
+        }[call]()
+        plain = engine.query(p, timeout=WAIT)
     finally:
         engine.close()
+    assert set(res.grads) == {"beta", "u", "kappa"} and res.grad_flags == 0
+    assert plain.grads is None and plain.grad_flags is None
+    assert np.float64(res.xi).tobytes() == np.float64(plain.xi).tobytes()
 
 
 @pytest.mark.parametrize("call", ["scenario", "population"])
