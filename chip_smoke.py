@@ -52,9 +52,20 @@ query a channel, the tilt tables, tilted sources and rewire runs on the
 card against the CPU bit for bit; and the gradient layer at bench.py's
 shapes (the 96×96 sensitivity surface, 120 calibration steps, a served
 grads stream from captured grads programs) with a sensitivity subgrid on
-the card against the CPU. It prints one JSON line per phase, and beside
-the serving, scenario, population, rewire and grad numbers the card's name
-and power limit.
+the card against the CPU. Then slice 10, the tiled, checkpointed sweep,
+which launches no kernel: the paper-resolution Figure-5 heatmap (5000×5000
+f32 in 500×500 tiles) cold and resumed, with four tiles and a 1000×1000
+sub-sweep bit for bit against `beta_u_grid`; a seeded fault drill on its
+first four tiles (a retried transient, a NaN result the degrade ladder
+repairs, a torn save quarantined on the resume, a port process on the
+card preempted by SIGTERM), byte-identical to the fault-free grid;
+bench.py's `bench_sweep` shape elastic with the tile cache (cold, warm
+with 0 tiles computed, two processes on the card sharing a directory);
+the serving engine answering an outage from the tile cache; the tiled
+scenario sweep; and a ragged tiled grid on the card against the CPU. It
+prints one JSON line per phase, and beside the serving, scenario,
+population, rewire, grad and tiled numbers the card's name and power
+limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -2625,15 +2636,486 @@ def _nan_gap(a, b) -> float:
     return float((a[ok] - b[ok]).abs().max()) if bool(ok.any()) else 0.0
 
 
+# Slice 10: the tiled, checkpointed sweep. The paper-resolution Figure-5
+# heatmap (figures/master.py:186-218: 5000×5000 in 500×500 tiles, f32,
+# config=None), bench.py's bench_sweep accelerator shape (:1260-1296) and
+# bench_scenario's grid in 128×128 tiles.
+PAPER_RES, PAPER_TILE = 5000, 500
+PAPER_PARAMS = dict(beta=1.0, eta_bar=15.0, u=0.1, p=0.5, kappa=0.6, lam=0.01)
+SUB_RES = 2 * PAPER_TILE  # the sub-sweep and the fault drill: the first 4 tiles
+BENCH_SWEEP_N, BENCH_SWEEP_TILE = 128, 64
+BENCH_SWEEP_CFG = dict(n_grid=1024, bisect_iters=60, refine_crossings=False)
+SERVED_POINTS = 64
+SCEN_TILE = 128
+TILED_CPU_SHAPE, TILED_CPU_TILE = (24, 20), (7, 6)
+TILED_CPU_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
+TILED_DEVICE = "cuda"
+
+_REPO_ROOT = __import__("pathlib").Path(__file__).resolve().parent
+
+# A port process on the card for the drills: runs one sweep through
+# run_tiled_grid_multihost (elastic) from a JSON job on argv and prints its
+# report; with "ready" set it waits for its peer before claiming.
+_SWEEP_WORKER = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import sbr_tpu_torch as st
+from sbr_tpu_torch.parallel import run_tiled_grid_multihost
+
+job = json.loads(sys.argv[1])
+torch.zeros(1, device=job["device"])
+if job.get("ready"):
+    open(job["ready"][0], "w").close()
+    deadline = time.monotonic() + 120.0
+    while not all(os.path.exists(p) for p in job["ready"]):
+        if time.monotonic() > deadline:
+            sys.exit("the peer never started")
+        time.sleep(0.01)
+cfg = st.SolverConfig(**job["config"]) if job["config"] else None
+dtype = getattr(torch, job["dtype"]) if job["dtype"] else None
+report = {}
+grid = run_tiled_grid_multihost(
+    np.asarray(job["betas"]), np.asarray(job["us"]), st.make_model_params(**job["params"]),
+    job["ckpt"], config=cfg, tile_shape=tuple(job["tile"]), dtype=dtype, poll_s=0.05,
+    timeout_s=600.0, device=job["device"], report=report)
+if job.get("out"):
+    np.savez(job["out"], **{f: getattr(grid, f).numpy() for f in ("max_aw", "xi", "status")})
+print("REPORT " + json.dumps(report), flush=True)
+"""
+
+
+def _sweep_workers(jobs, timeout_s: float = 300.0, env_extra=None) -> list:
+    """Run one port process on the card a job, all at once; returns
+    (returncode, output) a job. Every process is killed if it outlives
+    ``timeout_s``."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(_REPO_ROOT), **(env_extra or {})}
+    env.pop("SBR_TILE_CACHE_DIR", None)
+    procs = [subprocess.Popen([sys.executable, "-c", _SWEEP_WORKER, json.dumps(job)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env, cwd=str(_REPO_ROOT)) for job in jobs]
+    out = []
+    try:
+        for proc in procs:
+            text, _ = proc.communicate(timeout=timeout_s)
+            out.append((proc.returncode, text))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    return out
+
+
+def _worker_report(text: str) -> dict:
+    line = next(ln for ln in text.splitlines() if ln.startswith("REPORT "))
+    return json.loads(line[len("REPORT "):])
+
+
+def _grid_bytes(grid) -> dict:
+    return {f: getattr(grid, f).cpu().numpy().tobytes() for f in ("max_aw", "xi", "status")}
+
+
+def _same_bytes(a, b) -> bool:
+    a = a if isinstance(a, dict) else _grid_bytes(a)
+    b = b if isinstance(b, dict) else _grid_bytes(b)
+    return a == b
+
+
+def _launches() -> dict:
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+    from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
+
+    return {k: _build.LAUNCHES[k] for k in (KERNEL, BELIEF_KERNEL, RECOUNT_KERNEL)}
+
+
+def _tiled_paper(card: str, scratch) -> dict:
+    """The paper heatmap cold (save and sidecar timed a tile), the resume
+    with every tile local, four tiles and a 1000×1000 sub-sweep bit for bit
+    against `beta_u_grid`. Returns the sub-sweep's bytes."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.resilience import heal
+    from sbr_tpu_torch.utils import checkpoint as ckpt
+    from sbr_tpu_torch.utils.status import status_counts
+
+    betas, us = _figure5_axes(PAPER_RES)
+    base = st.make_model_params(**PAPER_PARAMS)
+    tile = (PAPER_TILE, PAPER_TILE)
+    n_tiles = (PAPER_RES // PAPER_TILE) ** 2
+    kw = dict(tile_shape=tile, checkpoint_dir=str(scratch / "paper"), dtype=torch.float32)
+    report = {}
+    with _CallTimes((ckpt, "_save_atomic"), (heal, "write_sidecar"),
+                    (ckpt, "to_host")) as spent:
+        cold_s, grid = _fenced(lambda: ckpt.run_tiled_grid(betas, us, base, report=report, **kw))
+    tile_bytes = sum((scratch / "paper" / f"tile_b{bi:05d}_u{ui:05d}.npz").stat().st_size
+                     for bi, ui in ckpt.tile_origins(PAPER_RES, PAPER_RES, tile)) / n_tiles
+    resume_report = {}
+    resume_s, again = _fenced(lambda: ckpt.run_tiled_grid(betas, us, base,
+                                                          report=resume_report, **kw))
+    # two corners, an interior tile and the tile nearest β = 10^4 (β[0])
+    last, mid = PAPER_RES - PAPER_TILE, PAPER_TILE * (PAPER_RES // PAPER_TILE // 2)
+    checks = {}
+    for bi, ui in ((0, last), (last, 0), (mid, mid), (0, 0)):
+        mono = st.beta_u_grid(betas[bi:bi + PAPER_TILE], us[ui:ui + PAPER_TILE], base,
+                              dtype=torch.float32)
+        checks[f"b{bi}_u{ui}"] = all(
+            getattr(grid, f)[bi:bi + PAPER_TILE, ui:ui + PAPER_TILE].numpy().tobytes()
+            == getattr(mono, f).cpu().numpy().tobytes() for f in ("max_aw", "xi", "status"))
+    sub_b, sub_u = betas[:SUB_RES], us[:SUB_RES]
+    sub_tiled_s, sub = _fenced(lambda: ckpt.run_tiled_grid(
+        sub_b, sub_u, base, tile_shape=tile, checkpoint_dir=str(scratch / "sub"),
+        dtype=torch.float32))
+    sub_mono_s, sub_mono = _fenced(lambda: st.beta_u_grid(sub_b, sub_u, base,
+                                                           dtype=torch.float32))
+    sub_same = _same_bytes(sub, sub_mono)
+    status = grid.status
+    emit("tiled_paper_heatmap", cells=PAPER_RES ** 2, tile=list(tile), tiles=n_tiles,
+         dtype="float32", numerics=st.SolverConfig().numerics, cold_s=cold_s,
+         cold_cells_per_s=PAPER_RES ** 2 / cold_s, counts=report["counts"],
+         save_ms_per_tile=1e3 * sum(spent["_save_atomic"]) / n_tiles,
+         sidecar_ms_per_tile=1e3 * sum(spent["write_sidecar"]) / n_tiles,
+         host_copy_ms_per_tile=1e3 * sum(spent["to_host"]) / len(spent["to_host"]),
+         tile_bytes=tile_bytes, resume_s=resume_s, resume_counts=resume_report["counts"],
+         resume_equal=_same_bytes(grid, again), status_counts=status_counts(status),
+         finite_xi=int(torch.isfinite(grid.xi).sum()), tiles_vs_beta_u_grid=checks,
+         sub_cells=SUB_RES ** 2, sub_tiled_s=sub_tiled_s, sub_mono_s=sub_mono_s,
+         sub_bitwise=sub_same, card=card)
+    run = status == 0
+    if not (report["counts"]["computed"] == n_tiles and resume_report["counts"]["local"] == n_tiles
+            and _same_bytes(grid, again) and all(checks.values()) and sub_same):
+        raise AssertionError(f"paper heatmap: counts {report['counts']} / "
+                             f"{resume_report['counts']}, tiles {checks}, sub {sub_same}")
+    if not (bool(torch.isfinite(grid.xi[run]).all()) and bool(run.any())
+            and not bool(torch.isfinite(grid.xi[~run]).any())):
+        raise AssertionError("paper heatmap: ξ finite exactly on RUN cells fails")
+    return _grid_bytes(sub)
+
+
+def _tiled_drill(card: str, scratch, clean: dict) -> None:
+    """The paper shape's first 4 tiles under a seeded fault plan (a
+    transient compute, a NaN result, a torn save), resumed; then a port
+    subprocess on the card preempted by SIGTERM between two tiles, and
+    resumed. Both end byte-identical to the fault-free sub-sweep."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.resilience import FaultPlan, faults, heal
+    from sbr_tpu_torch.utils import checkpoint as ckpt
+
+    betas, us = _figure5_axes(PAPER_RES)
+    sub_b, sub_u = betas[:SUB_RES], us[:SUB_RES]
+    base = st.make_model_params(**PAPER_PARAMS)
+    kw = dict(tile_shape=(PAPER_TILE, PAPER_TILE), dtype=torch.float32)
+    drill = scratch / "drill"
+    faults.install(FaultPlan({"seed": 10, "rules": [
+        {"point": "tile.compute", "kind": "transient", "at_hits": [1]},
+        {"point": "tile.result", "kind": "nan", "at_hits": [2], "cells": 2},
+        {"point": "checkpoint.save", "kind": "corrupt", "at_hits": [3]},
+    ]}))
+    import os
+    os.environ["SBR_RETRY_BASE_DELAY_S"] = "0.01"
+    try:
+        report = {}
+        faulted_s, faulted = _fenced(lambda: ckpt.run_tiled_grid(
+            sub_b, sub_u, base, checkpoint_dir=str(drill), report=report, **kw))
+        firings = [f["kind"] for f in faults.plan().firings]
+    finally:
+        faults.install(None)
+        os.environ.pop("SBR_RETRY_BASE_DELAY_S", None)
+    repairs = report["repairs"]
+    resume_report = {}
+    resumed = ckpt.run_tiled_grid(sub_b, sub_u, base, checkpoint_dir=str(drill),
+                                  report=resume_report, **kw)
+    quarantined = sorted(p.name for p in (drill / "quarantine").glob("*.npz"))
+
+    # ms a rung: the ladder on two poisoned cells of the first tile
+    first = {f: np.frombuffer(clean[f], dtype=np.float32 if f != "status" else np.int32)
+             .reshape(SUB_RES, SUB_RES)[:PAPER_TILE, :PAPER_TILE].copy()
+             for f in ("max_aw", "xi", "status")}
+    flags = np.zeros((PAPER_TILE, PAPER_TILE), np.int32)
+    for k in range(2):
+        first["xi"][0, k] = first["max_aw"][0, k] = np.nan
+        flags[0, k] = 1 << 7
+    ladder_s, ladder = _fenced(lambda: heal.repair_divergent(
+        sub_b[:PAPER_TILE], sub_u[:PAPER_TILE], base, st.SolverConfig(refine_crossings=False),
+        torch.float32, first, flags, device=TILED_DEVICE))
+    rungs = sum(r["rung"] + 1 for r in ladder if r["repaired"])
+
+    # SIGTERM to a port process on the card before its third tile
+    sig_dir = scratch / "sigterm"
+    plan = {"seed": 0, "rules": [{"point": "tile.compute", "kind": "preempt", "at_hits": [3]}]}
+    job = dict(betas=sub_b.tolist(), us=sub_u.tolist(), params=PAPER_PARAMS, config=None,
+               dtype="float32", tile=[PAPER_TILE, PAPER_TILE], ckpt=str(sig_dir),
+               device=TILED_DEVICE)
+    t0 = time.perf_counter()
+    (rc, out), = _sweep_workers([job], env_extra={"SBR_FAULT_PLAN": json.dumps(plan)})
+    sig_s = time.perf_counter() - t0
+    left = {pat: sorted(p.name for p in sig_dir.glob(pat))
+            for pat in ("*.tmp", "*.lease", "host_*.hb")}
+    landed = len(list(sig_dir.glob("tile_*.npz")))
+    sig_report = {}
+    sig_resumed = ckpt.run_tiled_grid(sub_b, sub_u, base, checkpoint_dir=str(sig_dir),
+                                      report=sig_report, **kw)
+    same = {"faulted": _same_bytes(faulted, clean), "resumed": _same_bytes(resumed, clean),
+            "sigterm_resumed": _same_bytes(sig_resumed, clean)}
+    emit("tiled_fault_drill", cells=SUB_RES ** 2, tiles=4, firings=firings,
+         faulted_s=faulted_s, repairs=repairs, resume_counts=resume_report["counts"],
+         quarantined=quarantined, ladder_cells=len(ladder), ladder_rungs=rungs,
+         ladder_s=ladder_s, ms_per_rung=1e3 * ladder_s / max(rungs, 1),
+         sigterm_exit=rc, sigterm_process_s=sig_s, sigterm_tiles_landed=landed,
+         sigterm_left=left, sigterm_resume_counts=sig_report["counts"], byte_identical=same,
+         card=card)
+    if not (firings == ["transient", "nan", "corrupt"] and len(repairs) == 2
+            and all(r["repaired"] for r in repairs) and len(quarantined) == 1
+            and resume_report["counts"] == {"local": 3, "cache": 0, "computed": 1}
+            and all(r["repaired"] for r in ladder) and len(ladder) == 2):
+        raise AssertionError(f"fault drill: {firings}, {repairs}, {quarantined}, "
+                             f"{resume_report['counts']}, {ladder}")
+    if rc != 143 or any(left.values()) or landed != 2 or sig_report["counts"]["computed"] != 2:
+        raise AssertionError(f"SIGTERM drill: exit {rc}, left {left}, landed {landed}\n{out}")
+    if not all(same.values()):
+        raise AssertionError(f"fault drill: not byte-identical to the fault-free grid: {same}")
+
+
+def _tiled_bench_sweep(card: str, scratch) -> tuple:
+    """bench_sweep's accelerator shape, elastic with a tile cache: cold, warm
+    into a fresh checkpoint directory (0 tiles computed), and two port
+    processes on the card sharing one directory. Returns (grid, cache)."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.parallel import run_tiled_grid_multihost
+
+    betas = np.linspace(0.5, 2.0, BENCH_SWEEP_N)
+    us = np.linspace(0.02, 0.5, BENCH_SWEEP_N)
+    cfg = st.SolverConfig(**BENCH_SWEEP_CFG)
+    base = st.make_model_params()
+    cache = scratch / "tile_cache"
+    tile = (BENCH_SWEEP_TILE, BENCH_SWEEP_TILE)
+    cells = BENCH_SWEEP_N ** 2
+
+    def run(name, report):
+        return run_tiled_grid_multihost(betas, us, base, str(scratch / name), config=cfg,
+                                        tile_shape=tile, poll_s=0.1, timeout_s=600.0,
+                                        elastic=True, tile_cache_dir=str(cache), report=report)
+
+    cold_report, warm_report = {}, {}
+    cold_s, cold = _fenced(lambda: run("ck_cold", cold_report))
+    warm_s, warm = _fenced(lambda: run("ck_warm", warm_report))
+    two = scratch / "ck_two"
+    ready = [str(scratch / "ready_0"), str(scratch / "ready_1")]
+    jobs = [dict(betas=betas.tolist(), us=us.tolist(), params={}, config=BENCH_SWEEP_CFG,
+                 dtype=None, tile=list(tile), ckpt=str(two), ready=ready[i:] + ready[:i],
+                 out=str(scratch / f"two_{i}.npz"), device=TILED_DEVICE) for i in range(2)]
+    t0 = time.perf_counter()
+    results = _sweep_workers(jobs)
+    two_s = time.perf_counter() - t0
+    claimed, two_same = [], []
+    for i, (rc, out) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"two-process sweep: worker {i} exited {rc}\n{out}")
+        rep = _worker_report(out)
+        claimed.append({"host": rep["host"], "claimed": rep["claimed"], "counts": rep["counts"]})
+        with np.load(scratch / f"two_{i}.npz") as data:
+            two_same.append(_same_bytes({f: data[f].tobytes() for f in data.files}, cold))
+    emit("tiled_bench_sweep", cells=cells, tile=list(tile), tiles=4, config=BENCH_SWEEP_CFG,
+         dtype="float64", cold_s=cold_s, cold_cells_per_s=cells / cold_s,
+         cold_counts=cold_report["counts"], warm_s=warm_s, warm_cells_per_s=cells / warm_s,
+         warm_counts=warm_report["counts"], warm_byte_identical=_same_bytes(warm, cold),
+         two_process_s=two_s, two_process_claims=claimed, two_process_byte_identical=two_same,
+         card=card)
+    n_claimed = sum(len(c["claimed"]) for c in claimed)
+    if not (cold_report["counts"]["computed"] == 4 and warm_report["counts"]["computed"] == 0
+            and warm_report["counts"]["cache"] == 4 and _same_bytes(warm, cold)
+            and all(two_same) and n_claimed >= 4):
+        raise AssertionError(f"bench_sweep: {cold_report['counts']}, {warm_report['counts']}, "
+                             f"{claimed}, {two_same}")
+    return cold, cache, betas, us, cfg, base
+
+
+def _tiled_served(card: str, swept) -> None:
+    """The serving ladder's tile-cache rung over the warm cache:
+    ``serve.dispatch`` fails at p = 1, 64 grid points answer degraded bit
+    for bit the sweep's cells, a point off the grid fails and counts
+    ``ladder_exhausted``."""
+    import os
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.resilience import FaultPlan, faults
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+
+    grid, cache, betas, us, cfg, base = swept
+    pick = np.random.default_rng(10).choice(BENCH_SWEEP_N ** 2, SERVED_POINTS, replace=False)
+    cells = [divmod(int(k), BENCH_SWEEP_N) for k in pick]
+    queries = [st.make_model_params(beta=float(betas[i]), u=float(us[j]),
+                                    eta=base.economic.eta, tspan=base.learning.tspan,
+                                    x0=base.learning.x0) for i, j in cells]
+    os.environ["SBR_TILE_CACHE_DIR"] = str(cache)
+    os.environ["SBR_SERVE_RETRY_BASE_DELAY_S"] = "0"
+    faults.install(FaultPlan({"seed": 0, "rules": [
+        {"point": "serve.dispatch", "kind": "transient", "p": 1.0}]}))
+    try:
+        engine = Engine(config=cfg, serve=ServeConfig(buckets=(1, 8, 64)), device=TILED_DEVICE)
+        try:
+            call_s, res = _fenced(lambda: engine.query_many(queries, timeout=300))
+            again_s, again = _fenced(lambda: engine.query_many(queries, timeout=300))
+            off_error = None
+            try:
+                engine.query(st.make_model_params(beta=1.2345, u=0.3333), timeout=300)
+            except RuntimeError as err:
+                off_error = type(err).__name__
+            health = engine.healthz()
+            ladder = engine.statz()["ladder"]
+        finally:
+            engine.close()
+    finally:
+        faults.install(None)
+        os.environ.pop("SBR_TILE_CACHE_DIR", None)
+        os.environ.pop("SBR_SERVE_RETRY_BASE_DELAY_S", None)
+    xi, aw, st_ = (getattr(grid, f).numpy() for f in ("xi", "max_aw", "status"))
+    exact = all(r.degraded and r.source == "tilecache"
+                and _bits_equal(np.float64(r.xi), np.float64(xi[i, j]))
+                and _bits_equal(np.float64(r.aw_max), np.float64(aw[i, j]))
+                and r.status == int(st_[i, j]) for r, (i, j) in zip(res, cells))
+    lat_ms = sorted(1e3 * r.latency_s for r in again)
+    emit("tiled_served_rung", queries=SERVED_POINTS, degraded=sum(r.degraded for r in res),
+         bitwise=exact, first_call_s=call_s, call_s=again_s,
+         latency_p50_ms=lat_ms[len(lat_ms) // 2], latency_max_ms=lat_ms[-1],
+         off_grid_error=off_error, ladder=ladder, healthz=health, card=card)
+    if not (exact and off_error is not None and ladder["ladder_exhausted"] == 1
+            and ladder["degraded"] == 2 * SERVED_POINTS and health["status"] == "degraded"):
+        raise AssertionError(f"served rung: exact {exact}, off {off_error}, {ladder}, {health}")
+
+
+def _tiled_scenarios(card: str, scratch) -> None:
+    """bench_scenario's 256×256 grid in 128×128 tiles through
+    `run_tiled_scenario_grid`: the reducible spec and the policy spec, each
+    bit for bit `scenario_grid` on the same axes."""
+    import sbr_tpu_torch as st
+
+    cfg = st.SolverConfig(**SCEN_CFG)
+    betas, us = np.linspace(0.25, 3.0, SCEN_N), np.linspace(0.01, 0.99, SCEN_N)
+    cases = (
+        ("reducible", st.ScenarioSpec(), st.make_model_params()),
+        ("policy", st.ScenarioSpec(modifiers=("insurance_cap", "suspension", "lolr")),
+         st.make_model_params(insurance_cap=0.2, suspension_t=8.0, lolr_rate=0.1)),
+    )
+    for name, spec, base in cases:
+        report = {}
+        tiled_s, tiled = _fenced(lambda: st.run_tiled_scenario_grid(
+            spec, betas, us, base, checkpoint_dir=str(scratch / f"scen_{name}"), config=cfg,
+            dtype=torch.float32, tile_shape=(SCEN_TILE, SCEN_TILE), report=report))
+        grid_s, grid = _fenced(lambda: st.scenario_grid(spec, betas, us, base, config=cfg,
+                                                         dtype=torch.float32))
+        same = _same_bytes(tiled, grid)
+        emit("tiled_scenario", case=name, cells=SCEN_N ** 2, tile=[SCEN_TILE, SCEN_TILE],
+             dtype="float32", tiled_s=tiled_s, scenario_grid_s=grid_s, counts=report["counts"],
+             bitwise_vs_scenario_grid=same, card=card)
+        if not same or report["counts"]["computed"] != 4:
+            raise AssertionError(f"tiled scenario {name}: bitwise {same}, {report['counts']}")
+
+
+def phase_tiled(card: str) -> dict:
+    """Slice 10 on the card: the paper heatmap, the fault drill, bench_sweep's
+    elastic shape with the tile cache, the served tile-cache rung and the
+    tiled scenario sweep. The kernel counts are set to 0 before and read
+    after: this path launches none of the three kernels. Returns them."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from sbr_tpu_torch import _build
+
+    scratch = Path(tempfile.mkdtemp(prefix="sbr_tiled_"))
+    _build.reset_launches()
+    try:
+        clean = _tiled_paper(card, scratch)
+        _tiled_drill(card, scratch, clean)
+        swept = _tiled_bench_sweep(card, scratch)
+        _tiled_served(card, swept)
+        _tiled_scenarios(card, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    launches = _launches()
+    emit("tiled", kernel_launches=launches)
+    if any(launches.values()):
+        raise AssertionError(f"the tiled path launched kernels: {launches}")
+    return launches
+
+
+def phase_tiled_cpu_vs_card() -> None:
+    """A 24×20 grid in ragged 7×6 tiles on the card and on the CPU, f64 and
+    f32, both numerics: statuses equal, floats within 1e-12 / 2e-5, the
+    monolithic grid's flags equal; then one faulted-and-resumed run on the
+    card against the CPU's fault-free grid."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.resilience import FaultPlan, faults
+    from sbr_tpu_torch.utils.checkpoint import run_tiled_grid
+
+    betas = np.linspace(0.3, 3.0, TILED_CPU_SHAPE[0])
+    us = np.linspace(0.01, 0.95, TILED_CPU_SHAPE[1])
+    base = st.make_model_params()
+    rows = []
+    for numerics in ("fixed", "adaptive"):
+        cfg = st.SolverConfig(numerics=numerics, **BENCH_SWEEP_CFG)
+        for dtype in (torch.float64, torch.float32):
+            out = {dev: run_tiled_grid(betas, us, base, config=cfg, tile_shape=TILED_CPU_TILE,
+                                       dtype=dtype, device=dev) for dev in ("cpu", TILED_DEVICE)}
+            flags = {dev: st.beta_u_grid(betas, us, base, config=cfg, dtype=dtype,
+                                         device=dev).health.flags.cpu()
+                     for dev in ("cpu", TILED_DEVICE)}
+            card = out[TILED_DEVICE]
+            gaps = {f: _nan_gap(getattr(out["cpu"], f), getattr(card, f))
+                    for f in ("xi", "max_aw")}
+            row = dict(numerics=numerics, dtype=_dtype_name(dtype),
+                       status_equal=bool(torch.equal(out["cpu"].status, card.status)),
+                       flags_equal=bool(torch.equal(flags["cpu"], flags[TILED_DEVICE])),
+                       **{f"{f}_max_abs": g for f, g in gaps.items()},
+                       tol=TILED_CPU_TOL[dtype])
+            rows.append(row)
+            if not (row["status_equal"] and row["flags_equal"]
+                    and max(gaps.values()) <= TILED_CPU_TOL[dtype]):
+                raise AssertionError(f"tiled card vs CPU: {row}")
+    cfg = st.SolverConfig(numerics="adaptive", **BENCH_SWEEP_CFG)
+    scratch = Path(tempfile.mkdtemp(prefix="sbr_tiled_cpu_"))
+    try:
+        faults.install(FaultPlan({"seed": 3, "rules": [
+            {"point": "tile.result", "kind": "nan", "at_hits": [2], "cells": 3},
+            {"point": "checkpoint.save", "kind": "corrupt", "at_hits": [5]},
+        ]}))
+        try:
+            run_tiled_grid(betas, us, base, config=cfg, tile_shape=TILED_CPU_TILE,
+                           checkpoint_dir=str(scratch), device=TILED_DEVICE)
+        finally:
+            faults.install(None)
+        resumed = run_tiled_grid(betas, us, base, config=cfg, tile_shape=TILED_CPU_TILE,
+                                 checkpoint_dir=str(scratch), device=TILED_DEVICE)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    cpu = run_tiled_grid(betas, us, base, config=cfg, tile_shape=TILED_CPU_TILE, device="cpu")
+    resumed_gap = max(_nan_gap(getattr(cpu, f), getattr(resumed, f)) for f in ("xi", "max_aw"))
+    resumed_status = bool(torch.equal(cpu.status, resumed.status))
+    emit("tiled_cpu_vs_card", shape=list(TILED_CPU_SHAPE), tile=list(TILED_CPU_TILE),
+         rows=rows, faulted_resumed_status_equal=resumed_status,
+         faulted_resumed_max_abs=resumed_gap)
+    if not resumed_status or resumed_gap > TILED_CPU_TOL[torch.float64]:
+        raise AssertionError(f"tiled faulted run on the card vs CPU: {resumed_gap}")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
-          "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu")
+          "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu")
 
 
-def _recount_kernel_entry(recount: dict) -> dict:
+def _recount_kernel_entry(recount: dict, tiled_launches: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
+    from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
+
     rows = recount["rows"]
     main_row = next(r for r in rows if r["n_agents"] == 1_000_000 and r["variant"] == "packed"
                     and r["shape"] == "full" and r["planned"])
@@ -2644,7 +3126,8 @@ def _recount_kernel_entry(recount: dict) -> dict:
         "replaces": "benchmarks/ablate_pallas_recount.py:55",
         "replaces_function": "benchmarks/ablate_pallas_recount.py::_build_pallas_gather",
         "launches": recount["launches"],
-        "launches_by_path": {"ablation": recount["launches"]},
+        "launches_by_path": {"ablation": recount["launches"],
+                             "tiled": tiled_launches[RECOUNT_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -2714,6 +3197,9 @@ def main(argv) -> int:
         phase_grad(info["nvidia_smi"])
     if "grad_cpu" in wanted:
         phase_grad_cpu_vs_card()
+    tiled_launches = phase_tiled(info["nvidia_smi"]) if "tiled" in wanted else {}
+    if "tiled_cpu" in wanted:
+        phase_tiled_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -2734,7 +3220,7 @@ def main(argv) -> int:
                      + rewire_launches[KERNEL]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
                              "population": pop_launches[KERNEL],
-                             "rewire": rewire_launches[KERNEL]},
+                             "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -2753,7 +3239,8 @@ def main(argv) -> int:
                      + pop_launches[BELIEF_KERNEL] + rewire_launches[BELIEF_KERNEL]),
         "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
                              "population": pop_launches[BELIEF_KERNEL],
-                             "rewire": rewire_launches[BELIEF_KERNEL]},
+                             "rewire": rewire_launches[BELIEF_KERNEL],
+                             "tiled": tiled_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],
@@ -2762,7 +3249,7 @@ def main(argv) -> int:
         "bound_by": belief_row["bound_by"],
         "library_ms": None,
         "shapes": belief_rows,
-    }, _recount_kernel_entry(recount)]
+    }, _recount_kernel_entry(recount, tiled_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

@@ -52,7 +52,15 @@ Ported so far, each on one device:
   in the infection or belief kernel) and the gradient layer (``grad``:
   implicit-function-theorem gradients of ξ as a ``torch.autograd``
   function, sensitivity surfaces, calibration, stress search, and the
-  served ``grads`` route). It adds no kernel.
+  served ``grads`` route). It adds no kernel;
+- slice 10, the tiled, checkpointed β×u sweep (``utils.checkpoint``:
+  `run_tiled_grid`, which the paper-resolution Figure-5 heatmap needs),
+  its resilience stack (``resilience``: seeded fault injection, graceful
+  shutdown, the degrade ladder, the elastic scheduler and the cross-run
+  tile cache), the multi-process sweep farm
+  (``parallel.run_tiled_grid_multihost``), the tiled scenario sweep and
+  the serving engine's tile-cache rung (``serve.fleet.TileCacheBridge``).
+  It adds no kernel.
 
 Device rule: entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, and raise when there is no card. On CPU tensors every
@@ -90,7 +98,24 @@ from sbr_tpu_torch.models import (
     make_model_params,
     with_overrides,
 )
-from sbr_tpu_torch.scenario import ScenarioSpec, scenario_grid, solve_multibank, spec_fingerprint
+from sbr_tpu_torch.parallel import run_tiled_grid_multihost
+from sbr_tpu_torch.resilience import (
+    FaultPlan,
+    InjectedFault,
+    RetryBudget,
+    RetryError,
+    RetryPolicy,
+    TileCache,
+    graceful_shutdown,
+    policy_from_env,
+)
+from sbr_tpu_torch.scenario import (
+    ScenarioSpec,
+    run_tiled_scenario_grid,
+    scenario_grid,
+    solve_multibank,
+    spec_fingerprint,
+)
 from sbr_tpu_torch.social.agents import (
     AgentSimConfig,
     AgentSimResult,
@@ -119,6 +144,7 @@ from sbr_tpu_torch.social.solver import (
     solve_equilibrium_social,
 )
 from sbr_tpu_torch.sweeps import beta_u_grid, policy_sweep_interest, solve_param_cell, u_sweep
+from sbr_tpu_torch.utils.checkpoint import run_tiled_grid
 
 __version__ = "0.1.0"
 
@@ -127,18 +153,24 @@ __all__ = [
     "AgentSimResult",
     "EquilibriumResult",
     "ErdosRenyiSpec",
+    "FaultPlan",
     "InfoModelSpec",
     "InfoSimResult",
+    "InjectedFault",
     "LearningSolution",
     "LoopComparison",
     "ModelParams",
     "PreparedAgentGraph",
+    "RetryBudget",
+    "RetryError",
+    "RetryPolicy",
     "ScaleFreeSpec",
     "ScenarioSpec",
     "SocialFixedPointResult",
     "SolverConfig",
     "Status",
     "StochasticBlockSpec",
+    "TileCache",
     "beta_u_grid",
     "close_loop",
     "default_device",
@@ -149,16 +181,21 @@ __all__ = [
     "fixed_point_from_numpy",
     "generate_edges",
     "get_aw_hetero",
+    "graceful_shutdown",
     "interest_xi_and_grad",
     "load_agent_state",
     "make_hetero_params",
     "make_interest_params",
     "make_model_params",
+    "policy_from_env",
     "policy_sweep_interest",
     "population_query",
     "prepare_agent_graph",
     "prepare_generated_graph",
     "prepared_from_numpy",
+    "run_tiled_grid",
+    "run_tiled_grid_multihost",
+    "run_tiled_scenario_grid",
     "save_agent_state",
     "scale_free_edges",
     "scenario_grid",

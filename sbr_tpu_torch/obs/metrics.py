@@ -3,7 +3,7 @@
 ``sbr_tpu.obs.metrics``. Pure Python: the same recorded values give the
 same quantiles, deltas and Prometheus lines as the reference. The
 registry (counters, gauges, timers) and the labeled histogram families
-wait for the rest of ``obs`` (ROADMAP item E.20).
+wait for the rest of ``obs`` (ROADMAP item 1.A 9).
 """
 
 from __future__ import annotations

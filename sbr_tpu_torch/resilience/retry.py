@@ -14,7 +14,7 @@ classification and shared retry budgets — the port of
 - **Observers.** Every attempt outcome goes to an ``observer`` callable:
   ``retrying``, ``recovered``, ``gave_up``, ``deterministic`` and
   ``budget_exhausted``. The default observer writes nothing: the port has
-  no obs run to log to yet (ROADMAP item E.20).
+  no obs run to log to yet (ROADMAP item 1.A 9).
 
 Standard library only.
 """
@@ -199,4 +199,4 @@ def policy_from_env(prefix: str = "SBR_RETRY", **defaults) -> RetryPolicy:
 def _default_observer(**record) -> None:
     """The observer when the caller gives none: it writes nothing, since
     the reference's obs ``retry`` events need the run log, which the port
-    does not have yet (ROADMAP item E.20)."""
+    does not have yet (ROADMAP item 1.A 9)."""

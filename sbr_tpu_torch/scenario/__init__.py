@@ -4,7 +4,8 @@ modifiers × N-bank contagion coupling) and `solve(spec, params)` runs it
 through the stage hooks of the plain solves. Reducible specs are the plain
 solves bit for bit; genuine compositions (hetero × interest × social,
 policy-modifier sweeps, interbank contagion) are data, not new solvers.
-`run_tiled_scenario_grid` is not ported yet and raises.
+`run_tiled_scenario_grid` sweeps a spec through the tiled, checkpointed
+runner (`utils.checkpoint.run_tiled_grid`).
 """
 
 from sbr_tpu_torch.scenario.engine import (

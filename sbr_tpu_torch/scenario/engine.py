@@ -23,8 +23,9 @@ served queries. The composed social fixed point is the port's damped loop
 (`social.solver.run_fixed_point`), one host read an iteration, with its
 copies of XLA's damping and ξ-march arithmetic.
 
-Not ported: `run_tiled_scenario_grid` (it needs the tiled sweep runner,
-ROADMAP.md 1.A item 8; it raises), and the reference's telemetry calls.
+`run_tiled_scenario_grid` runs `scenario_grid` tiles through the tiled,
+checkpointed runner (`utils.checkpoint.run_tiled_grid`). Not ported: the
+reference's telemetry calls (ROADMAP 1.A item 9).
 """
 
 from __future__ import annotations
@@ -357,13 +358,45 @@ def scenario_grid(
     )
 
 
-def run_tiled_scenario_grid(*args, **kwargs):
-    """The tiled, checkpointed scenario sweep of the reference. It runs
-    through the tiled sweep runner (`utils.checkpoint.run_tiled_grid`),
-    which is not ported yet."""
-    raise NotImplementedError(
-        "run_tiled_scenario_grid is not ported to sbr_tpu_torch yet: it needs the "
-        "tiled sweep runner (ROADMAP item 1.A 8); use scenario_grid"
+def run_tiled_scenario_grid(
+    spec: ScenarioSpec,
+    beta_values,
+    u_values,
+    base: ModelParams,
+    checkpoint_dir: Optional[str] = None,
+    config: Optional[SolverConfig] = None,
+    dtype=None,
+    tile_shape=(256, 256),
+    **kw,
+):
+    """β×u scenario sweep through the tiled runner: `scenario_grid` cells
+    with `utils.checkpoint.run_tiled_grid`'s checkpoint resume, cross-run
+    tile cache, retry policy and budget, and degrade-ladder repair on
+    baseline-reducible specs. The spec joins the sweep fingerprint and
+    every tile-cache key, so composed and plain sweeps never share bytes,
+    except the exact baseline reduction, which is keyed as a plain sweep
+    (its cells are `beta_u_grid`'s bit for bit). Same spec constraints as
+    `scenario_grid`; ``**kw`` passes through to `run_tiled_grid`
+    (``device``, ``max_retries``, ``tile_cache``, ``heal_divergent``,
+    ``report``, ...). Runs on the CUDA card unless given ``device``."""
+    from sbr_tpu_torch.utils.checkpoint import run_tiled_grid
+
+    if spec.banks != 1:
+        raise ValueError(
+            "run_tiled_scenario_grid sweeps single-bank specs; use "
+            "multibank.solve for banks > 1"
+        )
+    if spec.learning != "baseline":
+        raise ValueError(
+            f"run_tiled_scenario_grid requires learning='baseline' cells, "
+            f"got {spec.learning!r}"
+        )
+    _validate_params(spec, base)
+    passthrough = None if spec.reduces_to() == "baseline" else spec
+    return run_tiled_grid(
+        beta_values, u_values, base, config=config, tile_shape=tile_shape,
+        checkpoint_dir=checkpoint_dir, dtype=dtype, scenario_spec=passthrough,
+        **kw,
     )
 
 

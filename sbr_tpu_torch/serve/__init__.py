@@ -16,7 +16,7 @@ long-lived query engine with live, queryable-while-alive metrics.
   seeded query mix in direct mode.
 
 The router, the fleet workers, prewarm and tracing are not ported yet
-(ROADMAP items E.20, E.21).
+(ROADMAP 1.A items 9 and 10).
 """
 
 from sbr_tpu_torch.serve.endpoint import ServeEndpoint

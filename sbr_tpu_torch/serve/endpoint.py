@@ -24,7 +24,7 @@ A stdlib-only (``http.server``) thread serving four routes off an
   modifier are all ``400``. ``"grads": true`` on a plain query answers
   with dξ/d{β, u, κ} (``grads``) and ``grad_flags`` beside ξ.
 
-Tracing headers wait for ``obs.trace`` (ROADMAP item E.20). ``port=0``
+Tracing headers wait for ``obs.trace`` (ROADMAP item 1.A 9). ``port=0``
 binds an ephemeral port; the bound port is `.port`.
 """
 

@@ -34,7 +34,15 @@
   (``SBR_SERVE_RETRY_BUDGET``, ``SBR_SERVE_RETRY_REFILL_S``) and a
   circuit breaker (``SBR_BREAKER_*``); admission sheds queries whose
   deadline (``SBR_SERVE_DEADLINE_MS``) has passed or is shorter than the
-  measured service time. A failed dispatch fails its tickets.
+  measured service time.
+- **Degradation ladder**: when a dispatch fails (breaker open, retry
+  budget exhausted, a fault injected at ``serve.dispatch``), each of its
+  queries is looked up in the cross-run tile cache
+  (``SBR_TILE_CACHE_DIR``, `fleet.TileCacheBridge`): a swept cell whose
+  tag and (β, u) match the query exactly answers it, with source
+  ``"tilecache"`` and ``degraded`` set; otherwise the ticket fails and the
+  ladder counts it ``ladder_exhausted``. Degraded answers are never
+  cached.
 
 - **Sensitivities** (``grads=True``): the answer carries dξ/dβ, dξ/du and
   dξ/dκ, the IFT gradients of `grad.api.cell_value_and_grads`, and their
@@ -57,9 +65,8 @@
   launches the CUDA infection or belief kernel every step of every member.
 
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-run directories (E.20), and the audit, demand, prewarm and flight-recorder
-switches (E.20/E.21). The degradation ladder's
-tile-cache rung waits for the elastic tile cache (E.19).
+run directories (1.A item 9), and the audit, demand, prewarm and
+flight-recorder switches (1.A items 9 and 10).
 """
 
 from __future__ import annotations
@@ -86,17 +93,17 @@ from sbr_tpu_torch.diag.health import DIVERGENT_MASK
 from sbr_tpu_torch.grad.api import WRT_DEFAULT, cell_value_and_grads
 from sbr_tpu_torch.grad.cell import BASE_KEYS, aprime_tol
 from sbr_tpu_torch.models.params import ModelParams, SolverConfig
-from sbr_tpu_torch.resilience import heal, retry
-from sbr_tpu_torch.serve.fleet import CircuitBreaker, default_deadline_ms
+from sbr_tpu_torch.resilience import faults, heal, retry
+from sbr_tpu_torch.serve.fleet import CircuitBreaker, TileCacheBridge, default_deadline_ms
 from sbr_tpu_torch.serve.live import GraphCounters, LiveMetrics
 from sbr_tpu_torch.social.agents import default_device
 from sbr_tpu_torch.sweeps.baseline_sweeps import solve_param_cell
+from sbr_tpu_torch.utils.checkpoint import BACKEND as _BACKEND
 from sbr_tpu_torch.utils.checkpoint import canonicalize, params_fingerprint
 
 # Bump when the batch program's semantics change: invalidates cached
 # results (the reference's version, beside the backend tag).
 _PROGRAM_VERSION = 1
-_BACKEND = "torch"
 
 _SHUTDOWN = object()
 
@@ -108,7 +115,7 @@ _INT_OUTPUTS = ("status", "flags", "grad_flags")
 
 # Switches of the reference's engine that need modules not ported yet.
 _UNPORTED_ENV = {
-    "SBR_AUDIT": "E.20", "SBR_DEMAND": "E.20", "SBR_PREWARM": "E.21", "SBR_FLIGHT": "E.20",
+    "SBR_AUDIT": "1.A 9", "SBR_DEMAND": "1.A 9", "SBR_PREWARM": "1.A 10", "SBR_FLIGHT": "1.A 9",
 }
 
 
@@ -197,8 +204,9 @@ class ServeConfig:
 @dataclasses.dataclass(frozen=True)
 class QueryResult:
     """One served equilibrium: the lean per-cell outputs plus provenance.
-    ``degraded`` marks a degradation-ladder answer, which the port does
-    not give yet (its ladder has no tile-cache rung), so it is False.
+    ``degraded`` marks a degradation-ladder answer (source "tilecache"):
+    a swept cell of the tile cache, with ``tau_bar_in`` and ``residual``
+    NaN (tiles do not store them).
     ``grads`` maps β, u and κ to dξ/dθ when the query asked for them, with
     ``grad_flags`` the grad-trust bitmask (`diag.health.GRAD_*`)."""
 
@@ -208,7 +216,7 @@ class QueryResult:
     status: int
     flags: int
     residual: float
-    source: str  # "lru" | "disk" | "coalesced" | "computed"
+    source: str  # "lru" | "disk" | "coalesced" | "computed" | "tilecache"
     scenario: str
     latency_s: float
     degraded: bool = False
@@ -360,7 +368,7 @@ class Engine:
         device=None,
     ) -> None:
         if run is not None or run_dir is not None:
-            raise _not_ported("a serving run directory (run=, run_dir=)", "E.20")
+            raise _not_ported("a serving run directory (run=, run_dir=)", "1.A 9")
         for var, item in _UNPORTED_ENV.items():
             if os.environ.get(var, "").strip() not in ("", "0"):
                 raise _not_ported(f"{var}={os.environ[var]!r}", item)
@@ -404,6 +412,12 @@ class Engine:
             self._budget_total, refill_s=self._budget_refill_s or None
         )
         self.breaker = CircuitBreaker()
+        # The degradation ladder's tile-cache rung (SBR_TILE_CACHE_DIR) and
+        # the tally of its outcomes, which the reference logs as obs
+        # ``fleet`` events (the port's run log is ROADMAP 1.A item 9).
+        self.bridge = TileCacheBridge()
+        self.ladder = {"degraded": 0, "ladder_exhausted": 0}
+        self._ladder_lock = threading.Lock()
         # Per-query deadline default and the admission-control service-time
         # estimate (an EWMA of measured dispatch durations).
         self.default_deadline_ms = default_deadline_ms()
@@ -638,9 +652,9 @@ class Engine:
 
         unhealthy: the batcher thread died, or the shared retry budget is
         exhausted until its next refill. degraded: divergent cells,
-        dispatch errors or sheds in the current window, a partially used
-        retry budget, a breaker that is not closed, or a window p99 over
-        ``SBR_SERVE_SLO_MS``. ``window`` (a prior `LiveMetrics.window()`)
+        dispatch errors, sheds or ladder answers in the current window, a
+        partially used retry budget, a breaker that is not closed, or a
+        window p99 over ``SBR_SERVE_SLO_MS``. ``window`` (a prior `LiveMetrics.window()`)
         lets a caller share one fold between the verdict and the window it
         embeds."""
         self.retry_budget.maybe_refill()
@@ -664,6 +678,11 @@ class Engine:
             if window.get("shed", 0):
                 status = "degraded"
                 reasons.append(f"{int(window['shed'])} shed quer(ies) in window")
+            if window.get("degraded", 0):
+                status = "degraded"
+                reasons.append(
+                    f"{int(window['degraded'])} degraded-ladder answer(s) in window"
+                )
             if self.breaker.state != "closed":
                 status = "degraded"
                 reasons.append(
@@ -711,6 +730,7 @@ class Engine:
                 "state": self.breaker.state,
                 "consecutive_failures": self.breaker.consecutive_failures,
             },
+            "ladder": {"tile_cache": self.bridge.available, **self.ladder},
             "deadline": {
                 "default_ms": self.default_deadline_ms,
                 "service_est_s": (
@@ -819,13 +839,20 @@ class Engine:
                 else self._dispatch([t.params for t in chunk])
             )
         except BaseException as err:
-            # The port's degradation ladder has no tile-cache rung yet: a
-            # failed dispatch fails its tickets (the endpoint's 503).
+            # The degradation ladder: the solver path is down, and the exact
+            # LRU and disk rungs already missed, so the next rung is the
+            # tile cache. Only then does the ticket fail (the endpoint's
+            # 503). Degraded answers are never cached: once the solver
+            # recovers, fresh dispatches take over.
             for t in chunk:
+                rec = self._degraded_rec(t)
                 for dup in groups[t.key]:
-                    self.live.record_error()
-                    dup.error = err
-                    dup.event.set()
+                    if rec is not None:
+                        self._fulfill(dup, dict(rec), "tilecache", degraded=True)
+                    else:
+                        self.live.record_error()
+                        dup.error = err
+                        dup.event.set()
             return
         for t, rec in zip(chunk, records):
             # A divergent result is served (the caller sees the flags) but
@@ -836,7 +863,18 @@ class Engine:
             for j, dup in enumerate(groups[t.key]):
                 self._fulfill(dup, rec, "computed" if j == 0 else "coalesced")
 
-    def _fulfill(self, t: _Ticket, rec: dict, source: str) -> None:
+    def _degraded_rec(self, t: _Ticket) -> Optional[dict]:
+        """The tile-cache rung for one ticket: the matching swept cell's
+        record, or None (counted ``ladder_exhausted``)."""
+        try:
+            rec = self.bridge.lookup(t.params, self.config, self.dtype_name)
+        except Exception:
+            rec = None  # a broken bridge must never mask the real error
+        with self._ladder_lock:
+            self.ladder["degraded" if rec is not None else "ladder_exhausted"] += 1
+        return rec
+
+    def _fulfill(self, t: _Ticket, rec: dict, source: str, degraded: bool = False) -> None:
         latency = time.monotonic() - t.t0
         rec = dict(rec)
         # a grads record is a superset of the plain one: fold its dξ/dθ
@@ -847,7 +885,7 @@ class Engine:
             grads = {"beta": rec.pop("dxi_dbeta"), "u": rec.pop("dxi_du"),
                      "kappa": rec.pop("dxi_dkappa")}
         t.result = QueryResult(source=source, scenario=t.scenario, latency_s=latency,
-                               grads=grads, grad_flags=grad_flags, **rec)
+                               degraded=degraded, grads=grads, grad_flags=grad_flags, **rec)
         self.live.record_query(
             latency, source, scenario=t.scenario, divergent=t.result.divergent
         )
@@ -902,8 +940,16 @@ class Engine:
                 # `_program(bucket, cols)` is a stubbing point of the tests
                 program = (self._program(bucket, cols, grads=True) if grads
                            else self._program(bucket, cols))
+
+                def run(c):
+                    # the fault point inside the retried scope: injected
+                    # transients are retried first, then exhaust into an
+                    # outage the breaker and the ladder answer
+                    faults.fire("serve.dispatch", target=f"bucket{bucket}")
+                    return program(c)
+
                 out = self._retry.call(
-                    program, cols, scope=f"serve.dispatch[{bucket}]", budget=self.retry_budget
+                    run, cols, scope=f"serve.dispatch[{bucket}]", budget=self.retry_budget
                 )
         except BaseException:
             self.breaker.record_failure()

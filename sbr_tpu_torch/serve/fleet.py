@@ -1,5 +1,6 @@
-"""Dispatch circuit breaking and the per-query deadline default: the
-port of `CircuitBreaker`, `default_deadline_ms` and `_env_float` from
+"""Dispatch circuit breaking, the per-query deadline default and the
+tile-cache rung of the degradation ladder: the port of `CircuitBreaker`,
+`default_deadline_ms`, `_env_float` and `TileCacheBridge` from
 ``sbr_tpu.serve.fleet``.
 
 `CircuitBreaker` is the closed → open → half-open state machine the
@@ -8,17 +9,22 @@ failures open it, ``cooldown_s`` later exactly one half-open probe is let
 through, and a success closes it. Injectable clock, no threads: the state
 advances lazily on `allow()` reads.
 
-Fleet membership (`WorkerAnnouncer`, `live_workers`), the tile-cache
-bridge of the degradation ladder (`TileCacheBridge`) and the worker
-process entry wait for the elastic tile cache and the fleet (ROADMAP
-items E.19 and E.21).
+`TileCacheBridge` answers a point query from the cross-run tile cache
+(`resilience.elastic.TileCache`) when the solver path is down: only a
+cell whose tag and (β, u) match the query exactly.
+
+Fleet membership (`WorkerAnnouncer`, `live_workers`) and the worker
+process entry wait for the fleet (ROADMAP 1.A item 10).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
+
+from sbr_tpu_torch.resilience.elastic import cell_tag, default_tile_cache
 
 
 def default_deadline_ms() -> Optional[float]:
@@ -131,3 +137,129 @@ class CircuitBreaker:
         ):
             self._opened_at = self._clock()
             self._transition("open")
+
+
+class TileCacheBridge:
+    """Point-query lookups in the cross-run tile cache.
+
+    The cache stores whole tiles by content; the ``<key>.meta.json``
+    sidecar of a plain tile (`resilience.elastic.TileCache.store`) holds
+    its cell tag and β/u axes, which make its cells addressable one by
+    one. The bridge keeps an index of those sidecars, invalidated by
+    mtime: only shard directories whose mtime moved since the last scan
+    are listed again, and only new or rewritten sidecars parsed again.
+    `lookup` returns the verified entry's exact (β, u) cell, or None on
+    any miss, mismatch or corruption. Every read goes through
+    `TileCache.load`, so the sha256 check and the quarantine apply."""
+
+    #: A directory whose mtime is this close to "now" is listed again even
+    #: when its mtime looks unchanged: a store landing in the same mtime
+    #: tick as a scan must not be missed.
+    MTIME_SLACK_S = 3.0
+
+    def __init__(self, cache_dir=None, refresh_s: float = 5.0) -> None:
+        self.cache = default_tile_cache(cache_dir)
+        self.refresh_s = refresh_s
+        self._index: Dict[str, list] = {}  # cell tag -> [meta, ...]
+        self._scanned_at: Optional[float] = None
+        self._dir_mtimes: Dict[str, float] = {}
+        # sidecar path -> {"mtime", "tag", "meta"} (tag None: torn or alien)
+        self._entries: Dict[str, dict] = {}
+
+    @property
+    def available(self) -> bool:
+        return self.cache is not None
+
+    def _scan(self) -> None:
+        now_wall = time.time()
+        root = self.cache.root
+        dirs = [root]
+        try:
+            dirs += [p for p in root.iterdir() if p.is_dir()]
+        except OSError:
+            dirs = [root]
+        seen_dirs = set()
+        for d in dirs:
+            dkey = str(d)
+            seen_dirs.add(dkey)
+            try:
+                mtime = d.stat().st_mtime
+            except OSError:
+                continue
+            prev = self._dir_mtimes.get(dkey)
+            if prev is not None and mtime == prev and now_wall - mtime > self.MTIME_SLACK_S:
+                continue  # nothing stored or removed here since the last list
+            self._dir_mtimes[dkey] = mtime
+            try:
+                files = list(d.glob("*.meta.json"))
+            except OSError:
+                continue
+            live = set()
+            for meta_path in files:
+                fkey = str(meta_path)
+                live.add(fkey)
+                try:
+                    fm = meta_path.stat().st_mtime
+                except OSError:
+                    continue
+                ent = self._entries.get(fkey)
+                if ent is not None and ent["mtime"] == fm:
+                    continue
+                try:
+                    meta = json.loads(meta_path.read_text())
+                    parsed = {
+                        "key": str(meta["key"]),
+                        "betas": [float(b) for b in meta["betas"]],
+                        "us": [float(u) for u in meta["us"]],
+                    }
+                    tag = str(meta["cell_tag"])
+                except (OSError, ValueError, KeyError, TypeError):
+                    tag, parsed = None, None
+                self._entries[fkey] = {"mtime": fm, "tag": tag, "meta": parsed}
+            for fkey in [k for k in self._entries
+                         if os.path.dirname(k) == dkey and k not in live]:
+                del self._entries[fkey]  # sidecar removed (gc, quarantine)
+        for dkey in [k for k in self._dir_mtimes if k not in seen_dirs]:
+            del self._dir_mtimes[dkey]
+            for fkey in [k for k in self._entries if os.path.dirname(k) == dkey]:
+                del self._entries[fkey]
+        index: Dict[str, list] = {}
+        for fkey in sorted(self._entries):
+            ent = self._entries[fkey]
+            if ent["tag"] is not None:
+                index.setdefault(ent["tag"], []).append(ent["meta"])
+        self._index = index
+        self._scanned_at = time.monotonic()
+
+    def lookup(self, params, config, dtype_name: str) -> Optional[dict]:
+        """The degraded answer to one query, or None: a match by exact cell
+        tag and exact (β, u) membership in a swept tile's axes, so the
+        bridge serves only cells that are the query."""
+        if self.cache is None:
+            return None
+        now = time.monotonic()
+        if self._scanned_at is None or now - self._scanned_at >= self.refresh_s:
+            self._scan()
+        tag = cell_tag(params, config, dtype_name)
+        beta = float(params.learning.beta)
+        u = float(params.economic.u)
+        for meta in self._index.get(tag, []):
+            if beta not in meta["betas"] or u not in meta["us"]:
+                continue
+            arrays = self.cache.load(meta["key"], tile="serve-bridge")
+            if arrays is None:
+                continue  # quarantined or raced away: try another tile
+            i = meta["betas"].index(beta)
+            j = meta["us"].index(u)
+            try:
+                return {
+                    "xi": float(arrays["xi"][i, j]),
+                    "tau_bar_in": float("nan"),  # tiles do not store it
+                    "aw_max": float(arrays["max_aw"][i, j]),
+                    "status": int(arrays["status"][i, j]),
+                    "flags": 0,
+                    "residual": float("nan"),
+                }
+            except (IndexError, KeyError, ValueError):
+                continue  # the meta drifted from the entry: not an answer
+        return None

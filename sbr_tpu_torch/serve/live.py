@@ -16,7 +16,7 @@
   a warm server captures nothing new.
 
 The rolling ``live.json`` in a run directory (`maybe_write` given a run)
-waits for the port's obs run log (ROADMAP item E.20).
+waits for the port's obs run log (ROADMAP item 1.A 9).
 """
 
 from __future__ import annotations
@@ -148,7 +148,8 @@ class LiveMetrics:
     ) -> None:
         """One fulfilled query: ``source`` is "lru", "disk", "coalesced"
         (deduplicated against an identical query in the same batch — no
-        device work, so it counts as a cache hit), or "computed"."""
+        device work, so it counts as a cache hit), "computed", or
+        "tilecache" (a degradation-ladder answer)."""
         ms = latency_s * 1e3
         slot = self._slot()
         slot.hist.record(ms)
@@ -161,7 +162,7 @@ class LiveMetrics:
         elif source == "tilecache":
             # Degradation-ladder answer: served from the global tile cache
             # while the solver path was down, neither a cache hit nor a
-            # computed query. The port's ladder has no tile-cache rung yet.
+            # computed query.
             keys.append("degraded")
         else:
             keys += ["cache_misses", "computed"]
@@ -287,13 +288,13 @@ class LiveMetrics:
                     min_interval_s: float = 0.5, force: bool = False,
                     window: Optional[dict] = None) -> bool:
         """The reference writes the rolling ``live.json`` through
-        ``run.live_snapshot``; the port has no run log yet (ROADMAP item
-        E.20), so a run raises `NotImplementedError`. Without a run it
+        ``run.live_snapshot``; the port has no run log yet (ROADMAP 1.A
+        item 9), so a run raises `NotImplementedError`. Without a run it
         writes nothing and returns False."""
         if run is not None:
             raise NotImplementedError(
                 "live.json in a run directory needs the obs run log, not ported "
-                "yet (ROADMAP item E.20)"
+                "yet (ROADMAP item 1.A 9)"
             )
         return False
 

@@ -16,7 +16,7 @@ against an in-process `Engine` + `ServeEndpoint` (on the CUDA card unless
   graph captures on the scraped counters.
 
 ``--fleet``, ``--trace-out``, ``--run-dir`` and the audit flags wait for
-the fleet, tracing and the obs run log (ROADMAP items E.20, E.21): they
+the fleet, tracing and the obs run log (ROADMAP 1.A items 9 and 10): they
 exit 2 with a "not ported" message.
 
 Exit codes: 0 ok, 1 failed assertion (--assert-warm), 2 setup error.
@@ -42,14 +42,14 @@ from sbr_tpu_torch.serve.engine import Engine, ServeConfig, default_buckets
 
 # Flags of the reference's loadgen whose machinery is not ported yet.
 _UNPORTED_FLAGS = {
-    "fleet": ("--fleet", "E.21"),
-    "fleet_dir": ("--fleet-dir", "E.21"),
-    "fleet_kill_after": ("--fleet-kill-after", "E.21"),
-    "answers_out": ("--answers-out", "E.21"),
-    "trace_out": ("--trace-out", "E.20"),
-    "run_dir": ("--run-dir", "E.20"),
-    "audit_fault": ("--audit-fault", "E.20"),
-    "audit_wait": ("--audit-wait", "E.20"),
+    "fleet": ("--fleet", "1.A 10"),
+    "fleet_dir": ("--fleet-dir", "1.A 10"),
+    "fleet_kill_after": ("--fleet-kill-after", "1.A 10"),
+    "answers_out": ("--answers-out", "1.A 10"),
+    "trace_out": ("--trace-out", "1.A 9"),
+    "run_dir": ("--run-dir", "1.A 9"),
+    "audit_fault": ("--audit-fault", "1.A 9"),
+    "audit_wait": ("--audit-wait", "1.A 9"),
 }
 
 

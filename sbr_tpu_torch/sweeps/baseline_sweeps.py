@@ -21,6 +21,7 @@ from sbr_tpu_torch.baseline.solver import solve_equilibrium_core
 from sbr_tpu_torch.diag.health import Health
 from sbr_tpu_torch.models.params import ModelParams, SolverConfig
 from sbr_tpu_torch.models.results import LearningSolution
+from sbr_tpu_torch.resilience import faults
 from sbr_tpu_torch.social.agents import default_device
 
 # Version of the β×u grid-cell numerics, the reference's: a tile cache
@@ -63,7 +64,7 @@ def _lean_cell(ls: LearningSolution, u, p, kappa, lam, eta, tspan_end, config: S
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded sweeps are not ported yet (ROADMAP item E.22); pass mesh=None"
+            "sharded sweeps are not ported yet (ROADMAP item 1.A 11); pass mesh=None"
         )
 
 
@@ -86,6 +87,9 @@ def u_sweep(
     dtype, device = ls.dtype, ls.device
     u_values = torch.as_tensor(u_values, dtype=dtype, device=device)
     scalars = (econ.p, econ.kappa, econ.lam, econ.eta, tspan_end)
+    # fault point (resilience.faults): a transient here is a failure at
+    # dispatch; without a plan it costs one check of a module global
+    faults.fire("sweep.dispatch", target=f"u_sweep[{int(u_values.shape[0])}]")
     xi, tau_in, aw_max, status, health = _lean_cell(
         ls, u_values, *(torch.as_tensor(v, dtype=dtype, device=device) for v in scalars), config
     )
@@ -123,6 +127,10 @@ def beta_u_grid(
     t0, t1 = base.learning.tspan
     beta_values = torch.as_tensor(beta_values, dtype=dtype, device=device)
     u_values = torch.as_tensor(u_values, dtype=dtype, device=device)
+    # fault point: the tile loop's retry policy wraps this call, so a
+    # transient injected here exercises the real recovery path
+    faults.fire("sweep.dispatch",
+                target=f"beta_u_grid[{int(beta_values.shape[0])}x{int(u_values.shape[0])}]")
     xi, _, aw_max, status, health = solve_param_cell(
         beta_values.unsqueeze(-1), u_values, econ.p, econ.kappa, econ.lam, econ.eta,
         t0, t1, base.learning.x0, config, dtype, device,

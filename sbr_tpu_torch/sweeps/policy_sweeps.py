@@ -22,6 +22,7 @@ from sbr_tpu_torch.baseline.learning import solve_learning
 from sbr_tpu_torch.diag.health import Health
 from sbr_tpu_torch.interest.solver import solve_equilibrium_interest_core
 from sbr_tpu_torch.models.params import ModelParamsInterest, SolverConfig
+from sbr_tpu_torch.resilience import faults
 from sbr_tpu_torch.social.agents import default_device
 from sbr_tpu_torch.sweeps.baseline_sweeps import _no_mesh, _RowLearning
 
@@ -76,6 +77,7 @@ def policy_sweep_interest(
 
     beta_values, u_values, r_values = tensor(beta_values), tensor(u_values), tensor(r_values)
     cells = (beta_values.shape[0], u_values.shape[0], r_values.shape[0])
+    faults.fire("sweep.dispatch", target="policy_interest[{}x{}x{}]".format(*cells))
     t0, t1 = (tensor(v) for v in base.learning.tspan)
     learning = _RowLearning(beta_values.reshape(-1, 1, 1), (t0, t1), tensor(base.learning.x0))
     ls = solve_learning(learning, config, dtype=dtype, device=dev)

@@ -360,9 +360,11 @@ def test_chip_smoke_imports_only_torch_numpy_and_the_port():
     # besides the port, chip_smoke.py loads the repo's numpy/scipy oracle
     # (tests/oracle.py) to hold the social fixed point to it; that module
     # must import no JAX either
+    # (the standard library's os, pathlib, shutil and tempfile serve the
+    # tiled phases' checkpoint directories and worker processes)
     roots = _import_roots(REPO / "chip_smoke.py")
-    assert roots <= {"__future__", "json", "subprocess", "sys", "time", "numpy", "torch",
-                     "sbr_tpu_torch", "oracle"}, roots
+    assert roots <= {"__future__", "json", "os", "pathlib", "shutil", "subprocess", "sys",
+                     "tempfile", "time", "numpy", "torch", "sbr_tpu_torch", "oracle"}, roots
     assert _import_roots(REPO / "tests" / "oracle.py") <= {
         "__future__", "dataclasses", "numpy", "scipy"}
 

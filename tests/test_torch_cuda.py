@@ -706,3 +706,68 @@ def test_served_grads_graph_replay_equals_eager(cuda_device, numerics):
         assert np.array_equal(np.isnan(got), np.isnan(want))
         assert got[~np.isnan(got)].tobytes() == want[~np.isnan(want)].tobytes()
         assert [r.grad_flags for r in res] == [int(f) for f in gflags.cpu()]
+
+
+TILED_CFG = dict(n_grid=256, bisect_iters=60, refine_crossings=False)
+
+
+def _tiled_grid(device, dtype, numerics, **kw):
+    from sbr_tpu_torch.utils.checkpoint import run_tiled_grid
+
+    return run_tiled_grid(np.linspace(0.3, 3.0, 24), np.linspace(0.01, 0.95, 20),
+                          st.make_model_params(),
+                          config=st.SolverConfig(numerics=numerics, **TILED_CFG),
+                          tile_shape=(7, 6), dtype=dtype, device=device, **kw)
+
+
+@pytest.mark.parametrize("numerics", ["fixed", "adaptive"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tiled_grid_on_card_equals_cpu(cuda_device, dtype, numerics):
+    """A ragged 24×20 grid in 7×6 tiles on the card and on the CPU:
+    statuses equal, floats within 1e-12 (float64) or 2e-5 (float32)."""
+    card = _tiled_grid(cuda_device, dtype, numerics)
+    cpu = _tiled_grid("cpu", dtype, numerics)
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+    assert torch.equal(card.status, cpu.status)
+    for f in ("xi", "max_aw"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(a)
+        assert float((a[ok] - b[ok]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tiled_grid_on_card_is_monolithic_bit_for_bit(cuda_device, dtype):
+    tiled = _tiled_grid(cuda_device, dtype, "adaptive")
+    mono = st.beta_u_grid(np.linspace(0.3, 3.0, 24), np.linspace(0.01, 0.95, 20),
+                          st.make_model_params(),
+                          config=st.SolverConfig(numerics="adaptive", **TILED_CFG),
+                          dtype=dtype, device=cuda_device)
+    for f in ("xi", "max_aw", "status"):
+        assert getattr(tiled, f).numpy().tobytes() == getattr(mono, f).cpu().numpy().tobytes()
+
+
+def test_faulted_and_resumed_on_card_equals_fault_free(cuda_device, tmp_path):
+    from sbr_tpu_torch.resilience import FaultPlan, faults
+
+    clean = _tiled_grid(cuda_device, torch.float64, "adaptive")
+    faults.install(FaultPlan({"seed": 1, "rules": [
+        {"point": "tile.compute", "kind": "transient", "at_hits": [2]},
+        {"point": "tile.result", "kind": "nan", "at_hits": [3], "cells": 4},
+        {"point": "checkpoint.save", "kind": "corrupt", "at_hits": [4]},
+    ]}))
+    try:
+        report = {}
+        faulted = _tiled_grid(cuda_device, torch.float64, "adaptive",
+                              checkpoint_dir=tmp_path, report=report)
+    finally:
+        faults.install(None)
+    assert len(report["repairs"]) == 4 and all(r["repaired"] for r in report["repairs"])
+    report = {}
+    resumed = _tiled_grid(cuda_device, torch.float64, "adaptive", checkpoint_dir=tmp_path,
+                          report=report)
+    assert report["counts"]["computed"] == 1
+    for f in ("xi", "max_aw", "status"):
+        want = getattr(clean, f).numpy().tobytes()
+        assert getattr(faulted, f).numpy().tobytes() == want
+        assert getattr(resumed, f).numpy().tobytes() == want

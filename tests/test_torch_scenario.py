@@ -459,13 +459,101 @@ def test_scenario_grid_matches_the_reference(name, mods, make, numerics):
 
 
 def test_scenario_grid_errors_and_tiled_grid_not_ported():
+    """`scenario_grid`'s spec errors, and the same errors from the tiled
+    scenario sweep (ported since slice 10), which also needs the card
+    unless told the CPU."""
     base = tp.make_model_params()
     with pytest.raises(ValueError, match="single-bank"):
         ts.scenario_grid(ts.ScenarioSpec(banks=2), [1.0], [0.1], base, device=CPU)
     with pytest.raises(ValueError, match="learning='baseline'"):
         ts.scenario_grid(ts.ScenarioSpec(learning="social"), [1.0], [0.1], base, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.run_tiled_scenario_grid(ts.ScenarioSpec(), [1.0], [0.1], base)
+    with pytest.raises(ValueError, match="single-bank"):
+        ts.run_tiled_scenario_grid(ts.ScenarioSpec(banks=2), [1.0], [0.1], base, device=CPU)
+    with pytest.raises(ValueError, match="learning='baseline'"):
+        ts.run_tiled_scenario_grid(ts.ScenarioSpec(learning="social"), [1.0], [0.1], base,
+                                   device=CPU)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ts.run_tiled_scenario_grid(ts.ScenarioSpec(), [1.0], [0.1], base)
+
+
+# the tiled scenario sweep: a ragged 6×5 grid in 4×3 tiles
+TB = np.linspace(0.4, 2.6, 6)
+TU = np.linspace(0.02, 0.9, 5)
+POLICY_MODS = ("insurance_cap", "suspension", "lolr")
+POLICY_KW = dict(insurance_cap=0.2, suspension_t=8.0, lolr_rate=0.1)
+
+
+def _tiled_scenario(spec, base, **kw):
+    return ts.run_tiled_scenario_grid(spec, TB, TU, base, config=_sweep_cfg(tp),
+                                      tile_shape=(4, 3), device=CPU, **kw)
+
+
+def _same_cells(a, b) -> bool:
+    return all(_bitwise(getattr(a, f), getattr(b, f)) for f in ("xi", "max_aw", "status"))
+
+
+def test_tiled_scenario_grid_reducible_is_the_plain_sweep(tmp_path):
+    """A baseline-reducible spec is `scenario_grid` and `beta_u_grid` bit
+    for bit, and is keyed as the plain sweep: a plain tiled sweep's
+    checkpoint directory resumes it without a recompute."""
+    from sbr_tpu_torch.utils.checkpoint import run_tiled_grid
+
+    base = tp.make_model_params()
+    run_tiled_grid(TB, TU, base, config=_sweep_cfg(tp), tile_shape=(4, 3),
+                   checkpoint_dir=tmp_path, device=CPU)
+    report = {}
+    got = _tiled_scenario(ts.ScenarioSpec(), base, checkpoint_dir=tmp_path, report=report)
+    assert report["counts"] == {"local": 4, "cache": 0, "computed": 0}
+    want = ts.scenario_grid(ts.ScenarioSpec(), TB, TU, base, config=_sweep_cfg(tp), device=CPU)
+    plain = beta_u_grid(TB, TU, base, config=_sweep_cfg(tp), device=CPU)
+    assert _same_cells(got, want) and _same_cells(got, plain)
+
+
+@pytest.fixture(scope="module")
+def reference_tiled_policy():
+    spec = js.ScenarioSpec(modifiers=POLICY_MODS)
+    return js.run_tiled_scenario_grid(spec, TB, TU, jp.make_model_params(**POLICY_KW),
+                                      config=_sweep_cfg(jp), tile_shape=(4, 3))
+
+
+def test_tiled_scenario_grid_policy_spec(reference_tiled_policy, tmp_path):
+    """A composed spec: `scenario_grid` on the same axes bit for bit, the
+    reference's tiled sweep within the fixed-numerics contract (statuses
+    equal, ξ within 1e-12), and keyed apart from the plain sweep."""
+    spec, base = ts.ScenarioSpec(modifiers=POLICY_MODS), tp.make_model_params(**POLICY_KW)
+    got = _tiled_scenario(spec, base, checkpoint_dir=tmp_path / "composed")
+    want = ts.scenario_grid(spec, TB, TU, base, config=_sweep_cfg(tp), device=CPU)
+    assert _same_cells(got, want)
+    ref = reference_tiled_policy
+    assert np.array_equal(_np(got.status), np.asarray(ref.status))
+    assert _gap(got.xi, ref.xi) <= FIXED_TOL and _gap(got.max_aw, ref.max_aw) <= FIXED_TOL
+    assert (_np(got.status) == Status.RUN).any() and (_np(got.status) != Status.RUN).any()
+    with pytest.raises(ValueError, match="different sweep"):
+        _tiled_scenario(ts.ScenarioSpec(), base, checkpoint_dir=tmp_path / "composed")
+
+
+def test_tiled_scenario_grid_heals_only_reducible_specs():
+    from sbr_tpu_torch.resilience import FaultPlan, faults
+
+    nan = {"seed": 0, "rules": [{"point": "tile.result", "kind": "nan", "cells": 2,
+                                 "max_fires": 1}]}
+    base = tp.make_model_params(**POLICY_KW)
+    try:
+        faults.install(FaultPlan(nan))
+        report = {}
+        healed = _tiled_scenario(ts.ScenarioSpec(), base, report=report)
+        assert [r["repaired"] for r in report["repairs"]] == [True, True]
+        plain = beta_u_grid(TB, TU, base, config=_sweep_cfg(tp), device=CPU)
+        assert _same_cells(healed, plain)
+        faults.install(FaultPlan(nan))
+        report = {}
+        spec = ts.ScenarioSpec(modifiers=POLICY_MODS)
+        kept = _tiled_scenario(spec, base, report=report)
+        assert report["repairs"] == []
+        assert np.isnan(_np(kept.xi)[0, 0]) and np.isnan(_np(kept.xi)[0, 1])
+    finally:
+        faults.install(None)
 
 
 # ---------------------------------------------------------------------------

@@ -324,6 +324,130 @@ def test_breaker_opens_after_failed_dispatches(monkeypatch):
         engine.close()
 
 
+# ---------------------------------------------------------------------------
+# The degradation ladder's tile-cache rung
+# ---------------------------------------------------------------------------
+
+LADDER_BETAS = np.linspace(0.5, 2.0, 4)
+LADDER_US = np.linspace(0.05, 0.5, 4)
+
+
+@pytest.fixture(scope="module")
+def swept_cache(tmp_path_factory):
+    """One small tiled sweep whose tiles land in a tile cache, at the
+    engine's config."""
+    from sbr_tpu_torch.resilience import TileCache
+    from sbr_tpu_torch.utils.checkpoint import run_tiled_grid
+
+    root = tmp_path_factory.mktemp("swept_cache")
+    base = tparams.make_model_params()
+    grid = run_tiled_grid(LADDER_BETAS, LADDER_US, base, config=_cfg(tparams),
+                          tile_shape=(2, 2), checkpoint_dir=root / "ckpt",
+                          tile_cache=TileCache(root / "tile_cache"), device=CPU)
+    return base, root / "tile_cache", grid
+
+
+def _cell_params(base, beta, u):
+    """The params whose solve is sweep cell (β, u): the swept β and u with
+    the base's pinned η, tspan and x0."""
+    return tparams.make_model_params(beta=float(beta), u=float(u), eta=base.economic.eta,
+                                     tspan=base.learning.tspan, x0=base.learning.x0)
+
+
+def _open_breaker(engine):
+    for _ in range(engine.breaker.threshold):
+        engine.breaker.record_failure()
+    assert engine.breaker.state == "open"
+
+
+def test_store_writes_meta_and_bridge_finds_cell(swept_cache):
+    from sbr_tpu_torch.serve.fleet import TileCacheBridge
+
+    base, cache_dir, grid = swept_cache
+    metas = list(cache_dir.rglob("*.meta.json"))
+    assert len(metas) == 4
+    assert set(json.loads(metas[0].read_text())) == {"key", "cell_tag", "betas", "us"}
+    bridge = TileCacheBridge(cache_dir)
+    q = _cell_params(base, LADDER_BETAS[1], LADDER_US[2])
+    rec = bridge.lookup(q, _cfg(tparams), "float64")
+    assert np.float64(rec["xi"]).tobytes() == grid.xi.numpy()[1, 2].tobytes()
+    assert rec["status"] == int(grid.status[1, 2]) and rec["flags"] == 0
+    other = tparams.SolverConfig(n_grid=128, bisect_iters=31, refine_crossings=False,
+                                 numerics="fixed")
+    assert bridge.lookup(q, other, "float64") is None  # another config: another tag
+    assert bridge.lookup(q, _cfg(tparams), "float32") is None
+    assert bridge.lookup(_cell_params(base, 1.2345, LADDER_US[2]), _cfg(tparams),
+                         "float64") is None  # off the swept axes
+    assert TileCacheBridge(cache_dir / "missing").lookup(q, _cfg(tparams), "float64") is None
+
+
+def test_solver_outage_answered_from_tile_cache(swept_cache, monkeypatch):
+    base, cache_dir, grid = swept_cache
+    monkeypatch.setenv("SBR_TILE_CACHE_DIR", str(cache_dir))
+    monkeypatch.setenv("SBR_BREAKER_COOLDOWN_S", "3600")
+    engine = _engine(buckets=(1, 8))
+    try:
+        _open_breaker(engine)  # the solver path is down
+        qs = [_cell_params(base, b, u) for b in LADDER_BETAS for u in LADDER_US]
+        res = engine.query_many(qs, timeout=WAIT)
+        assert all(r.degraded and r.source == "tilecache" for r in res)
+        assert np.array([r.xi for r in res]).tobytes() == grid.xi.numpy().tobytes()
+        assert np.array([r.aw_max for r in res]).tobytes() == grid.max_aw.numpy().tobytes()
+        assert [r.status for r in res] == grid.status.numpy().ravel().tolist()
+        assert all(np.isnan(r.tau_bar_in) for r in res)  # tiles do not store it
+        snap = engine.statz()
+        assert snap["totals"]["degraded"] == 16 and snap["window"]["degraded"] == 16
+        assert snap["ladder"] == {"tile_cache": True, "degraded": 16, "ladder_exhausted": 0}
+        assert any("degraded-ladder" in r for r in snap["healthz"]["reasons"])
+        assert engine.healthz()["status"] == "degraded"
+        assert len(engine._lru) == 0  # degraded answers are never cached
+    finally:
+        engine.close()
+
+
+def test_outage_without_matching_tile_fails_and_counts_ladder_exhausted(swept_cache,
+                                                                      monkeypatch):
+    _, cache_dir, _ = swept_cache
+    monkeypatch.setenv("SBR_TILE_CACHE_DIR", str(cache_dir))
+    monkeypatch.setenv("SBR_BREAKER_COOLDOWN_S", "3600")
+    engine = _engine(buckets=(1,))
+    try:
+        _open_breaker(engine)
+        with pytest.raises(SolverUnavailable):
+            engine.query(tparams.make_model_params(beta=1.27, u=0.33))
+        assert engine.statz()["ladder"]["ladder_exhausted"] == 1
+        assert engine.live.totals["errors"] == 1 and engine.live.totals["degraded"] == 0
+    finally:
+        engine.close()
+
+
+def test_serve_dispatch_fault_drives_the_ladder(swept_cache, monkeypatch):
+    """``serve.dispatch`` failing at p = 1: the retried dispatch exhausts
+    into an outage; grid points answer from the tile cache bit for bit, a
+    point off the grid fails."""
+    from sbr_tpu_torch.resilience import FaultPlan, faults
+
+    base, cache_dir, grid = swept_cache
+    monkeypatch.setenv("SBR_TILE_CACHE_DIR", str(cache_dir))
+    monkeypatch.setenv("SBR_SERVE_RETRY_BASE_DELAY_S", "0")
+    faults.install(FaultPlan({"seed": 0, "rules": [
+        {"point": "serve.dispatch", "kind": "transient", "p": 1.0}]}))
+    engine = _engine(buckets=(1, 8))
+    try:
+        qs = [_cell_params(base, LADDER_BETAS[i], LADDER_US[j]) for i, j in ((0, 1), (3, 3))]
+        res = engine.query_many(qs, timeout=WAIT)
+        assert [r.degraded for r in res] == [True, True]
+        assert np.float64(res[0].xi).tobytes() == grid.xi.numpy()[0, 1].tobytes()
+        assert np.float64(res[1].xi).tobytes() == grid.xi.numpy()[3, 3].tobytes()
+        with pytest.raises(RuntimeError):
+            engine.query(tparams.make_model_params(beta=1.27, u=0.33))
+        assert engine.statz()["ladder"]["ladder_exhausted"] == 1
+        assert faults.plan().firings[0]["target"] == "bucket8"
+    finally:
+        engine.close()
+        faults.install(None)
+
+
 def test_healthz_degraded_and_unhealthy_and_refill(monkeypatch):
     monkeypatch.setenv("SBR_SERVE_RETRY_REFILL_S", "3600")
     engine = _engine(buckets=(1,))
@@ -390,7 +514,7 @@ def test_live_metrics_window_and_graph_lines():
     assert "sbr_serve_graph_replays_total 5" in text
     assert 'sbr_serve_bucket_graphs{bucket="64"} 1' in text
     assert live.maybe_write(None) is False
-    with pytest.raises(NotImplementedError, match="E.20"):
+    with pytest.raises(NotImplementedError, match="1.A 9"):
         live.maybe_write(object())
 
 
@@ -644,7 +768,7 @@ def test_scenario_and_population_queries_are_served(call):
 
 @pytest.mark.parametrize("kw", [{"run": object()}, {"run_dir": "runs/x"}])
 def test_run_directories_raise(kw):
-    with pytest.raises(NotImplementedError, match="E.20"):
+    with pytest.raises(NotImplementedError, match="1.A 9"):
         Engine(device=CPU, **kw)
 
 

@@ -169,7 +169,7 @@ def test_u_sweep_matches_reference(mode):
 
 def test_sharding_is_not_ported():
     m = tparams.make_model_params()
-    with pytest.raises(NotImplementedError, match="E.22"):
+    with pytest.raises(NotImplementedError, match="1.A 11"):
         tsw.beta_u_grid([1.0], [0.1], m, mesh=object(), device=CPU)
     ls = solve_learning(m.learning, tparams.SolverConfig(n_grid=64), device=CPU)
     with pytest.raises(NotImplementedError):
