@@ -2643,6 +2643,7 @@ def _nan_gap(a, b) -> float:
 PAPER_RES, PAPER_TILE = 5000, 500
 PAPER_PARAMS = dict(beta=1.0, eta_bar=15.0, u=0.1, p=0.5, kappa=0.6, lam=0.01)
 SUB_RES = 2 * PAPER_TILE  # the sub-sweep and the fault drill: the first 4 tiles
+PAPER_STATUS_COUNTS: dict = {}  # the tiled phase's paper heatmap, for the figures phase
 BENCH_SWEEP_N, BENCH_SWEEP_TILE = 128, 64
 BENCH_SWEEP_CFG = dict(n_grid=1024, bisect_iters=60, refine_crossings=False)
 SERVED_POINTS = 64
@@ -2772,6 +2773,7 @@ def _tiled_paper(card: str, scratch) -> dict:
                                                            dtype=torch.float32))
     sub_same = _same_bytes(sub, sub_mono)
     status = grid.status
+    PAPER_STATUS_COUNTS.update(status_counts(status))
     emit("tiled_paper_heatmap", cells=PAPER_RES ** 2, tile=list(tile), tiles=n_tiles,
          dtype="float32", numerics=st.SolverConfig().numerics, cold_s=cold_s,
          cold_cells_per_s=PAPER_RES ** 2 / cold_s, counts=report["counts"],
@@ -3105,13 +3107,293 @@ def phase_tiled_cpu_vs_card() -> None:
         raise AssertionError(f"tiled faulted run on the card vs CPU: {resumed_gap}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the replication run (figures/ and the run log of obs/)
+# ---------------------------------------------------------------------------
+
+# The golden figure scalars (.claude/skills/verify/SKILL.md and
+# tests/test_golden_figures.py): (ξ*, τ̄_IN, τ̄_OUT, AW_max) of Figure 3,
+# (ξ*, AW_max) of β = 3 and u = 0.01, the hetero ξ* and AW_max, and the
+# social Δξ against word of mouth, each with its tolerance.
+GOLDEN_MAIN = dict(xi=10.215436, tau_bar_in_unc=7.327538, tau_bar_out_unc=10.446095,
+                   aw_max=0.618231)
+GOLDEN_ALT = {"fast": dict(xi=3.256394431, aw_max=0.744437002),
+              "low_u": dict(xi=9.660277550, aw_max=0.847096205)}
+GOLDEN_HETERO = dict(xi=16.875766906, aw_max=0.319828704)
+GOLDEN_SOCIAL = dict(xi=8.925581642, wom_xi=9.189793981, dxi=-0.264212339)
+FIGURES_CPU_TOL = 1e-12  # f64, the card-against-CPU contract of slices 3-6
+
+
+class _Recorded:
+    """Replaces functions of modules with recording wrappers for the block;
+    ``calls[name]`` lists (args, kwargs, result) of each call."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.calls = {name: [] for _, name in targets}
+        self.saved = []
+
+    def __enter__(self):
+        for module, name in self.targets:
+            fn = getattr(module, name)
+            self.saved.append((module, name, fn))
+
+            def wrapped(*args, _fn=fn, _name=name, **kwargs):
+                out = _fn(*args, **kwargs)
+                self.calls[_name].append((args, kwargs, out))
+                return out
+
+            setattr(module, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self.saved):
+            setattr(module, name, fn)
+
+
+def _figure_data(fig) -> list:
+    """A figure's data: per axes, the lines' xy and the meshes' values."""
+    return [[np.asarray(ln.get_xydata(), np.float64) for ln in ax.get_lines()]
+            + [np.asarray(c.get_array(), np.float64) for c in ax.collections
+               if hasattr(c, "get_coordinates")]
+            for ax in fig.axes]
+
+
+def _run_master(argv, capture_figures: bool = False):
+    """``figures.master.main(argv)`` with its printout captured: (exit code,
+    printed lines, {figure: data} when ``capture_figures``)."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from sbr_tpu_torch.figures import master
+
+    figs = {}
+    save = master._save
+
+    def recording(fig, path):
+        parts = Path(path).parts
+        figs["/".join(parts[parts.index("figures") + 1:])] = _figure_data(fig)
+        save(fig, path)
+
+    buf = io.StringIO()
+    if capture_figures:
+        master._save = recording
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = master.main(argv)
+    finally:
+        master._save = save
+    return rc, buf.getvalue().splitlines(), figs
+
+
+def _check_golden(name: str, got: dict, want: dict, tol: float) -> dict:
+    gaps = {k: abs(float(got[k]) - v) for k, v in want.items()}
+    if max(gaps.values()) > tol:
+        raise AssertionError(f"figures golden {name}: {got} against {want} (tol {tol})")
+    return gaps
+
+
+def phase_figures(card: str, tiled_paper_counts) -> dict:
+    """The replication run on the card at full size, uncut: the four
+    sections in float64 (Figure 4 at 5000 u, Figure 5 at 500×500, the
+    Figure-13 closure on 200,000 agents), the paper heatmap at 5000×5000 in
+    500×500 tiles (float32, in its own checkpoint directory: computed cold,
+    not resumed from the tiled phase's), and ``--obs`` into a temporary
+    directory. Checks every artifact, the golden scalars from the run's
+    own solves, the paper heatmap's status counts against the tiled
+    phase's, the run log's spans and censuses, and the kernel counts: the
+    infection kernel once a simulated closure step, the other two never.
+    Returns the launches."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline import solver as bsolver
+    from sbr_tpu_torch.figures import master
+    from sbr_tpu_torch.hetero import solver as hsolver
+    from sbr_tpu_torch.social import closure
+    from sbr_tpu_torch.social import solver as ssolver
+    from sbr_tpu_torch.utils import checkpoint as ckpt
+    from sbr_tpu_torch.utils.status import status_counts
+
+    scratch = Path(tempfile.mkdtemp(prefix="sbr_figures_"))
+    out = scratch / "out"
+    recorded = _Recorded((bsolver, "solve_equilibrium_baseline"),
+                         (hsolver, "solve_equilibrium_hetero"), (hsolver, "get_aw_hetero"),
+                         (ssolver, "solve_equilibrium_social"), (closure, "close_loop"),
+                         (closure, "simulate_agents"), (ckpt, "run_tiled_grid"))
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with recorded:
+            rc, lines, _ = _run_master(["--output", str(out), "--paper", "--obs",
+                                        "--device", "cuda"])
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        calls = recorded.calls
+        figdir = out / "figures"
+        expected = [f for sec in master.MANIFEST for f in master.MANIFEST[sec]]
+        expected += [master.PAPER_HEATMAP, master.CLOSURE_FIG]
+        missing = [f for f in expected if not (figdir / f).exists()]
+        for f in ("replication_figures.pdf", "replication_figures.tex"):
+            if not (out / f).exists():
+                missing.append(f)
+        (run_dir,) = list((out / "obs").iterdir())
+        events = [json.loads(ln) for ln in (run_dir / "events.jsonl").read_text().splitlines()]
+        manifest = json.loads((run_dir / "manifest.json").read_text())
+        tex = (out / "replication_figures.tex").read_text()
+        # the run log's cost: the four sections again, warm, without and then
+        # with --obs (one pair, host clock around the whole call)
+        walls = {}
+        for mode, extra in (("off", []), ("on", ["--obs"])):
+            t1 = time.perf_counter()
+            _run_master(["--output", str(scratch / mode), "--device", "cuda"] + extra)
+            walls[mode] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    emit("figures_obs_cost", sections_wall_s=walls,
+         overhead=walls["on"] / walls["off"] - 1.0, card=card)
+
+    # the section seconds, from the run log's own spans
+    sections = {e["stage"]: e["dur_s"] for e in events
+                if e["kind"] == "stage_end" and e["stage"].startswith("figures.")}
+    emit("figures_sections", seconds=sections, wall_s=wall_s, card=card)
+
+    res = [c[2] for c in calls["solve_equilibrium_baseline"]]
+    main_eq, fast_eq, low_u_eq, wom_eq = res[0], res[1], res[2], res[3]
+    golden = {"main": _check_golden("main", {k: getattr(main_eq, k) for k in GOLDEN_MAIN},
+                                    GOLDEN_MAIN, 1e-5)}
+    for name, eq in (("fast", fast_eq), ("low_u", low_u_eq)):
+        golden[name] = _check_golden(name, {k: getattr(eq, k) for k in GOLDEN_ALT[name]},
+                                     GOLDEN_ALT[name], 1e-5)
+    het = calls["solve_equilibrium_hetero"][0][2]
+    het_aw = calls["get_aw_hetero"][0][2]
+    golden["hetero"] = _check_golden("hetero", {"xi": het.xi, "aw_max": het_aw.aw_max},
+                                     GOLDEN_HETERO, 1e-4)
+    social = calls["solve_equilibrium_social"][0][2]
+    dxi = float(social.xi) - float(wom_eq.xi)
+    golden["social"] = _check_golden("social", {"xi": social.xi}, {"xi": GOLDEN_SOCIAL["xi"]},
+                                     1e-3)
+    golden["wom"] = _check_golden("wom", {"xi": wom_eq.xi}, {"xi": GOLDEN_SOCIAL["wom_xi"]},
+                                  1e-5)
+    golden["dxi"] = _check_golden("dxi", {"dxi": dxi}, {"dxi": GOLDEN_SOCIAL["dxi"]}, 2e-3)
+
+    paper = calls["run_tiled_grid"][0][2]
+    paper_counts = status_counts(paper.status)
+    steps = sum(c[2].t_grid.shape[-1] for c in calls["simulate_agents"])
+    comp = calls["close_loop"][0][2]
+    want_spans = {"figures.baseline", "figures.heterogeneity", "figures.interest_rates",
+                  "figures.social_learning", "figures.paper_heatmap", "baseline.learning",
+                  "baseline.equilibrium", "sweeps.u_sweep", "sweeps.beta_u_grid",
+                  "hetero.hazards", "hetero.buffers", "hetero.xi", "interest.equilibrium",
+                  "interest.hazard", "interest.value_function", "interest.buffers",
+                  "interest.xi", "social.fixed_point"}
+    spans = {e["stage"] for e in events if e["kind"] == "stage_end"}
+    status_stages = {e["stage"] for e in events if e["kind"] == "status"}
+    health_stages = {e["stage"] for e in events if e["kind"] == "health"}
+    tile_mem = sum(1 for e in events if e["kind"] == "mem" and e.get("tile"))
+    preflights = [e["verdict"] for e in events if e["kind"] == "preflight"]
+    emit("figures", rc=rc, missing=missing, golden_gaps=golden, social_iterations=int(
+        social.iterations), dxi=dxi, paper_status_counts=paper_counts,
+        tiled_phase_status_counts=tiled_paper_counts, closure_steps=steps,
+        closure_window=[comp.exit_delay, comp.reentry_delay], closure_err_aw_sup=comp.err_aw_sup,
+        kernel_launches=launches, n_events=len(events), spans_missing=sorted(want_spans - spans),
+        status_stages=sorted(status_stages), health_stages=sorted(health_stages),
+        tile_mem_events=tile_mem, preflight=preflights, device=manifest["device"],
+        memory_peak_bytes=manifest["memory"]["peak_bytes"],
+        paper_heatmap_in_tex=master.PAPER_HEATMAP in tex, card=card)
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+    from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
+
+    problems = []
+    if rc != 0 or missing:
+        problems.append(f"exit {rc}, missing {missing}")
+    if tiled_paper_counts is not None and paper_counts != tiled_paper_counts:
+        problems.append(f"paper counts {paper_counts} != tiled {tiled_paper_counts}")
+    if want_spans - spans:
+        problems.append(f"spans missing {sorted(want_spans - spans)}")
+    if not {"sweeps.u_sweep", "sweeps.beta_u_grid", "social.fixed_point"} <= status_stages:
+        problems.append(f"status events {sorted(status_stages)}")
+    if not {"baseline.equilibrium", "sweeps.u_sweep", "sweeps.beta_u_grid",
+            "hetero.equilibrium", "interest.equilibrium", "social.fixed_point"} <= health_stages:
+        problems.append(f"health events {sorted(health_stages)}")
+    if tile_mem != (PAPER_RES // PAPER_TILE) ** 2 or preflights != ["ok"]:
+        problems.append(f"tile mem events {tile_mem}, preflight {preflights}")
+    if manifest["device"]["platform"] != "cuda" or manifest["status"] != "complete":
+        problems.append(f"manifest {manifest['device']} {manifest['status']}")
+    if not (launches[KERNEL] == steps > 0 and launches[BELIEF_KERNEL] == 0
+            and launches[RECOUNT_KERNEL] == 0):
+        problems.append(f"launches {launches} against {steps} closure steps")
+    if problems:
+        raise AssertionError("figures: " + "; ".join(problems))
+    return launches
+
+
+def phase_figures_cpu_vs_card() -> None:
+    """``master --fast`` on the card and on the CPU: the printed manifests
+    (statuses, fixed-point iterations, ξ) equal line for line, every
+    figure's data within FIGURES_CPU_TOL (float64; measured per section and
+    printed), the closure's agent curves bit for bit when the two windows
+    are equal."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from sbr_tpu_torch.figures import master
+    from sbr_tpu_torch.social import closure
+
+    scratch = Path(tempfile.mkdtemp(prefix="sbr_figures_cpu_"))
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            out = scratch / dev
+            with _Recorded((closure, "close_loop")) as rec:
+                rc, lines, figs = _run_master(["--fast", "--output", str(out),
+                                               "--device", dev], capture_figures=True)
+            lines = [ln.replace(str(out), "OUT") for ln in lines if "time" not in ln]
+            runs[dev] = (rc, lines, figs, rec.calls["close_loop"][0][2])
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    (rc_card, lines_card, figs_card, comp_card) = runs["cuda"]
+    (rc_cpu, lines_cpu, figs_cpu, comp_cpu) = runs["cpu"]
+    section_of = {f: sec for sec, fs in master.MANIFEST.items() for f in fs}
+    section_of[master.CLOSURE_FIG] = 4
+    gaps = {}
+    for name, cpu_axes in figs_cpu.items():
+        worst = 0.0
+        for ax_card, ax_cpu in zip(figs_card[name], cpu_axes):
+            for a, b in zip(ax_card, ax_cpu):
+                if a.shape != b.shape or not np.array_equal(np.isfinite(a), np.isfinite(b)):
+                    raise AssertionError(f"figures card vs CPU: {name} shapes or NaNs differ")
+                ok = np.isfinite(b)
+                worst = max(worst, float(np.abs(a[ok] - b[ok]).max(initial=0.0)))
+        if name != master.CLOSURE_FIG:
+            sec = f"section_{section_of[name]}"
+            gaps[sec] = max(gaps.get(sec, 0.0), worst)
+    same_window = (comp_card.exit_delay, comp_card.reentry_delay) == (comp_cpu.exit_delay,
+                                                                      comp_cpu.reentry_delay)
+    agents_bitwise = bool(np.array_equal(comp_card.aw_sim, comp_cpu.aw_sim)
+                          and np.array_equal(comp_card.g_sim, comp_cpu.g_sim))
+    emit("figures_cpu_vs_card", rc=[rc_card, rc_cpu], manifest_equal=lines_card == lines_cpu,
+         max_abs_by_section=gaps, tol=FIGURES_CPU_TOL, same_window=same_window,
+         closure_agents_bitwise=agents_bitwise, figures=len(figs_cpu))
+    if not (rc_card == rc_cpu == 0 and lines_card == lines_cpu
+            and max(gaps.values()) <= FIGURES_CPU_TOL and set(figs_card) == set(figs_cpu)
+            and (agents_bitwise or not same_window)):
+        raise AssertionError(f"figures card vs CPU: {gaps}, manifest "
+                             f"{lines_card == lines_cpu}, agents {agents_bitwise}")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
-          "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu")
+          "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
+          "figures", "figures_cpu")
 
 
-def _recount_kernel_entry(recount: dict, tiled_launches: dict) -> dict:
+def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
     from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
@@ -3127,7 +3409,8 @@ def _recount_kernel_entry(recount: dict, tiled_launches: dict) -> dict:
         "replaces_function": "benchmarks/ablate_pallas_recount.py::_build_pallas_gather",
         "launches": recount["launches"],
         "launches_by_path": {"ablation": recount["launches"],
-                             "tiled": tiled_launches[RECOUNT_KERNEL]},
+                             "tiled": tiled_launches[RECOUNT_KERNEL],
+                             "figures": fig_launches[RECOUNT_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -3200,6 +3483,10 @@ def main(argv) -> int:
     tiled_launches = phase_tiled(info["nvidia_smi"]) if "tiled" in wanted else {}
     if "tiled_cpu" in wanted:
         phase_tiled_cpu_vs_card()
+    fig_launches = (phase_figures(info["nvidia_smi"], PAPER_STATUS_COUNTS or None)
+                    if "figures" in wanted else {})
+    if "figures_cpu" in wanted:
+        phase_figures_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -3217,10 +3504,11 @@ def main(argv) -> int:
         "replaces": "sbr_tpu/social/fused.py:114",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
         "launches": (launches + loop_launches[KERNEL] + pop_launches[KERNEL]
-                     + rewire_launches[KERNEL]),
+                     + rewire_launches[KERNEL] + fig_launches[KERNEL]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
                              "population": pop_launches[KERNEL],
-                             "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL]},
+                             "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL],
+                             "figures": fig_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -3240,7 +3528,8 @@ def main(argv) -> int:
         "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
                              "population": pop_launches[BELIEF_KERNEL],
                              "rewire": rewire_launches[BELIEF_KERNEL],
-                             "tiled": tiled_launches[BELIEF_KERNEL]},
+                             "tiled": tiled_launches[BELIEF_KERNEL],
+                             "figures": fig_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],
@@ -3249,7 +3538,7 @@ def main(argv) -> int:
         "bound_by": belief_row["bound_by"],
         "library_ms": None,
         "shapes": belief_rows,
-    }, _recount_kernel_entry(recount, tiled_launches)]
+    }, _recount_kernel_entry(recount, tiled_launches, fig_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.core.interp import linspace
 from sbr_tpu_torch.models.params import LearningParams, SolverConfig
 from sbr_tpu_torch.models.results import LearningSolution
@@ -39,7 +40,8 @@ def solve_learning(
     CUDA card) in ``dtype`` (default: float64). ``params`` may carry
     tensors of a row shape R for ``beta`` (and the tspan ends and x0), as
     the β×u sweep and a served batch do; the samples then have shape
-    R + (n_grid,)."""
+    R + (n_grid,). With telemetry on it is the ``baseline.learning``
+    span."""
     if config is None:
         config = SolverConfig()
     dtype = torch.float64 if dtype is None else dtype
@@ -49,13 +51,15 @@ def solve_learning(
     t1 = torch.as_tensor(t1, dtype=dtype, device=device)
     beta = torch.as_tensor(params.beta, dtype=dtype, device=device)
     x0 = torch.as_tensor(params.x0, dtype=dtype, device=device)
-    grid = linspace(t0, t1, config.n_grid, dtype, device)
-    if beta.dim() > 0:
-        grid = grid.expand(*torch.broadcast_shapes(beta.shape, grid.shape[:-1]), grid.shape[-1])
-    b = beta.unsqueeze(-1)
-    x0_col = x0.unsqueeze(-1) if x0.dim() > 0 else x0
-    cdf = logistic_cdf(grid, b, x0_col)
-    pdf = logistic_pdf(grid, b, x0_col)
+    with obs.span("baseline.learning", n_grid=config.n_grid) as sp:
+        grid = linspace(t0, t1, config.n_grid, dtype, device)
+        if beta.dim() > 0:
+            grid = grid.expand(*torch.broadcast_shapes(beta.shape, grid.shape[:-1]), grid.shape[-1])
+        b = beta.unsqueeze(-1)
+        x0_col = x0.unsqueeze(-1) if x0.dim() > 0 else x0
+        cdf = logistic_cdf(grid, b, x0_col)
+        pdf = logistic_pdf(grid, b, x0_col)
+        sp.sync(cdf, pdf)
     return LearningSolution(
         grid=grid,
         cdf=cdf,

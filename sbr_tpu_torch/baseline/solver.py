@@ -16,11 +16,13 @@ the last bits, not bit for bit (the tests state the tolerance).
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import logistic_cdf, logistic_pdf
 from sbr_tpu_torch.core.integrate import cumtrapz, cumulative_gauss_legendre
 from sbr_tpu_torch.core.interp import linspace, searchsorted_right, take_last
@@ -428,7 +430,11 @@ def solve_equilibrium_core(
     u = torch.as_tensor(u, dtype=dtype, device=device)
     nan = torch.full((), float("nan"), dtype=dtype, device=device)
 
-    tau_grid, hr, integ, int_eta = _hazard_parts(p, lam, ls, eta, config)
+    # Spans are silent inside programs (the sweeps, the fixed point); an
+    # eager call gets the per-stage wall split.
+    with obs.span("baseline.hazard") as sp:
+        tau_grid, hr, integ, int_eta = _hazard_parts(p, lam, ls, eta, config)
+        sp.sync(hr)
     hazard_at = (
         _make_hazard_at(p, lam, ls, tau_grid, integ, int_eta, config)
         if (ls.closed_form and config.refine_crossings)
@@ -439,15 +445,19 @@ def solve_equilibrium_core(
         hr, hazard_at, extra_health = hazard_transform(tau_grid, hr, hazard_at)
     if kappa_transform is not None:
         kappa = kappa_transform(kappa)
-    tau_in_unc, tau_out_unc, cross_health = optimal_buffer(
-        u, tau_grid, hr, tspan_end, hazard_at=hazard_at, with_health=True,
-        adaptive=config.adaptive,
-    )
+    with obs.span("baseline.buffers") as sp:
+        tau_in_unc, tau_out_unc, cross_health = optimal_buffer(
+            u, tau_grid, hr, tspan_end, hazard_at=hazard_at, with_health=True,
+            adaptive=config.adaptive,
+        )
+        sp.sync(tau_in_unc, tau_out_unc)
     no_crossing = tau_in_unc == tau_out_unc
 
-    xi_c, err, root_ok, increasing, xi_health = compute_xi(
-        tau_in_unc, tau_out_unc, ls, kappa, config, with_health=True
-    )
+    with obs.span("baseline.xi") as sp:
+        xi_c, err, root_ok, increasing, xi_health = compute_xi(
+            tau_in_unc, tau_out_unc, ls, kappa, config, with_health=True
+        )
+        sp.sync(xi_c)
     health = cross_health.merge(xi_health, *extra_health)
     run, status, converged, tolerance = classify_cell(no_crossing, root_ok, increasing, err, dtype)
     xi = torch.where(run, xi_c, nan)
@@ -483,6 +493,18 @@ def solve_equilibrium_core(
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _core_program(config: SolverConfig):
+    """The whole solve as one program, cached per config: what the telemetry
+    path hands to `obs.jit_call` (the reference's jitted core)."""
+
+    def core(ls, u, p, kappa, lam, eta, tspan_end):
+        obs.prof.note_call("baseline.equilibrium", ls, u, p, kappa, lam, eta, tspan_end)
+        return solve_equilibrium_core(ls, u, p, kappa, lam, eta, tspan_end, config)
+
+    return core
+
+
 def solve_equilibrium_baseline(
     ls: LearningSolution,
     econ: EconomicParams,
@@ -491,15 +513,24 @@ def solve_equilibrium_baseline(
 ) -> EquilibriumResult:
     """One equilibrium, on the learning solution's device.
     ``tspan_end`` defaults to the learning grid's end. The result carries
-    the wall-clock ``solve_time``, taken after the device has finished."""
+    the wall-clock ``solve_time``, taken after the device has finished.
+
+    The solve is one program (`obs.jit_call`) inside the
+    ``baseline.equilibrium`` span, followed by a ``health`` census: with
+    telemetry on they are logged, and the bits are the same either way."""
     if config is None:
         config = SolverConfig()
     if tspan_end is None:
         tspan_end = ls.grid[..., -1]
     t0 = time.perf_counter()
-    res = solve_equilibrium_core(
-        ls, econ.u, econ.p, econ.kappa, econ.lam, econ.eta, tspan_end, config
+    args = tuple(
+        torch.as_tensor(v, dtype=ls.dtype, device=ls.device)
+        for v in (econ.u, econ.p, econ.kappa, econ.lam, econ.eta, tspan_end)
     )
+    with obs.span("baseline.equilibrium"):
+        res = obs.jit_call("baseline.equilibrium", _core_program(config), ls, *args)
     if ls.device.type == "cuda":
         torch.cuda.synchronize(ls.device)
-    return res.replace(solve_time=time.perf_counter() - t0)
+    res = res.replace(solve_time=time.perf_counter() - t0)
+    obs.log_health("baseline.equilibrium", res.health, res.status)
+    return res

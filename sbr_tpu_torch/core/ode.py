@@ -28,9 +28,12 @@ measured spread).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.diag.health import ODE_BUDGET, Health, flag_bit
 
 # `run_passes` asks the device whether the march has ended once every this
@@ -80,12 +83,14 @@ def run_passes(one_pass, state: dict, done, eager: bool = False) -> dict:
         return state
     static = {k: v.clone() for k, v in state.items()}
     graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
     with torch.cuda.graph(graph):
         s = static
         for _ in range(CHECK_EVERY):
             s = one_pass(s)
         for k, v in static.items():
             v.copy_(s[k])
+    obs.prof.note_capture("ode.passes", time.perf_counter() - t0)
     while not done(static):
         graph.replay()
     return static

@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import logistic_cdf, logistic_pdf, solve_learning
 from sbr_tpu_torch.baseline.solver import (
     _hazard_parts,
@@ -98,9 +99,11 @@ def _device_of(theta: dict, device):
 
 
 def _ls_of(beta, t0, t1, x0, config: SolverConfig, dtype):
-    """Closed-form Stage 1 from θ tensors (`solve_param_cell`'s)."""
-    return solve_learning(_RowLearning(beta, (t0, t1), x0), config, dtype=dtype,
-                          device=beta.device)
+    """Closed-form Stage 1 from θ tensors (`solve_param_cell`'s), silent
+    to telemetry like the reference's traced cell."""
+    with obs.program():
+        return solve_learning(_RowLearning(beta, (t0, t1), x0), config, dtype=dtype,
+                              device=beta.device)
 
 
 def _crossing_ops(theta: dict, tau_grid, hr, integ, int_eta, config: SolverConfig, dtype):

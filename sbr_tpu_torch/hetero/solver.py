@@ -12,8 +12,10 @@
   path dips back below κ (a masked reduction over boolean transitions).
 
 The scenario hooks ``hazard_transform`` and ``kappa_transform`` are the
-reference's. Its ``axis_name`` (a sharded group axis) and its telemetry
-calls are not ported yet: ``axis_name`` raises unless ``None``.
+reference's, and so are its telemetry spans (``hetero.hazards``,
+``hetero.buffers``, ``hetero.xi``) and ``health`` census. Its
+``axis_name`` (a sharded group axis) is not ported yet: it raises unless
+``None``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import time
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.solver import _root_tol, classify_cell
 from sbr_tpu_torch.core.integrate import cumtrapz
 from sbr_tpu_torch.core.interp import interp, linspace
@@ -162,20 +165,26 @@ def solve_equilibrium_hetero(lsh: LearningSolutionHetero, econ: EconomicParams,
     u = torch.as_tensor(econ.u, dtype=dtype).to(dev)
     nan = torch.full((), float("nan"), dtype=dtype, device=dev)
 
-    tau_grid, hrs = hazard_rates_hetero(econ.p, econ.lam, lsh, econ.eta, config)
+    with obs.span("hetero.hazards", groups=int(lsh.cdfs.shape[0])) as sp:
+        tau_grid, hrs = hazard_rates_hetero(econ.p, econ.lam, lsh, econ.eta, config)
+        sp.sync(hrs)
     extra_health = ()
     if hazard_transform is not None:
         hrs, _, extra_health = hazard_transform(tau_grid, hrs, None)
     kappa_eff = econ.kappa if kappa_transform is None else kappa_transform(econ.kappa)
-    default = torch.as_tensor(tspan_end, dtype=dtype).to(dev)
-    tau_in_uncs, h_in = first_upcrossing(tau_grid, hrs, u, default, with_health=True)
-    tau_out_uncs, h_out = last_downcrossing(tau_grid, hrs, u, default, with_health=True)
+    with obs.span("hetero.buffers") as sp:
+        default = torch.as_tensor(tspan_end, dtype=dtype).to(dev)
+        tau_in_uncs, h_in = first_upcrossing(tau_grid, hrs, u, default, with_health=True)
+        tau_out_uncs, h_out = last_downcrossing(tau_grid, hrs, u, default, with_health=True)
+        sp.sync(tau_in_uncs, tau_out_uncs)
     # no group can optimally exit
     no_crossing = (tau_in_uncs != tau_out_uncs).sum() == 0
 
-    xi_c, err, root_ok, increasing, first_ok, xi_health = compute_xi_hetero(
-        tau_in_uncs, tau_out_uncs, lsh, kappa_eff, config, with_health=True
-    )
+    with obs.span("hetero.xi") as sp:
+        xi_c, err, root_ok, increasing, first_ok, xi_health = compute_xi_hetero(
+            tau_in_uncs, tau_out_uncs, lsh, kappa_eff, config, with_health=True
+        )
+        sp.sync(xi_c)
     cross_flags = or_reduce_flags(h_in.flags | as_out_crossing(h_out).flags)
     if lsh.ode_flags is not None:
         cross_flags = cross_flags | lsh.ode_flags
@@ -200,7 +209,9 @@ def solve_equilibrium_hetero(lsh: LearningSolutionHetero, econ: EconomicParams,
     )
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return res.replace(solve_time=time.perf_counter() - t_start)
+    res = res.replace(solve_time=time.perf_counter() - t_start)
+    obs.log_health("hetero.equilibrium", res.health, res.status)
+    return res
 
 
 def get_aw_hetero(result: EquilibriumResultHetero, lsh: LearningSolutionHetero,

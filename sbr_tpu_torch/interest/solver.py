@@ -18,6 +18,7 @@ import time
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.solver import (
     _hazard_parts,
     _make_hazard_at,
@@ -103,7 +104,9 @@ def solve_equilibrium_interest_core(ls: LearningSolution, u, p, kappa, lam, eta,
     nan = torch.full((), float("nan"), dtype=dtype, device=dev)
 
     warped = not hazard_grid_is_uniform(ls, config)
-    tau_grid, hr, integ, int_eta = _hazard_parts(p, lam, ls, eta, config)
+    with obs.span("interest.hazard") as sp:
+        tau_grid, hr, integ, int_eta = _hazard_parts(p, lam, ls, eta, config)
+        sp.sync(hr)
     index_fn = None
     if warped:
         eta_c = torch.as_tensor(eta, dtype=dtype).to(dev)
@@ -115,18 +118,24 @@ def solve_equilibrium_interest_core(ls: LearningSolution, u, p, kappa, lam, eta,
     if ls.closed_form and config.refine_crossings:
         hazard_at = _make_hazard_at(p, lam, ls, tau_grid, integ, int_eta, config)
 
-    hr_eff, hazard_eff_at, v, v_health = effective_hazard_stage(
-        tau_grid, hr, r, delta, u, config, hazard_at=hazard_at, uniform=not warped,
-        index_fn=index_fn,
-    )
-    tau_in_unc, tau_out_unc, cross_health = optimal_buffer(
-        u, tau_grid, hr_eff, tspan_end, hazard_at=hazard_eff_at, with_health=True,
-        adaptive=config.adaptive,
-    )
+    with obs.span("interest.value_function") as sp:
+        hr_eff, hazard_eff_at, v, v_health = effective_hazard_stage(
+            tau_grid, hr, r, delta, u, config, hazard_at=hazard_at, uniform=not warped,
+            index_fn=index_fn,
+        )
+        sp.sync(v)
+    with obs.span("interest.buffers") as sp:
+        tau_in_unc, tau_out_unc, cross_health = optimal_buffer(
+            u, tau_grid, hr_eff, tspan_end, hazard_at=hazard_eff_at, with_health=True,
+            adaptive=config.adaptive,
+        )
+        sp.sync(tau_in_unc, tau_out_unc)
     no_crossing = tau_in_unc == tau_out_unc
-    xi_c, err, root_ok, increasing, xi_health = compute_xi(
-        tau_in_unc, tau_out_unc, ls, kappa, config, with_health=True
-    )
+    with obs.span("interest.xi") as sp:
+        xi_c, err, root_ok, increasing, xi_health = compute_xi(
+            tau_in_unc, tau_out_unc, ls, kappa, config, with_health=True
+        )
+        sp.sync(xi_c)
     health = cross_health.merge(xi_health, v_health)
     run, status, converged, tolerance = classify_cell(no_crossing, root_ok, increasing, err, dtype)
     xi = torch.where(run, xi_c, nan)
@@ -162,15 +171,22 @@ def solve_equilibrium_interest(ls: LearningSolution, econ: EconomicParamsInteres
     """One interest-rate equilibrium on the learning solution's device.
     ``tspan_end`` defaults to the learning grid's end; the embedded
     baseline result carries the wall-clock ``solve_time``, taken after the
-    device has finished."""
+    device has finished. With telemetry on the solve is the
+    ``interest.equilibrium`` span around the stage spans, then a ``health``
+    census."""
     if config is None:
         config = SolverConfig()
     t0 = time.perf_counter()
     if tspan_end is None:
         tspan_end = ls.grid[..., -1]
-    res = solve_equilibrium_interest_core(
-        ls, econ.u, econ.p, econ.kappa, econ.lam, econ.eta, econ.r, econ.delta, tspan_end, config
-    )
+    with obs.span("interest.equilibrium") as sp:
+        res = solve_equilibrium_interest_core(
+            ls, econ.u, econ.p, econ.kappa, econ.lam, econ.eta, econ.r, econ.delta, tspan_end,
+            config
+        )
+        sp.sync(res.base.xi, res.base.status)
     if ls.device.type == "cuda":
         torch.cuda.synchronize(ls.device)
-    return res.replace(base=res.base.replace(solve_time=time.perf_counter() - t0))
+    res = res.replace(base=res.base.replace(solve_time=time.perf_counter() - t0))
+    obs.log_health("interest.equilibrium", res.base.health, res.base.status)
+    return res

@@ -1,14 +1,20 @@
-"""Log-bucketed latency histograms: the port of `log_bounds`,
-`DEFAULT_LATENCY_BOUNDS_MS` and `LogHistogram` from
+"""Metrics registry and log-bucketed latency histograms: the port of
 ``sbr_tpu.obs.metrics``. Pure Python: the same recorded values give the
-same quantiles, deltas and Prometheus lines as the reference. The
-registry (counters, gauges, timers) and the labeled histogram families
-wait for the rest of ``obs`` (ROADMAP item 1.A 9).
+same quantiles, deltas, summaries and Prometheus lines as the reference.
+
+Metrics are recorded only from host code, at the boundary of a finished
+solve or sweep, so enabling them changes no computation. Every recording
+method of `MetricsRegistry` starts with one attribute test and returns
+when the registry is disabled. A `RunContext` enables the process-global
+registry (`metrics()`) for its run and folds its summary into the
+manifest.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import contextlib
+import time
+from typing import Dict, List, Optional, Tuple
 
 
 def log_bounds(lo: float, hi: float, per_decade: int = 4) -> Tuple[float, ...]:
@@ -166,3 +172,170 @@ class LogHistogram:
         h.total = float(doc.get("sum", 0.0))
         h.max = float(doc.get("max", 0.0))
         return h
+
+
+class LabeledHistograms:
+    """A family of `LogHistogram`s keyed by one label value.
+
+    The shape behind per-layer span-duration histograms on ``/metrics``
+    (``sbr_trace_span_ms{layer="engine.dispatch"}``): `record` is the same
+    O(1) lock-free-under-CPython increment `LogHistogram.record` is — the
+    dict-get worst race creates one extra throwaway histogram whose single
+    sample is lost, never corrupts existing buckets. ``max_labels`` bounds
+    cardinality: past it, new labels fold into ``"other"`` instead of
+    growing the exposition without bound."""
+
+    __slots__ = ("bounds", "by_label", "max_labels")
+
+    def __init__(self, bounds: Tuple[float, ...], max_labels: int = 64) -> None:
+        self.bounds = tuple(bounds)
+        self.by_label: Dict[str, LogHistogram] = {}
+        self.max_labels = max_labels
+
+    def record(self, label: str, value: float) -> None:
+        h = self.by_label.get(label)
+        if h is None:
+            if len(self.by_label) >= self.max_labels:
+                label = "other"
+                h = self.by_label.get(label)
+            if h is None:
+                h = self.by_label.setdefault(label, LogHistogram(self.bounds))
+        h.record(value)
+
+    def summaries(self) -> Dict[str, dict]:
+        """JSON-ready per-label reductions, label-sorted for determinism."""
+        return {k: self.by_label[k].summary() for k in sorted(self.by_label)}
+
+    def to_prometheus(self, name: str, label_key: str = "layer") -> List[str]:
+        """Exposition lines for every label's histogram under one family.
+
+        Emits the ``# TYPE`` header once; per-label lines carry
+        ``label_key="<label>"`` so a single scrape shows the full per-layer
+        latency breakdown."""
+        if not self.by_label:
+            return []
+        lines = [f"# TYPE {name} histogram"]
+        for label in sorted(self.by_label):
+            sub = self.by_label[label].to_prometheus(
+                name, labels=f'{label_key}="{label}"'
+            )
+            lines.extend(sub[1:])  # drop the per-label TYPE header
+        return lines
+
+
+class MetricsRegistry:
+    """Process-local counters / gauges / timer histograms.
+
+    Disabled by default; `RunContext` enables it for the run's duration and
+    folds `summary()` into the run manifest. All recording methods are
+    no-ops while disabled (see module docstring for the overhead contract).
+    """
+
+    __slots__ = ("_on", "counters", "gauges", "timers", "hists")
+
+    def __init__(self) -> None:
+        self._on = False
+        self.counters: Dict[str, float] = {}
+        self.gauges: Dict[str, float] = {}
+        self.timers: Dict[str, List[float]] = {}
+        self.hists: Dict[str, LogHistogram] = {}
+
+    # -- lifecycle ----------------------------------------------------------
+    @property
+    def enabled(self) -> bool:
+        return self._on
+
+    def enable(self) -> None:
+        self._on = True
+
+    def disable(self) -> None:
+        self._on = False
+
+    def reset(self) -> None:
+        self.counters.clear()
+        self.gauges.clear()
+        self.timers.clear()
+        self.hists.clear()
+
+    # -- recording (all no-ops while disabled) ------------------------------
+    def inc(self, name: str, n: float = 1) -> None:
+        """Increment counter ``name`` by ``n``."""
+        if not self._on:
+            return
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def gauge(self, name: str, value: float) -> None:
+        """Set gauge ``name`` to its latest ``value``."""
+        if not self._on:
+            return
+        self.gauges[name] = value
+
+    def observe(self, name: str, seconds: float) -> None:
+        """Record one duration sample into timer histogram ``name``."""
+        if not self._on:
+            return
+        self.timers.setdefault(name, []).append(float(seconds))
+
+    _DEFAULT_HIST_BOUNDS = DEFAULT_LATENCY_BOUNDS_MS
+
+    def observe_value(self, name: str, value: float,
+                      bounds: Optional[Tuple[float, ...]] = None) -> None:
+        """Record one sample into the log-bucketed value histogram ``name``
+        (created on first use; default bounds cover 0.05 ms .. 2 min —
+        the serving latency shape). Unlike `observe`, memory is O(buckets)
+        however many samples land, so hot query paths can record every
+        event without growing a list."""
+        if not self._on:
+            return
+        h = self.hists.get(name)
+        if h is None:
+            h = self.hists[name] = LogHistogram(bounds or self._DEFAULT_HIST_BOUNDS)
+        h.record(value)
+
+    @contextlib.contextmanager
+    def timer(self, name: str):
+        """Time the enclosed block into histogram ``name`` (host wall-clock;
+        callers timing device work should fence first — see obs.timing)."""
+        if not self._on:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(name, time.perf_counter() - t0)
+
+    # -- reporting ----------------------------------------------------------
+    def summary(self) -> dict:
+        """JSON-ready snapshot: counters/gauges verbatim, timers reduced to
+        count/total/min/mean/p50/p95/max (keys sorted for determinism)."""
+
+        def _hist(samples: List[float]) -> dict:
+            s = sorted(samples)
+            n = len(s)
+            return {
+                "count": n,
+                "total_s": sum(s),
+                "min_s": s[0],
+                "mean_s": sum(s) / n,
+                "p50_s": s[n // 2],
+                "p95_s": s[min(n - 1, (19 * n) // 20)],
+                "max_s": s[-1],
+            }
+
+        out = {
+            "counters": {k: self.counters[k] for k in sorted(self.counters)},
+            "gauges": {k: self.gauges[k] for k in sorted(self.gauges)},
+            "timers": {k: _hist(v) for k, v in sorted(self.timers.items())},
+        }
+        if self.hists:
+            out["hists"] = {k: self.hists[k].summary() for k in sorted(self.hists)}
+        return out
+
+
+_GLOBAL = MetricsRegistry()
+
+
+def metrics() -> MetricsRegistry:
+    """The process-global registry (instrumentation call sites and tests)."""
+    return _GLOBAL

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import logistic_cdf, solve_learning
 from sbr_tpu_torch.baseline.solver import (
     _col,
@@ -268,6 +269,11 @@ def solve_scenario_cell(spec: ScenarioSpec, *cols, config: SolverConfig, dtype=N
     if device is None:
         device = next((c.device for c in cols if isinstance(c, torch.Tensor)), None)
     device = torch.device(device) if device is not None else default_device()
+    with obs.program():  # the reference's jitted cell: telemetry inside is silent
+        return _scenario_cell(spec, cols, config, dtype, device)
+
+
+def _scenario_cell(spec: ScenarioSpec, cols, config: SolverConfig, dtype, device):
     red = spec.reduces_to()
     if red == "baseline":
         return solve_param_cell(*cols[:9], config, dtype, device)

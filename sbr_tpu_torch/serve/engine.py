@@ -88,6 +88,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.core.rootfind import no_host_reads
 from sbr_tpu_torch.diag.health import DIVERGENT_MASK
 from sbr_tpu_torch.grad.api import WRT_DEFAULT, cell_value_and_grads
@@ -333,8 +334,10 @@ class BucketProgram:
                 self.solve()
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
             self.outputs = self.solve()
+        obs.prof.note_capture("serve.bucket", time.perf_counter() - t0)
         self.graph = graph
 
     def __call__(self, cols: np.ndarray) -> np.ndarray:
@@ -573,8 +576,8 @@ class Engine:
         crossing-time quantiles and a run probability against the model's
         mean-field fixed point (`infomodels.population_query`). Returns the
         JSON-ready record with ``population_fingerprint``, ``source`` and
-        ``latency_ms``. A malformed ``pop_doc`` raises ValueError; a rewire
-        information model raises NotImplementedError (not ported)."""
+        ``latency_ms``. A malformed ``pop_doc`` raises ValueError. Every
+        information model is served, the rewire dynamics included."""
         from sbr_tpu_torch.infomodels import population as pop
 
         kw = pop.parse_population_doc(pop_doc)

@@ -26,8 +26,9 @@ the same per-agent fields (tested).
 A ``dynamics="rewire"`` information model closes against its tilted
 mean-field curve, each member regenerating its graph every epoch.
 
-Not ported: ``mesh=`` (raises ``NotImplementedError``) and the ``obs``
-census line of an information-model closure.
+An information-model closure emits the reference's ``infomodel``
+``closure`` census event when telemetry is on. Not ported: ``mesh=``
+(raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.models.params import ModelParams, SolverConfig, make_model_params
 from sbr_tpu_torch.social.agents import (
     AgentSimConfig,
@@ -148,9 +150,10 @@ def close_loop(
     - ``seeds``: member seeds replacing the ``n_reps`` ladder; the graph
       is then prepared once (at ``seed``) and reused by every member, whose
       AW rows land on ``aw_seeds``.
-    - ``tolerance``: recorded by the reference's telemetry; no effect here.
+    - ``tolerance``: recorded on the ``closure`` telemetry event of an
+      information-model closure, so its report can flag a breach; no
+      effect on the result.
     """
-    del tolerance  # only the reference's obs census line reads it
     if config is None:
         config = SolverConfig()
     if model is None:
@@ -317,7 +320,7 @@ def close_loop(
     g_fp, aw_fp = fp.curves_on(t)
     d = aw_sim - aw_fp
     dg = g_sim - g_fp
-    return LoopComparison(
+    comp = LoopComparison(
         fp=fp,
         exit_delay=exit_delay,
         reentry_delay=reentry_delay,
@@ -334,3 +337,17 @@ def close_loop(
         aw_seeds=np.stack(aw_rows) if aw_rows else None,
         infomodel=infomodel,
     )
+    # information-model closures only: a plain closure's event would let a
+    # report read a run without an info battery as green
+    if infomodel is not None and obs.enabled():
+        obs.log_infomodel(
+            "closure",
+            channel=infomodel.channel,
+            dynamics=infomodel.dynamics,
+            n_agents=n_agents,
+            n_reps=n_reps,
+            err_aw_sup=comp.err_aw_sup,
+            err_g_rms=comp.err_g_rms,
+            tolerance=tolerance,
+        )
+    return comp

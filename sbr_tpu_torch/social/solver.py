@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import logistic_cdf
 from sbr_tpu_torch.baseline.solver import get_aw, solve_equilibrium_core
 from sbr_tpu_torch.core.interp import linspace
@@ -157,7 +158,8 @@ def run_fixed_point(
     prev_aw = prev_r = torch.zeros_like(aw0)
     it = 0
     while it < max_iter:
-        ls, res, xi_new, aw_new = step(aw, xi)
+        with obs.program():  # the reference's loop body is traced code
+            ls, res, xi_new, aw_new = step(aw, xi)
         exceeded = ~res.bankrun & (xi_new > eta)
         err_new = (aw_new - aw).abs().max()
         conv = (err_new < tol_) & ~exceeded
@@ -259,7 +261,11 @@ def solve_equilibrium_social(
     Defaults are the reference's (tol 1e-4, max_iter 250, α = 0.5); the
     Figure-12/13 script calls with max_iter=500. ``verbose`` prints one
     line per iteration from the host. The result carries ``solve_time``,
-    taken after the device has finished."""
+    taken after the device has finished.
+
+    With telemetry on, the loop runs as one program through `obs.jit_call`
+    inside the ``social.fixed_point`` span, followed by the
+    ``fixed_point``, ``status`` and ``health`` events (`_log_fixed_point`)."""
     if config is None:
         config = SolverConfig()
     dtype = torch.float64 if dtype is None else dtype
@@ -268,18 +274,57 @@ def solve_equilibrium_social(
     beta, x0, u, p, kappa, lam, eta = _model_scalars(model, dtype, device)
     grid = fixed_point_grid(model, config, dtype, device)
 
-    def step(aw, xi):
-        ls = solve_forced_learning(beta, aw, grid, x0)
-        res = solve_equilibrium_core(ls, u, p, kappa, lam, eta, eta, config)
-        xi_new = no_run_xi(res, xi, eta)
-        aw_new = get_aw(xi_new, res.tau_bar_in_unc, res.tau_bar_out_unc, grid, ls)[0]
-        return ls, res, xi_new, aw_new
+    def program(beta, x0, u, p, kappa, lam, eta, grid):
+        obs.prof.note_call("social.fixed_point", beta, x0, u, p, kappa, lam, eta, grid,
+                           config, tol, max_iter, damping)
 
-    res = run_fixed_point(
-        step, logistic_cdf(grid, beta, x0), grid, eta, tol, max_iter, damping,
-        adaptive=config.adaptive, verbose=verbose,
+        def step(aw, xi):
+            ls = solve_forced_learning(beta, aw, grid, x0)
+            res = solve_equilibrium_core(ls, u, p, kappa, lam, eta, eta, config)
+            xi_new = no_run_xi(res, xi, eta)
+            aw_new = get_aw(xi_new, res.tau_bar_in_unc, res.tau_bar_out_unc, grid, ls)[0]
+            return ls, res, xi_new, aw_new
+
+        return run_fixed_point(
+            step, logistic_cdf(grid, beta, x0), grid, eta, tol, max_iter, damping,
+            adaptive=config.adaptive, verbose=verbose,
+        )
+
+    with obs.span("social.fixed_point", n_grid=config.n_grid, max_iter=int(max_iter)) as sp:
+        res = obs.jit_call("social.fixed_point", program, beta, x0, u, p, kappa, lam, eta, grid)
+        sp.sync(res.aw, res.xi)
+    res = _finish(res, t0)
+    _log_fixed_point(res)
+    return res
+
+
+def _log_fixed_point(res: SocialFixedPointResult) -> None:
+    """Host-boundary telemetry for a finished fixed-point solve: the
+    metrics' solve and iteration counts, and with a run active the
+    ``fixed_point`` event (iterations, flags, the history ring), then the
+    ``status`` and ``health`` censuses. Reads the returned tensors only."""
+    n_iter = int(res.iterations)
+    registry = obs.metrics.metrics()
+    registry.inc("social.fixed_point.solves")
+    registry.inc("social.fixed_point.iterations", n_iter)
+    registry.observe("social.fixed_point.solve_s", float(res.solve_time))
+    if not obs.enabled():
+        return
+    err_trace, xi_trace = res.history()
+    obs.event(
+        "fixed_point",
+        stage="social.fixed_point",
+        iterations=n_iter,
+        converged=bool(res.converged),
+        aborted=bool(res.aborted),
+        error=float(res.error),
+        xi=float(res.xi),
+        bankrun=bool(res.equilibrium.bankrun),
+        history_err=[float(e) for e in err_trace],
+        history_xi=[float(x) for x in xi_trace],
     )
-    return _finish(res, t0)
+    obs.log_status("social.fixed_point", res.equilibrium.status)
+    obs.log_health("social.fixed_point", res.health, res.equilibrium.status)
 
 
 def fixed_point_from_numpy(arrays: dict, device=None) -> SocialFixedPointResult:

@@ -7,15 +7,22 @@ the Stage-1 and hazard tables are built once per β row (shape
 (n_b, 1, n_grid)) and every (β, u) cell runs the crossings, the ξ
 root-find and the classification at once. Cells are independent, so
 the result does not depend on the batching.
+
+With telemetry on (`sbr_tpu_torch.obs`), each sweep is one program through
+`obs.jit_call` inside its span, followed by ``status`` and ``health``
+censuses, as in the reference. `grid_tile_footprint` measures one grid
+dispatch's memory for the tiled sweep's preflight and planner.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import solve_learning
 from sbr_tpu_torch.baseline.solver import solve_equilibrium_core
 from sbr_tpu_torch.diag.health import Health
@@ -61,6 +68,32 @@ def _lean_cell(ls: LearningSolution, u, p, kappa, lam, eta, tspan_end, config: S
     return r.xi, r.tau_bar_in_unc, r.aw_max, r.status, r.health
 
 
+@functools.lru_cache(maxsize=None)
+def _u_sweep_fn(config: SolverConfig):
+    """The u-sweep program, cached per config (the reference's jitted
+    sweep): one batched lean solve over every u."""
+
+    def fn(ls, u_values, p, kappa, lam, eta, tspan_end):
+        obs.prof.note_call("sweeps.u_sweep", ls, u_values, p, kappa, lam, eta, tspan_end)
+        return _lean_cell(ls, u_values, p, kappa, lam, eta, tspan_end, config)
+
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_fn(config: SolverConfig):
+    """The β×u grid program, cached per config: `solve_param_cell` with β
+    as a column against the u row."""
+
+    def fn(beta_values, u_values, p, kappa, lam, eta, t0, t1, x0):
+        obs.prof.note_call("sweeps.beta_u_grid", beta_values, u_values, p, kappa, lam, eta,
+                           t0, t1, x0)
+        return solve_param_cell(beta_values.unsqueeze(-1), u_values, p, kappa, lam, eta, t0,
+                                t1, x0, config, beta_values.dtype, beta_values.device)
+
+    return fn
+
+
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -87,12 +120,18 @@ def u_sweep(
     dtype, device = ls.dtype, ls.device
     u_values = torch.as_tensor(u_values, dtype=dtype, device=device)
     scalars = (econ.p, econ.kappa, econ.lam, econ.eta, tspan_end)
+    args = (ls, u_values) + tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in scalars)
+    n_u = int(u_values.shape[0])
     # fault point (resilience.faults): a transient here is a failure at
     # dispatch; without a plan it costs one check of a module global
-    faults.fire("sweep.dispatch", target=f"u_sweep[{int(u_values.shape[0])}]")
-    xi, tau_in, aw_max, status, health = _lean_cell(
-        ls, u_values, *(torch.as_tensor(v, dtype=dtype, device=device) for v in scalars), config
-    )
+    faults.fire("sweep.dispatch", target=f"u_sweep[{n_u}]")
+    with obs.span("sweeps.u_sweep", n_u=n_u, sharded=False) as sp:
+        xi, tau_in, aw_max, status, health = obs.jit_call(
+            "sweeps.u_sweep", _u_sweep_fn(config), *args)
+        sp.sync(status)
+    obs.metrics.metrics().inc("sweeps.u_sweep.cells", n_u)
+    obs.log_status("sweeps.u_sweep", status)
+    obs.log_health("sweeps.u_sweep", health, status)
     return USweepResult(
         u_values=u_values,
         max_withdrawals=aw_max,
@@ -127,14 +166,20 @@ def beta_u_grid(
     t0, t1 = base.learning.tspan
     beta_values = torch.as_tensor(beta_values, dtype=dtype, device=device)
     u_values = torch.as_tensor(u_values, dtype=dtype, device=device)
+    scalars = tuple(torch.as_tensor(v, dtype=dtype, device=device)
+                    for v in (econ.p, econ.kappa, econ.lam, econ.eta, t0, t1, base.learning.x0))
+    n_b, n_u = int(beta_values.shape[0]), int(u_values.shape[0])
     # fault point: the tile loop's retry policy wraps this call, so a
     # transient injected here exercises the real recovery path
-    faults.fire("sweep.dispatch",
-                target=f"beta_u_grid[{int(beta_values.shape[0])}x{int(u_values.shape[0])}]")
-    xi, _, aw_max, status, health = solve_param_cell(
-        beta_values.unsqueeze(-1), u_values, econ.p, econ.kappa, econ.lam, econ.eta,
-        t0, t1, base.learning.x0, config, dtype, device,
-    )
+    faults.fire("sweep.dispatch", target=f"beta_u_grid[{n_b}x{n_u}]")
+    with obs.span("sweeps.beta_u_grid", n_beta=n_b, n_u=n_u,
+                  dtype=str(dtype).removeprefix("torch."), sharded=False) as sp:
+        xi, _, aw_max, status, health = obs.jit_call(
+            "sweeps.beta_u_grid", _grid_fn(config), beta_values, u_values, *scalars)
+        sp.sync(status)
+    obs.metrics.metrics().inc("sweeps.beta_u_grid.cells", n_b * n_u)
+    obs.log_status("sweeps.beta_u_grid", status)
+    obs.log_health("sweeps.beta_u_grid", health, status)
     return GridSweepResult(
         beta_values=beta_values, u_values=u_values, max_aw=aw_max, xi=xi,
         status=status, health=health,
@@ -156,11 +201,47 @@ def solve_param_cell(beta, u, p, kappa, lam, eta, t0, t1, x0, config: SolverConf
     per β row, then the lean Stage 2-3 solve. ``beta`` (and p, λ, η, t0,
     t1, x0) have the row shape R, ``u`` and κ the cell shape C: a β×u grid
     passes β as a column, a batch of independent queries passes every
-    parameter per cell. Returns (xi, τ̄_IN, AW_max, status, health)."""
+    parameter per cell. Returns (xi, τ̄_IN, AW_max, status, health).
+    A program region: telemetry inside it is silent, as inside the
+    reference's jitted cell."""
     dtype = torch.float64 if dtype is None else dtype
     device = torch.device(device) if device is not None else default_device()
-    t0, t1, x0 = (torch.as_tensor(v, dtype=dtype, device=device) for v in (t0, t1, x0))
-    learning = _RowLearning(torch.as_tensor(beta, dtype=dtype, device=device), (t0, t1), x0)
-    ls = solve_learning(learning, config, dtype=dtype, device=device)
-    econ = (torch.as_tensor(v, dtype=dtype, device=device) for v in (p, kappa, lam, eta))
-    return _lean_cell(ls, u, *econ, t1, config)
+    with obs.program():
+        t0, t1, x0 = (torch.as_tensor(v, dtype=dtype, device=device) for v in (t0, t1, x0))
+        learning = _RowLearning(torch.as_tensor(beta, dtype=dtype, device=device), (t0, t1), x0)
+        ls = solve_learning(learning, config, dtype=dtype, device=device)
+        econ = (torch.as_tensor(v, dtype=dtype, device=device) for v in (p, kappa, lam, eta))
+        return _lean_cell(ls, u, *econ, t1, config)
+
+
+_FOOTPRINT_CACHE: dict = {}
+
+
+def grid_tile_footprint(n_b: int, n_u: int, config: Optional[SolverConfig] = None,
+                        dtype=None, device=None) -> dict:
+    """Measured memory footprint of ONE (n_b × n_u) β×u grid dispatch
+    (argument/output/temp bytes, summed as ``total_bytes``): the model the
+    OOM preflight compares against the card's capacity and the
+    ``tile_shape="auto"`` planner probes (`obs.mem.measure_footprint`: the
+    program runs once on probe axes). ``config=None`` is the sweep default
+    (refinement off), as in `beta_u_grid`. Cached per (shape, config,
+    dtype, device)."""
+    if config is None:
+        config = SolverConfig(refine_crossings=False)
+    dtype = torch.float64 if dtype is None else dtype
+    device = torch.device(device) if device is not None else default_device()
+    key = ((int(n_b), int(n_u)), config, dtype, str(device))
+    fp = _FOOTPRINT_CACHE.get(key)
+    if fp is None:
+        from sbr_tpu_torch.models.params import make_model_params
+
+        base = make_model_params()
+        betas = torch.linspace(0.5, 2.0, int(n_b), dtype=dtype, device=device)
+        us = torch.linspace(0.01, 0.5, int(n_u), dtype=dtype, device=device)
+        econ = base.economic
+        scalars = tuple(torch.as_tensor(v, dtype=dtype, device=device)
+                        for v in (econ.p, econ.kappa, econ.lam, econ.eta,
+                                  *base.learning.tspan, base.learning.x0))
+        fp = obs.mem.measure_footprint(_grid_fn(config), betas, us, *scalars)
+        _FOOTPRINT_CACHE[key] = fp
+    return dict(fp)

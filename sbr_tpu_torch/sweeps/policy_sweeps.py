@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import solve_learning
 from sbr_tpu_torch.diag.health import Health
 from sbr_tpu_torch.interest.solver import solve_equilibrium_interest_core
@@ -80,16 +81,17 @@ def policy_sweep_interest(
     faults.fire("sweep.dispatch", target="policy_interest[{}x{}x{}]".format(*cells))
     t0, t1 = (tensor(v) for v in base.learning.tspan)
     learning = _RowLearning(beta_values.reshape(-1, 1, 1), (t0, t1), tensor(base.learning.x0))
-    ls = solve_learning(learning, config, dtype=dtype, device=dev)
-    res = solve_equilibrium_interest_core(
-        ls,
-        u_values.reshape(1, -1, 1).expand(cells),
-        *(tensor(v) for v in (econ.p, econ.kappa, econ.lam, econ.eta)),
-        r_values.reshape(1, 1, -1).expand(cells),
-        tensor(econ.delta),
-        t1,
-        config,
-    ).base
+    with obs.program():  # the reference's jitted grid: telemetry inside is silent
+        ls = solve_learning(learning, config, dtype=dtype, device=dev)
+        res = solve_equilibrium_interest_core(
+            ls,
+            u_values.reshape(1, -1, 1).expand(cells),
+            *(tensor(v) for v in (econ.p, econ.kappa, econ.lam, econ.eta)),
+            r_values.reshape(1, 1, -1).expand(cells),
+            tensor(econ.delta),
+            t1,
+            config,
+        ).base
     return PolicySweepResult(
         beta_values=beta_values, u_values=u_values, r_values=r_values,
         xi=res.xi, aw_max=res.aw_max, status=res.status, health=res.health,

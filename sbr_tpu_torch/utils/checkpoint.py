@@ -38,11 +38,12 @@ sweep resumes instead of restarting:
   a tile missing locally is looked up there first, and every computed
   tile is stored back.
 
-Tile shapes are explicit: ``tile_shape="auto"`` and the OOM preflight of
-the reference go through its memory planner (``obs.mem``), which waits
-for ROADMAP 1.A item 9, so "auto" raises and no preflight runs. The
-reference's obs events (tile memory, flight-recorder marks, the run log)
-wait for the same item.
+``tile_shape="auto"`` goes through the memory planner of ``obs.mem``
+(`resolve_tile_shape`), and before any tile runs the OOM preflight
+(`_preflight_tile`) holds one full tile's measured footprint against the
+card's capacity and fails closed. With telemetry on, every computed tile
+lands a per-tile ``mem`` event. The reference's flight-recorder marks
+wait for ``obs.flight`` (ROADMAP 1.A 9).
 """
 
 from __future__ import annotations
@@ -144,17 +145,74 @@ def to_host(*tensors) -> list:
 
 
 def resolve_tile_shape(nb: int, nu: int, tile_shape, config=None, dtype=None,
-                       mesh=None) -> Tuple[Tuple[int, int], Optional[dict]]:
-    """An explicit ``(tb, tu)`` passes through (plan record None).
-    ``"auto"`` is the reference's memory planner, which waits for the
-    port's ``obs.mem`` (ROADMAP 1.A item 9) and raises here."""
-    if tile_shape == "auto":
-        raise NotImplementedError(
-            'tile_shape="auto" is not ported to sbr_tpu_torch yet: it needs the memory '
-            "planner of obs.mem (ROADMAP item 1.A 9); pass an explicit (tb, tu)"
-        )
-    tb, tu = tile_shape
-    return (int(tb), int(tu)), None
+                       mesh=None, device=None) -> Tuple[Tuple[int, int], Optional[dict]]:
+    """Resolve ``tile_shape="auto"`` with the capacity planner of
+    ``obs.mem``; an explicit ``(tb, tu)`` passes through (plan record None).
+
+    For ``"auto"`` the planner fits a linear footprint model from two small
+    measured probes (`grid_tile_footprint` at 8×8 and 16×16 on ``device``)
+    and picks the largest power-of-two square tile that fits
+    ``SBR_MEM_HEADROOM`` × the card's memory; with no capacity (the CPU) it
+    skips the probes and falls back to (256, 256) clamped to the grid,
+    verdict ``"skipped"``. The same capacity and grid give the same shape.
+    The decision lands as a ``plan`` event and the manifest's
+    ``memory.plan`` when telemetry is on. ``mesh=`` waits for ROADMAP 1.A
+    item 11."""
+    if tile_shape != "auto":
+        tb, tu = tile_shape
+        return (int(tb), int(tu)), None
+    from sbr_tpu_torch import obs
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.sweeps.baseline_sweeps import _no_mesh, grid_tile_footprint
+
+    _no_mesh(mesh)
+    if config is None:  # the sweep default, matching run_tiled_grid
+        config = SolverConfig(refine_crossings=False)
+    shape, rec = obs.mem.plan_from_probes(
+        int(nb), int(nu),
+        lambda tb, tu: grid_tile_footprint(tb, tu, config=config, dtype=sweep_dtype(dtype),
+                                           device=device),
+    )
+    try:
+        run = obs.current_run()
+        if run is not None:
+            run.log_plan(rec)
+    except Exception:
+        pass  # telemetry must never sink the planner
+    return shape, rec
+
+
+def _preflight_tile(nb, nu, tb, tu, config, dtype, device, plan=None) -> Optional[dict]:
+    """OOM preflight for the tiled sweep: one worst-case (full) tile's
+    measured footprint against headroom × the card's memory, failing CLOSED
+    (`MemoryPreflightError`) before any tile runs. Graceful skips, recorded
+    and never fatal: ``SBR_MEM_PREFLIGHT=0`` and no capacity (the CPU; no
+    probe runs). When the planner already fitted this grid (``plan`` from
+    ``tile_shape="auto"``), the verdict comes from its model rather than a
+    third probe."""
+    from sbr_tpu_torch.obs import mem as obs_mem
+
+    if not obs_mem.preflight_enabled():
+        return None
+    tb_eff, tu_eff = min(tb, nb), min(tu, nu)
+    label = f"tile[{tb_eff}x{tu_eff}]"
+    capacity = obs_mem.device_capacity()
+    if capacity is None:
+        return obs_mem.preflight(label, None, capacity=None)
+    if plan is not None and plan.get("verdict") == "ok":
+        fp = {
+            "total_bytes": int(
+                plan["model_fixed_bytes"]
+                + plan["model_per_cell_bytes"] * (tb_eff * tu_eff)
+            ),
+            "source": "planner-model",
+        }
+    else:
+        from sbr_tpu_torch.sweeps.baseline_sweeps import grid_tile_footprint
+
+        fp = grid_tile_footprint(tb_eff, tu_eff, config=config, dtype=sweep_dtype(dtype),
+                                 device=device)
+    return obs_mem.check_preflight(obs_mem.preflight(label, fp, capacity=capacity))
 
 
 def _tile_path(ckpt_dir: Path, bi: int, ui: int) -> Path:
@@ -430,8 +488,11 @@ class TileRunner:
     def _compute(self, bi: int, ui: int) -> dict:
         """One tile's compute under the retry policy, with the fault,
         poison and degrade-ladder hooks."""
+        from sbr_tpu_torch import obs
+
         bs, us = self.slices(bi, ui)
         tile_id = self.tile_id(bi, ui)
+        tile_snap: dict = {}
 
         def compute_tile():
             faults.fire("tile.compute", target=tile_id)
@@ -439,6 +500,10 @@ class TileRunner:
             leaves = [getattr(tile, f) for f in _FIELDS]
             if tile.health is not None:
                 leaves.append(tile.health.flags)
+            if obs.current_run() is not None:
+                # while the tile's device tensors are still live
+                tile_snap.clear()
+                tile_snap.update(obs.mem.snapshot())
             host = to_host(*leaves)
             arrays = dict(zip(_FIELDS, host))
             tile_flags = (host[-1] if tile.health is not None
@@ -482,6 +547,10 @@ class TileRunner:
             )
             if tile_report:
                 self.repairs.extend({"tile": [bi, ui], **r} for r in tile_report)
+
+        # per-tile peak memory (obs.mem): one ``mem`` event with a ``tile``
+        # field, folded into the manifest's tile table
+        obs.log_tile_mem(tile_id, **tile_snap)
         return arrays
 
 
@@ -522,10 +591,10 @@ def tile_runner(
 ) -> TileRunner:
     """A ready `TileRunner` for one sweep: the config and tile-shape
     defaults resolved as `run_tiled_grid` resolves them (so fingerprints
-    agree), the checkpoint directory created and its fingerprint checked.
-    Tiles compute on ``device`` (default: the CUDA card; raises without
-    one). ``mesh=`` (sharded tiles) waits for ROADMAP 1.A item 11 and
-    raises."""
+    agree), the checkpoint directory created and its fingerprint checked,
+    and the OOM preflight run once (`_preflight_tile`). Tiles compute on
+    ``device`` (default: the CUDA card; raises without one). ``mesh=``
+    (sharded tiles) waits for ROADMAP 1.A item 11 and raises."""
     from sbr_tpu_torch.models.params import SolverConfig
     from sbr_tpu_torch.social.agents import default_device
     from sbr_tpu_torch.sweeps.baseline_sweeps import _no_mesh
@@ -537,7 +606,7 @@ def tile_runner(
     beta_values = np.asarray(beta_values)
     u_values = np.asarray(u_values)
     nb, nu = len(beta_values), len(u_values)
-    tile_shape, _ = resolve_tile_shape(nb, nu, tile_shape, config, dtype)
+    tile_shape, plan = resolve_tile_shape(nb, nu, tile_shape, config, dtype, device=device)
     if heal_divergent is None:
         heal_divergent = os.environ.get("SBR_HEAL", "").strip() != "0"
     ckpt = None
@@ -550,6 +619,7 @@ def tile_runner(
             _sweep_fingerprint(beta_values, u_values, fp_base, config, tile_shape, dtype),
             tile_shape=tile_shape,
         )
+    _preflight_tile(nb, nu, tile_shape[0], tile_shape[1], config, dtype, device, plan=plan)
     if retry_budget is None:
         retry_budget = default_retry_budget(len(tile_origins(nb, nu, tile_shape)))
     return TileRunner(

@@ -328,6 +328,10 @@ def test_port_imports_no_jax_and_no_sbr_tpu():
         "import sbr_tpu_torch as st\n"
         "import sbr_tpu_torch.benchmarks.ablate_pallas_recount\n"
         "import sbr_tpu_torch.core.ode\n"
+        "import sbr_tpu_torch.figures.master\n"
+        "import sbr_tpu_torch.obs.mem\n"
+        "import sbr_tpu_torch.obs.prof\n"
+        "import sbr_tpu_torch.obs.runlog\n"
         "import sbr_tpu_torch.hetero\n"
         "import sbr_tpu_torch.interest\n"
         "import sbr_tpu_torch.social.recount\n"
@@ -361,10 +365,12 @@ def test_chip_smoke_imports_only_torch_numpy_and_the_port():
     # (tests/oracle.py) to hold the social fixed point to it; that module
     # must import no JAX either
     # (the standard library's os, pathlib, shutil and tempfile serve the
-    # tiled phases' checkpoint directories and worker processes)
+    # tiled phases' checkpoint directories and worker processes; contextlib
+    # and io capture the replication run's printed manifest)
     roots = _import_roots(REPO / "chip_smoke.py")
-    assert roots <= {"__future__", "json", "os", "pathlib", "shutil", "subprocess", "sys",
-                     "tempfile", "time", "numpy", "torch", "sbr_tpu_torch", "oracle"}, roots
+    assert roots <= {"__future__", "contextlib", "io", "json", "os", "pathlib", "shutil",
+                     "subprocess", "sys", "tempfile", "time", "numpy", "torch", "sbr_tpu_torch",
+                     "oracle"}, roots
     assert _import_roots(REPO / "tests" / "oracle.py") <= {
         "__future__", "dataclasses", "numpy", "scipy"}
 

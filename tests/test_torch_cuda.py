@@ -771,3 +771,122 @@ def test_faulted_and_resumed_on_card_equals_fault_free(cuda_device, tmp_path):
         want = getattr(clean, f).numpy().tobytes()
         assert getattr(faulted, f).numpy().tobytes() == want
         assert getattr(resumed, f).numpy().tobytes() == want
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: the replication run and the run log on the card
+# ---------------------------------------------------------------------------
+
+
+def _figure_run(device, out):
+    """``master --fast`` on ``device``: (exit code, {figure: [per-axes line
+    data]}, the printed lines without times and paths, the closure)."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from sbr_tpu_torch.figures import master
+    from sbr_tpu_torch.social import closure
+
+    figs, comps = {}, []
+    save, close_loop = master._save, closure.close_loop
+
+    def recording(fig, path):
+        parts = Path(path).parts
+        figs["/".join(parts[parts.index("figures") + 1:])] = [
+            [np.asarray(ln.get_xydata(), np.float64) for ln in ax.get_lines()]
+            + [np.asarray(c.get_array(), np.float64) for c in ax.collections
+               if hasattr(c, "get_coordinates")]
+            for ax in fig.axes]
+        save(fig, path)
+
+    def recorded(*args, **kwargs):
+        comps.append(close_loop(*args, **kwargs))
+        return comps[-1]
+
+    buf = io.StringIO()
+    master._save, closure.close_loop = recording, recorded
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = master.main(["--fast", "--device", device, "--output", str(out)])
+    finally:
+        master._save, closure.close_loop = save, close_loop
+    lines = [ln for ln in buf.getvalue().replace(str(out), "OUT").splitlines()
+             if "time" not in ln]
+    return rc, figs, lines, comps[0]
+
+
+def test_master_fast_on_card_equals_cpu(cuda_device, tmp_path):
+    """The whole --fast replication on the card and on the CPU: the printed
+    manifest (statuses, iterations) equal, every figure's data within
+    1e-12 (float64; the slice contracts of the card against the CPU), the
+    closure's agent curves bit for bit when the two windows are equal."""
+    from sbr_tpu_torch.figures.master import CLOSURE_FIG
+
+    card = _figure_run("cuda", tmp_path / "card")
+    cpu = _figure_run("cpu", tmp_path / "cpu")
+    assert card[0] == cpu[0] == 0
+    assert card[2] == cpu[2]
+    assert card[1].keys() == cpu[1].keys()
+    for name in cpu[1]:
+        for ax_card, ax_cpu in zip(card[1][name], cpu[1][name]):
+            for a, b in zip(ax_card, ax_cpu):
+                assert a.shape == b.shape
+                ok = np.isfinite(b)
+                assert np.array_equal(np.isfinite(a), ok), name
+                if name != CLOSURE_FIG:
+                    assert np.abs(a[ok] - b[ok]).max(initial=0.0) <= 1e-12, name
+    ccard, ccpu = card[3], cpu[3]
+    if (ccard.exit_delay, ccard.reentry_delay) == (ccpu.exit_delay, ccpu.reentry_delay):
+        assert np.array_equal(ccard.aw_sim, ccpu.aw_sim)
+        assert np.array_equal(ccard.g_sim, ccpu.g_sim)
+
+
+def test_measured_grid_footprint_grows_with_cells(cuda_device):
+    from sbr_tpu_torch.obs import mem
+    from sbr_tpu_torch.sweeps.baseline_sweeps import grid_tile_footprint
+    from sbr_tpu_torch.utils.checkpoint import resolve_tile_shape
+
+    cfg = st.SolverConfig(n_grid=256, bisect_iters=30, refine_crossings=False)
+    small = grid_tile_footprint(8, 8, cfg, device=cuda_device)
+    big = grid_tile_footprint(64, 64, cfg, device=cuda_device)
+    assert 0 < small["total_bytes"] < big["total_bytes"]
+    assert big["out_bytes"] > small["out_bytes"] and big["source"] == "measured"
+    assert mem.device_capacity() == torch.cuda.get_device_properties(0).total_memory
+    shape, plan = resolve_tile_shape(5000, 5000, "auto", cfg, torch.float32, device=cuda_device)
+    assert plan["verdict"] == "ok" and shape[0] == shape[1] >= 8
+
+
+def test_span_inside_a_cuda_graph_capture_is_a_no_op(cuda_device, tmp_path):
+    """Instrumentation inside a capture would fence or read the host and
+    break it: every site is silent while the stream captures. A served
+    bucket captured with a run active answers bit for bit as before."""
+    import json
+
+    from sbr_tpu_torch import obs
+
+    x = torch.arange(8.0, device=cuda_device)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x * 2.0  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with obs.run_context(run_dir=str(tmp_path / "r")) as run:
+        with torch.cuda.graph(graph):
+            with obs.span("inside") as sp:
+                y = x * 2.0
+                sp.sync(y)
+            obs.event("inside_event")
+            obs.log_status("inside", torch.zeros(4, dtype=torch.int32, device=cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        engine_pairs = _served_vs_eager(torch.float64, "fixed", (8,))[1]
+    assert torch.equal(y, x * 2.0)
+    events = [json.loads(line) for line in (run.run_dir / "events.jsonl").read_text().splitlines()]
+    assert not [e for e in events if e.get("stage") == "inside" or e["kind"] == "inside_event"]
+    for served, eager in engine_pairs:
+        nan = np.isnan(eager)
+        assert np.array_equal(np.isnan(served), nan)
+        assert served[~nan].tobytes() == eager[~nan].tobytes()
+    assert obs.prof.trace_counts().get("serve.bucket", 0) >= 1

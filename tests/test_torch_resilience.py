@@ -264,8 +264,9 @@ def test_port_refuses_a_reference_checkpoint_dir(tmp_path):
 
 
 def test_auto_tile_shape_and_mesh_wait_for_their_items():
-    with pytest.raises(NotImplementedError, match="1.A 9"):
-        _tiled(tile_shape="auto")
+    # "auto" came with obs.mem: on the CPU (no capacity) the planner falls
+    # back to the covering tile, and the grid is the monolithic one bit for bit
+    assert _same_grid(_tiled(tile_shape="auto"), _mono())
     with pytest.raises(NotImplementedError, match="1.A 11"):
         _tiled(mesh=object())
 
