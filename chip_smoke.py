@@ -62,7 +62,17 @@ card preempted by SIGTERM), byte-identical to the fault-free grid;
 bench.py's `bench_sweep` shape elastic with the tile cache (cold, warm
 with 0 tiles computed, two processes on the card sharing a directory);
 the serving engine answering an outage from the tile cache; the tiled
-scenario sweep; and a ragged tiled grid on the card against the CPU. It
+scenario sweep; and a ragged tiled grid on the card against the CPU. Then
+slice 11's replication run (`figures.master`), and slice 12, the run log's
+wiring and its reader: every instrumented path under a run directory at
+bench.py's shapes (the served mix, populations, a grads stream and a
+breaker drill over the tile cache in a served run directory; the faulted
+tiled sweep; the elastic sweep cold and warm; a converged calibration; the
+scenario, policy and graph runs; a sweep and a calibration built to breach;
+a SIGTERM drill), once without run directories for the run log's cost,
+with every report subcommand as ``python -m sbr_tpu_torch.obs.report``
+exiting 0 on the clean runs and 1 on the breaching ones;
+and the same drive small on the card against the CPU. It
 prints one JSON line per phase, and beside the serving, scenario,
 population, rewire, grad and tiled numbers the card's name and power
 limit.
@@ -3386,14 +3396,617 @@ def phase_figures_cpu_vs_card() -> None:
                              f"{lines_card == lines_cpu}, agents {agents_bitwise}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the run log's wiring and its reader
+# ---------------------------------------------------------------------------
+
+# The obs drive's sizes. "full": bench.py's shapes on the card (the serving
+# mix of bench_serve, bench_infomodels' population shape, bench_sweep's tiled
+# shape, bench_grad's calibration fixture, the 256×256 scenario grid, the
+# stretch policy sweep, a 10^6-agent generated graph). "small": the same
+# drive at sizes the CPU runs in seconds, for the card-against-CPU phase.
+OBS_SIZES = {
+    "full": dict(pool=64, queries=2048, group=16, buckets=(1, 8, 64), grads=64,
+                 cfg=BENCH_SWEEP_CFG, pop_n=POP_N, pop_seeds=POP_SEEDS, sweep_n=BENCH_SWEEP_N,
+                 tile=BENCH_SWEEP_TILE, calib_obs=48, scen_n=SCEN_N,
+                 policy=(10, 10, 10), graph_n=1_000_000),
+    "small": dict(pool=8, queries=48, group=8, buckets=(1, 8), grads=8,
+                  cfg=dict(n_grid=96, bisect_iters=40, refine_crossings=False), pop_n=2_000,
+                  pop_seeds=2, sweep_n=16, tile=8, calib_obs=16, scen_n=8,
+                  policy=(2, 2, 2), graph_n=10_000),
+}
+OBS_POP_GRID = POP_GRID
+OBS_CALIB_TRUTH = dict(beta=1.4, u=0.12, kappa=0.55)
+OBS_CALIB_START = dict(beta=1.2, u=0.14, kappa=0.6)  # the recovery fixture's start
+# the recovery fixture's budget, which the fit needs about 210 steps of to
+# converge; the breaching calibration stops long before that
+OBS_CALIB_STEPS = 400
+OBS_CALIB_BREACH_STEPS = 12
+# the seeded plan of the faulted tiled run: a retried transient and a NaN
+# result that the degrade ladder repairs
+OBS_FAULTS = [{"point": "tile.compute", "kind": "transient", "at_hits": [1]},
+              {"point": "tile.result", "kind": "nan", "at_hits": [2], "cells": 2}]
+OBS_CPU_TOL = 3.6e-15  # f64, the card-against-CPU class of slices 3-5
+OBS_F32_MEAN_RTOL = 1e-6  # a float32 mean of 2,000 beliefs, summed in another order
+# The report subcommands the phase runs as subprocesses, each on one run of
+# the drive: (subcommand, run, expected exit): 0 on the clean runs, 1 on the
+# runs built to breach (a tiled sweep that gives up, an unconverged fit).
+OBS_REPORTS = (("render", "serve", 0), ("serve", "serve", 0), ("infomodel", "serve", 0),
+               ("resilience", "tiled", 0), ("memory", "tiled", 0),
+               ("elastic", "elastic_cold", 0), ("elastic", "elastic_warm", 0),
+               ("grad", "grad", 0), ("health", "sweeps", 0),
+               ("resilience", "breach", 1), ("grad", "grad_breach", 1))
+
+_OBS_SIGTERM_CHILD = r"""
+import sys
+import numpy as np
+import torch
+import sbr_tpu_torch as st
+from sbr_tpu_torch import obs
+from sbr_tpu_torch.resilience import FaultPlan, faults
+
+faults.install(FaultPlan({"seed": 0, "rules": [
+    {"point": "tile.compute", "kind": "preempt", "at_hits": [2]}]}))
+obs.start_run(label="drill", run_dir=sys.argv[2])
+st.run_tiled_grid(np.linspace(0.5, 2.0, 64), np.linspace(0.02, 0.5, 64), st.make_model_params(),
+                  config=st.SolverConfig(n_grid=1024, bisect_iters=60, refine_crossings=False),
+                  tile_shape=(32, 32), checkpoint_dir=sys.argv[1], device=sys.argv[3])
+print("UNREACHABLE", flush=True)
+"""
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _obs_timed(device, fn):
+    """(seconds, result) of one call of ``fn``, fenced on a card."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return time.perf_counter() - t0, out
+
+
+def _obs_events(run_dir) -> list:
+    return [json.loads(line) for line in (run_dir / "events.jsonl").read_text().splitlines()]
+
+
+def _obs_labels(run_dir) -> list:
+    """The run's (kind, action or stage or name) sequence, without the
+    device and memory snapshots, whose count depends on the device."""
+    skip = {"device", "mem"}
+    return [(e["kind"], e.get("action") or e.get("stage") or e.get("name"))
+            for e in _obs_events(run_dir) if e["kind"] not in skip]
+
+
+def _obs_pop_doc(size: dict, channel: str) -> dict:
+    return {"graph": {"model": "erdos_renyi", "n": size["pop_n"], "avg_degree": POP_DEG},
+            "infomodel": {"channel": channel}, "seeds": size["pop_seeds"], "vary": "sim",
+            "g0": None}
+
+
+def _obs_serve(device, size, run_dir, cache, drill: bool) -> dict:
+    """The served run: bench_serve's mix through a started engine, a grads
+    stream, a bayes and a gossip population query (each query's kernel
+    launches read before and after it), and with ``drill`` the breaker
+    forced open over the tile cache (every dispatch faulted): grid points
+    answer degraded, a point off the grid exhausts the ladder."""
+    import os
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.resilience import FaultPlan, faults
+    from sbr_tpu_torch.serve import Engine, ServeConfig, SolverUnavailable
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    cfg = st.SolverConfig(**size["cfg"])
+    pool = build_pool(0, size["pool"])
+    mix = query_mix(0, size["pool"], size["queries"])
+    saved = os.environ.get("SBR_TILE_CACHE_DIR")
+    if cache is not None:
+        os.environ["SBR_TILE_CACHE_DIR"] = str(cache)
+    try:
+        engine = Engine(config=cfg, serve=ServeConfig(buckets=size["buckets"]), device=device,
+                        run_dir=None if run_dir is None else str(run_dir)).start()
+    finally:
+        if saved is None:
+            os.environ.pop("SBR_TILE_CACHE_DIR", None)
+        else:
+            os.environ["SBR_TILE_CACHE_DIR"] = saved
+    out = {}
+    try:
+        g = size["group"]
+        t_serve = t0 = time.perf_counter()
+        for i in range(0, len(pool), g):
+            engine.query_many(pool[i : i + g], scenario="warmup", timeout=600)
+        out["warmup_s"] = time.perf_counter() - t0
+        hist = engine.live.total_hist.copy()
+        t0 = time.perf_counter()
+        for i in range(0, len(mix), g):
+            engine.query_many([pool[j] for j in mix[i : i + g]], scenario="mix", timeout=600)
+        out["mix_s"] = time.perf_counter() - t0
+        lat = engine.live.total_hist.delta(hist)
+        # the answers as bits: ξ is NaN on a no-run lane
+        out.update(p50_ms=lat.quantile(0.5), p99_ms=lat.quantile(0.99),
+                   answers=[(r.status, r.flags, np.float64(r.xi).tobytes())
+                            for r in engine.query_many(pool)])
+        grads_pool = build_pool(1, size["grads"])
+        t0 = time.perf_counter()
+        for i in range(0, len(grads_pool), g):
+            res = engine.query_many(grads_pool[i : i + g], grads=True, timeout=600)
+        out["grads_s"] = time.perf_counter() - t0
+        out["grads_last"] = (res[-1].status, res[-1].grad_flags, res[-1].grads)
+        m = st.make_model_params(**FIG12)
+        steps = max(int(round(float(m.economic.eta) / 0.1)), 2)
+        out["population"] = {}
+        for channel, kernel, other in (("bayes", BELIEF_KERNEL, KERNEL),
+                                       ("gossip", KERNEL, BELIEF_KERNEL)):
+            before = _launches()
+            secs, rec = _obs_timed(device, lambda: engine.query_population(
+                m, _obs_pop_doc(size, channel)))
+            after = _launches()
+            out["population"][channel] = dict(
+                seconds=secs, record=rec, launches=after[kernel] - before[kernel],
+                other_launches=after[other] - before[other],
+                expected_launches=size["pop_seeds"] * steps)
+        if drill:
+            faults.install(FaultPlan({"seed": 0, "rules": [
+                {"point": "serve.dispatch", "kind": "transient"}]}))
+            try:
+                betas = np.linspace(0.5, 2.0, size["sweep_n"])
+                us = np.linspace(0.02, 0.5, size["sweep_n"])
+                base = st.make_model_params()
+                points = [st.with_overrides(base, beta=float(betas[i]), u=float(us[j]))
+                          for i, j in ((0, 0), (1, 3), (5, 2), (7, 7))]
+                sources = [engine.query(p, timeout=600).source for p in points]
+                try:
+                    engine.query(st.with_overrides(base, beta=3.0, u=0.7), timeout=600)
+                    sources.append("answered")
+                except SolverUnavailable as err:  # off the grid: the ladder is exhausted
+                    sources.append(type(err).__name__)
+            finally:
+                faults.install(None)
+            out["drill_sources"] = sources
+        out["statz"] = engine.statz()
+    finally:
+        engine.close()
+    out["seconds"] = time.perf_counter() - t_serve
+    return out
+
+
+def _obs_drive(device, size_name: str, root, run: bool = True) -> dict:
+    """Every instrumented path once on ``device``, each under its own run
+    directory below ``root`` (without a run directory when not ``run``):
+    the faulted tiled sweep, the elastic sweep cold and warm over one tile
+    cache, the served run, a calibration, a scenario grid with a policy
+    sweep and a generated graph, and a resilience run built to breach
+    (every tile attempt faulted) with a calibration whose budget ends
+    before it converges. Returns the outputs, seconds a run and
+    the run directories."""
+    import contextlib
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import grad, obs
+    from sbr_tpu_torch.resilience import FaultPlan, elastic, faults
+
+    size = OBS_SIZES[size_name]
+    cfg = st.SolverConfig(**size["cfg"])
+    base = st.make_model_params()
+    betas = np.linspace(0.5, 2.0, size["sweep_n"])
+    us = np.linspace(0.02, 0.5, size["sweep_n"])
+    tile = (size["tile"], size["tile"])
+    dirs = {name: root / name for name in ("tiled", "elastic_cold", "elastic_warm", "serve",
+                                           "grad", "grad_breach", "sweeps", "breach")}
+    out = {"dirs": dirs, "seconds": {}}
+
+    def logged(name):
+        if not run:
+            return contextlib.nullcontext()
+        return obs.run_context(label=name, run_dir=str(dirs[name]))
+
+    import os
+    os.environ["SBR_RETRY_BASE_DELAY_S"] = "0.01"
+    try:
+        faults.install(FaultPlan({"seed": 3, "rules": OBS_FAULTS}))
+        try:
+            with logged("tiled"):
+                rep = {}
+                out["seconds"]["tiled"], grid = _obs_timed(device, lambda: st.run_tiled_grid(
+                    betas, us, base, config=cfg, tile_shape=tile,
+                    checkpoint_dir=str(root / "ck_tiled"), device=device, report=rep))
+        finally:
+            faults.install(None)
+        out["tiled"] = dict(report=rep, xi=grid.xi.numpy(), max_aw=grid.max_aw.numpy(),
+                            status=grid.status.numpy())
+        cache = root / "tile_cache"
+        for name in ("elastic_cold", "elastic_warm"):
+            rep = {}
+            with logged(name):
+                out["seconds"][name], grid = _obs_timed(device, lambda: elastic.run_elastic_grid(
+                    betas, us, base, str(root / f"ck_{name}"), config=cfg, tile_shape=tile,
+                    poll_s=0.05, timeout_s=600.0, tile_cache_dir=str(cache), device=device,
+                    report=rep))
+            out[name] = dict(report=rep, xi=grid.xi.numpy(), status=grid.status.numpy())
+        out["serve"] = _obs_serve(device, size, dirs["serve"] if run else None, cache,
+                                  drill=True)
+        out["seconds"]["serve"] = out["serve"]["seconds"]
+        truth = st.make_model_params(**OBS_CALIB_TRUTH)
+        gcfg = st.SolverConfig(**GRAD_CFG)
+        with logged("grad"):
+            t_obs, aw_obs, xi_obs = grad.synth_withdrawals(truth, n_obs=size["calib_obs"],
+                                                           config=gcfg, device=device)
+            out["seconds"]["grad"], fit = _obs_timed(device, lambda: grad.fit_withdrawals(
+                t_obs, aw_obs, st.with_overrides(truth, **OBS_CALIB_START), xi_obs=xi_obs,
+                steps=OBS_CALIB_STEPS, config=gcfg, device=device))
+        out["grad"] = dict(steps=fit.steps, converged=fit.converged, loss=fit.loss,
+                           params=fit.params)
+        with logged("grad_breach"):  # built to breach: the budget ends unconverged
+            fit = grad.fit_withdrawals(t_obs, aw_obs, st.with_overrides(truth, **OBS_CALIB_START),
+                                       xi_obs=xi_obs, steps=OBS_CALIB_BREACH_STEPS, config=gcfg,
+                                       device=device)
+        out["grad_breach"] = dict(steps=fit.steps, converged=fit.converged, loss=fit.loss)
+        n, (pb, pu, pr) = size["scen_n"], size["policy"]
+        with logged("sweeps"):
+            t0 = time.perf_counter()
+            scen = st.scenario_grid(st.ScenarioSpec(modifiers=("insurance_cap", "lolr")),
+                                    np.linspace(0.25, 3.0, n), np.linspace(0.01, 0.99, n),
+                                    st.make_model_params(insurance_cap=0.2, lolr_rate=0.1),
+                                    config=cfg, device=device)
+            pol = st.policy_sweep_interest(
+                np.linspace(0.5, 3.0, pb), np.linspace(0.0, 0.45, pu), np.linspace(0.0, 0.09, pr),
+                st.make_interest_params(u=0.0, delta=0.1), config=cfg, device=device)
+            pg = st.prepare_generated_graph(st.ErdosRenyiSpec(size["graph_n"], 10.0), seed=1,
+                                            device=device)
+            _sync(device)
+            out["seconds"]["sweeps"] = time.perf_counter() - t0
+        out["sweeps"] = dict(
+            scen_xi=scen.xi.cpu().numpy(), scen_status=scen.status.cpu().numpy(),
+            pol_xi=pol.xi.cpu().numpy(), pol_status=pol.status.cpu().numpy(),
+            graph_edges=int(pg.n_edges), graph_row_ptr=pg.row_ptr.cpu().numpy())
+        faults.install(FaultPlan({"seed": 0, "rules": [
+            {"point": "tile.compute", "kind": "transient"}]}))
+        try:
+            with logged("breach"):
+                try:
+                    st.run_tiled_grid(betas[:8], us[:8], base, config=cfg, tile_shape=(8, 8),
+                                      device=device, max_retries=1)
+                    out["breach"] = "completed"
+                except RuntimeError as err:  # built to give up: the gate must read it
+                    if not isinstance(err.__cause__, faults.InjectedFault):
+                        raise
+                    out["breach"] = "gave_up"
+        finally:
+            faults.install(None)
+    finally:
+        os.environ.pop("SBR_RETRY_BASE_DELAY_S", None)
+    return out
+
+
+def _obs_report_codes(drive: dict) -> dict:
+    """Each report of OBS_REPORTS in this process: {(sub, run): (exit, doc)}."""
+    import contextlib
+    import io
+
+    from sbr_tpu_torch.obs import report
+
+    out = {}
+    for sub, run, _ in OBS_REPORTS:
+        argv = ([] if sub == "render" else [sub]) + [str(drive["dirs"][run]), "--json"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = report.main(argv)
+        out[(sub, run)] = (code, json.loads(buf.getvalue()))
+    return out
+
+
+def _obs_checks(drive: dict, codes: dict) -> dict:
+    """Folded counts against the events, the engine's statz and the sweeps'
+    ``report=`` counts, and every report's exit code against its expected
+    one. Returns the numbers it compared; raises on a mismatch."""
+    for sub, run, want in OBS_REPORTS:
+        if codes[(sub, run)][0] != want:
+            raise AssertionError(f"report {sub} on {run}: exit {codes[(sub, run)][0]}, "
+                                 f"want {want}")
+    serve_events = _obs_events(drive["dirs"]["serve"])
+    ladder_events = {a: sum(1 for e in serve_events
+                            if e["kind"] == "fleet" and e.get("action") == a)
+                     for a in ("degraded", "ladder_exhausted")}
+    statz_ladder = {a: drive["serve"]["statz"]["ladder"][a] for a in ladder_events}
+    tiled_rep = drive["tiled"]["report"]
+    res_doc = codes[("resilience", "tiled")][1]
+    cold, warm = (codes[("elastic", f"elastic_{w}")][1] for w in ("cold", "warm"))
+    warm_hits = sum(1 for e in _obs_events(drive["dirs"]["elastic_warm"])
+                    if e["kind"] == "cache" and e.get("action") == "hit")
+    counts = dict(
+        ladder_events=ladder_events, statz_ladder=statz_ladder,
+        drill_sources=drive["serve"]["drill_sources"],
+        repairs_folded=res_doc["repairs"].get("degrade_ladder", {}).get("count", 0),
+        repairs_reported=len(tiled_rep["repairs"]),
+        retries_folded={k: v["recovered"] for k, v in res_doc["retries"].items()},
+        tiled_counts=tiled_rep["counts"],
+        elastic_cold=[cold["tiles_computed"], cold["tiles_from_cache"]],
+        elastic_cold_report=drive["elastic_cold"]["report"]["counts"],
+        elastic_warm=[warm["tiles_computed"], warm["tiles_from_cache"]],
+        elastic_warm_report=drive["elastic_warm"]["report"]["counts"],
+        warm_cache_hit_events=warm_hits,
+        breach=drive["breach"], breach_unrecovered=codes[("resilience", "breach")][1][
+            "unrecovered"],
+    )
+    cr, wr = counts["elastic_cold_report"], counts["elastic_warm_report"]
+    ok = (ladder_events == statz_ladder and ladder_events["degraded"] == 4
+          and ladder_events["ladder_exhausted"] >= 1
+          and counts["repairs_folded"] == counts["repairs_reported"] == 2
+          and sum(counts["retries_folded"].values()) == 1
+          and counts["elastic_cold"] == [cr["computed"], cr["cache"] + cr["local"]]
+          and counts["elastic_warm"] == [wr["computed"], wr["cache"] + wr["local"]]
+          and wr["computed"] == 0 and warm_hits == wr["cache"] > 0
+          and drive["breach"] == "gave_up" and counts["breach_unrecovered"] >= 1)
+    if not ok:
+        raise AssertionError(f"obs: folded counts disagree: {counts}")
+    return counts
+
+
+def _obs_cli(drive: dict) -> list:
+    """Each report of OBS_REPORTS as ``python -m sbr_tpu_torch.obs.report``,
+    a subprocess with a timeout: its exit code and wall time."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(_REPO_ROOT)}
+    rows = []
+    for sub, run, want in OBS_REPORTS:
+        argv = ([] if sub == "render" else [sub]) + [str(drive["dirs"][run]), "--json"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sbr_tpu_torch.obs.report", *argv],
+                              capture_output=True, text=True, timeout=120, env=env,
+                              cwd=str(_REPO_ROOT))
+        rows.append(dict(report=sub, run=run, exit=proc.returncode, want=want,
+                         wall_s=time.perf_counter() - t0))
+        if proc.returncode != want:
+            raise AssertionError(f"python -m sbr_tpu_torch.obs.report {sub} {run}: exit "
+                                 f"{proc.returncode}, want {want}\n{proc.stderr}")
+    return rows
+
+
+def _obs_sigterm_drill(device, root) -> dict:
+    """A port process on the card preempted by SIGTERM mid-sweep under a
+    run: it exits 143 and its manifest reads "interrupted"."""
+    import os
+
+    run_dir, ckpt = root / "sigterm_run", root / "sigterm_ck"
+    env = {**os.environ, "PYTHONPATH": str(_REPO_ROOT), "SBR_FAULT_PLAN": ""}
+    proc = subprocess.Popen([sys.executable, "-c", _OBS_SIGTERM_CHILD, str(ckpt), str(run_dir),
+                             device], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env, cwd=str(_REPO_ROOT))
+    try:
+        text, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    status = json.loads((run_dir / "manifest.json").read_text())["status"]
+    row = dict(exit=proc.returncode, status=status, tiles=len(list(ckpt.glob("tile_*.npz"))))
+    if proc.returncode != 143 or status != "interrupted" or "UNREACHABLE" in text:
+        raise AssertionError(f"SIGTERM drill: {row}\n{text}")
+    return row
+
+
+def phase_obs(card: str) -> dict:
+    """The run log's wiring and its reader on the card at bench.py's shapes
+    (module docstring): the drive (`_obs_drive`) once without run
+    directories and once with them, which gives each run's cost and the
+    served p50/p99 with and without ``run_dir``; every report subcommand
+    in process and as a subprocess, with its expected exit code; the folded
+    counts against the events, ``statz()`` and the sweeps' ``report=``;
+    ``trend --check`` over three appended records; a SIGTERM drill. The
+    served population queries launch the infection and belief kernels
+    members × steps times each. Returns the launches by kernel of the drive
+    with run directories, counted from 0 just before it."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.obs import history, report
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    device, size_name = "cuda", "full"
+    size = OBS_SIZES[size_name]
+    with tempfile.TemporaryDirectory(prefix="sbr_obs_") as tmp:
+        root = Path(tmp)
+        # one untimed tiled sweep first: the first solve on the card pays
+        # the process's warm-up, which would land in the first timed run
+        st.run_tiled_grid(np.linspace(0.5, 2.0, size["sweep_n"]),
+                          np.linspace(0.02, 0.5, size["sweep_n"]), st.make_model_params(),
+                          config=st.SolverConfig(**size["cfg"]),
+                          tile_shape=(size["tile"], size["tile"]), device=device)
+        _build.reset_launches()
+        bare = _obs_drive(device, size_name, root / "bare", run=False)
+        launches_without_run = _launches()
+        _build.reset_launches()
+        drive = _obs_drive(device, size_name, root / "run")
+        launches = _launches()
+        served, bare_served = drive["serve"], bare["serve"]
+        for channel, kernel in (("bayes", BELIEF_KERNEL), ("gossip", KERNEL)):
+            p, q = served["population"][channel], bare_served["population"][channel]
+            emit("obs_population", channel=channel, n_agents=size["pop_n"],
+                 members=size["pop_seeds"], seconds_with_run=p["seconds"],
+                 seconds_without_run=q["seconds"], kernel=kernel, launches=p["launches"],
+                 other_launches=p["other_launches"], expected_launches=p["expected_launches"],
+                 launches_without_run=q["launches"],
+                 run_probability=p["record"]["run_probability"],
+                 same_record=p["record"]["crossing_times"] == q["record"]["crossing_times"],
+                 card=card)
+            if not (p["launches"] == p["expected_launches"] == q["launches"]
+                    and p["other_launches"] == q["other_launches"] == 0):
+                raise AssertionError(f"obs population {channel}: launches {p}, without run {q}")
+        emit("obs_serve", queries=size["queries"], pool=size["pool"],
+             buckets=list(size["buckets"]), p50_ms_without_run=bare_served["p50_ms"],
+             p99_ms_without_run=bare_served["p99_ms"], p50_ms_with_run=served["p50_ms"],
+             p99_ms_with_run=served["p99_ms"], mix_s=[bare_served["mix_s"], served["mix_s"]],
+             warmup_s=[bare_served["warmup_s"], served["warmup_s"]],
+             grads_s=[bare_served["grads_s"], served["grads_s"]], drill=served["drill_sources"],
+             ladder=served["statz"]["ladder"], graphs=served["statz"]["graphs"],
+             answers_equal=bare_served["answers"] == served["answers"], card=card)
+        if bare_served["answers"] != served["answers"]:
+            raise AssertionError("obs: the served answers changed with a run directory")
+        codes = _obs_report_codes(drive)
+        counts = _obs_checks(drive, codes)
+        cli = _obs_cli(drive)
+        events = {name: len(_obs_events(d)) for name, d in drive["dirs"].items()}
+        emit("obs_runs", seconds_with_run=drive["seconds"], seconds_without_run=bare["seconds"],
+             events=events, counts=counts, reports=cli, grad=drive["grad"],
+             grad_breach=drive["grad_breach"], breach=drive["breach"],
+             launches_with_run=launches, launches_without_run=launches_without_run, card=card)
+        if launches != launches_without_run:
+            raise AssertionError(f"obs: launches {launches} with run directories, "
+                                 f"{launches_without_run} without")
+        hist = root / "history.jsonl"
+        for srv in (bare_served, served, served):
+            history.append({"serve_p50_ms": srv["p50_ms"], "serve_p99_ms": srv["p99_ms"]},
+                           label="obs_phase", platform="gpu", path=hist)
+        # three records of one process gate nothing real: a wide tolerance
+        # keeps one card's noise from failing this check of the CLI
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trend = report.main(["trend", str(hist), "--check", "--tolerance", "10", "--json"])
+        drill = _obs_sigterm_drill(device, root)
+        emit("obs_trend_and_drill", trend_exit=trend, trend=json.loads(buf.getvalue()),
+             sigterm=drill, card=card)
+        if trend != 0:
+            raise AssertionError(f"trend --check exited {trend}")
+    return launches
+
+
+def _obs_gap(a, b) -> float:
+    return _nan_gap(torch.as_tensor(np.asarray(a)), torch.as_tensor(np.asarray(b)))
+
+
+def _obs_compare(card: dict, cpu: dict, codes_card: dict, codes_cpu: dict) -> dict:
+    """The small drive on the card against the CPU: event sequences,
+    statuses and counts equal, exit codes with OBS_REPORTS' expected one
+    beside them; grid floats within OBS_CPU_TOL."""
+    labels = {name: _obs_labels(d) == _obs_labels(cpu["dirs"][name])
+              for name, d in card["dirs"].items()}
+    exits = {f"{s}:{r}": [codes_card[(s, r)][0], codes_cpu[(s, r)][0], want]
+             for s, r, want in OBS_REPORTS}
+    ints = {
+        "tiled_status": np.array_equal(card["tiled"]["status"], cpu["tiled"]["status"]),
+        "tiled_counts": card["tiled"]["report"]["counts"] == cpu["tiled"]["report"]["counts"],
+        "repairs": card["tiled"]["report"]["repairs"] == cpu["tiled"]["report"]["repairs"],
+        "elastic": [card[k]["report"]["counts"] for k in ("elastic_cold", "elastic_warm")]
+        == [cpu[k]["report"]["counts"] for k in ("elastic_cold", "elastic_warm")],
+        "scen_status": np.array_equal(card["sweeps"]["scen_status"], cpu["sweeps"]["scen_status"]),
+        "pol_status": np.array_equal(card["sweeps"]["pol_status"], cpu["sweeps"]["pol_status"]),
+        "graph": card["sweeps"]["graph_edges"] == cpu["sweeps"]["graph_edges"]
+        and np.array_equal(card["sweeps"]["graph_row_ptr"], cpu["sweeps"]["graph_row_ptr"]),
+        "served_status": [a[:2] for a in card["serve"]["answers"]]
+        == [a[:2] for a in cpu["serve"]["answers"]],
+        "drill": card["serve"]["drill_sources"] == cpu["serve"]["drill_sources"],
+        "ladder": card["serve"]["statz"]["ladder"] == cpu["serve"]["statz"]["ladder"],
+        "grad": [(card[k]["steps"], card[k]["converged"]) for k in ("grad", "grad_breach")]
+        == [(cpu[k]["steps"], cpu[k]["converged"]) for k in ("grad", "grad_breach")],
+        "breach": card["breach"] == cpu["breach"],
+    }
+    gaps = {
+        "tiled_xi": _obs_gap(card["tiled"]["xi"], cpu["tiled"]["xi"]),
+        "tiled_max_aw": _obs_gap(card["tiled"]["max_aw"], cpu["tiled"]["max_aw"]),
+        "elastic_xi": _obs_gap(card["elastic_warm"]["xi"], cpu["elastic_warm"]["xi"]),
+        "scen_xi": _obs_gap(card["sweeps"]["scen_xi"], cpu["sweeps"]["scen_xi"]),
+        "pol_xi": _obs_gap(card["sweeps"]["pol_xi"], cpu["sweeps"]["pol_xi"]),
+        "served_xi": _obs_gap(np.array([np.frombuffer(a[2])[0] for a in card["serve"]["answers"]]),
+                              np.array([np.frombuffer(a[2])[0] for a in cpu["serve"]["answers"]])),
+    }
+    # the calibration's loss runs through Adam steps that amplify the
+    # forward's last bits: held to the CPU tests' 1e-8 relative
+    loss_rel = abs(card["grad"]["loss"] - cpu["grad"]["loss"]) / abs(cpu["grad"]["loss"])
+    return dict(labels=labels, exits=exits, ints=ints, gaps=gaps, calib_loss_rel=loss_rel)
+
+
+def phase_obs_cpu_vs_card() -> None:
+    """The obs drive at small sizes on the CPU and on the card: every run's
+    event sequence, statuses and counts equal, each report's exit code the
+    expected one on both devices, the grid and served floats within
+    OBS_CPU_TOL (f64); then a bayes and a gossip
+    population query under a run from one fixed point with the CPU's
+    per-agent fields on both devices: records and infomodel events equal."""
+    import tempfile
+    from pathlib import Path
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import obs
+    from sbr_tpu_torch.infomodels import engine, population_query
+
+    with tempfile.TemporaryDirectory(prefix="sbr_obs_cpu_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        drives = {dev: _obs_drive(d, "small", root / dev)
+                  for dev, d in (("card", "cuda"), ("cpu", "cpu"))}
+        drive_s = time.perf_counter() - t0
+        codes = {dev: _obs_report_codes(d) for dev, d in drives.items()}
+        cmp = _obs_compare(drives["card"], drives["cpu"], codes["card"], codes["cpu"])
+        m = st.make_model_params(**FIG12)
+        recs, labels = {}, {}
+        draw = engine._agent_fields
+
+        def cpu_fields(spec_, n, seed, beta, dtype, device):
+            return tuple(f.to(device) for f in draw(spec_, n, seed, beta, dtype, "cpu"))
+
+        engine._agent_fields = cpu_fields
+        try:
+            for channel in ("bayes", "gossip"):
+                spec = st.InfoModelSpec(channel=channel)
+                fp = st.solve_fixed_point_info(spec, m, config=st.SolverConfig(n_grid=POP_GRID),
+                                               max_iter=500, device="cpu")
+                for dev, device in (("cpu", "cpu"), ("card", "cuda")):
+                    d = root / f"pop_{channel}_{dev}"
+                    with obs.run_context(label="pop", run_dir=str(d)):
+                        recs[(channel, dev)] = population_query(
+                            spec, st.ErdosRenyiSpec(OBS_SIZES["small"]["pop_n"], POP_DEG), m,
+                            seeds=OBS_SIZES["small"]["pop_seeds"], vary="sim", seed=7, g0=None,
+                            fp=fp, device=device)
+                    labels[(channel, dev)] = [
+                        {k: v for k, v in e.items() if k not in ("mono", "ts")}
+                        for e in _obs_events(d) if e["kind"] == "infomodel"]
+        finally:
+            engine._agent_fields = draw
+    pops, mean_rel = {}, 0.0
+    for ch in ("bayes", "gossip"):
+        a, b = labels[(ch, "cpu")], labels[(ch, "card")]
+        # the belief census's mean is a float32 sum, which the card and
+        # the CPU associate apart: held within OBS_F32_MEAN_RTOL, every
+        # other field exactly
+        for x, y in zip(a, b):
+            if "mean_belief" in x and "mean_belief" in y:
+                mean_rel = max(mean_rel, abs(x["mean_belief"] - y["mean_belief"])
+                               / max(abs(x["mean_belief"]), 1e-30))
+        strip = [[{k: v for k, v in e.items() if k != "mean_belief"} for e in ev]
+                 for ev in (a, b)]
+        pops[ch] = dict(records=recs[(ch, "cpu")] == recs[(ch, "card")],
+                        events=strip[0] == strip[1] and len(a) == len(b))
+    emit("obs_cpu_vs_card", runs_equal=cmp["labels"], report_exits=cmp["exits"],
+         discrete_equal=cmp["ints"], max_abs=cmp["gaps"], tol=OBS_CPU_TOL,
+         calib_loss_rel=cmp["calib_loss_rel"], population_equal=pops,
+         census_mean_belief_rel=mean_rel, census_tol=OBS_F32_MEAN_RTOL, seconds=drive_s)
+    exits_equal = all(a == b == want for a, b, want in cmp["exits"].values())
+    if not (all(cmp["labels"].values()) and exits_equal and all(cmp["ints"].values())
+            and max(cmp["gaps"].values()) <= OBS_CPU_TOL and cmp["calib_loss_rel"] <= 1e-8
+            and all(all(v.values()) for v in pops.values()) and mean_rel <= OBS_F32_MEAN_RTOL):
+        raise AssertionError(f"obs card vs CPU: {cmp}, populations {pops}")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
-          "figures", "figures_cpu")
+          "figures", "figures_cpu", "obs", "obs_cpu")
 
 
-def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict) -> dict:
+def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict,
+                          obs_launches: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
     from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
@@ -3410,7 +4023,8 @@ def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dic
         "launches": recount["launches"],
         "launches_by_path": {"ablation": recount["launches"],
                              "tiled": tiled_launches[RECOUNT_KERNEL],
-                             "figures": fig_launches[RECOUNT_KERNEL]},
+                             "figures": fig_launches[RECOUNT_KERNEL],
+                             "obs": obs_launches[RECOUNT_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -3487,6 +4101,9 @@ def main(argv) -> int:
                     if "figures" in wanted else {})
     if "figures_cpu" in wanted:
         phase_figures_cpu_vs_card()
+    obs_launches = phase_obs(info["nvidia_smi"]) if "obs" in wanted else {}
+    if "obs_cpu" in wanted:
+        phase_obs_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -3504,11 +4121,11 @@ def main(argv) -> int:
         "replaces": "sbr_tpu/social/fused.py:114",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
         "launches": (launches + loop_launches[KERNEL] + pop_launches[KERNEL]
-                     + rewire_launches[KERNEL] + fig_launches[KERNEL]),
+                     + rewire_launches[KERNEL] + fig_launches[KERNEL] + obs_launches[KERNEL]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
                              "population": pop_launches[KERNEL],
                              "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL],
-                             "figures": fig_launches[KERNEL]},
+                             "figures": fig_launches[KERNEL], "obs": obs_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -3524,12 +4141,14 @@ def main(argv) -> int:
         "replaces": "sbr_tpu/social/fused.py:231",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_belief",
         "launches": (belief_launches + loop_launches[BELIEF_KERNEL]
-                     + pop_launches[BELIEF_KERNEL] + rewire_launches[BELIEF_KERNEL]),
+                     + pop_launches[BELIEF_KERNEL] + rewire_launches[BELIEF_KERNEL]
+                     + obs_launches[BELIEF_KERNEL]),
         "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
                              "population": pop_launches[BELIEF_KERNEL],
                              "rewire": rewire_launches[BELIEF_KERNEL],
                              "tiled": tiled_launches[BELIEF_KERNEL],
-                             "figures": fig_launches[BELIEF_KERNEL]},
+                             "figures": fig_launches[BELIEF_KERNEL],
+                             "obs": obs_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],
@@ -3538,7 +4157,7 @@ def main(argv) -> int:
         "bound_by": belief_row["bound_by"],
         "library_ms": None,
         "shapes": belief_rows,
-    }, _recount_kernel_entry(recount, tiled_launches, fig_launches)]
+    }, _recount_kernel_entry(recount, tiled_launches, fig_launches, obs_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

@@ -68,154 +68,103 @@ kernel wrapper runs its plain PyTorch version; on CUDA tensors it launches
 the kernel or raises.
 """
 
-from sbr_tpu_torch.baseline import solve_equilibrium_baseline, solve_learning
-from sbr_tpu_torch.grad import (
-    fit_withdrawals,
-    interest_xi_and_grad,
-    sensitivity_surface,
-    stress_search,
-    synth_withdrawals,
-    xi_and_grad,
-)
-from sbr_tpu_torch.hetero import get_aw_hetero, solve_equilibrium_hetero, solve_learning_hetero
-from sbr_tpu_torch.infomodels import (
-    InfoModelSpec,
-    InfoSimResult,
-    default_spec,
-    population_query,
-    simulate_info,
-    solve_fixed_point_info,
-)
-from sbr_tpu_torch.interest import solve_equilibrium_interest
-from sbr_tpu_torch.models import (
-    EquilibriumResult,
-    LearningSolution,
-    ModelParams,
-    SolverConfig,
-    Status,
-    make_hetero_params,
-    make_interest_params,
-    make_model_params,
-    with_overrides,
-)
-from sbr_tpu_torch.parallel import run_tiled_grid_multihost
-from sbr_tpu_torch.resilience import (
-    FaultPlan,
-    InjectedFault,
-    RetryBudget,
-    RetryError,
-    RetryPolicy,
-    TileCache,
-    graceful_shutdown,
-    policy_from_env,
-)
-from sbr_tpu_torch.scenario import (
-    ScenarioSpec,
-    run_tiled_scenario_grid,
-    scenario_grid,
-    solve_multibank,
-    spec_fingerprint,
-)
-from sbr_tpu_torch.social.agents import (
-    AgentSimConfig,
-    AgentSimResult,
-    PreparedAgentGraph,
-    default_device,
-    erdos_renyi_edges,
-    load_agent_state,
-    prepare_agent_graph,
-    prepared_from_numpy,
-    save_agent_state,
-    scale_free_edges,
-    simulate_agents,
-)
-from sbr_tpu_torch.social.closure import LoopComparison, close_loop, equilibrium_window
-from sbr_tpu_torch.social.dynamics import solve_forced_learning
-from sbr_tpu_torch.social.graphgen import (
-    ErdosRenyiSpec,
-    ScaleFreeSpec,
-    StochasticBlockSpec,
-    generate_edges,
-    prepare_generated_graph,
-)
-from sbr_tpu_torch.social.solver import (
-    SocialFixedPointResult,
-    fixed_point_from_numpy,
-    solve_equilibrium_social,
-)
-from sbr_tpu_torch.sweeps import beta_u_grid, policy_sweep_interest, solve_param_cell, u_sweep
-from sbr_tpu_torch.utils.checkpoint import run_tiled_grid
+import importlib
+
+# Public names and the module each lives in. They load on first use (PEP
+# 562), so importing a torch-free module of the package (``obs.report``,
+# ``obs.history``) loads no torch.
+_EXPORTS = {
+    "solve_equilibrium_baseline": "sbr_tpu_torch.baseline",
+    "solve_learning": "sbr_tpu_torch.baseline",
+    "fit_withdrawals": "sbr_tpu_torch.grad",
+    "interest_xi_and_grad": "sbr_tpu_torch.grad",
+    "sensitivity_surface": "sbr_tpu_torch.grad",
+    "stress_search": "sbr_tpu_torch.grad",
+    "synth_withdrawals": "sbr_tpu_torch.grad",
+    "xi_and_grad": "sbr_tpu_torch.grad",
+    "get_aw_hetero": "sbr_tpu_torch.hetero",
+    "solve_equilibrium_hetero": "sbr_tpu_torch.hetero",
+    "solve_learning_hetero": "sbr_tpu_torch.hetero",
+    "InfoModelSpec": "sbr_tpu_torch.infomodels",
+    "InfoSimResult": "sbr_tpu_torch.infomodels",
+    "default_spec": "sbr_tpu_torch.infomodels",
+    "population_query": "sbr_tpu_torch.infomodels",
+    "simulate_info": "sbr_tpu_torch.infomodels",
+    "solve_fixed_point_info": "sbr_tpu_torch.infomodels",
+    "solve_equilibrium_interest": "sbr_tpu_torch.interest",
+    "EquilibriumResult": "sbr_tpu_torch.models",
+    "LearningSolution": "sbr_tpu_torch.models",
+    "ModelParams": "sbr_tpu_torch.models",
+    "SolverConfig": "sbr_tpu_torch.models",
+    "Status": "sbr_tpu_torch.models",
+    "make_hetero_params": "sbr_tpu_torch.models",
+    "make_interest_params": "sbr_tpu_torch.models",
+    "make_model_params": "sbr_tpu_torch.models",
+    "with_overrides": "sbr_tpu_torch.models",
+    "run_tiled_grid_multihost": "sbr_tpu_torch.parallel",
+    "FaultPlan": "sbr_tpu_torch.resilience",
+    "InjectedFault": "sbr_tpu_torch.resilience",
+    "RetryBudget": "sbr_tpu_torch.resilience",
+    "RetryError": "sbr_tpu_torch.resilience",
+    "RetryPolicy": "sbr_tpu_torch.resilience",
+    "TileCache": "sbr_tpu_torch.resilience",
+    "graceful_shutdown": "sbr_tpu_torch.resilience",
+    "policy_from_env": "sbr_tpu_torch.resilience",
+    "ScenarioSpec": "sbr_tpu_torch.scenario",
+    "run_tiled_scenario_grid": "sbr_tpu_torch.scenario",
+    "scenario_grid": "sbr_tpu_torch.scenario",
+    "solve_multibank": "sbr_tpu_torch.scenario",
+    "spec_fingerprint": "sbr_tpu_torch.scenario",
+    "AgentSimConfig": "sbr_tpu_torch.social.agents",
+    "AgentSimResult": "sbr_tpu_torch.social.agents",
+    "PreparedAgentGraph": "sbr_tpu_torch.social.agents",
+    "default_device": "sbr_tpu_torch.social.agents",
+    "erdos_renyi_edges": "sbr_tpu_torch.social.agents",
+    "load_agent_state": "sbr_tpu_torch.social.agents",
+    "prepare_agent_graph": "sbr_tpu_torch.social.agents",
+    "prepared_from_numpy": "sbr_tpu_torch.social.agents",
+    "save_agent_state": "sbr_tpu_torch.social.agents",
+    "scale_free_edges": "sbr_tpu_torch.social.agents",
+    "simulate_agents": "sbr_tpu_torch.social.agents",
+    "LoopComparison": "sbr_tpu_torch.social.closure",
+    "close_loop": "sbr_tpu_torch.social.closure",
+    "equilibrium_window": "sbr_tpu_torch.social.closure",
+    "solve_forced_learning": "sbr_tpu_torch.social.dynamics",
+    "ErdosRenyiSpec": "sbr_tpu_torch.social.graphgen",
+    "ScaleFreeSpec": "sbr_tpu_torch.social.graphgen",
+    "StochasticBlockSpec": "sbr_tpu_torch.social.graphgen",
+    "generate_edges": "sbr_tpu_torch.social.graphgen",
+    "prepare_generated_graph": "sbr_tpu_torch.social.graphgen",
+    "SocialFixedPointResult": "sbr_tpu_torch.social.solver",
+    "fixed_point_from_numpy": "sbr_tpu_torch.social.solver",
+    "solve_equilibrium_social": "sbr_tpu_torch.social.solver",
+    "beta_u_grid": "sbr_tpu_torch.sweeps",
+    "policy_sweep_interest": "sbr_tpu_torch.sweeps",
+    "solve_param_cell": "sbr_tpu_torch.sweeps",
+    "u_sweep": "sbr_tpu_torch.sweeps",
+    "run_tiled_grid": "sbr_tpu_torch.utils.checkpoint",
+}
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is not None:
+        value = getattr(importlib.import_module(module), name)
+    else:
+        try:
+            value = importlib.import_module(f"{__name__}.{name}")
+        except ModuleNotFoundError as err:
+            if err.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
 
 __version__ = "0.1.0"
 
-__all__ = [
-    "AgentSimConfig",
-    "AgentSimResult",
-    "EquilibriumResult",
-    "ErdosRenyiSpec",
-    "FaultPlan",
-    "InfoModelSpec",
-    "InfoSimResult",
-    "InjectedFault",
-    "LearningSolution",
-    "LoopComparison",
-    "ModelParams",
-    "PreparedAgentGraph",
-    "RetryBudget",
-    "RetryError",
-    "RetryPolicy",
-    "ScaleFreeSpec",
-    "ScenarioSpec",
-    "SocialFixedPointResult",
-    "SolverConfig",
-    "Status",
-    "StochasticBlockSpec",
-    "TileCache",
-    "beta_u_grid",
-    "close_loop",
-    "default_device",
-    "default_spec",
-    "equilibrium_window",
-    "erdos_renyi_edges",
-    "fit_withdrawals",
-    "fixed_point_from_numpy",
-    "generate_edges",
-    "get_aw_hetero",
-    "graceful_shutdown",
-    "interest_xi_and_grad",
-    "load_agent_state",
-    "make_hetero_params",
-    "make_interest_params",
-    "make_model_params",
-    "policy_from_env",
-    "policy_sweep_interest",
-    "population_query",
-    "prepare_agent_graph",
-    "prepare_generated_graph",
-    "prepared_from_numpy",
-    "run_tiled_grid",
-    "run_tiled_grid_multihost",
-    "run_tiled_scenario_grid",
-    "save_agent_state",
-    "scale_free_edges",
-    "scenario_grid",
-    "sensitivity_surface",
-    "simulate_agents",
-    "simulate_info",
-    "solve_equilibrium_baseline",
-    "solve_equilibrium_hetero",
-    "solve_equilibrium_interest",
-    "solve_equilibrium_social",
-    "solve_fixed_point_info",
-    "solve_forced_learning",
-    "solve_learning",
-    "solve_learning_hetero",
-    "solve_multibank",
-    "solve_param_cell",
-    "spec_fingerprint",
-    "stress_search",
-    "synth_withdrawals",
-    "u_sweep",
-    "with_overrides",
-    "xi_and_grad",
-]
+__all__ = sorted(_EXPORTS)

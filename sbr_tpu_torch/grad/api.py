@@ -22,8 +22,11 @@ candidate is not a RUN equilibrium), ``GRAD_ILL_CONDITIONED`` (|AW'(ξ)| ≤
 Inf); `GRAD_UNTRUSTED_MASK` collects the three, and `flag_census` counts
 them on the host.
 
-Not ported: the reference's obs spans and ``grad`` flag-census events
-(ROADMAP item 9, ``obs/``).
+With telemetry on, each entry point runs under an obs span
+(``grad.xi_and_grad``, ``grad.interest_xi_and_grad``,
+``grad.sensitivity_surface``) with its program call, and logs one ``grad``
+flag-census event (``python -m sbr_tpu_torch.obs.report grad`` gates on
+them).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.diag.health import (
     GRAD_AT_NONEQUILIBRIUM,
     GRAD_ILL_CONDITIONED,
@@ -159,6 +163,12 @@ def _theta_values(params, keys, dtype, device) -> dict:
     return {k: torch.full((), float(tree[k]), dtype=dtype, device=device) for k in keys}
 
 
+def _log_flag_census(stage: str, status, flags) -> None:
+    """One obs ``grad`` event with the flag census (enabled runs only)."""
+    if obs.enabled():
+        obs.event("grad", action="flags", stage=stage, **flag_census(status, flags))
+
+
 def flag_census(status, flags) -> dict:
     """JSON-ready counts of the grad-trust bits over a (batched) result.
     ``nonfinite_run`` is the gate signal: a NaN or Inf gradient at a RUN
@@ -206,13 +216,20 @@ def scenario_xi_and_grad(spec, params, wrt=None, config: Optional[SolverConfig] 
     )
 
 
-def _point(cell, keys, params, wrt, config, dtype, device) -> GradResult:
+def _point(stage, cell, keys, params, wrt, config, dtype, device) -> GradResult:
     config, dtype, device = _resolve(config, dtype, device)
     wrt = _validate_wrt(wrt, keys)
     theta = _theta_values(params, keys, dtype, device)
-    xi, xi_c, grads, aw_prime, status, flags = _cell_outputs(
-        cell, theta, wrt, config, dtype, tol_ap=aprime_tol(dtype)
-    )
+    with obs.span(stage) as sp:
+        # wrt and config are arguments so that they key the call's cache
+        # entry, as the reference's compiled program per (config, wrt) does
+        xi, xi_c, grads, aw_prime, status, flags = obs.jit_call(
+            stage, lambda th, w, c: _cell_outputs(cell, th, w, c, dtype,
+                                                  tol_ap=aprime_tol(dtype)),
+            theta, wrt, config,
+        )
+        sp.sync(xi_c)
+    _log_flag_census(stage, status, flags)
     return GradResult(xi=xi, xi_candidate=xi_c, grads=grads, aw_prime=aw_prime,
                       status=status, flags=flags)
 
@@ -223,7 +240,8 @@ def xi_and_grad(params: ModelParams, wrt=WRT_DEFAULT, config: Optional[SolverCon
     a subset of `grad.cell.BASE_KEYS`. ξ is `solve_param_cell`'s bit for
     bit; each gradient costs one linearization of the residual at the
     root (grad/ift.py), not a re-run of the solver."""
-    return _point(baseline_cell, BASE_KEYS, params, wrt, config, dtype, device)
+    return _point("grad.xi_and_grad", baseline_cell, BASE_KEYS, params, wrt, config, dtype,
+                  device)
 
 
 def interest_xi_and_grad(params, wrt=("beta", "u", "kappa", "r"),
@@ -231,7 +249,8 @@ def interest_xi_and_grad(params, wrt=("beta", "u", "kappa", "r"),
                          device=None) -> GradResult:
     """ξ and dξ/dθ for the interest-rate stack (`ModelParamsInterest`); θ
     also spans ``r`` and ``delta`` (grad/cell.py)."""
-    return _point(interest_cell, INTEREST_KEYS, params, wrt, config, dtype, device)
+    return _point("grad.interest_xi_and_grad", interest_cell, INTEREST_KEYS, params, wrt,
+                  config, dtype, device)
 
 
 def sensitivity_surface(beta_values, u_values, base: ModelParams, wrt=WRT_DEFAULT,
@@ -252,9 +271,17 @@ def sensitivity_surface(beta_values, u_values, base: ModelParams, wrt=WRT_DEFAUL
                      ("eta", econ.eta), ("t0", t0), ("t1", t1), ("x0", base.learning.x0))
     }
     theta.update(beta=beta_values.unsqueeze(-1), u=u_values)
-    xi, _, grads, aw_prime, status, flags = _cell_outputs(
-        baseline_cell, theta, wrt, config, dtype, tol_ap=aprime_tol(dtype)
-    )
+    n_b, n_u = int(beta_values.shape[0]), int(u_values.shape[0])
+    with obs.span("grad.sensitivity_surface", n_beta=n_b, n_u=n_u) as sp:
+        xi, _, grads, aw_prime, status, flags = obs.jit_call(
+            "grad.sensitivity_surface",
+            lambda th, w, c: _cell_outputs(baseline_cell, th, w, c, dtype,
+                                           tol_ap=aprime_tol(dtype)),
+            theta, wrt, config,
+        )
+        sp.sync(status)
+    obs.metrics.metrics().inc("grad.surface.cells", n_b * n_u)
+    _log_flag_census("grad.sensitivity_surface", status, flags)
     return SensitivitySurface(
         beta_values=beta_values, u_values=u_values, xi=xi, grads=grads,
         aw_prime=aw_prime, status=status, flags=flags,

@@ -22,7 +22,9 @@ also takes the observed crash time ξ_obs, which closes the system; pass
   same data and start give the same trajectory.
 
 `synth_withdrawals` makes the test fixture: AW samples from a known θ*.
-Not ported: the reference's obs span and ``grad`` events (ROADMAP item 9).
+With telemetry on, the fit runs under the ``grad.calibrate`` span and logs
+``grad`` events ``calib_start``, ``calib_step`` (every ``log_every``
+steps) and ``calib_done``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.core.interp import linspace
 from sbr_tpu_torch.grad.api import _resolve
 from sbr_tpu_torch.grad.cell import aw_cum_at, baseline_cell
@@ -124,7 +127,7 @@ def synth_withdrawals(params: ModelParams, n_obs: int = 64, noise: float = 0.0, 
 
 def fit_withdrawals(t_obs, aw_obs, init: ModelParams, wrt=("beta", "u", "kappa"), xi_obs=None,
                     xi_weight: float = 1e-2, steps: int = 400, lr: float = 0.05,
-                    loss_tol: float = 1e-12, step_tol: float = 1e-10,
+                    loss_tol: float = 1e-12, step_tol: float = 1e-10, log_every: int = 25,
                     config: Optional[SolverConfig] = None, dtype=None,
                     device=None) -> CalibResult:
     """Fit ``wrt`` ⊆ {β, u, κ, λ, p} to observed (t, AW) samples by Adam
@@ -140,8 +143,7 @@ def fit_withdrawals(t_obs, aw_obs, init: ModelParams, wrt=("beta", "u", "kappa")
     stops improving (by a relative ``step_tol``) for 40 steps after at
     least halving the starting loss. A stall without improvement and an
     exhausted budget are not converged. The fitted parameters are the best
-    iterate's. The reference's event cadence ``log_every`` waits for the
-    port's obs/ (ROADMAP item 9)."""
+    iterate's. ``log_every`` is the cadence of the ``calib_step`` events."""
     config, dtype, device = _resolve(config, dtype, device)
     wrt = tuple(wrt)
     unknown = set(wrt) - set(CALIBRATABLE)
@@ -164,26 +166,35 @@ def fit_withdrawals(t_obs, aw_obs, init: ModelParams, wrt=("beta", "u", "kappa")
     # iterate
     best_loss, best_step, best_raw = float("inf"), -1, raw
     stall_window = 40
-    for i in range(steps):
-        raw_before = raw
-        raw, m, v, loss = _adam_step(raw, m, v, i + 1, float(lr), rest, t_obs, aw_obs, xi_arg,
-                                     float(xi_weight), config, dtype)
-        loss_f = float(loss)  # the loss at raw_before
-        losses.append(loss_f)
-        if loss_f < best_loss * (1.0 - step_tol):
-            best_loss, best_step, best_raw = loss_f, i, raw_before
-        if loss_f <= loss_tol:
-            best_loss, best_raw = loss_f, raw_before
-            converged = True
-            break
-        if i - best_step >= stall_window:
-            # a floor counts only if the fit improved: a dead gradient does not
-            converged = best_loss < 0.5 * losses[0]
-            break
-    fitted = {k: float(_TRANSFORMS[k][1](x)) for k, x in best_raw.items()}
+    n_obs = int(t_obs.shape[0])
+    with obs.span("grad.calibrate", n_obs=n_obs, steps=steps):
+        obs.event("grad", action="calib_start", wrt=list(wrt), steps=steps, lr=lr,
+                  n_obs=n_obs, with_xi=xi_obs is not None)
+        for i in range(steps):
+            raw_before = raw
+            raw, m, v, loss = _adam_step(raw, m, v, i + 1, float(lr), rest, t_obs, aw_obs,
+                                         xi_arg, float(xi_weight), config, dtype)
+            loss_f = float(loss)  # the loss at raw_before
+            losses.append(loss_f)
+            if loss_f < best_loss * (1.0 - step_tol):
+                best_loss, best_step, best_raw = loss_f, i, raw_before
+            if (i % max(log_every, 1)) == 0:
+                obs.event("grad", action="calib_step", step=i, loss=loss_f)
+            if loss_f <= loss_tol:
+                best_loss, best_raw = loss_f, raw_before
+                converged = True
+                break
+            if i - best_step >= stall_window:
+                # a floor counts only if the fit improved: a dead gradient does not
+                converged = best_loss < 0.5 * losses[0]
+                break
+        fitted = {k: float(_TRANSFORMS[k][1](x)) for k, x in best_raw.items()}
+        final_loss = best_loss if losses else float("nan")
+        obs.event("grad", action="calib_done", steps=len(losses), loss=final_loss,
+                  converged=bool(converged), **{f"fit_{k}": v for k, v in fitted.items()})
     return CalibResult(
         params=fitted,
-        loss=best_loss if losses else float("nan"),
+        loss=final_loss,
         steps=len(losses),
         converged=bool(converged),
         loss_history=tuple(losses),

@@ -13,7 +13,8 @@ runs projected sign-gradient descent on the margin inside a box (only the
 to the first flipped iterate for the margin's zero, steps just past it,
 and validates the point against the port's `solve_param_cell`, never the
 surrogate alone. For ``wrt=("kappa",)`` that is the minimal κ shock.
-Not ported: the reference's obs span and ``grad`` events (ROADMAP item 9).
+With telemetry on, the search runs under the ``grad.stress_search`` span
+and ends in one ``grad`` event, ``stress_done``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import logistic_cdf
 from sbr_tpu_torch.baseline.solver import _hazard_parts
 from sbr_tpu_torch.core.rootfind import first_upcrossing, last_downcrossing
@@ -113,64 +115,73 @@ def stress_search(params: ModelParams, wrt=("kappa",),
     scale = {k: max(abs(float(theta0[k])), (box[k][1] - box[k][0]) * 0.05) for k in wrt}
     wv = {k: theta0[k] for k in wrt}
     m0 = margin_of(wv)
-    flipped = m0 < 0  # already a run: zero shock
-    n_steps = 0
-    if not flipped:
-        for i in range(steps):
-            g = grad_of(wv)
-            wv_prev = dict(wv)
-            wv = clip({k: wv[k] - lr * scale[k] * torch.sign(g[k]) for k in wrt})
-            n_steps = i + 1
-            if margin_of(wv) < 0:
-                flipped = True
-                break
-            if all(float(wv[k]) == float(wv_prev[k]) for k in wrt):
-                break  # pinned at the box: no flip reachable
+    with obs.span("grad.stress_search", wrt=list(wrt), steps=steps):
+        flipped = m0 < 0  # already a run: zero shock
+        n_steps = 0
+        if not flipped:
+            for i in range(steps):
+                g = grad_of(wv)
+                wv_prev = dict(wv)
+                wv = clip({k: wv[k] - lr * scale[k] * torch.sign(g[k]) for k in wrt})
+                n_steps = i + 1
+                if margin_of(wv) < 0:
+                    flipped = True
+                    break
+                if all(float(wv[k]) == float(wv_prev[k]) for k in wrt):
+                    break  # pinned at the box: no flip reachable
 
-    result_kwargs = dict(params0={k: float(theta0[k]) for k in BASE_KEYS}, margin0=m0,
-                         steps=n_steps)
-    if not flipped:
-        return StressResult(flipped=False, validated=False, params_flipped=None, delta=None,
-                            shock_norm=None, margin_final=margin_of(wv), **result_kwargs)
+        result_kwargs = dict(params0={k: float(theta0[k]) for k in BASE_KEYS}, margin0=m0,
+                             steps=n_steps)
+        if not flipped:
+            m_final = margin_of(wv)
+            obs.event("grad", action="stress_done", flipped=False, margin0=m0,
+                      margin_final=m_final, steps=n_steps)
+            return StressResult(flipped=False, validated=False, params_flipped=None, delta=None,
+                                shock_norm=None, margin_final=m_final, **result_kwargs)
 
-    # bisect the segment θ₀ → the flipped iterate for the margin's zero,
-    # then step margin_eps past it: the minimal shock along the path
-    wv_flip = dict(wv)
+        # bisect the segment θ₀ → the flipped iterate for the margin's zero,
+        # then step margin_eps past it: the minimal shock along the path
+        wv_flip = dict(wv)
 
-    def at(t):
-        return {k: theta0[k] + t * (wv_flip[k] - theta0[k]) for k in wrt}
+        def at(t):
+            return {k: theta0[k] + t * (wv_flip[k] - theta0[k]) for k in wrt}
 
-    if m0 >= 0:
-        lo_t, hi_t = 0.0, 1.0
-        for _ in range(60):
-            mid = 0.5 * (lo_t + hi_t)
-            if margin_of(at(mid)) < 0:
-                hi_t = mid
-            else:
-                lo_t = mid
-        # walk past the boundary with a step that doubles from the
-        # bisection's residual, so any t ≤ 1 is reached in ~60 steps
-        t_star = hi_t
-        step_t = max(hi_t - lo_t, 1e-9)
-        for _ in range(60):
-            if margin_of(at(t_star)) <= -margin_eps:
-                break
-            t_star = min(1.0, t_star + step_t)
-            step_t *= 2.0
-            if t_star >= 1.0:
-                break
-        wv_star = at(t_star)
-    else:
-        wv_star = {k: theta0[k] for k in wrt}
+        if m0 >= 0:
+            lo_t, hi_t = 0.0, 1.0
+            for _ in range(60):
+                mid = 0.5 * (lo_t + hi_t)
+                if margin_of(at(mid)) < 0:
+                    hi_t = mid
+                else:
+                    lo_t = mid
+            # walk past the boundary with a step that doubles from the
+            # bisection's residual, so any t ≤ 1 is reached in ~60 steps
+            t_star = hi_t
+            step_t = max(hi_t - lo_t, 1e-9)
+            for _ in range(60):
+                if margin_of(at(t_star)) <= -margin_eps:
+                    break
+                t_star = min(1.0, t_star + step_t)
+                step_t *= 2.0
+                if t_star >= 1.0:
+                    break
+            wv_star = at(t_star)
+        else:
+            wv_star = {k: theta0[k] for k in wrt}
 
-    theta_star = {**theta0, **wv_star}
-    # validate against the real forward solve, not the surrogate
-    _, _, _, status, _ = solve_param_cell(*(theta_star[k] for k in BASE_KEYS), config, dtype,
-                                          device)
-    delta = {k: float(wv_star[k]) - float(theta0[k]) for k in wrt}
-    return StressResult(
-        flipped=True, validated=int(status) == 0,
-        params_flipped={k: float(x) for k, x in theta_star.items()},
-        delta=delta, shock_norm=math.sqrt(sum(d * d for d in delta.values())),
-        margin_final=margin_of(wv_star), **result_kwargs,
-    )
+        theta_star = {**theta0, **wv_star}
+        # validate against the real forward solve, not the surrogate
+        _, _, _, status, _ = solve_param_cell(*(theta_star[k] for k in BASE_KEYS), config, dtype,
+                                              device)
+        validated = int(status) == 0
+        delta = {k: float(wv_star[k]) - float(theta0[k]) for k in wrt}
+        shock = math.sqrt(sum(d * d for d in delta.values()))
+        m_final = margin_of(wv_star)
+        obs.event("grad", action="stress_done", flipped=True, validated=validated, margin0=m0,
+                  margin_final=m_final, steps=n_steps, shock_norm=shock,
+                  **{f"delta_{k}": v for k, v in delta.items()})
+        return StressResult(
+            flipped=True, validated=validated,
+            params_flipped={k: float(x) for k, x in theta_star.items()},
+            delta=delta, shock_norm=shock, margin_final=m_final, **result_kwargs,
+        )

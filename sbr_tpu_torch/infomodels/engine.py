@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.infomodels.spec import InfoModelSpec
 from sbr_tpu_torch.social import agents as A
 from sbr_tpu_torch.social import graphgen as G
@@ -192,6 +193,11 @@ def _base_source_weights(graph, device) -> torch.Tensor:
     )
 
 
+def _log_belief_census(dynamics: str, crossed: int, belief: torch.Tensor) -> None:
+    obs.log_infomodel("belief_census", channel="bayes", dynamics=dynamics, crossed=crossed,
+                      mean_belief=float(belief.mean()), max_belief=float(belief.max()))
+
+
 def _simulate_rewire(spec: InfoModelSpec, graph, seed: int, config: A.AgentSimConfig,
                      dtype: np.dtype, fields, llr01, informed, t_init, belief,
                      chunk_edges, device) -> InfoSimResult:
@@ -236,10 +242,15 @@ def _simulate_rewire(spec: InfoModelSpec, graph, seed: int, config: A.AgentSimCo
             )
         gs_parts.append(gs)
         aws_parts.append(aws)
+        if obs.enabled():
+            obs.log_infomodel("rewire_epoch", epoch=n_epochs, channel=spec.channel,
+                              steps=this_len, edges=e, withdrawing=int(wd_now.sum()))
         done += this_len
         n_epochs += 1
         float(gs[-1])  # one scalar fence an epoch boundary
     bayes = spec.channel == "bayes"
+    if bayes and obs.enabled():
+        _log_belief_census("rewire", int(informed.sum()), belief)
     return InfoSimResult(
         t_grid=torch.from_numpy(A._step_times(config, 0, dtype)[:-1]).to(device),
         informed_frac=torch.cat(gs_parts), withdrawn_frac=torch.cat(aws_parts),
@@ -357,6 +368,8 @@ def simulate_info(
     gs, aws, informed, t_inf, belief = _bayes_sim(
         pg, aware_d, thr_d, llr01, informed_d, t_init_d, belief_d, 0, config
     )
+    if obs.enabled():
+        _log_belief_census("static", int(informed.sum()) - int(informed_d.sum()), belief)
     return InfoSimResult(
         t_grid=torch.from_numpy(A._step_times(config, 0, dtype)[:-1]).to(device),
         informed_frac=gs, withdrawn_frac=aws, informed=informed, t_inf=t_inf,

@@ -30,6 +30,7 @@ import time
 
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.baseline.learning import logistic_cdf
 from sbr_tpu_torch.baseline.solver import get_aw, solve_equilibrium_core
 from sbr_tpu_torch.core.integrate import cumtrapz
@@ -40,6 +41,7 @@ from sbr_tpu_torch.social.agents import default_device
 from sbr_tpu_torch.social.solver import (
     SocialFixedPointResult,
     _finish,
+    _log_fixed_point,
     _model_scalars,
     fixed_point_grid,
     no_run_xi,
@@ -123,7 +125,11 @@ def solve_fixed_point_info(
     damping (the Anderson step stays the social solver's). Its bootstrap
     is channel-matched: gossip starts from the word-of-mouth logistic at
     β, bayes from the zero-evidence curve, which already carries the
-    panic-prone cohort σ(−θ_k/s)."""
+    panic-prone cohort σ(−θ_k/s).
+
+    With telemetry on, the loop runs as one program through `obs.jit_call`
+    inside the ``infomodels.fixed_point`` span, followed by the social
+    solver's ``fixed_point`` events and one ``infomodel`` event."""
     if spec.reduces_to_gossip():
         return solve_equilibrium_social(
             model, config=config, tol=tol, max_iter=max_iter, damping=damping,
@@ -146,9 +152,23 @@ def solve_fixed_point_info(
         # cohort is the panic-prone tail, which the branches already carry
         return ls, res, xi_new, aw_new - ls.cdf[0]
 
-    if spec.channel == "gossip":
-        aw0 = logistic_cdf(grid, beta, x0)
-    else:
-        aw0 = info_learning_curve(spec, beta, torch.zeros_like(grid), grid, x0).cdf
-    res = run_fixed_point(step, aw0, grid, eta, tol, max_iter, damping)
-    return _finish(res, t0)
+    def program(grid):
+        if spec.channel == "gossip":
+            aw0 = logistic_cdf(grid, beta, x0)
+        else:
+            aw0 = info_learning_curve(spec, beta, torch.zeros_like(grid), grid, x0).cdf
+        return run_fixed_point(step, aw0, grid, eta, tol, max_iter, damping)
+
+    with obs.span("infomodels.fixed_point", channel=spec.channel, dynamics=spec.dynamics,
+                  n_grid=config.n_grid, max_iter=int(max_iter)) as sp:
+        res = obs.jit_call("infomodels.fixed_point", program, grid)
+        sp.sync(res.aw, res.xi)
+    res = _finish(res, t0)
+    _log_fixed_point(res)
+    obs.log_infomodel(
+        "fixed_point", channel=spec.channel, dynamics=spec.dynamics,
+        groups=len(spec.groups) or 1, converged=bool(res.converged),
+        aborted=bool(res.aborted), iterations=int(res.iterations),
+        xi=float(res.xi), bankrun=bool(res.equilibrium.bankrun),
+    )
+    return res

@@ -34,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.infomodels.spec import InfoModelSpec, infomodel_fingerprint
 from sbr_tpu_torch.models.params import ModelParams, SolverConfig
 
@@ -80,7 +81,8 @@ def population_query(
     """Run one population what-if query (module docstring) on ``device``
     (default: the CUDA card) and return the JSON-ready record. ``graph`` is
     a `social.graphgen` spec; ``seeds`` the number of members S (at most
-    `MAX_POP_SEEDS`); ``fp`` a fixed point of ``model`` to reuse."""
+    `MAX_POP_SEEDS`); ``fp`` a fixed point of ``model`` to reuse. With
+    telemetry on, the query ends in one ``infomodel`` event."""
     from sbr_tpu_torch.social.closure import close_loop
 
     if vary not in POP_VARY:
@@ -135,6 +137,9 @@ def population_query(
         return float(np.quantile(finite, p))
 
     xi_mf = float(fp.xi)
+    if obs.enabled():
+        obs.log_infomodel("population_query", channel=spec.channel, dynamics=spec.dynamics,
+                          vary=vary, seeds=seeds, n_agents=int(graph.n), run_probability=run_p)
     return {
         "kind": "population",
         "channel": spec.channel,

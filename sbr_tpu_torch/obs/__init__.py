@@ -17,9 +17,18 @@
   OOM preflight over measured footprints, and the ``tile_shape="auto"``
   capacity planner.
 
+- ``obs.history`` — the append-only perf history (``bench_history.jsonl``,
+  the port's own file) and the trend gate (``report trend --check``).
+- ``obs.report``  — ``python -m sbr_tpu_torch.obs.report RUN_DIR [OTHER]``
+  renders or diffs runs; its subcommands (``health``, ``resilience``,
+  ``elastic``, ``infomodel``, ``grad``, ``memory``, ``serve``, ``trend``,
+  ``gc``) gate on them with the reference's documents and exit codes.
+
 Unlike the reference, ``obs.metrics`` here is the module; the registry is
-``obs.metrics.metrics()``. The reference's ``history``, ``trace``,
-``report``, ``flight``, ``demand`` and ``audit`` are not ported yet.
+``obs.metrics.metrics()``. ``history`` and ``report`` import no torch (nor
+does this package until `fence` or `StageTimer` is used), so a report never
+pays for a device runtime. The reference's ``trace``, ``flight``,
+``demand`` and ``audit`` are not ported yet (ROADMAP items 1.A 9c, 9d).
 
 Enabling telemetry: set ``SBR_OBS=1`` (run directories land under
 ``SBR_OBS_DIR``, default ``obs_runs/``), or::
@@ -33,7 +42,9 @@ Disabled (the default), every instrumentation site is one global read: no
 events, no fences, no extra device work.
 """
 
-from sbr_tpu_torch.obs import mem, metrics, prof
+import importlib
+
+from sbr_tpu_torch.obs import history, mem, metrics, prof
 from sbr_tpu_torch.obs.metrics import DEFAULT_LATENCY_BOUNDS_MS, LogHistogram, MetricsRegistry, log_bounds
 from sbr_tpu_torch.obs.prof import annotate, note_call, note_trace, profile, step_annotation
 from sbr_tpu_torch.obs.runlog import (
@@ -66,7 +77,17 @@ from sbr_tpu_torch.obs.runlog import (
     start_run,
     suspended,
 )
-from sbr_tpu_torch.obs.timing import StageTimer, fence
+
+
+def __getattr__(name: str):
+    # ``obs.timing`` imports torch, so its names load on first use; so does
+    # ``report``, which ``python -m`` must find unimported.
+    if name in ("StageTimer", "fence"):
+        return getattr(importlib.import_module(f"{__name__}.timing"), name)
+    if name == "report":
+        return importlib.import_module(f"{__name__}.report")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "DEFAULT_LATENCY_BOUNDS_MS",
@@ -83,6 +104,7 @@ __all__ = [
     "event",
     "fence",
     "gc_runs",
+    "history",
     "interrupt_all",
     "jit_call",
     "log_audit",
@@ -106,6 +128,7 @@ __all__ = [
     "prof",
     "profile",
     "program",
+    "report",
     "run_context",
     "span",
     "start_run",

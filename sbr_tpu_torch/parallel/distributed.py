@@ -39,7 +39,7 @@ from typing import Optional
 
 import numpy as np
 
-from sbr_tpu_torch.resilience import faults, shutdown
+from sbr_tpu_torch.resilience import faults, heal, shutdown
 
 
 def tile_assignment(n_tiles: int, n_processes: int, process_id: int) -> range:
@@ -229,6 +229,9 @@ def run_tiled_grid_multihost(
                     try:
                         run_tiled_grid(beta_values, u_values, base, verbose=False,
                                        tile_owner=lambda b, u: (b, u) in leased_set, **common)
+                        for bi, ui in leased:  # adoption is a repair
+                            heal._log_repair(action="adopt", target=f"tile_b{bi:05d}_u{ui:05d}",
+                                             ok=True)
                     finally:
                         for bi, ui in leased:
                             lease = _lease_path(ckpt, bi, ui)

@@ -28,11 +28,16 @@ The backend tag stands where the reference has its x64 flag, so a port
 entry never answers for an ``sbr_tpu`` one (their floats differ by up to
 1e-12), nor the other way round.
 
-Not ported yet: the throughput seed from the perf history
-(``seed_rate_from_history``, ``_append_rate_history``: they read and write
-``obs.history``) and the ``scheduler`` / ``cache`` obs events; both wait
-for ROADMAP 1.A item 9. Until then the tracker starts unseeded, as the
-reference's does on a host with no history.
+**Throughput seed.** A host's tracker starts from the median of its
+platform's recent ``elastic_cells_per_sec`` records in the perf history's
+sidecar (``<history>.elastic.jsonl``, `seed_rate_from_history`); a sweep
+that computed tiles appends its measured rate when ``SBR_OBS_HISTORY`` is
+set. Records carry the platform tag ``"gpu"`` or ``"cpu"``, so a CPU rate
+never seeds the card.
+
+Every membership change, claim, completion and cache outcome is an obs
+``scheduler`` / ``cache`` event (``python -m sbr_tpu_torch.obs.report
+elastic RUN_DIR``).
 
 Standard library and numpy at import; the solver is imported inside the
 functions that need it.
@@ -93,6 +98,16 @@ def host_identity() -> str:
         name = re.sub(r"[^A-Za-z0-9_.-]", "-", socket.gethostname())[:48]
         _HOST_ID = f"{name}-p{os.getpid()}-{uuid.uuid4().hex[:6]}"
     return _HOST_ID
+
+
+def _log(kind: str, action: str, **fields) -> None:
+    """One ``scheduler`` or ``cache`` event (``runlog.log_<kind>``)."""
+    try:
+        from sbr_tpu_torch.obs import runlog
+
+        getattr(runlog, f"log_{kind}")(action=action, **fields)
+    except Exception:
+        pass  # telemetry must never sink the scheduler
 
 
 def heartbeat_path(ckpt_dir, host: str) -> Path:
@@ -200,7 +215,8 @@ def plan_claims(
 
 
 class ThroughputTracker:
-    """EWMA cells/s of this host (unseeded until the history is ported)."""
+    """EWMA cells/s of this host, seeded from the perf history so a
+    rejoining host starts from its platform's typical rate instead of 1.0."""
 
     def __init__(self, seed_rate: Optional[float] = None, alpha: float = 0.5):
         self.rate = seed_rate
@@ -211,6 +227,53 @@ class ThroughputTracker:
             return
         r = cells / dur_s
         self.rate = r if self.rate is None else self.alpha * r + (1 - self.alpha) * self.rate
+
+
+def _platform(device=None) -> str:
+    """The history's platform tag of ``device`` (default: the card)."""
+    if device is None:
+        return "gpu"
+    import torch
+
+    return "gpu" if torch.device(device).type == "cuda" else "cpu"
+
+
+def _rate_history_path() -> Path:
+    """The sidecar of the perf history that holds the elastic throughput
+    records (``<history>.elastic.jsonl``): the trend gate reads only the
+    latest record of the main history, so these must not land there."""
+    from sbr_tpu_torch.obs import history
+
+    return Path(str(history.history_path()) + ".elastic.jsonl")
+
+
+def seed_rate_from_history(path=None, window: int = 8, device=None) -> Optional[float]:
+    """Median of the ``window`` latest ``elastic_cells_per_sec`` records of
+    ``device``'s platform in the sidecar history, or None when there is
+    none."""
+    from sbr_tpu_torch.obs import history
+
+    return history.recent_median(
+        "elastic_cells_per_sec", path=path or _rate_history_path(),
+        platform=_platform(device), window=window,
+    )
+
+
+def _append_rate_history(rate: Optional[float], tiles_computed: int, device=None) -> None:
+    """Record this sweep's measured rate for later seeds. Only with an
+    explicit ``SBR_OBS_HISTORY``: tests and ad-hoc sweeps grow no history."""
+    if not rate or tiles_computed <= 0 or not os.environ.get("SBR_OBS_HISTORY", "").strip():
+        return
+    from sbr_tpu_torch.obs import history
+
+    try:
+        history.append(
+            {"elastic_cells_per_sec": float(rate)}, label="elastic_sweep",
+            platform=_platform(device), path=_rate_history_path(),
+            meta={"tiles": tiles_computed, "host": host_identity()},
+        )
+    except OSError:
+        pass  # a read-only history must not sink the sweep
 
 
 def _dtype_name(dtype) -> str:
@@ -299,29 +362,34 @@ class TileCache:
 
         path = self.path(key)
         if not path.exists():
+            _log("cache", "miss", tile=tile, key=key[:12])
             return None
         # outside the quarantine handler: an injected read failure is a
         # miss, never the end of a healthy entry
         try:
             faults.fire("tilecache.load", target=tile)
         except faults.InjectedFault:
+            _log("cache", "miss", tile=tile, key=key[:12], injected=True)
             return None
         try:
             # a cache entry has no "legacy" form: anything not verified "ok"
             # is quarantined
             if heal.verify_file(path) != "ok":
                 heal.quarantine(path, reason="tilecache-unverifiable")
+                _log("cache", "quarantine", tile=tile, key=key[:12])
                 return None
             with np.load(path) as data:
                 arrays = {f: data[f] for f in _FIELDS}
         except Exception as err:
             if path.exists():
                 heal.quarantine(path, reason=f"tilecache-unreadable: {err!r}")
+            _log("cache", "quarantine", tile=tile, key=key[:12])
             return None
         try:  # a hit is a use: keep the entry warm for gc
             os.utime(path)
         except OSError:
             pass
+        _log("cache", "hit", tile=tile, key=key[:12])
         return arrays
 
     def store(self, key: str, arrays: dict, tile: str = "?",
@@ -357,6 +425,7 @@ class TileCache:
                 os.replace(tmp, meta_path)
             except OSError:
                 pass
+        _log("cache", "store", tile=tile, key=key[:12])
         return path
 
 
@@ -478,12 +547,14 @@ def run_elastic_grid(
 
     hid = host_identity()
     hb = Heartbeat(ckpt, hid, ttl_s=heartbeat_ttl_s)
-    tracker = ThroughputTracker()
+    tracker = ThroughputTracker(seed_rate=seed_rate_from_history(device=device))
     hb.beat(tiles_done=0, cells_per_sec=tracker.rate)
+    _log("scheduler", "join", host=hid, tiles=len(tiles), seed_rate=tracker.rate)
 
     done = 0
     claimed_ids: list = []
     deadline = time.monotonic() + timeout_s
+    last_plan_sig = None
     # one full scan at join; afterwards tiles leave the set as they are
     # produced or seen landed, and a full re-scan happens only when nothing
     # was claimable
@@ -505,7 +576,13 @@ def run_elastic_grid(
                     }
                     rates[hid] = float(tracker.rate or 0.0) or rates.get(hid, 1.0)
                     missing = sorted(remaining)
-                    mine = plan_claims([(t, costs[t]) for t in missing], rates).get(hid, [])
+                    plan = plan_claims([(t, costs[t]) for t in missing], rates)
+                    shares = {h: len(v) for h, v in sorted(plan.items())}
+                    plan_sig = json.dumps(shares)
+                    if plan_sig != last_plan_sig:
+                        last_plan_sig = plan_sig
+                        _log("scheduler", "plan", host=hid, missing=len(missing), shares=shares)
+                    mine = plan.get(hid, [])
                     mine_set = set(mine)
                     order = mine + [t for t in missing if t not in mine_set]
                     next_in_order = 0
@@ -521,8 +598,9 @@ def run_elastic_grid(
                         remaining.discard((bi, ui))  # a peer landed it
                         continue
                     lease = ckpt / f"tile_b{bi:05d}_u{ui:05d}.lease"
+                    takeover = lease.exists()
                     if _try_lease(ckpt, bi, ui, lease_ttl_s):
-                        claimed = (bi, ui, lease)
+                        claimed = (bi, ui, lease, takeover)
                         break
                     # leased to a live holder: revisit on the next plan
                 if claimed is None:
@@ -542,7 +620,9 @@ def run_elastic_grid(
                     time.sleep(poll_s)
                     continue
 
-                bi, ui, lease = claimed
+                bi, ui, lease, takeover = claimed
+                tile_id = runner.tile_id(bi, ui)
+                _log("scheduler", "reclaim" if takeover else "claim", host=hid, tile=tile_id)
                 shutdown.release_on_exit(lease)
                 # beat at the tile's start: the staleness clock spans one tile
                 hb.beat(tiles_done=done, cells_per_sec=tracker.rate)
@@ -560,20 +640,28 @@ def run_elastic_grid(
                     tracker.update(int(costs[(bi, ui)]), dur)
                 done += 1
                 claims_since_plan += 1
-                claimed_ids.append(runner.tile_id(bi, ui))
+                claimed_ids.append(tile_id)
                 remaining.discard((bi, ui))
                 hb.beat(tiles_done=done, cells_per_sec=tracker.rate)
+                _log("scheduler", "done", host=hid, tile=tile_id, source=source,
+                           dur_s=round(dur, 6), cells=int(costs[(bi, ui)]))
                 if verbose:
-                    print(f"  elastic: {runner.tile_id(bi, ui)} {source} in {dur:.3f}s "
+                    print(f"  elastic: {tile_id} {source} in {dur:.3f}s "
                           f"({len(remaining)} left)")
         finally:
+            # inside the shutdown block: on SIGTERM the "leave" lands before
+            # the run is finalized as interrupted
             hb.withdraw()
+            _log("scheduler", "leave", host=hid, tiles_done=done)
 
     if runner.ckpt is not None and runner.repairs:
         ckpt_mod._record_repairs(runner.ckpt, runner.repairs)
     if report is not None:
         report.update(host=hid, counts=dict(runner.counts), claimed=claimed_ids,
                       repairs=list(runner.repairs))
+    # computed tiles only: an all-hit sweep measured nothing, and echoing
+    # its seed would pin the median
+    _append_rate_history(tracker.rate, runner.counts.get("computed", 0), device)
     if not wait:
         return None
     # every tile is on disk: assembly is a pure read

@@ -55,10 +55,11 @@ A rule fires on a matching invocation when its hit index is in
 ``at_hits``, or (without ``at_hits``) when its seeded stream draws below
 ``p`` (default 1.0); ``max_fires`` caps its firings and ``match`` keeps it
 to targets holding that substring. Every firing is appended to the plan's
-``firings`` list. The reference also logs each as an obs ``fault`` event;
-that waits for the port's obs run log (ROADMAP 1.A item 9).
+``firings`` list and logged as an obs ``fault`` event when a run is
+active (``python -m sbr_tpu_torch.obs.report resilience`` folds them).
 
-Standard library only.
+Standard library only (the obs run log, imported when a fault fires, loads
+no torch either).
 """
 
 from __future__ import annotations
@@ -164,14 +165,16 @@ class FaultPlan:
                 acted = rule
         if acted is None:
             return None
-        self.firings.append({
+        record = {
             "point": point,
             "kind": acted.kind,
             "target": target,
             "rule": acted.index,
             "hit": acted.hits,
             "fire": acted.fires,
-        })
+        }
+        self.firings.append(record)
+        _emit(**record)
         if acted.kind == "transient":
             raise InjectedFault(
                 f"injected transient fault at {point} (rule {acted.index}, target {target!r})"
@@ -186,6 +189,16 @@ class FaultPlan:
             time.sleep(0.5)
             return None
         return acted  # nan / corrupt: the site applies the damage
+
+
+def _emit(**fields) -> None:
+    """Log one firing as an obs ``fault`` event (a no-op without a run)."""
+    try:
+        from sbr_tpu_torch.obs import runlog
+
+        runlog.log_fault(**fields)
+    except Exception:
+        pass  # telemetry must never sink an injection (or its test)
 
 
 # The process-wide plan, parsed from SBR_FAULT_PLAN on first use.

@@ -22,9 +22,8 @@ alone up a ladder of more conservative numerics:
 - rung 1: float64 with doubled bisection halvings (at least 90).
 
 A repaired cell replaces the original only when its recompute is not
-divergent: the ladder only ever raises trust. The reference also logs
-each outcome as an obs ``repair`` event; that waits for the port's run
-log (ROADMAP 1.A item 9).
+divergent: the ladder only ever raises trust. Each outcome, and each
+quarantine, is an obs ``repair`` event (a no-op without a run).
 """
 
 from __future__ import annotations
@@ -80,7 +79,7 @@ def quarantine(path, reason: str = "sha256-mismatch") -> Optional[Path]:
     """Move a corrupt file (and its sidecar) into a ``quarantine/`` dir
     beside it: the evidence is kept and the slot freed for a recompute.
     Returns the quarantined path (None if the move itself failed).
-    ``reason`` is the reference's obs label, unused until obs is ported."""
+    ``reason`` labels the obs ``repair`` event."""
     path = Path(path)
     qdir = path.parent / "quarantine"
     qdir.mkdir(exist_ok=True)
@@ -98,6 +97,7 @@ def quarantine(path, reason: str = "sha256-mismatch") -> Optional[Path]:
             os.replace(side, Path(str(dest) + ".sha256"))
         except OSError:
             pass
+    _log_repair(action="quarantine", target=path.name, ok=True, reason=reason)
     return dest
 
 
@@ -135,8 +135,8 @@ def repair_divergent(
     ``flags`` is the tile's host health-flag grid. Returns the repairs
     report: one dict a divergent cell with its index (``cell``), its
     ``flags``, the ``rung`` that fixed it (or None), ``repaired`` and, when
-    repaired, the recompute's ``new_flags``. ``scope`` is the reference's
-    obs label, unused until obs is ported."""
+    repaired, the recompute's ``new_flags``. ``scope`` prefixes each obs
+    ``repair`` event's target."""
     from sbr_tpu_torch.diag.health import DIVERGENT_MASK
     from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid
     from sbr_tpu_torch.utils.checkpoint import to_host
@@ -167,4 +167,20 @@ def repair_divergent(
             entry.update(rung=rung, repaired=True, new_flags=new_flags)
             break
         report.append(entry)
+        _log_repair(
+            action="degrade_ladder",
+            target=f"{scope}[{i},{j}]",
+            ok=entry["repaired"],
+            rung=entry["rung"],
+            flags=entry["flags"],
+        )
     return report
+
+
+def _log_repair(**fields) -> None:
+    try:
+        from sbr_tpu_torch.obs import runlog
+
+        runlog.log_repair(**fields)
+    except Exception:
+        pass  # telemetry must never sink a repair

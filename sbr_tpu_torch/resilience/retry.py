@@ -13,8 +13,9 @@ classification and shared retry budgets — the port of
   long-lived processes (the serving engine).
 - **Observers.** Every attempt outcome goes to an ``observer`` callable:
   ``retrying``, ``recovered``, ``gave_up``, ``deterministic`` and
-  ``budget_exhausted``. The default observer writes nothing: the port has
-  no obs run to log to yet (ROADMAP item 1.A 9).
+  ``budget_exhausted``. The default observer logs each as an obs ``retry``
+  event (`obs.log_retry`, imported when first needed; a no-op without a
+  run).
 
 Standard library only.
 """
@@ -197,6 +198,11 @@ def policy_from_env(prefix: str = "SBR_RETRY", **defaults) -> RetryPolicy:
 
 
 def _default_observer(**record) -> None:
-    """The observer when the caller gives none: it writes nothing, since
-    the reference's obs ``retry`` events need the run log, which the port
-    does not have yet (ROADMAP item 1.A 9)."""
+    """Report one attempt outcome as an obs ``retry`` event and manifest
+    roll-up (a no-op without a run)."""
+    try:
+        from sbr_tpu_torch.obs import runlog
+
+        runlog.log_retry(**record)
+    except Exception:
+        pass  # telemetry must never sink the retried call

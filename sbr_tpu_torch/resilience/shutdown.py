@@ -20,8 +20,8 @@ block exits, and nest: the outermost block owns them, so `run_tiled_grid`
 installs unconditionally even when called from the elastic scheduler or a
 server.
 
-The reference also finalizes every active obs run as ``"interrupted"``;
-that waits for the port's run log (ROADMAP 1.A item 9).
+Every active obs run is finalized with manifest status ``"interrupted"``
+first: a parseable record that says "preempted", not "crashed".
 """
 
 from __future__ import annotations
@@ -84,11 +84,22 @@ def _remove_all(registry: set) -> list:
     return removed
 
 
+def _finalize_obs_interrupted() -> None:
+    """Finalize every active obs run as "interrupted" (imported here: the
+    shutdown works in processes that never started telemetry)."""
+    try:
+        from sbr_tpu_torch.obs import runlog
+
+        runlog.interrupt_all()
+    except Exception:
+        pass  # a failing finalize must not mask the exit itself
+
+
 @contextlib.contextmanager
 def graceful_shutdown(label: str = "run"):
     """Turn SIGTERM/SIGINT into a clean exit (see the module docstring).
     A plain pass-through off the main thread and when nested. ``label`` is
-    the reference's obs label, unused until obs is ported."""
+    the reference's signature; neither package reads it."""
     global _DEPTH
     if threading.current_thread() is not threading.main_thread():
         yield  # CPython installs handlers in the main thread only
@@ -117,6 +128,7 @@ def graceful_shutdown(label: str = "run"):
     try:
         yield
     except Interrupted as itr:
+        _finalize_obs_interrupted()
         _remove_all(_TMP_REGISTRY)
         _remove_all(_RELEASE_REGISTRY)
         if itr.signum == signal.SIGINT:

@@ -24,8 +24,10 @@ served queries. The composed social fixed point is the port's damped loop
 copies of XLA's damping and ξ-march arithmetic.
 
 `run_tiled_scenario_grid` runs `scenario_grid` tiles through the tiled,
-checkpointed runner (`utils.checkpoint.run_tiled_grid`). Not ported: the
-reference's telemetry calls (ROADMAP 1.A item 9).
+checkpointed runner (`utils.checkpoint.run_tiled_grid`). With telemetry
+on, `scenario_grid` runs under the ``scenario.grid`` span with its program
+call, status and health censuses, and `solve` under ``scenario.solve``
+with a health census, as in the reference.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from sbr_tpu_torch.interest.solver import effective_hazard_stage
 from sbr_tpu_torch.models.params import ModelParams, SolverConfig
 from sbr_tpu_torch.models.results import LearningSolutionHetero, _fmt
 from sbr_tpu_torch.scenario.spec import ScenarioSpec, spec_fingerprint
+from sbr_tpu_torch.utils.checkpoint import dtype_name
 from sbr_tpu_torch.social.agents import default_device
 from sbr_tpu_torch.social.dynamics import solve_forced_learning
 from sbr_tpu_torch.social.solver import no_run_xi, run_fixed_point
@@ -354,10 +357,20 @@ def scenario_grid(
     u_values = torch.as_tensor(u_values, dtype=dtype, device=device)
     theta = scenario_theta(base, dtype, device)
     scalars = tuple(theta[k] for k in SCENARIO_KEYS[2:])  # all but beta, u
-    xi, _, aw_max, status, health = solve_scenario_cell(
-        spec.cell_program_spec(), beta_values.unsqueeze(-1), u_values, *scalars,
-        config=config, dtype=dtype, device=device,
-    )
+    fp = spec_fingerprint(spec, None, config, dtype)
+    cell_spec = spec.cell_program_spec()
+    n_b, n_u = int(beta_values.shape[0]), int(u_values.shape[0])
+    with obs.span("scenario.grid", scenario=fp[:12], n_beta=n_b, n_u=n_u,
+                  dtype=dtype_name(dtype)) as sp:
+        xi, _, aw_max, status, health = obs.jit_call(
+            "scenario.grid",
+            lambda b, u, *sc: solve_scenario_cell(cell_spec, b, u, *sc, config=config,
+                                                  dtype=dtype, device=device),
+            beta_values.unsqueeze(-1), u_values, *scalars,
+        )
+        sp.sync(status)
+    obs.log_status("scenario.grid", status)
+    obs.log_health("scenario.grid", health, status, scenario=fp[:12])
     return GridSweepResult(
         beta_values=beta_values, u_values=u_values, max_aw=aw_max, xi=xi,
         status=status, health=health,
@@ -535,7 +548,18 @@ def solve(
     _validate_params(spec, params)
     fp = spec_fingerprint(spec, params, config, dtype)
     red = spec.reduces_to()
+    with obs.span("scenario.solve", scenario=fp[:12], learning=spec.learning,
+                  modifiers=",".join(spec.modifiers) or "-", banks=spec.banks,
+                  reduction=red or "composed") as sp:
+        out = _solve_single(spec, params, config, dtype, device, fp, red)
+        sp.sync(out.xi)
+    obs.log_health("scenario.solve", out.health, out.status, scenario=fp[:12])
+    return out
 
+
+def _solve_single(spec: ScenarioSpec, params, config: SolverConfig, dtype, device, fp: str,
+                  red: Optional[str]) -> ScenarioResult:
+    """The single-bank dispatch of `solve` (module docstring)."""
     if red == "baseline":
         ls = solve_learning(params.learning, config, dtype=dtype, device=device)
         res = solve_equilibrium_baseline(ls, params.economic, config)

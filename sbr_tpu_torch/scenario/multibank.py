@@ -35,7 +35,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.core.integrate import prefix_sum
+from sbr_tpu_torch.diag.health import Health
 from sbr_tpu_torch.models.params import SolverConfig
 from sbr_tpu_torch.models.results import Status
 from sbr_tpu_torch.scenario.spec import ScenarioSpec, spec_fingerprint
@@ -125,7 +127,9 @@ def solve_multibank(
 ) -> MultiBankResult:
     """Solve an N-bank contagion scenario (module docstring) on ``device``
     (default: the CUDA card) in ``dtype`` (default: float64). ``config=None``
-    is the sweep default, refinement off."""
+    is the sweep default, refinement off. With telemetry on, the rounds run
+    under the ``scenario.multibank`` span, followed by one health census a
+    bank (tagged with the scenario and the bank) and a status census."""
     from sbr_tpu_torch.scenario.engine import SCENARIO_KEYS, _validate_params, batch_fn
 
     if spec.banks < 2:
@@ -173,34 +177,45 @@ def solve_multibank(
     spill = torch.zeros_like(kappa0)
     converged = False
     iterations = 0
-    for it in range(1, spec.contagion_max_iter + 1):
-        iterations = it
-        xi, tau_in, aw_max, status, health = dispatch(kappa_eff)
-        if layout is None:
-            # no exposure: zero spillover, so the first round is the fixed
-            # point, and κ_eff stays the κ column itself
-            converged = True
-            break
-        loss = torch.where(status == int(Status.RUN), aw_max, 0.0)
-        spill = _seg_weighted(w_sorted * loss[src_sorted], row_ptr)
-        target = torch.minimum(torch.maximum(kappa0 - lgd * spill, floor), kappa0)
-        new = (1.0 - alpha) * kappa_eff + alpha * target
-        # the round's one host read
-        delta = float((new - kappa_eff).abs().max())
-        # <= so that an exactly stable vector converges at contagion_tol=0
-        # (an all-no-run network has delta == 0.0 after round 1)
-        if delta <= spec.contagion_tol:
-            # κ stable: the results just computed are the fixed point's
-            converged = True
-            break
-        if it == spec.contagion_max_iter:
-            # budget exhausted: keep the κ_eff the reported xi/status/aw_max
-            # were solved under (re-solving at it reproduces the result)
-            break
-        kappa_eff = new
+    with obs.span("scenario.multibank", scenario=fp[:12], banks=spec.banks,
+                  edges=len(spec.exposure)) as sp:
+        for it in range(1, spec.contagion_max_iter + 1):
+            iterations = it
+            xi, tau_in, aw_max, status, health = dispatch(kappa_eff)
+            if layout is None:
+                # no exposure: zero spillover, so the first round is the fixed
+                # point, and κ_eff stays the κ column itself
+                converged = True
+                break
+            loss = torch.where(status == int(Status.RUN), aw_max, 0.0)
+            spill = _seg_weighted(w_sorted * loss[src_sorted], row_ptr)
+            target = torch.minimum(torch.maximum(kappa0 - lgd * spill, floor), kappa0)
+            new = (1.0 - alpha) * kappa_eff + alpha * target
+            # the round's one host read
+            delta = float((new - kappa_eff).abs().max())
+            # <= so that an exactly stable vector converges at contagion_tol=0
+            # (an all-no-run network has delta == 0.0 after round 1)
+            if delta <= spec.contagion_tol:
+                # κ stable: the results just computed are the fixed point's
+                converged = True
+                break
+            if it == spec.contagion_max_iter:
+                # budget exhausted: keep the κ_eff the reported xi/status/aw_max
+                # were solved under (re-solving at it reproduces the result)
+                break
+            kappa_eff = new
+        sp.sync(status)
 
-    return MultiBankResult(
+    res = MultiBankResult(
         spec=spec, fingerprint=fp, xi=xi, tau_bar_in=tau_in, aw_max=aw_max,
         status=status, kappa_eff=kappa_eff, spillover=spill,
         iterations=iterations, converged=converged, health=health,
     )
+    if obs.enabled():
+        # one census a bank, so `report health` groups by scenario and bank
+        for i in range(spec.banks):
+            h_i = Health(**{f.name: getattr(health, f.name)[i]
+                            for f in dataclasses.fields(health)})
+            obs.log_health("scenario.multibank", h_i, status[i], scenario=fp[:12], bank=i)
+    obs.log_status("scenario.multibank", status)
+    return res

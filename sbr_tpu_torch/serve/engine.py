@@ -64,9 +64,18 @@
   so it never overlaps a bucket's capture or replay. A population query
   launches the CUDA infection or belief kernel every step of every member.
 
+**Run directory.** ``Engine(run_dir=...)`` (or ``run=``, or an active obs
+run) writes the rolling ``live.json`` and the obs events of the serving
+path: ``fleet`` events for sheds (``expired``, ``unmeetable``,
+``queue-expired``), breaker transitions and the ladder's ``degraded`` /
+``ladder_exhausted``, a ``serve.compile[...]`` span around each bucket's
+first build (on the card its capture), ``serve_batch`` per dispatch and a
+``serve_summary`` at close; ``python -m sbr_tpu_torch.obs.report serve``
+gates on it.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-run directories (1.A item 9), and the audit, demand, prewarm and
-flight-recorder switches (1.A items 9 and 10).
+the audit (1.A 9d), demand and flight-recorder (1.A 9c) and prewarm (1.A
+10) switches.
 """
 
 from __future__ import annotations
@@ -116,7 +125,7 @@ _INT_OUTPUTS = ("status", "flags", "grad_flags")
 
 # Switches of the reference's engine that need modules not ported yet.
 _UNPORTED_ENV = {
-    "SBR_AUDIT": "1.A 9", "SBR_DEMAND": "1.A 9", "SBR_PREWARM": "1.A 10", "SBR_FLIGHT": "1.A 9",
+    "SBR_AUDIT": "1.A 9d", "SBR_DEMAND": "1.A 9c", "SBR_PREWARM": "1.A 10", "SBR_FLIGHT": "1.A 9c",
 }
 
 
@@ -370,8 +379,6 @@ class Engine:
         run_dir: Optional[str] = None,
         device=None,
     ) -> None:
-        if run is not None or run_dir is not None:
-            raise _not_ported("a serving run directory (run=, run_dir=)", "1.A 9")
         for var, item in _UNPORTED_ENV.items():
             if os.environ.get(var, "").strip() not in ("", "0"):
                 raise _not_ported(f"{var}={os.environ[var]!r}", item)
@@ -390,10 +397,16 @@ class Engine:
         self.graphs = GraphCounters()
         self.live = LiveMetrics(graphs=self.graphs)
 
+        self._owned_run = None
+        if run is None and run_dir is not None:
+            run = self._owned_run = obs.start_run(label="serve", run_dir=run_dir)
+        self._run = run if run is not None else obs.active_run()
+
         self._lru: "OrderedDict[str, dict]" = OrderedDict()
         self._lru_lock = threading.Lock()
         self._disk_writes = 0
         self._programs: dict = {}
+        self._programs_built = 0
         self._graph_pool = None
         # One dispatch at a time: a program's buffers and graph are shared.
         self._dispatch_lock = threading.Lock()
@@ -414,10 +427,10 @@ class Engine:
         self.retry_budget = retry.RetryBudget(
             self._budget_total, refill_s=self._budget_refill_s or None
         )
-        self.breaker = CircuitBreaker()
+        # transitions land as obs ``fleet`` events
+        self.breaker = CircuitBreaker(on_transition=self._on_breaker)
         # The degradation ladder's tile-cache rung (SBR_TILE_CACHE_DIR) and
-        # the tally of its outcomes, which the reference logs as obs
-        # ``fleet`` events (the port's run log is ROADMAP 1.A item 9).
+        # the tally of its outcomes (each also a ``fleet`` event).
         self.bridge = TileCacheBridge()
         self.ladder = {"degraded": 0, "ladder_exhausted": 0}
         self._ladder_lock = threading.Lock()
@@ -464,12 +477,40 @@ class Engine:
                     t.event.set()
         with self._dispatch_lock:
             self._programs.clear()  # releases the captured graphs
+        if self._run is not None:
+            w = self.live.window()
+            self.live.maybe_write(self._run, self._live_extra(window=w), window=w, force=True)
+            self._log("event", "serve_summary", **self.live.snapshot())
+        if self._owned_run is not None:
+            from sbr_tpu_torch.obs import runlog
+
+            runlog._finalize_if_active(self._owned_run)
 
     def __enter__(self) -> "Engine":
         return self.start()
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def _log(self, method: str, *args, **fields) -> None:
+        """One event on the engine's run (``method`` of `obs.RunContext`),
+        if it has one; telemetry never sinks the serving path."""
+        if self._run is None:
+            return
+        try:
+            getattr(self._run, method)(*args, **fields)
+        except Exception:
+            pass
+
+    def _on_breaker(self, old: str, new: str) -> None:
+        """Breaker transition observer: one obs ``fleet`` event."""
+        self._log("log_fleet", f"breaker_{new}", scope="serve.dispatch", previous=old,
+                  failures=self.breaker.consecutive_failures)
+
+    def _maybe_write_live(self) -> None:
+        if self._run is not None and self.live.write_due():
+            w = self.live.window()
+            self.live.maybe_write(self._run, self._live_extra(window=w), window=w)
 
     # -- deadlines / admission ----------------------------------------------
     def _retry_after(self) -> float:
@@ -488,12 +529,15 @@ class Engine:
         est = self._service_ewma_s
         if deadline_ms <= 0:
             self.live.record_shed()
+            self._log("log_fleet", "shed", reason="expired", deadline_ms=float(deadline_ms))
             raise DeadlineExceeded(
                 f"deadline already expired ({deadline_ms:g} ms)",
                 retry_after_s=self._retry_after(),
             )
         if est is not None and deadline_ms / 1e3 < est:
             self.live.record_shed()
+            self._log("log_fleet", "shed", reason="unmeetable", deadline_ms=float(deadline_ms),
+                      service_est_s=round(est, 4))
             raise DeadlineExceeded(
                 f"deadline {deadline_ms:g} ms under the measured service "
                 f"time ({est * 1e3:.1f} ms)",
@@ -751,6 +795,10 @@ class Engine:
                 "lru_max": self.serve.lru_max,
                 "cache_dir": self.serve.cache_dir,
                 "aot": "unsupported (CUDA graphs are per-process)",
+                # the reference's executable counts: bucket programs built
+                # (captured on the card), none reloaded from disk
+                "compiled": self._programs_built,
+                "loaded": 0,
             },
         }
 
@@ -765,6 +813,7 @@ class Engine:
             except queue.Empty:
                 if self._stop.is_set():
                     break
+                self._maybe_write_live()
                 continue
             batch, shutdown = [], item is _SHUTDOWN
             if not shutdown:
@@ -799,6 +848,7 @@ class Engine:
                     self._process(batch)
                 finally:
                     self.live.inflight = 0
+                self._maybe_write_live()
             if shutdown:
                 break
 
@@ -818,6 +868,7 @@ class Engine:
                 # Expired while queued: shed now instead of burning a
                 # dispatch on a dead query.
                 self.live.record_shed()
+                self._log("log_fleet", "shed", reason="queue-expired", scenario=t.scenario)
                 t.error = DeadlineExceeded(
                     "deadline expired while queued", retry_after_s=self._retry_after(),
                 )
@@ -873,8 +924,10 @@ class Engine:
             rec = self.bridge.lookup(t.params, self.config, self.dtype_name)
         except Exception:
             rec = None  # a broken bridge must never mask the real error
+        outcome = "degraded" if rec is not None else "ladder_exhausted"
         with self._ladder_lock:
-            self.ladder["degraded" if rec is not None else "ladder_exhausted"] += 1
+            self.ladder[outcome] += 1
+        self._log("log_fleet", outcome, scenario=t.scenario, key=t.key[:12])
         return rec
 
     def _fulfill(self, t: _Ticket, rec: dict, source: str, degraded: bool = False) -> None:
@@ -910,9 +963,14 @@ class Engine:
         if program is None:
             if self.device.type == "cuda" and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            program = BucketProgram(bucket, self.config, self.dtype, self.device,
-                                    self.graphs, cols, self._graph_pool, aprime_tol=tol)
+            t0 = time.monotonic()
+            with obs.span(f"serve.compile[{bucket}{'g' if grads else ''}]"):
+                program = BucketProgram(bucket, self.config, self.dtype, self.device,
+                                        self.graphs, cols, self._graph_pool, aprime_tol=tol)
             self._programs[key] = program
+            self._programs_built += 1
+            self._log("event", "serve_exec", bucket=bucket, source="compiled", grads=grads,
+                      compile_s=round(time.monotonic() - t0, 3))
         return program
 
     def _aprime_tol(self) -> float:
@@ -966,6 +1024,10 @@ class Engine:
         )
         self.live.record_batch(n, bucket)
         names = _GRAD_OUTPUTS if grads else _OUTPUTS
+        if self._run is not None:
+            flags_row = out[names.index("flags"), :n].astype(np.int64)
+            self._log("event", "serve_batch", n=n, bucket=bucket,
+                      divergent=int(((flags_row & DIVERGENT_MASK) != 0).sum()))
         records = []
         for i in range(n):
             rec = {name: float(out[k, i]) for k, name in enumerate(names)}
@@ -1099,5 +1161,6 @@ class Engine:
                         victim.unlink()
                     except OSError:
                         pass
+            self._log("event", "serve_cache_prune", removed=len(entries) - cap, cap=cap)
         except OSError:
             pass

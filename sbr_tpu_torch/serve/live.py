@@ -15,8 +15,10 @@
   (`GraphCounters`, owned by the engine). A scrape, not a log, proves that
   a warm server captures nothing new.
 
-The rolling ``live.json`` in a run directory (`maybe_write` given a run)
-waits for the port's obs run log (ROADMAP item 1.A 9).
+- **The rolling ``live.json``** in a run directory, rewritten atomically
+  (`maybe_write` through `obs.RunContext.live_snapshot`) at a bounded
+  cadence, so ``python -m sbr_tpu_torch.obs.report serve RUN_DIR`` reads a
+  running server.
 """
 
 from __future__ import annotations
@@ -126,6 +128,7 @@ class LiveMetrics:
         self.inflight = 0
         self.started_at = time.time()
         self._t0 = self._time()
+        self._last_write = 0.0
 
     # -- recording (engine threads) -----------------------------------------
     def _slot(self) -> _Slot:
@@ -284,19 +287,29 @@ class LiveMetrics:
             doc.update(extra)
         return doc
 
+    def write_due(self, min_interval_s: float = 0.5) -> bool:
+        """Whether `maybe_write` would write now: hot and idle loops check
+        this first, so the document is built only when a write lands."""
+        return self._time() - self._last_write >= min_interval_s
+
     def maybe_write(self, run, extra: Optional[dict] = None,
                     min_interval_s: float = 0.5, force: bool = False,
                     window: Optional[dict] = None) -> bool:
-        """The reference writes the rolling ``live.json`` through
-        ``run.live_snapshot``; the port has no run log yet (ROADMAP 1.A
-        item 9), so a run raises `NotImplementedError`. Without a run it
-        writes nothing and returns False."""
-        if run is not None:
-            raise NotImplementedError(
-                "live.json in a run directory needs the obs run log, not ported "
-                "yet (ROADMAP item 1.A 9)"
-            )
-        return False
+        """Write the rolling ``live.json`` through ``run.live_snapshot`` at
+        a bounded cadence (``force`` for the final write at close).
+        ``window`` shares the caller's fold like `snapshot`. Returns
+        whether a write happened; a failed write returns False."""
+        if run is None:
+            return False
+        now = self._time()
+        if not force and now - self._last_write < min_interval_s:
+            return False
+        self._last_write = now
+        try:
+            run.live_snapshot(self.snapshot(extra, window=window))
+            return True
+        except Exception:
+            return False  # live telemetry must never sink the serving path
 
     # -- prometheus exposition ----------------------------------------------
     def to_prometheus(self, extra: Optional[dict] = None) -> str:

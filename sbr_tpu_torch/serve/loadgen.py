@@ -15,9 +15,11 @@ against an in-process `Engine` + `ServeEndpoint` (on the CUDA card unless
   measured phase shows a cache hit rate >= the floor AND zero new CUDA
   graph captures on the scraped counters.
 
-``--fleet``, ``--trace-out``, ``--run-dir`` and the audit flags wait for
-the fleet, tracing and the obs run log (ROADMAP 1.A items 9 and 10): they
-exit 2 with a "not ported" message.
+``--run-dir`` lands the engine's rolling ``live.json`` and its events in an
+obs run directory that ``python -m sbr_tpu_torch.obs.report serve``
+renders and gates. ``--fleet`` and its flags (ROADMAP 1.A 10),
+``--trace-out`` (1.A 9c) and the audit flags (1.A 9d) wait for their
+modules: they exit 2 with a "not ported" message.
 
 Exit codes: 0 ok, 1 failed assertion (--assert-warm), 2 setup error.
 """
@@ -46,10 +48,9 @@ _UNPORTED_FLAGS = {
     "fleet_dir": ("--fleet-dir", "1.A 10"),
     "fleet_kill_after": ("--fleet-kill-after", "1.A 10"),
     "answers_out": ("--answers-out", "1.A 10"),
-    "trace_out": ("--trace-out", "1.A 9"),
-    "run_dir": ("--run-dir", "1.A 9"),
-    "audit_fault": ("--audit-fault", "1.A 9"),
-    "audit_wait": ("--audit-wait", "1.A 9"),
+    "trace_out": ("--trace-out", "1.A 9c"),
+    "audit_fault": ("--audit-fault", "1.A 9d"),
+    "audit_wait": ("--audit-wait", "1.A 9d"),
 }
 
 
@@ -159,7 +160,8 @@ def main(argv=None) -> int:
                         help="not ported")
     parser.add_argument("--answers-out", default=None, dest="answers_out", help="not ported")
     parser.add_argument("--trace-out", default=None, dest="trace_out", help="not ported")
-    parser.add_argument("--run-dir", default=None, help="not ported")
+    parser.add_argument("--run-dir", default=None,
+                        help="obs run dir for the rolling live.json (report serve reads it)")
     parser.add_argument("--audit-fault", default=None, dest="audit_fault", help="not ported")
     parser.add_argument("--audit-wait", type=int, default=0, dest="audit_wait",
                         help="not ported")
@@ -190,7 +192,7 @@ def main(argv=None) -> int:
     mix = query_mix(args.seed, args.pool, args.queries)
 
     try:
-        engine = Engine(config=config, serve=serve_cfg, device=args.device)
+        engine = Engine(config=config, serve=serve_cfg, run_dir=args.run_dir, device=args.device)
     except RuntimeError as err:  # no card and no --device cpu
         print(f"[loadgen] {err}", file=sys.stderr)
         return 2
@@ -259,6 +261,7 @@ def main(argv=None) -> int:
             "statz_ok": statz_ok,
             "occupancy": (statz.get("totals") or {}).get("occupancy"),
             "endpoint_port": endpoint.port,
+            "run_dir": args.run_dir,
         }
     finally:
         if endpoint is not None:

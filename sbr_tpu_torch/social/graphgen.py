@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sbr_tpu_torch import obs
 from sbr_tpu_torch.core.integrate import xla_cumsum
 from sbr_tpu_torch.social import agents as A
 from sbr_tpu_torch.social.rng import _threefry2x32
@@ -523,7 +524,8 @@ def prepare_generated_graph(
     host prepare of the raw stream (tested). ``engine="gather"`` builds
     pay for neither the out-degree census nor the incremental
     orientation. Only node-length data touches the host: β, the spec
-    tables, the in-degrees and, for "auto", the out-degree census."""
+    tables, the in-degrees and, for "auto", the out-degree census. With
+    telemetry on, the build runs under the ``graphgen.build`` span."""
     if mesh is not None:
         raise NotImplementedError("the sharded graph build (mesh=) is not ported yet")
     if config is None:
@@ -539,24 +541,25 @@ def prepare_generated_graph(
     d0 = int(incremental_max_degree) if incremental_max_degree is not None else 64
     betas_h = np.broadcast_to(np.asarray(betas, dtype=dtype), (n,)).copy()
 
-    built = _SingleBuild(spec, seed, chunk_edges, device)
-    e = built.e
-    if engine == "auto":
-        engine = A._resolve_engine_from_outdeg(
-            built.outdeg.cpu().numpy(), n, e, config, incremental_budget, d0,
-            float(np.mean(betas_h, dtype=np.float64)),
+    with obs.span("graphgen.build", spec=type(spec).__name__, n=n):
+        built = _SingleBuild(spec, seed, chunk_edges, device)
+        e = built.e
+        if engine == "auto":
+            engine = A._resolve_engine_from_outdeg(
+                built.outdeg.cpu().numpy(), n, e, config, incremental_budget, d0,
+                float(np.mean(betas_h, dtype=np.float64)),
+            )
+        if engine == "incremental" and e == 0:
+            engine = "gather"
+        budget, inc = 0, None
+        if engine == "incremental":
+            budget = incremental_budget or A._default_incremental_budget(n)
+            dst2, out_ptr = built.inc_arrays()
+            inc = (dst2, out_ptr, built.outdeg)
+        return A.PreparedAgentGraph(
+            n=n, n_edges=e, dtype=dtype, device=device, engine=engine,
+            budget=int(budget), max_degree=d0,
+            betas=A._tensor(betas_h, device), src=built.src_sorted(),
+            row_ptr=built.row_ptr, indeg=built.indeg.to(A._TORCH_DTYPE[dtype]),
+            inc=inc,
         )
-    if engine == "incremental" and e == 0:
-        engine = "gather"
-    budget, inc = 0, None
-    if engine == "incremental":
-        budget = incremental_budget or A._default_incremental_budget(n)
-        dst2, out_ptr = built.inc_arrays()
-        inc = (dst2, out_ptr, built.outdeg)
-    return A.PreparedAgentGraph(
-        n=n, n_edges=e, dtype=dtype, device=device, engine=engine,
-        budget=int(budget), max_degree=d0,
-        betas=A._tensor(betas_h, device), src=built.src_sorted(),
-        row_ptr=built.row_ptr, indeg=built.indeg.to(A._TORCH_DTYPE[dtype]),
-        inc=inc,
-    )

@@ -26,6 +26,7 @@ from sbr_tpu_torch.models.params import ModelParamsInterest, SolverConfig
 from sbr_tpu_torch.resilience import faults
 from sbr_tpu_torch.social.agents import default_device
 from sbr_tpu_torch.sweeps.baseline_sweeps import _no_mesh, _RowLearning
+from sbr_tpu_torch.utils.checkpoint import dtype_name
 
 # Version of the (β, u, r) cell numerics, the reference's; a cache keyed
 # on it must also carry the port's backend tag (see GRID_PROGRAM_VERSION).
@@ -63,7 +64,13 @@ def policy_sweep_interest(
     default with crossing refinement off, as in the reference. η, tspan
     and δ stay pinned at the base model's resolved values for every cell.
     Every r must be below δ. ``mesh=`` (sharded sweeps) is not ported yet
-    and raises."""
+    and raises.
+
+    With telemetry on, the grid runs as one program through `obs.jit_call`
+    inside the ``sweeps.policy_interest`` span, followed by the status and
+    health censuses. The OOM preflight logs its record as the reference's
+    does; the port measures no footprint for this grid, so on the card the
+    verdict is "skipped" ("not-measured")."""
     _no_mesh(mesh)
     if config is None:
         config = SolverConfig(refine_crossings=False)
@@ -78,12 +85,19 @@ def policy_sweep_interest(
 
     beta_values, u_values, r_values = tensor(beta_values), tensor(u_values), tensor(r_values)
     cells = (beta_values.shape[0], u_values.shape[0], r_values.shape[0])
+    n_b, n_u, n_r = (int(c) for c in cells)
+    if obs.mem.preflight_enabled():
+        obs.mem.preflight(f"policy[{n_b}x{n_u}x{n_r}]", None,
+                          skip_reason=None if obs.mem.device_capacity() is None
+                          else "not-measured")
     faults.fire("sweep.dispatch", target="policy_interest[{}x{}x{}]".format(*cells))
     t0, t1 = (tensor(v) for v in base.learning.tspan)
-    learning = _RowLearning(beta_values.reshape(-1, 1, 1), (t0, t1), tensor(base.learning.x0))
-    with obs.program():  # the reference's jitted grid: telemetry inside is silent
+
+    def program(beta_values, u_values, r_values):
+        learning = _RowLearning(beta_values.reshape(-1, 1, 1), (t0, t1),
+                                tensor(base.learning.x0))
         ls = solve_learning(learning, config, dtype=dtype, device=dev)
-        res = solve_equilibrium_interest_core(
+        return solve_equilibrium_interest_core(
             ls,
             u_values.reshape(1, -1, 1).expand(cells),
             *(tensor(v) for v in (econ.p, econ.kappa, econ.lam, econ.eta)),
@@ -92,6 +106,14 @@ def policy_sweep_interest(
             t1,
             config,
         ).base
+
+    with obs.span("sweeps.policy_interest", n_beta=n_b, n_u=n_u, n_r=n_r,
+                  dtype=dtype_name(dtype), sharded=False) as sp:
+        res = obs.jit_call("sweeps.policy_interest", program, beta_values, u_values, r_values)
+        sp.sync(res.status)
+    obs.metrics.metrics().inc("sweeps.policy_interest.cells", n_b * n_u * n_r)
+    obs.log_status("sweeps.policy_interest", res.status)
+    obs.log_health("sweeps.policy_interest", res.health, res.status)
     return PolicySweepResult(
         beta_values=beta_values, u_values=u_values, r_values=r_values,
         xi=res.xi, aw_max=res.aw_max, status=res.status, health=res.health,

@@ -43,7 +43,7 @@ sweep resumes instead of restarting:
 (`_preflight_tile`) holds one full tile's measured footprint against the
 card's capacity and fails closed. With telemetry on, every computed tile
 lands a per-tile ``mem`` event. The reference's flight-recorder marks
-wait for ``obs.flight`` (ROADMAP 1.A 9).
+wait for ``obs.flight`` (ROADMAP 1.A 9c).
 """
 
 from __future__ import annotations

@@ -326,12 +326,16 @@ def test_port_imports_no_jax_and_no_sbr_tpu():
         "import sys\n"
         "import numpy as np\n"
         "import sbr_tpu_torch as st\n"
+        "for name in st.__all__:  # the package's exports load on first use\n"
+        "    getattr(st, name)\n"
         "import sbr_tpu_torch.benchmarks.ablate_pallas_recount\n"
         "import sbr_tpu_torch.core.ode\n"
         "import sbr_tpu_torch.figures.master\n"
         "import sbr_tpu_torch.obs.mem\n"
         "import sbr_tpu_torch.obs.prof\n"
         "import sbr_tpu_torch.obs.runlog\n"
+        "import sbr_tpu_torch.obs.report\n"
+        "import sbr_tpu_torch.obs.history\n"
         "import sbr_tpu_torch.hetero\n"
         "import sbr_tpu_torch.interest\n"
         "import sbr_tpu_torch.social.recount\n"
@@ -342,6 +346,26 @@ def test_port_imports_no_jax_and_no_sbr_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sbr_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', float(r.informed_frac[-1]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_report_and_history_import_no_torch():
+    """The run reader is a CLI over JSON files (chaos drills run it as a
+    subprocess): importing it, or running it, loads no torch."""
+    code = (
+        "import sys\n"
+        "import sbr_tpu_torch.obs.report, sbr_tpu_torch.obs.history\n"
+        "from sbr_tpu_torch import obs\n"
+        "obs.report.main(['trend', 'missing.jsonl'])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'sbr_tpu', 'numpy'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -890,3 +890,69 @@ def test_span_inside_a_cuda_graph_capture_is_a_no_op(cuda_device, tmp_path):
         assert np.array_equal(np.isnan(served), nan)
         assert served[~nan].tobytes() == eager[~nan].tobytes()
     assert obs.prof.trace_counts().get("serve.bucket", 0) >= 1
+
+
+def test_served_run_dir_on_card_equals_cpu(cuda_device, tmp_path):
+    """An engine on the card with a run directory: bucket captures under
+    their ``serve.compile`` spans, ``serve_batch`` events, a live.json that
+    `report serve` passes, and the same answers and event sequence as an
+    engine on the CPU."""
+    import json
+
+    from sbr_tpu_torch.obs import report
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    pool = build_pool(3, 12)
+    cfg = st.SolverConfig(n_grid=256, bisect_iters=40, refine_crossings=False)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        run_dir = tmp_path / dev
+        with Engine(config=cfg, serve=ServeConfig(buckets=(1, 8)), run_dir=str(run_dir),
+                    device=dev) as engine:
+            answers = engine.query_many(pool, timeout=600)
+            engine.query_many(pool, timeout=600)  # LRU hits
+            graphs = engine.statz()["graphs"]
+        events = [json.loads(line) for line in (run_dir / "events.jsonl").read_text().splitlines()]
+        out[dev] = (answers, graphs, [(e["kind"], e.get("stage") or e.get("action"))
+                                      for e in events if e["kind"] in
+                                      ("stage_start", "stage_end", "serve_batch", "fleet")])
+        assert report.main(["serve", str(run_dir), "--json"]) == 0
+    (card, graphs, seq), (cpu, _, cpu_seq) = out["cuda"], out["cpu"]
+    assert sum(graphs["captured"].values()) >= 1 and graphs["eager_runs"] == 0
+    assert seq == cpu_seq and ("stage_start", "serve.compile[8]") in seq
+    for a, b in zip(card, cpu):
+        assert (a.status, a.flags) == (b.status, b.flags)
+        assert np.isnan(a.xi) == np.isnan(b.xi)
+        assert np.isnan(a.xi) or abs(a.xi - b.xi) <= 1e-12
+
+
+@pytest.mark.parametrize("channel", ["bayes", "gossip"])
+def test_served_population_launches_members_times_steps_under_a_run(cuda_device, channel,
+                                                                    tmp_path):
+    """A population query served on the card under a run directory
+    launches its channel's kernel members × steps times, the other kernel
+    never, and logs the query's ``infomodel`` event."""
+    import json
+
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    m = st.make_model_params(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
+    doc = {"graph": {"model": "erdos_renyi", "n": 4000, "avg_degree": 10.0},
+           "infomodel": {"channel": channel}, "seeds": 3, "vary": "sim", "g0": None}
+    kernel, other = (BELIEF_KERNEL, KERNEL) if channel == "bayes" else (KERNEL, BELIEF_KERNEL)
+    steps = int(round(float(m.economic.eta) / 0.1))
+    with Engine(config=st.SolverConfig(n_grid=256), serve=ServeConfig(buckets=(1,)),
+                run_dir=str(tmp_path / "run"), device="cuda") as engine:
+        before = dict(_build.LAUNCHES)
+        rec = engine.query_population(m, doc)
+        torch.cuda.synchronize()
+        after = dict(_build.LAUNCHES)
+    assert after.get(kernel, 0) - before.get(kernel, 0) == 3 * steps
+    assert after.get(other, 0) == before.get(other, 0)
+    events = [json.loads(line) for line in
+              (tmp_path / "run" / "events.jsonl").read_text().splitlines()]
+    queries = [e for e in events if e["kind"] == "infomodel"
+               and e.get("action") == "population_query"]
+    assert len(queries) == 1 and queries[0]["run_probability"] == rec["run_probability"]

@@ -14,7 +14,11 @@ Contracts:
   `run_tiled_grid`: a single host, a joiner that adopts the remainder, a
   live lease respected and then reclaimed after its TTL, a warm cache
   that computes 0 tiles (counted by the runner's ``counts``), and a
-  two-process farm with a subprocess.
+  two-process farm with a subprocess;
+- telemetry: a cold and a warm elastic sweep under a run log the
+  reference's ``scheduler`` and ``cache`` events (hosts aside: each
+  process names itself), and `report elastic` folds them as the
+  reference's does, its tile counts equal to the runner's ``counts``.
 
 Every subprocess wait carries a timeout and every process is killed in a
 ``finally``.
@@ -33,13 +37,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from sbr_tpu import obs as jobs  # noqa: E402
 from sbr_tpu.models import params as jparams  # noqa: E402
 from sbr_tpu.resilience import elastic as jelastic  # noqa: E402
+from sbr_tpu_torch import obs  # noqa: E402
 from sbr_tpu_torch.models import params as tparams  # noqa: E402
 from sbr_tpu_torch.parallel import run_tiled_grid_multihost  # noqa: E402
 from sbr_tpu_torch.parallel.distributed import _try_lease  # noqa: E402
 from sbr_tpu_torch.resilience import elastic, faults, shutdown  # noqa: E402
 from sbr_tpu_torch.utils.checkpoint import run_tiled_grid  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 CFG_KW = dict(n_grid=96, bisect_iters=40, numerics="fixed")
@@ -348,6 +355,51 @@ def test_warm_global_cache_computes_zero_tiles(tmp_path, monkeypatch):
     assert warm_report["counts"] == {"local": 0, "cache": 4, "computed": 0}
     assert _same_grid(warm, cold) and _same_grid(warm, _direct())
     assert len(list((tmp_path / "cache").rglob("*.meta.json"))) == 4
+
+
+def _elastic_runs(pkg, root):
+    """A cold and then a warm elastic sweep over one tile cache, each under
+    its own run; returns the two run directories and the runner reports."""
+    reports = []
+    for name in ("cold", "warm"):
+        if pkg == "ref":
+            with jobs.run_context(run_dir=str(root / name)):
+                jelastic.run_elastic_grid(BETAS, US, jparams.make_model_params(),
+                                          str(root / f"ck_{name}"),
+                                          config=jparams.SolverConfig(**CFG_KW),
+                                          tile_shape=(2, 2), poll_s=0.05, timeout_s=60.0,
+                                          tile_cache_dir=str(root / "cache"))
+        else:
+            rep = {}
+            with obs.run_context(run_dir=str(root / name)):
+                elastic.run_elastic_grid(BETAS, US, _base(), str(root / f"ck_{name}"),
+                                         config=CFG, tile_shape=(2, 2), poll_s=0.05,
+                                         timeout_s=60.0, tile_cache_dir=str(root / "cache"),
+                                         device=CPU, report=rep)
+            reports.append(rep)
+    return root / "cold", root / "warm", reports
+
+
+def test_scheduler_and_cache_events_equal_reference(tmp_path):
+    from sbr_tpu.obs import report as jreport
+    from sbr_tpu_torch.obs import report
+
+    *ref, _ = _elastic_runs("ref", tmp_path / "ref")
+    *port, reports = _elastic_runs("port", tmp_path / "port")
+    for got_dir, want_dir, rep in zip(port, ref, reports):
+        got, want = events(got_dir), events(want_dir)
+        assert_same_events(got, want, {"scheduler", "cache"}, dropped=("host", "shares"))
+        plans = [[sorted(e["shares"].values()) for e in evs if e.get("action") == "plan"]
+                 for evs in (got, want)]
+        assert plans[0] == plans[1]
+        (doc, code), (jdoc, jcode) = (mod.elastic_doc(mod.load_run(d))
+                                      for mod, d in ((report, got_dir), (jreport, want_dir)))
+        assert code == jcode == 0
+        for key in ("tiles_computed", "tiles_from_cache", "cache", "scheduler", "tiles"):
+            assert doc[key] == jdoc[key], key
+        assert doc["tiles_computed"] == rep["counts"]["computed"]
+        assert doc["tiles_from_cache"] == rep["counts"]["cache"] + rep["counts"]["local"]
+    assert [e["action"] for e in events(port[1]) if e["kind"] == "cache"] == ["hit"] * 4
 
 
 def test_wait_false_returns_none_after_claiming(tmp_path):

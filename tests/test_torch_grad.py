@@ -24,8 +24,13 @@ Contracts:
   survive a disk-cache restart, and their program reads nothing from the
   host (a CUDA graph captures it).
 
-Not mirrored: the reference's grad CLI and its obs audit and report tests,
-which need the port's `obs/` (ROADMAP 1.A item 9).
+- telemetry: the entry points' spans, program calls and ``grad`` events
+  (flag censuses, ``calib_start``/``calib_step``/``calib_done``,
+  ``stress_done``) equal the reference's for the same calls, after a
+  warm-up, and `report grad` folds them as the reference's does.
+
+Not mirrored: the reference's grad CLI and its obs audit tests, which need
+the port's `obs/audit` (ROADMAP 1.A item 9d).
 """
 
 import json
@@ -61,6 +66,7 @@ from sbr_tpu_torch.serve.engine import BucketProgram, _query_columns  # noqa: E4
 from sbr_tpu_torch.serve.live import GraphCounters  # noqa: E402
 from sbr_tpu_torch.serve.loadgen import build_pool, http_request  # noqa: E402
 from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid, solve_param_cell  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 F64 = torch.float64
@@ -787,3 +793,82 @@ def test_grads_program_is_capturable(numerics):
         out = program.solve()
     assert mode.touches == [] and mode.ops > 1000
     assert out.shape == (10, 4) and torch.isfinite(out[6:9]).any()
+
+
+# ---------------------------------------------------------------------------
+# Telemetry
+# ---------------------------------------------------------------------------
+
+
+def _grad_calls(pkg, run_dir):
+    """The five instrumented entry points, once each, under one run."""
+    if pkg == "ref":
+        from sbr_tpu import obs as mod
+
+        P, cfg, a, cal, st, kw = jparams, _cfg(jparams), japi, jcal, jstress, {}
+    else:
+        from sbr_tpu_torch import obs as mod
+
+        P, cfg, a, cal, st, kw = tparams, CFG, api, calibrate, stress, {"device": CPU}
+    with mod.run_context(run_dir=str(run_dir)):
+        a.xi_and_grad(P.make_model_params(**POINTS[0]), config=cfg, **kw)
+        a.interest_xi_and_grad(P.make_interest_params(u=0.1, r=0.03, delta=0.1), config=cfg,
+                               **kw)
+        a.sensitivity_surface(np.array([0.9, 1.5]), np.array([0.05, 0.1, 0.5]),
+                              P.make_model_params(), config=cfg, **kw)
+        truth = P.make_model_params(**TRUTH)
+        t_obs, aw_obs, xi_obs = cal.synth_withdrawals(truth, n_obs=16, config=cfg, **kw)
+        cal.fit_withdrawals(t_obs, aw_obs, P.with_overrides(truth, beta=1.2, u=0.14, kappa=0.6),
+                            xi_obs=xi_obs, steps=12, log_every=5, config=cfg, **kw)
+        st.stress_search(P.make_model_params(beta=1.5, u=0.1, kappa=0.97), wrt=("kappa",),
+                         config=cfg, **kw)
+    return events(run_dir)
+
+
+@pytest.fixture(scope="module")
+def grad_event_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("grad_events")
+    _grad_calls("ref", root / "warm")  # the reference's spans fire on its first trace
+    return _grad_calls("ref", root / "ref"), _grad_calls("port", root / "port"), root
+
+
+def test_grad_events_equal_the_reference(grad_event_runs):
+    """Censuses exactly; losses and margins within the calibration's
+    measured spread (the loss history agrees to 1.6e-10 relative, above)."""
+    want, got, _ = grad_event_runs
+    assert_same_events(got, want, {"grad"}, rtol=1e-8)
+    assert [e["action"] for e in got if e["kind"] == "grad"] == (
+        ["flags"] * 3 + ["calib_start", "calib_step", "calib_step", "calib_step", "calib_done",
+                         "stress_done"])
+
+
+def test_grad_spans_and_program_calls_equal_the_reference(grad_event_runs):
+    """The entry points' spans and program calls. The reference also logs
+    baseline stage spans from inside `synth_withdrawals` and the stress
+    search's validation solve, because it runs those cells op by op there;
+    the port's cells are program regions wherever they run (as the
+    reference's are under jit), so those nested spans are left out."""
+    want, got, _ = grad_event_runs
+
+    def entry(evs):
+        return [e for e in evs if e["kind"] == "jit_call"
+                or str(e.get("stage", "")).startswith("grad.")]
+
+    assert_same_events(entry(got), entry(want), {"stage_start", "stage_end", "jit_call"})
+    assert not [e for e in got if str(e.get("stage", "")).startswith("baseline.")]
+
+
+def test_report_grad_folds_as_the_reference(grad_event_runs):
+    from sbr_tpu.obs import report as jreport
+    from sbr_tpu_torch.obs import report
+
+    _, _, root = grad_event_runs
+    (doc, code), (jdoc, jcode) = (mod.grad_doc(mod.load_run(root / name))
+                                  for mod, name in ((report, "port"), (jreport, "ref")))
+    assert code == jcode == 1  # a 12-step fit ends unconverged in both
+    assert doc["censuses"] == jdoc["censuses"]
+    (cal,), (jcal_,) = doc["calibrations"], jdoc["calibrations"]
+    assert (cal["wrt"], cal["steps"], cal["converged"]) == \
+        (jcal_["wrt"], jcal_["steps"], jcal_["converged"])
+    np.testing.assert_allclose(cal["losses"], jcal_["losses"], rtol=1e-8)
+    assert [s["flipped"] for s in doc["stress"]] == [s["flipped"] for s in jdoc["stress"]]

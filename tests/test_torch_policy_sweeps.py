@@ -18,7 +18,11 @@ Contracts, on grids of at most 3×3×3 cells from the stretch shape's axes
   last bits, and a NO_ROOT cell's search stops where it stops (slice 3);
 - each cell equals the port's scalar interest solve of that cell, and the
   r = 0 plane equals the port's β×u grid;
-- the grid is batch-invariant: a sub-grid's cells equal the full grid's.
+- the grid is batch-invariant: a sub-grid's cells equal the full grid's;
+- telemetry: under a run the sweep logs the reference's preflight record,
+  ``sweeps.policy_interest`` span, program call, status and health
+  censuses and cell counter, after a warm-up; with the run or without it
+  the grid's bits are the same.
 """
 
 import functools
@@ -35,6 +39,7 @@ from sbr_tpu_torch.interest import solver as tis  # noqa: E402
 from sbr_tpu_torch.models import params as tp  # noqa: E402
 from sbr_tpu_torch.sweeps import beta_u_grid  # noqa: E402
 from sbr_tpu_torch.sweeps import policy_sweeps as tps  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 F64_TOL = 1e-12
@@ -137,3 +142,30 @@ def test_policy_sweep_validation_and_not_ported_options():
     with pytest.raises(NotImplementedError, match="mesh"):
         tps.policy_sweep_interest([1.0], [0.1], [0.0], base, mesh=object(), device=CPU)
     assert tps.POLICY_PROGRAM_VERSION == jps.POLICY_PROGRAM_VERSION
+
+
+def test_policy_sweep_events_equal_the_reference(tmp_path):
+    import json
+
+    from sbr_tpu import obs as jobs
+    from sbr_tpu_torch import obs
+
+    axes = (BETAS[:2], US[:2], RS[:2])
+    for name in ("warm", "ref"):  # the reference's trace-time spans fire once
+        with jobs.run_context(run_dir=str(tmp_path / name)):
+            jps.policy_sweep_interest(*axes, jp.make_interest_params(u=0.0, delta=0.1),
+                                      _config("fixed", jp))
+    off = tps.policy_sweep_interest(*axes, tp.make_interest_params(u=0.0, delta=0.1),
+                                    _config("fixed"), device=CPU)
+    with obs.run_context(run_dir=str(tmp_path / "port")):
+        on = tps.policy_sweep_interest(*axes, tp.make_interest_params(u=0.0, delta=0.1),
+                                       _config("fixed"), device=CPU)
+    got, want = events(tmp_path / "port"), events(tmp_path / "ref")
+    assert_same_events(got, want, {"preflight", "stage_start", "stage_end", "jit_call",
+                                   "status", "health"})
+    for f in ("xi", "aw_max", "status"):
+        assert _np(getattr(on, f)).tobytes() == _np(getattr(off, f)).tobytes()
+    manifests = [json.loads((tmp_path / d / "manifest.json").read_text())
+                 for d in ("port", "ref")]
+    assert [m["metrics"]["counters"]["sweeps.policy_interest.cells"] for m in manifests] == \
+        [8, 8]

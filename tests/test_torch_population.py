@@ -16,7 +16,13 @@ Contracts:
   and the endpoint (200);
 - the engine serves, caches (LRU, then the verified disk layer after a
   restart) and keys population records; the endpoint answers with the
-  reference's codes.
+  reference's codes;
+- telemetry: a population query and a mean-field fixed point under a run
+  log the reference's ``infomodel`` events (the query, the closure, the
+  belief census, the fixed point), spans (``graphgen.build``,
+  ``infomodels.fixed_point``), program calls and censuses. Integers are
+  exact; floats within 1e-6 relative, since the belief census's mean is a
+  float32 sum whose order differs between the frameworks.
 
 Every wait carries a timeout and every server is closed in a ``finally``.
 """
@@ -37,6 +43,7 @@ from sbr_tpu.models.params import SolverConfig as JConfig  # noqa: E402
 from sbr_tpu.models.params import make_model_params as jmodel  # noqa: E402
 from sbr_tpu.social import graphgen as jg  # noqa: E402
 from sbr_tpu_torch.infomodels import engine as te  # noqa: E402
+from sbr_tpu_torch.infomodels import meanfield as tmf  # noqa: E402
 from sbr_tpu_torch.infomodels import population as tpop  # noqa: E402
 from sbr_tpu_torch.infomodels.spec import InfoModelSpec as TSpec  # noqa: E402
 from sbr_tpu_torch.models.params import SolverConfig as TConfig  # noqa: E402
@@ -45,6 +52,7 @@ from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint  # noqa: E402
 from sbr_tpu_torch.serve.loadgen import http_request  # noqa: E402
 from sbr_tpu_torch.social import graphgen as tg  # noqa: E402
 from sbr_tpu_torch.social.solver import fixed_point_from_numpy  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 FIG12 = dict(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
@@ -123,6 +131,40 @@ def test_population_query_record_equals_the_reference(carried, reference_fields,
     assert got["vary"] == vary and got["channel"] == channel
     if vary == "graph":
         assert got["err_aw_sup"] > 0
+
+
+def test_population_and_fixed_point_events_equal_the_reference(carried, reference_fields,
+                                                              tmp_path):
+    from sbr_tpu import obs as jobs
+    from sbr_tpu_torch import obs
+
+    channel, want_fp, got_fp = carried
+    kw = dict(seeds=2, vary="sim", seed=5, g0=None)
+    for mod, name in ((jobs, "warm"), (jobs, "ref"), (obs, "port")):
+        ref = mod is jobs
+        with mod.run_context(run_dir=str(tmp_path / name)):
+            if ref:
+                jpop.population_query(JSpec(channel=channel),
+                                      jg.ErdosRenyiSpec(n=600, avg_degree=10.0),
+                                      jmodel(**FIG12), fp=want_fp, **kw)
+                jmf.solve_fixed_point_info(JSpec(channel=channel), jmodel(**FIG12),
+                                           config=JConfig(n_grid=256), max_iter=500)
+            else:
+                tpop.population_query(TSpec(channel=channel),
+                                      tg.ErdosRenyiSpec(n=600, avg_degree=10.0),
+                                      tmodel(**FIG12), fp=got_fp, device=CPU, **kw)
+                tmf.solve_fixed_point_info(TSpec(channel=channel), tmodel(**FIG12),
+                                             config=TConfig(n_grid=256), max_iter=500,
+                                             device=CPU)
+    got, want = events(tmp_path / "port"), events(tmp_path / "ref")
+    assert_same_events(got, want, {"infomodel", "fixed_point", "status", "health",
+                                   "stage_start", "stage_end", "jit_call"}, rtol=1e-6)
+    actions = [e["action"] for e in got if e["kind"] == "infomodel"]
+    # a gossip spec's fixed point is the social solve itself: no infomodel event
+    assert actions[-2:] == (["population_query", "fixed_point"] if channel == "bayes"
+                            else ["closure", "population_query"])
+    assert ("belief_census" in actions) == (channel == "bayes")
+    assert [e["stage"] for e in got if e["kind"] == "stage_start"].count("graphgen.build") == 1
 
 
 def test_population_query_validation_and_rewire():

@@ -1,0 +1,500 @@
+"""The port's run reader (sbr_tpu_torch.obs.report) against sbr_tpu's on
+the same run directories.
+
+Each ported subcommand (the bare render, diff and ``--json``, ``health``,
+``resilience``, ``elastic``, ``infomodel``, ``grad``, ``memory``,
+``serve``, ``gc``) reads a passing and a failing run directory, written
+once by each package's run log, and both packages' ``report.main`` give
+the same exit code, the same ``--json`` document and the same rendered
+lines. The program name is normalized (``sbr_tpu_torch`` → ``sbr_tpu``),
+and so is the serve report's snapshot age, which is the reader's clock.
+On a run the port wrote, two lines name the runtime and differ by
+design: the device line's ``torch <version>`` (the reference prints the
+``jax_version`` it does not find as ``jax ?``) and the reference's note
+that ``jax.monitoring`` was unavailable, which the port omits for its own
+runs; those two are dropped before the comparison.
+
+Mirrors the report cases of tests/test_obs.py, test_mem.py,
+test_resilience.py, test_elastic.py, test_serve.py (the gate, the cache
+floor's scope and the torn event line), test_grad.py, test_infomodels.py
+and test_diag.py's health gate. Then ``python -m`` for every subcommand
+(the port's CLI loads no torch), and exit 2 with the ROADMAP item for
+each subcommand and gc flag that is not ported yet.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from sbr_tpu import obs as jobs  # noqa: E402
+from sbr_tpu.obs import report as jreport  # noqa: E402
+from sbr_tpu_torch import obs  # noqa: E402
+from sbr_tpu_torch.obs import report  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+TIMEOUT = 120  # seconds: every subprocess in this file is bounded
+WRITERS = ("ref", "port")
+
+
+@pytest.fixture(autouse=True)
+def _no_active_run(monkeypatch):
+    for var in ("SBR_SERVE_SLO_MS", "SBR_SERVE_CACHE_FLOOR", "SBR_SERVE_WARMUP", "SBR_OBS"):
+        monkeypatch.delenv(var, raising=False)
+    assert obs.current_run() is None and jobs.current_run() is None
+    yield
+    while obs.end_run() is not None:
+        pass
+    while jobs.end_run() is not None:
+        pass
+
+
+# -- run directories, written by either package -------------------------------
+
+
+def _health(writer, poisoned: bool):
+    nan = float("nan")
+    res, width, iters, flags = ([1e-9, nan], [1e-12, nan], [90, 0], [0, 1 << 6]) if poisoned \
+        else ([1e-9, 2e-9], [1e-12, 1e-12], [90, 88], [0, 0])
+    if writer == "ref":
+        from sbr_tpu.diag import Health
+
+        return Health(residual=jnp.asarray(res), bracket_width=jnp.asarray(width),
+                      iterations=jnp.asarray(iters, jnp.int32),
+                      flags=jnp.asarray(flags, jnp.int32)), jnp.zeros(2, jnp.int32)
+    from sbr_tpu_torch.diag.health import Health
+
+    return Health(residual=torch.tensor(res), bracket_width=torch.tensor(width),
+                  iterations=torch.tensor(iters, dtype=torch.int32),
+                  flags=torch.tensor(flags, dtype=torch.int32)), torch.zeros(2, dtype=torch.int32)
+
+
+def _timing(writer, mod, run):
+    with run.span("stage_x", n=4):
+        pass
+    if writer == "ref":
+        import jax
+
+        run.jit_call("fx", jax.jit(lambda x: x * 2), jnp.arange(4.0))
+        mod.log_status("grid", jnp.asarray([0, 0, 1, 3], jnp.int32))
+    else:
+        run.jit_call("fx", lambda x: x * 2, torch.arange(4.0))
+        mod.log_status("grid", torch.tensor([0, 0, 1, 3], dtype=torch.int32))
+
+
+def _live_doc(writer, p99_ms: float, hits: int, queries: int) -> dict:
+    if writer == "ref":
+        from sbr_tpu.serve.live import LiveMetrics
+    else:
+        from sbr_tpu_torch.serve.live import LiveMetrics
+    live = LiveMetrics()
+    for i in range(queries):
+        live.record_query(p99_ms / 1e3, "lru" if i < hits else "computed")
+    live.record_batch(queries - hits, 8)
+    return live.snapshot({"healthz": {"status": "ready", "reasons": []}})
+
+
+def _emit_resilience(gave_up):
+    def emit(writer, mod, run):
+        if gave_up:
+            run.log_retry("Tile (2,0)", "gave_up", attempt=3, error="dead backend")
+            run.log_repair("degrade_ladder", "tile[0,1]", ok=False)
+        else:
+            run.log_fault("tile.compute", "transient", target="tile_b00000_u00000", rule=0)
+            run.log_retry("Tile (0,0)", "retrying", attempt=1, backoff_s=0.1)
+            run.log_retry("Tile (0,0)", "recovered", attempt=2)
+            run.log_repair("quarantine", "tile_b00000_u00000.npz", reason="sha256-mismatch")
+            run.log_repair("degrade_ladder", "tile[1,1]", ok=True, rung=0, flags=1)
+    return emit
+
+
+def _emit_elastic(writer, mod, run):
+    run.log_scheduler("join", host="h1", tiles=4, seed_rate=None)
+    run.log_scheduler("plan", host="h1", missing=2, shares={"h1": 2})
+    run.log_scheduler("claim", host="h1", tile="tile_b00000_u00000")
+    run.log_scheduler("done", host="h1", tile="tile_b00000_u00000", source="computed",
+                      dur_s=2.0, cells=4)
+    run.log_scheduler("reclaim", host="h1", tile="tile_b00000_u00002")
+    run.log_scheduler("done", host="h1", tile="tile_b00000_u00002", source="cache",
+                      dur_s=0.01, cells=4)
+    run.log_cache("miss", tile="tile_b00000_u00000", key="0" * 12)
+    run.log_cache("store", tile="tile_b00000_u00000", key="0" * 12)
+    run.log_cache("hit", tile="tile_b00000_u00002", key="1" * 12)
+    run.log_scheduler("leave", host="h1", tiles_done=2)
+
+
+def _emit_grad(kind):
+    def emit(writer, mod, run):
+        flags = dict(stage="grad.sensitivity_surface", cells=4, run_cells=4,
+                     at_nonequilibrium=0, ill_conditioned=1, nonfinite=0, nonfinite_run=0,
+                     untrusted=1)
+        if kind == "nonfinite":
+            flags.update(nonfinite=1, nonfinite_run=1, untrusted=2)
+        run.event("grad", action="flags", **flags)
+        run.event("grad", action="calib_start", wrt=["beta", "u"], steps=30, lr=0.05,
+                  n_obs=16, with_xi=True)
+        for i in (0, 25):
+            run.event("grad", action="calib_step", step=i, loss=0.1 / (i + 1))
+        if kind != "running":
+            run.event("grad", action="calib_done", steps=30, loss=1e-6,
+                      converged=kind != "unconverged", fit_beta=1.01, fit_u=0.1)
+        run.event("grad", action="stress_done", flipped=True, validated=True, margin0=0.02,
+                  margin_final=-1e-6, steps=7, shock_norm=0.05, delta_kappa=0.05)
+    return emit
+
+
+def _emit_infomodel(bad):
+    def emit(writer, mod, run):
+        run.log_infomodel("fixed_point", channel="bayes", dynamics="static", groups=1,
+                          converged=not bad, aborted=False, iterations=250 if bad else 20,
+                          xi=0.9, bankrun=not bad)
+        run.log_infomodel("closure", channel="gossip", dynamics="rewire", n_agents=100,
+                          n_reps=1, err_aw_sup=0.9 if bad else 0.1, err_g_rms=0.02,
+                          tolerance=0.25)
+        run.log_infomodel("rewire_epoch", epoch=0, channel="bayes", steps=5, edges=10,
+                          withdrawing=0)
+        run.log_infomodel("belief_census", channel="bayes", dynamics="static", crossed=7,
+                          mean_belief=0.5, max_belief=2.0)
+        run.log_infomodel("population_query", channel="bayes", dynamics="static",
+                          vary="sim", seeds=2, n_agents=400, run_probability=0.5)
+    return emit
+
+
+def _emit_memory(over):
+    def emit(writer, mod, run):
+        run.log_tile_mem("tile_b00000_u00000", peak_bytes_in_use=9_900 if over else 1_000,
+                         bytes_limit=10_000)
+        run.log_tile_mem("tile_b00000_u00004", peak_bytes_in_use=100, bytes_limit=10_000)
+        run.log_preflight({"label": "tile[2x2]", "headroom": 0.8, "verdict": "ok",
+                           "footprint_bytes": 500, "capacity_bytes": 10_000,
+                           "budget_bytes": 8_000})
+    return emit
+
+
+def _emit_health(poisoned):
+    def emit(writer, mod, run):
+        health, status = _health(writer, poisoned)
+        mod.log_health("grid", health, status)
+    return emit
+
+
+def _emit_serve(writer, mod, run):
+    run.live_snapshot(_live_doc(writer, p99_ms=2.0, hits=10, queries=12))
+
+
+def _emit_nothing(writer, mod, run):
+    run.event("status", stage="x", counts={})
+
+
+# (subcommand, extra argv, emit, exit code, env)
+CASES = {
+    "render": ("", [], _timing, 0, {}),
+    "render_json": ("", ["--json"], _timing, 0, {}),
+    "render_events": ("", ["--events", "3"], _timing, 0, {}),
+    "health_clean": ("health", [], _emit_health(False), 0, {}),
+    "health_divergent": ("health", [], _emit_health(True), 1, {}),
+    "health_no_data": ("health", [], _emit_nothing, 3, {}),
+    "resilience_recovered": ("resilience", [], _emit_resilience(False), 0, {}),
+    "resilience_gave_up": ("resilience", [], _emit_resilience(True), 1, {}),
+    "resilience_clean": ("resilience", [], _emit_nothing, 0, {}),
+    "elastic": ("elastic", [], _emit_elastic, 0, {}),
+    "elastic_no_events": ("elastic", [], _emit_nothing, 3, {}),
+    "grad_ok": ("grad", [], _emit_grad("ok"), 0, {}),
+    "grad_running": ("grad", [], _emit_grad("running"), 0, {}),
+    "grad_unconverged": ("grad", [], _emit_grad("unconverged"), 1, {}),
+    "grad_nonfinite": ("grad", [], _emit_grad("nonfinite"), 1, {}),
+    "grad_no_events": ("grad", [], _emit_nothing, 3, {}),
+    "infomodel_ok": ("infomodel", [], _emit_infomodel(False), 0, {}),
+    "infomodel_breach": ("infomodel", [], _emit_infomodel(True), 1, {}),
+    "infomodel_no_data": ("infomodel", [], _emit_nothing, 3, {}),
+    "memory_ok": ("memory", [], _emit_memory(False), 0, {}),
+    "memory_over": ("memory", [], _emit_memory(True), 1, {}),
+    "memory_over_loose": ("memory", ["--headroom", "0.999"], _emit_memory(True), 0, {}),
+    "memory_no_data": ("memory", [], _emit_nothing, 3, {}),
+    "serve_ok": ("serve", [], _emit_serve, 0, {}),
+    "serve_slo_breach": ("serve", [], _emit_serve, 1, {"SBR_SERVE_SLO_MS": "0.000001"}),
+    "serve_cache_floor": ("serve", ["--cache-floor", "1.1", "--warmup", "1"], _emit_serve, 1,
+                          {}),
+    "serve_no_data": ("serve", [], _emit_nothing, 3, {}),
+}
+
+
+@pytest.fixture(scope="module")
+def run_dirs(tmp_path_factory):
+    """Every case's run directory, written once by each package."""
+    root = tmp_path_factory.mktemp("runs")
+    out = {}
+    for name, (_, _, emit, _, _) in CASES.items():
+        for writer in WRITERS:
+            mod = jobs if writer == "ref" else obs
+            d = root / writer / name
+            with mod.run_context(run_dir=str(d), label=name) as run:
+                emit(writer, mod, run)
+            out[(name, writer)] = d
+    return out
+
+
+_AGE = re.compile(r"snapshot age [0-9.]+ m?s")
+
+
+def _normalize(text: str, writer: str) -> list:
+    lines = []
+    for line in text.replace("sbr_tpu_torch", "sbr_tpu").splitlines():
+        if writer == "port" and line.startswith("device   "):
+            continue  # the runtime's name (module docstring)
+        if writer == "port" and line.startswith("XLA COMPILES: jax.monitoring"):
+            if lines and not lines[-1]:
+                lines.pop()  # and the blank line that opens its section
+            continue
+        lines.append(_AGE.sub("snapshot age T", line))
+    return lines
+
+
+def _both(argv, capsys, monkeypatch, env=()):
+    for k, v in dict(env).items():
+        monkeypatch.setenv(k, v)
+    out = []
+    for main in (report.main, jreport.main):
+        code = main(list(argv))
+        cap = capsys.readouterr()
+        out.append((code, cap.out, cap.err))
+    return out
+
+
+def _json_doc(text: str) -> dict:
+    doc = json.loads(text.replace("sbr_tpu_torch", "sbr_tpu"))
+    live = doc.get("live")
+    if isinstance(live, dict):
+        live.pop("ts", None)
+    return doc
+
+
+@pytest.mark.parametrize("writer", WRITERS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_subcommand_equals_reference(run_dirs, capsys, monkeypatch, case, writer):
+    sub, args, _, code, env = CASES[case]
+    argv = ([sub] if sub else []) + [str(run_dirs[(case, writer)])] + args
+    (got, got_out, _), (want, want_out, _) = _both(argv, capsys, monkeypatch, env)
+    assert got == want == code, (got_out, want_out)
+    if "--json" in args or sub:
+        # every subcommand's --json document equals the reference's
+        (jgot, jgot_out, _), (jwant, jwant_out, _) = _both(
+            argv if "--json" in args else argv + ["--json"], capsys, monkeypatch, env)
+        assert jgot == jwant == code
+        assert _json_doc(jgot_out) == _json_doc(jwant_out)
+    if "--json" not in args:
+        assert _normalize(got_out, writer) == _normalize(want_out, writer)
+        assert got_out.strip()
+
+
+@pytest.mark.parametrize("writer", WRITERS)
+def test_diff_equals_reference(run_dirs, capsys, monkeypatch, writer):
+    a, b = run_dirs[("render", writer)], run_dirs[("render_json", writer)]
+    for extra in ([], ["--json"]):
+        (got, got_out, _), (want, want_out, _) = _both([str(a), str(b)] + extra, capsys,
+                                                      monkeypatch)
+        assert got == want == 0
+        if extra:
+            doc = json.loads(got_out)
+            assert doc == json.loads(want_out) and "stage_x" in doc["stages"]
+        else:
+            assert "STAGES (B vs A)" in got_out
+            assert _normalize(got_out, writer) == _normalize(want_out, writer)
+
+
+def test_not_a_run_directory(tmp_path, capsys, monkeypatch):
+    (got, _, err), (want, _, _) = _both([str(tmp_path)], capsys, monkeypatch)
+    assert got == want == 1 and "error" in err
+    for sub in ("serve", "infomodel"):
+        (got, _, _), (want, _, _) = _both([sub, str(tmp_path / "missing")], capsys,
+                                          monkeypatch)
+        assert got == want == 2
+
+
+@pytest.mark.parametrize("writer", WRITERS)
+def test_reports_survive_a_torn_event_line(run_dirs, capsys, monkeypatch, writer, tmp_path):
+    """A process killed mid-write leaves a truncated last line, possibly cut
+    inside a UTF-8 sequence: every report counts it and reads on."""
+    import shutil
+
+    d = tmp_path / "torn"
+    shutil.copytree(run_dirs[("health_clean", writer)], d)
+    with open(d / "events.jsonl", "ab") as fh:
+        fh.write('{"kind": "health", "stage": "é'.encode()[:-1])
+    assert report.load_run(d)["bad_event_lines"] == 1
+    for argv in ([str(d)], ["health", str(d)], ["resilience", str(d)], [str(d), "--json"]):
+        (got, got_out, _), (want, want_out, _) = _both(argv, capsys, monkeypatch)
+        assert got == want == 0
+        if "--json" in argv:
+            assert json.loads(got_out)["bad_event_lines"] == 1
+            assert json.loads(got_out) == json.loads(want_out)
+        else:
+            assert _normalize(got_out, writer) == _normalize(want_out, writer)
+    (got, got_out, _), _ = _both([str(d)], capsys, monkeypatch)
+    assert "1 unparseable event line(s) skipped" in got_out
+
+
+def test_serve_cache_floor_scopes_consistently(tmp_path):
+    """A quiet window holding two fresh queries on a long-warm server must
+    not trip the floor gate: the rate and the arming count share a scope."""
+    live = {
+        "schema": "sbr-serve-live/1", "ts": 0, "uptime_s": 9999,
+        "totals": {"queries": 10000, "cache_hits": 9500, "hit_rate": 0.95,
+                   "latency_ms": {"p99": 1.0}},
+        "window": {"queries": 2, "cache_hits": 0, "hit_rate": 0.0,
+                   "latency_ms": {"p99": 1.0}},
+    }
+    (tmp_path / "live.json").write_text(json.dumps(live))
+    got = report.serve_doc(tmp_path, cache_floor=0.5, warmup=50)
+    assert got == jreport.serve_doc(tmp_path, cache_floor=0.5, warmup=50)
+    assert got[1] == 0, got[0]["breaches"]
+
+
+# -- the served run directory, end to end ------------------------------------
+
+
+def test_engine_run_dir_reads_as_the_reference_reads_it(tmp_path, capsys, monkeypatch):
+    """The port's Engine(run_dir=...) writes live.json and the fleet events
+    the reference's report gates on; the ladder's events equal statz."""
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+    from sbr_tpu_torch.serve import DeadlineExceeded, Engine, ServeConfig
+
+    run_dir = tmp_path / "serve"
+    cfg = SolverConfig(n_grid=64, bisect_iters=20, refine_crossings=False)
+    engine = Engine(config=cfg, serve=ServeConfig(buckets=(1, 8)), run_dir=str(run_dir),
+                    device="cpu")
+    p = make_model_params()
+    try:
+        engine.query_many([p, make_model_params(u=0.2)])
+        engine.query(p)  # an LRU hit
+        with pytest.raises(DeadlineExceeded):
+            engine.query(p, deadline_ms=-1)
+        # the solver path down: the ladder answers (here: exhausted)
+        monkeypatch.setattr(engine, "_dispatch", lambda *a, **k: 1 / 0)
+        with pytest.raises(ZeroDivisionError):
+            engine.query(make_model_params(u=0.3))
+        ladder = engine.statz()["ladder"]
+    finally:
+        engine.close()
+    events = [json.loads(x) for x in (run_dir / "events.jsonl").read_text().splitlines()]
+    fleet = [(e["action"], e.get("reason")) for e in events if e["kind"] == "fleet"]
+    assert fleet == [("shed", "expired"), ("ladder_exhausted", None)]
+    assert ladder == {"tile_cache": False, "degraded": 0, "ladder_exhausted": 1}
+    kinds = [e["kind"] for e in events]
+    assert kinds.count("serve_exec") == 1 and kinds.count("serve_batch") == 1
+    assert ("stage_start", "serve.compile[8]") in [(e["kind"], e.get("stage")) for e in events]
+    assert kinds[-2:] == ["serve_summary", "run_end"]
+    for sub_argv in (["serve", str(run_dir)], ["serve", str(run_dir), "--json"],
+                     [str(run_dir), "--json"]):
+        (got, got_out, _), (want, want_out, _) = _both(sub_argv, capsys, monkeypatch)
+        assert got == want == 0
+        if "--json" in sub_argv:
+            assert _json_doc(got_out) == _json_doc(want_out)
+        else:
+            assert _normalize(got_out, "port") == _normalize(want_out, "port")
+    manifest = json.loads((run_dir / "manifest.json").read_text())
+    assert manifest["status"] == "complete"
+    assert manifest["fleet"]["shed"] == 1 and manifest["fleet"]["ladder_exhausted"] == 1
+
+
+# -- gc -----------------------------------------------------------------------
+
+
+def _gc_tree(root: Path) -> None:
+    old = time.time() - 40 * 86400
+    for i in range(4):
+        d = root / "runs" / f"run{i}"
+        d.mkdir(parents=True)
+        (d / "manifest.json").write_text(json.dumps({"status": "complete"}))
+        os.utime(d, (old + i, old + i))
+        os.utime(d / "manifest.json", (old + i, old + i))
+    (root / "runs" / "ckpt" / "quarantine").mkdir(parents=True)
+    (root / "runs" / "ckpt" / "tile_b00000_u00000.lease").write_text("{torn")
+    entry = root / "cache" / "ab" / ("ab" * 32 + ".npz")
+    entry.parent.mkdir(parents=True)
+    entry.write_bytes(b"x")
+    os.utime(entry, (old, old))
+
+
+def test_gc_equals_reference(tmp_path, capsys, monkeypatch):
+    outs = []
+    for name, main in (("port", report.main), ("ref", jreport.main)):
+        root = tmp_path / name
+        _gc_tree(root)
+        code = main(["gc", str(root / "runs"), "--keep", "2", "--tile-cache",
+                     str(root / "cache"), "--keep-days", "30"])
+        outs.append((code, capsys.readouterr().out.replace(str(root), "ROOT")))
+        assert sorted(p.name for p in (root / "runs").iterdir()) == ["ckpt", "run2", "run3"]
+        assert not (root / "runs" / "ckpt" / "quarantine").exists()
+        assert not any((root / "cache").rglob("*.npz"))
+    assert outs[0] == outs[1] and outs[0][0] == 0
+
+
+# -- not ported yet -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("sub", sorted(report._NOT_PORTED))
+def test_unported_subcommands_exit_2(sub, tmp_path, capsys):
+    assert report.main([sub, str(tmp_path)]) == 2
+    err = capsys.readouterr().err
+    assert "not ported" in err and f"ROADMAP item {report._NOT_PORTED[sub]}" in err
+
+
+@pytest.mark.parametrize("flag", sorted(report._GC_ITEMS))
+def test_unported_gc_flags_exit_2_before_pruning(flag, tmp_path, capsys):
+    _gc_tree(tmp_path)
+    argv = ["gc", str(tmp_path / "runs"), "--keep", "0", "--" + flag.replace("_", "-"), "1"]
+    assert report.main(argv) == 2
+    assert f"ROADMAP item {report._GC_ITEMS[flag]}" in capsys.readouterr().err
+    assert len(list((tmp_path / "runs").iterdir())) == 5  # nothing was pruned
+
+
+# -- python -m ---------------------------------------------------------------
+
+
+def _cli(*argv, env=None):
+    """The report in a process that exits 99 if it imported torch."""
+    return subprocess.run(
+        [sys.executable, "-c",
+         "import sys; from sbr_tpu_torch.obs import report; code = report.main(sys.argv[1:]);"
+         " sys.exit(99 if 'torch' in sys.modules else code)", *argv],
+        capture_output=True, text=True, timeout=TIMEOUT, cwd=str(REPO),
+        env={**os.environ, "PYTHONPATH": str(REPO), **(env or {})},
+    )
+
+
+@pytest.mark.parametrize("case", ["render_json", "health_divergent", "resilience_gave_up",
+                                  "elastic", "grad_nonfinite", "infomodel_breach",
+                                  "memory_over", "serve_ok"])
+def test_cli_as_a_module_loads_no_torch(run_dirs, case):
+    sub, args, _, code, env = CASES[case]
+    argv = ([sub] if sub else []) + [str(run_dirs[(case, "port")])] + args + (
+        [] if "--json" in args else ["--json"])
+    proc = subprocess.run([sys.executable, "-m", "sbr_tpu_torch.obs.report", *argv],
+                          capture_output=True, text=True, timeout=TIMEOUT, cwd=str(REPO),
+                          env={**os.environ, "PYTHONPATH": str(REPO), **env})
+    assert proc.returncode == code, proc.stderr
+    assert json.loads(proc.stdout).get("exit", 0) == code
+    # the same call in a process that then checks what it imported
+    proc = _cli(*argv, env=env)
+    assert proc.returncode == code, proc.stderr
+
+
+def test_reference_cli_agrees_on_a_port_run(run_dirs):
+    d = str(run_dirs[("resilience_gave_up", "port")])
+    procs = [subprocess.run([sys.executable, "-m", f"{pkg}.obs.report", "resilience", d,
+                             "--json"], capture_output=True, text=True, timeout=TIMEOUT,
+                            cwd=str(REPO), env={**os.environ, "PYTHONPATH": str(REPO)})
+             for pkg in ("sbr_tpu_torch", "sbr_tpu")]
+    assert [p.returncode for p in procs] == [1, 1]
+    assert json.loads(procs[0].stdout) == json.loads(procs[1].stdout)
+    assert json.loads(procs[0].stdout)["unrecovered"] == 2

@@ -14,7 +14,11 @@ Contracts, in float64 at fixed numerics (n_grid 96, bisect_iters 40):
   resume after SIGKILL mid-tile (a subprocess); the static multi-process
   split and its work stealing;
 - keys: the sweep fingerprint carries the backend tag, so the port
-  refuses a checkpoint directory that sbr_tpu wrote.
+  refuses a checkpoint directory that sbr_tpu wrote;
+- telemetry: a faulted tiled sweep under a run logs the reference's
+  ``fault``, ``retry`` and ``repair`` events, `report resilience` folds
+  them as the reference's does, and a SIGTERM finalizes the run as
+  ``interrupted`` (a subprocess).
 
 Every subprocess wait carries a timeout and every process is killed in a
 ``finally``.
@@ -33,10 +37,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from sbr_tpu import obs as jobs  # noqa: E402
 from sbr_tpu.models import params as jparams  # noqa: E402
 from sbr_tpu.parallel import distributed as jdist  # noqa: E402
 from sbr_tpu.resilience import faults as jfaults  # noqa: E402
 from sbr_tpu.utils import checkpoint as jckpt  # noqa: E402
+from sbr_tpu_torch import obs  # noqa: E402
 from sbr_tpu_torch.models import params as tparams  # noqa: E402
 from sbr_tpu_torch.parallel import distributed as tdist  # noqa: E402
 from sbr_tpu_torch.parallel import run_tiled_grid_multihost  # noqa: E402
@@ -50,6 +56,7 @@ from sbr_tpu_torch.resilience import (  # noqa: E402
 from sbr_tpu_torch.sweeps import baseline_sweeps, beta_u_grid, policy_sweep_interest, u_sweep  # noqa: E402
 from sbr_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
 from sbr_tpu_torch.utils.checkpoint import run_tiled_grid  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 CFG_KW = dict(n_grid=96, bisect_iters=40, numerics="fixed")
@@ -576,6 +583,104 @@ def test_graceful_shutdown_removes_registered_files_and_nests(tmp_path):
     with pytest.raises(KeyboardInterrupt):
         with shutdown.graceful_shutdown():
             raise shutdown.Interrupted(signal.SIGINT)
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: fault, retry and repair events; the interrupted run
+# ---------------------------------------------------------------------------
+
+FAULTED_PLAN = _plan([
+    {"point": "tile.compute", "kind": "transient", "at_hits": [1]},
+    {"point": "tile.result", "kind": "nan", "at_hits": [2], "cells": 2},
+    {"point": "checkpoint.save", "kind": "corrupt", "at_hits": [3]},
+], seed=5)
+
+
+@pytest.fixture(scope="module")
+def reference_faulted_events(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ref_faulted")
+    jfaults.install(jfaults.FaultPlan(FAULTED_PLAN))
+    try:
+        for name in ("warm", "run"):  # the reference's trace-time spans fire once
+            with jobs.run_context(run_dir=str(root / name)):
+                jckpt.run_tiled_grid(RB, RU, jparams.make_model_params(),
+                                     config=jparams.SolverConfig(**CFG_KW), tile_shape=(4, 3),
+                                     checkpoint_dir=root / f"ck_{name}")
+            jfaults.install(jfaults.FaultPlan(FAULTED_PLAN))
+    finally:
+        jfaults.install(None)
+    return root / "run"
+
+
+def test_fault_retry_repair_events_equal_reference(reference_faulted_events, tmp_path):
+    from sbr_tpu.obs import report as jreport
+    from sbr_tpu_torch.obs import report
+
+    faults.install(FaultPlan(FAULTED_PLAN))
+    with obs.run_context(run_dir=str(tmp_path / "run")):
+        _tiled(RB, RU, (4, 3), checkpoint_dir=tmp_path / "ck")
+    got, want = events(tmp_path / "run"), events(reference_faulted_events)
+    assert_same_events(got, want, {"fault", "retry", "repair"})
+    # the torn save is found (and quarantined) only by a later resume
+    assert [e["action"] for e in got if e["kind"] == "repair"] == ["degrade_ladder"] * 2
+    assert [e["kind"] for e in got if e["kind"] in ("fault", "retry")] == \
+        ["fault", "retry", "retry", "fault", "fault"]
+    folded = [mod.resilience_json(mod.load_run(d))
+              for mod, d in ((report, tmp_path / "run"), (jreport, reference_faulted_events))]
+    (doc, code), (jdoc, jcode) = folded
+    assert code == jcode == 0
+    for key in ("faults", "retries", "repairs", "unrecovered"):
+        assert doc[key] == jdoc[key], key
+
+
+def test_telemetry_off_keeps_the_faulted_grid(tmp_path):
+    """With a run or without one, the same faulted sweep gives the same
+    bits: the events observe, never steer."""
+    faults.install(FaultPlan(FAULTED_PLAN))
+    off = _tiled(RB, RU, (4, 3), checkpoint_dir=tmp_path / "off")
+    faults.install(FaultPlan(FAULTED_PLAN))
+    with obs.run_context(run_dir=str(tmp_path / "run")):
+        on = _tiled(RB, RU, (4, 3), checkpoint_dir=tmp_path / "on")
+    assert _same_grid(off, on)
+
+
+INTERRUPTED_WORKER = """
+import sys
+import numpy as np
+import torch
+from sbr_tpu_torch import obs
+from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+from sbr_tpu_torch.resilience import FaultPlan, faults
+from sbr_tpu_torch.utils import run_tiled_grid
+
+torch.set_num_threads(1)
+faults.install(FaultPlan({"seed": 0, "rules": [
+    {"point": "tile.compute", "kind": "preempt", "at_hits": [2]}]}))
+obs.start_run(label="drill", run_dir=sys.argv[2])
+run_tiled_grid(np.linspace(0.5, 2.0, 4), np.linspace(0.05, 0.5, 4), make_model_params(),
+               config=SolverConfig(n_grid=96, bisect_iters=40, numerics="fixed"),
+               tile_shape=(2, 2), checkpoint_dir=sys.argv[1], device="cpu")
+print("UNREACHABLE")
+"""
+
+
+def test_sigterm_finalizes_the_run_as_interrupted(tmp_path):
+    script = tmp_path / "worker.py"
+    script.write_text(INTERRUPTED_WORKER)
+    run_dir = tmp_path / "run"
+    proc = subprocess.Popen([sys.executable, str(script), str(tmp_path / "ckpt"), str(run_dir)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=_env())
+    try:
+        out, _ = proc.communicate(timeout=120.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30.0)
+    assert proc.returncode == 143, out
+    manifest = json.loads((run_dir / "manifest.json").read_text())
+    assert manifest["status"] == "interrupted"
+    assert [e["kind"] for e in events(run_dir) if e["kind"] == "fault"] == ["fault"]
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,11 @@ Contracts, all bit for bit:
   apart between the frameworks, tests/test_torch_infomodels.py), when
   ``epoch_steps`` divides ``n_steps`` and when it does not;
 - a rewire closure and a rewire population record equal the reference's
-  from a carried fixed point.
+  from a carried fixed point;
+- telemetry: under a run, each epoch's ``rewire_epoch`` event and the
+  bayes belief census equal the reference's (the census's float32 mean
+  within 1e-6 relative: its sum associates apart), and so does a static
+  bayes run's census.
 
 Besides: a bias-0 rewire is the static model up to graph realizations
 (the reference's physics check), and SBM bases and ``prepared=`` are
@@ -52,6 +56,7 @@ from sbr_tpu_torch.social import agents as ta  # noqa: E402
 from sbr_tpu_torch.social import closure as tc  # noqa: E402
 from sbr_tpu_torch.social import graphgen as tg  # noqa: E402
 from sbr_tpu_torch.social.solver import fixed_point_from_numpy  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 FIG12 = dict(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
@@ -238,6 +243,30 @@ def test_bayes_rewire_bitwise_with_carried_fields(dtype, steps, epoch_steps, gro
                            device=CPU, fields=fields, **kw)
     _assert_same_run(want, got, bayes=True)
     assert got.belief_updates == N * steps
+
+
+@pytest.mark.parametrize("channel, dynamics", [("gossip", "rewire"), ("bayes", "rewire"),
+                                               ("bayes", "static")])
+def test_infomodel_events_equal_the_reference(channel, dynamics, tmp_path):
+    from sbr_tpu import obs as jobs
+    from sbr_tpu_torch import obs
+
+    jgraph, tgraph = _graphs("er", deg=8.0)
+    spec = dict(channel=channel, dynamics=dynamics, rewire_bias=2.0, epoch_steps=8)
+    cfg = dict(n_steps=29, dt=0.1, exit_delay=0.2, reentry_delay=1.5)
+    kw = dict(x0=0.03, seed=6, dtype=np.float32)
+    for mod, name in ((jobs, "warm"), (jobs, "ref")):
+        with mod.run_context(run_dir=str(tmp_path / name)):
+            je.simulate_info(JSpec(**spec), jgraph, config=ja.AgentSimConfig(**cfg), **kw)
+    fields = _reference_fields(TSpec(**spec), N, 6, 0.9, np.float32, CPU)
+    with obs.run_context(run_dir=str(tmp_path / "port")):
+        te.simulate_info(TSpec(**spec), tgraph, config=ta.AgentSimConfig(**cfg), device=CPU,
+                         fields=fields, **kw)
+    got, want = events(tmp_path / "port"), events(tmp_path / "ref")
+    assert_same_events(got, want, {"infomodel", "stage_start", "stage_end"}, rtol=1e-6)
+    actions = [e["action"] for e in got if e["kind"] == "infomodel"]
+    assert actions.count("rewire_epoch") == (4 if dynamics == "rewire" else 0)
+    assert actions.count("belief_census") == (channel == "bayes")
 
 
 def test_rewire_carries_the_initial_state_and_belief0():

@@ -26,7 +26,10 @@ Contracts, in float64:
   statuses equal, κ_eff and spillovers within 1e-12 (measured 4.4e-16:
   the spillover's prefix sum associates apart from ``jnp.cumsum``);
 - serving: the scenario route answers, caches and keys as the reference's
-  does, with the reference's HTTP codes.
+  does, with the reference's HTTP codes;
+- telemetry: `scenario_grid`, `solve` (reduced and composed) and
+  `solve_multibank` under a run log the reference's spans, program calls,
+  status and per-bank health censuses, after a warm-up.
 
 Every wait carries a timeout and every server is closed in a ``finally``.
 """
@@ -60,6 +63,7 @@ from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint  # noqa: E402
 from sbr_tpu_torch.serve.loadgen import http_request  # noqa: E402
 from sbr_tpu_torch.social.solver import solve_equilibrium_social  # noqa: E402
 from sbr_tpu_torch.sweeps import beta_u_grid  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -597,6 +601,36 @@ def test_multibank_matches_the_reference(name):
     assert np.array_equal(_np(got.health.flags), np.asarray(want.health.flags))
     for f in ("xi", "aw_max", "kappa_eff", "spillover", "tau_bar_in"):
         assert _gap(getattr(got, f), getattr(want, f)) <= FIXED_TOL, f
+
+
+def _scenario_calls(pkg, run_dir):
+    if pkg == "ref":
+        from sbr_tpu import obs as mod
+
+        S, P, kw = js, jp, {}
+    else:
+        from sbr_tpu_torch import obs as mod
+
+        S, P, kw = ts, tp, {"device": CPU}
+    spec_kw, make = NETWORKS["flip"]
+    with mod.run_context(run_dir=str(run_dir)):
+        S.scenario_grid(S.ScenarioSpec(modifiers=("insurance_cap",)), np.linspace(0.5, 2.0, 3),
+                        np.linspace(0.02, 0.5, 3), P.make_model_params(insurance_cap=0.4),
+                        config=_sweep_cfg(P), **kw)
+        S.solve(S.ScenarioSpec(), P.make_model_params(), config=_cfg(P), **kw)
+        S.solve(S.ScenarioSpec(modifiers=("lolr",)), P.make_model_params(u=0.08, lolr_rate=0.1),
+                config=_cfg(P), **kw)
+        S.solve_multibank(S.ScenarioSpec(**spec_kw), make(P), config=_sweep_cfg(P), **kw)
+    return events(run_dir)
+
+
+def test_scenario_events_equal_the_reference(tmp_path):
+    _scenario_calls("ref", tmp_path / "warm")  # the reference's trace-time spans, once
+    want = _scenario_calls("ref", tmp_path / "ref")
+    got = _scenario_calls("port", tmp_path / "port")
+    assert_same_events(got, want, {"stage_start", "stage_end", "jit_call", "status", "health"})
+    banks = [(e["stage"].split("[")[0], e.get("bank")) for e in got if e["kind"] == "health"]
+    assert banks[-3:] == [("scenario.multibank", i) for i in range(3)]
 
 
 def _batch(plist, spec=None, kappa=None):

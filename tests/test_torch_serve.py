@@ -17,7 +17,14 @@ Contracts:
   points behave as the reference's tests hold them;
 - the served program reads nothing from the host and makes no host
   tensor, so a CUDA graph can capture it; the adaptive root-find's
-  whole-budget form equals its checked form bit for bit.
+  whole-budget form equals its checked form bit for bit;
+- a served run directory: the same query sequence (a first dispatch, a
+  hit, an expired and an unmeetable deadline, then an outage through
+  injected dispatch faults) logs the reference engine's ``fleet`` events
+  (sheds, breaker transitions, the ladder), ``retry`` events, the
+  bucket's ``serve.compile[...]`` span and its ``serve_exec`` and
+  ``serve_batch`` events, and `report serve` gives the reference's
+  verdict on both runs.
 
 Every wait carries a timeout and every thread or server is closed in a
 ``finally``.
@@ -54,6 +61,7 @@ from sbr_tpu_torch.serve.live import GraphCounters  # noqa: E402
 from sbr_tpu_torch.serve.loadgen import build_pool, http_request, params_doc, query_mix  # noqa: E402
 from sbr_tpu_torch.sweeps.baseline_sweeps import solve_param_cell  # noqa: E402
 from sbr_tpu_torch.utils.checkpoint import params_fingerprint  # noqa: E402
+from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 WAIT = 120  # seconds: every wait in this file is bounded
@@ -514,8 +522,21 @@ def test_live_metrics_window_and_graph_lines():
     assert "sbr_serve_graph_replays_total 5" in text
     assert 'sbr_serve_bucket_graphs{bucket="64"} 1' in text
     assert live.maybe_write(None) is False
-    with pytest.raises(NotImplementedError, match="1.A 9"):
-        live.maybe_write(object())
+
+    class _Run:  # records what the engine's run would write as live.json
+        def __init__(self):
+            self.docs = []
+
+        def live_snapshot(self, doc):
+            self.docs.append(doc)
+
+    run = _Run()
+    assert live.write_due() and live.maybe_write(run) is True
+    assert run.docs[-1]["totals"]["queries"] == 201 and run.docs[-1]["graphs"]
+    assert not live.write_due() and live.maybe_write(run) is False  # throttled
+    assert live.maybe_write(run, force=True) is True and len(run.docs) == 2
+    clock[0] += 1.0
+    assert live.maybe_write(object()) is False  # a failed write never raises
 
 
 # ---------------------------------------------------------------------------
@@ -607,7 +628,7 @@ def test_loadgen_assert_warm_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("argv", [["--buckets", "-4"], ["--buckets", "x"], ["--buckets", ",,"],
                                   ["--fleet", "2"], ["--trace-out", "t.jsonl"],
-                                  ["--run-dir", "r"], ["--audit-wait", "1"],
+                                  ["--answers-out", "a.jsonl"], ["--audit-wait", "1"],
                                   ["--audit-fault", "{}"]])
 def test_loadgen_setup_errors_exit_2(argv, capsys):
     assert loadgen.main(argv + ["--device", "cpu"]) == 2
@@ -767,9 +788,30 @@ def test_scenario_and_population_queries_are_served(call):
 
 
 @pytest.mark.parametrize("kw", [{"run": object()}, {"run_dir": "runs/x"}])
-def test_run_directories_raise(kw):
-    with pytest.raises(NotImplementedError, match="1.A 9"):
-        Engine(device=CPU, **kw)
+def test_run_directories_raise(kw, tmp_path):
+    """Run directories raised before the run log's wiring was ported; an
+    engine given ``run=`` now logs onto that run, and one given ``run_dir``
+    owns a run there, finalized with ``live.json`` at close."""
+    from sbr_tpu_torch import obs
+
+    p = tparams.make_model_params()
+    if "run" in kw:
+        with obs.run_context(run_dir=str(tmp_path / "outer")) as run:
+            engine = Engine(device=CPU, run=run, serve=ServeConfig(buckets=(1,)))
+            engine.query(p)
+            engine.close()
+        run_dir = run.run_dir
+    else:
+        run_dir = tmp_path / kw["run_dir"]
+        engine = Engine(device=CPU, run_dir=str(run_dir), serve=ServeConfig(buckets=(1,)))
+        engine.query(p)
+        engine.close()
+        assert obs.current_run() is None  # the engine's own run is finalized
+    live = json.loads((run_dir / "live.json").read_text())
+    assert live["totals"]["queries"] == 1
+    kinds = [json.loads(line)["kind"] for line in
+             (run_dir / "events.jsonl").read_text().splitlines()]
+    assert "serve_batch" in kinds and kinds.count("serve_summary") == 1
 
 
 @pytest.mark.parametrize("var", ["SBR_AUDIT", "SBR_DEMAND", "SBR_PREWARM", "SBR_FLIGHT"])
@@ -785,3 +827,68 @@ def test_engine_needs_cuda_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine()
+
+
+# ---------------------------------------------------------------------------
+# The served run directory
+# ---------------------------------------------------------------------------
+
+
+def _served_run(pkg, run_dir):
+    """One query sequence through an engine that owns ``run_dir``."""
+    from sbr_tpu.resilience import faults as jfaults
+    from sbr_tpu_torch.resilience import faults as tfaults
+
+    if pkg == "ref":
+        mod, faults_mod, P = jengine, jfaults, jparams
+        engine = jengine.Engine(config=_cfg(jparams), serve=jengine.ServeConfig(buckets=(1, 8)),
+                                run_dir=str(run_dir))
+    else:
+        mod, faults_mod, P = tengine, tfaults, tparams
+        engine = Engine(config=_cfg(tparams), serve=ServeConfig(buckets=(1, 8)),
+                        run_dir=str(run_dir), device=CPU)
+    try:
+        engine.query_many([P.make_model_params(), P.make_model_params(u=0.2)])
+        engine.query(P.make_model_params())  # an LRU hit
+        for deadline_ms in (-1.0, 1e-9):  # expired, then under the service estimate
+            with pytest.raises(mod.DeadlineExceeded):
+                engine.query(P.make_model_params(u=0.3), deadline_ms=deadline_ms)
+        faults_mod.install(faults_mod.FaultPlan({"seed": 0, "rules": [
+            {"point": "serve.dispatch", "kind": "transient"}]}))
+        for u in (0.3, 0.4):  # the second finds the breaker open
+            with pytest.raises(Exception):
+                engine.query(P.make_model_params(u=u))
+        ladder = engine.statz().get("ladder")
+    finally:
+        faults_mod.install(None)
+        engine.close()
+    return events(run_dir), ladder
+
+
+def test_served_run_events_equal_the_reference(tmp_path, monkeypatch):
+    from sbr_tpu.obs import report as jreport
+    from sbr_tpu_torch.obs import report
+
+    for var in ("SBR_SERVE_SLO_MS", "SBR_SERVE_CACHE_FLOOR", "SBR_SERVE_WARMUP",
+                "SBR_TILE_CACHE_DIR", "SBR_SERVE_DEADLINE_MS"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("SBR_BREAKER_THRESHOLD", "1")
+    monkeypatch.setenv("SBR_BREAKER_COOLDOWN_S", "600")
+    monkeypatch.setenv("SBR_SERVE_RETRY_MAX_ATTEMPTS", "2")
+    monkeypatch.setenv("SBR_SERVE_RETRY_BASE_DELAY_S", "0.001")
+    _served_run("ref", tmp_path / "warm")  # the reference traces its batch program once
+    want, _ = _served_run("ref", tmp_path / "ref")
+    got, ladder = _served_run("port", tmp_path / "port")
+    assert_same_events(got, want, {"fleet", "retry", "serve_exec", "serve_batch",
+                                   "stage_start", "stage_end", "serve_summary"},
+                       # times, and the backend's own counters: XLA compiles in the
+                       # reference's summary, CUDA-graph counts in the port's
+                       dropped=("error", "uptime_s", "started_at", "latency_ms", "window",
+                                "totals", "graphs", "compile", "service_est_s"))
+    fleet = [(e["action"], e.get("reason")) for e in got if e["kind"] == "fleet"]
+    assert fleet == [("shed", "expired"), ("shed", "unmeetable"), ("breaker_open", None),
+                     ("ladder_exhausted", None), ("ladder_exhausted", None)]
+    assert ladder == {"tile_cache": False, "degraded": 0, "ladder_exhausted": 2}
+    for mod, d in ((report, tmp_path / "port"), (jreport, tmp_path / "ref")):
+        doc, code = mod.serve_doc(d)
+        assert code == 0 and doc["live"]["totals"]["queries"] == 3
