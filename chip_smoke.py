@@ -72,10 +72,18 @@ scenario, policy and graph runs; a sweep and a calibration built to breach;
 a SIGTERM drill), once without run directories for the run log's cost,
 with every report subcommand as ``python -m sbr_tpu_torch.obs.report``
 exiting 0 on the clean runs and 1 on the breaching ones;
-and the same drive small on the card against the CPU. It
-prints one JSON line per phase, and beside the serving, scenario,
-population, rewire, grad and tiled numbers the card's name and power
-limit.
+and the same drive small on the card against the CPU. Then slice 13,
+request tracing, the flight recorder and the demand observatory: the
+served mix and a cold stream with every switch off and each alone
+(answers bit-identical, p50/p99 of each), ``report util`` beside the
+profiler's busy share, traced population queries over HTTP (each
+launching its kernel members × steps times), loadgen's ``--trace-out``
+rows replayed into the engine's demand surface, the faulted tiled sweep
+with the recorder (tiles byte-equal), every report's exit code on clean
+and breaching runs and gc's keep flags; and the same drive small on the
+card against the CPU. It prints one JSON line per phase, and beside the
+serving, scenario, population, rewire, grad, tiled and telemetry numbers
+the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -83,6 +91,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3998,15 +4007,732 @@ def phase_obs_cpu_vs_card() -> None:
         raise AssertionError(f"obs card vs CPU: {cmp}, populations {pops}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: request tracing, the flight recorder and the demand observatory
+# ---------------------------------------------------------------------------
+
+# The telemetry drive's sizes. "full": bench.py's serving mix (pool 64,
+# 2,048 queries, buckets 1/8/64, n_grid 1024) with a cold stream of 4,096
+# distinct queries after it (64 dispatches of 64, so that no single host
+# stall decides the flight recorder's busy fraction), bench_infomodels' population shape (20,000
+# agents, 16 members, 333 steps) over HTTP, loadgen, and the obs phase's
+# faulted tiled sweep (128×128 in 64×64 tiles). "small": the same drive at
+# sizes the CPU runs in seconds, for the card-against-CPU phase.
+TELEM_SIZES = {
+    "full": dict(pool=64, queries=2048, group=16, buckets=(1, 8, 64), cold=4096, cold_group=64,
+                 profiled_cold=1024,
+                 cfg=BENCH_SWEEP_CFG, pop_n=POP_N, pop_seeds=POP_SEEDS, sweep_n=BENCH_SWEEP_N,
+                 tile=BENCH_SWEEP_TILE, loadgen_queries=512, breach_rounds=6, rounds=3),
+    "small": dict(pool=8, queries=48, group=8, buckets=(1, 8), cold=32, cold_group=8,
+                  cfg=dict(n_grid=96, bisect_iters=40, refine_crossings=False), pop_n=2_000,
+                  pop_seeds=2, sweep_n=16, tile=8, loadgen_queries=48, breach_rounds=6,
+                  rounds=1),
+}
+# The served runs of a round: every switch off, then each alone. A round
+# repeats in "full" (the spread of one call), after an untimed first run
+# that pays the first engine's costs.
+# The flight run's ring holds every record of the mix and of the cold
+# stream (~5 records a query), so its folds drop nothing.
+TELEM_FLIGHT_CAP = 1 << 16
+TELEM_RUNS = (("off", {}), ("trace", {"SBR_TRACE_SAMPLE": "1"}),
+              ("flight", {"SBR_FLIGHT": "1", "SBR_FLIGHT_CAP": str(TELEM_FLIGHT_CAP)}),
+              ("demand", {"SBR_DEMAND": "1"}))
+TELEM_ALL = {"SBR_TRACE_SAMPLE": "1", "SBR_FLIGHT": "1", "SBR_DEMAND": "1"}
+# Every knob the drive sets; each starts unset and is restored after.
+TELEM_KNOBS = ("SBR_TRACE_SAMPLE", "SBR_FLIGHT", "SBR_DEMAND", "SBR_FLIGHT_CAP",
+               "SBR_SERVE_SLO_MS", "SBR_TRACE_MAX_MB", "SBR_FLIGHT_ROTATE_S",
+               "SBR_DEMAND_ROTATE_S", "SBR_FLIGHT_UTIL_FLOOR", "SBR_DEMAND_COVERAGE_FLOOR",
+               "SBR_FLIGHT_MIN_DISPATCHES", "SBR_DEMAND_BINS", "SBR_DEMAND_TOPK",
+               "SBR_TILE_CACHE_DIR", "SBR_SERVE_DEADLINE_MS")
+# The breach run: an SLO no query meets, and rotation knobs that leave
+# rotated span, demand and flight files for gc's keep flags (the span
+# file's floor is 64 KiB).
+TELEM_BREACH_ENV = {"SBR_SERVE_SLO_MS": "0.000001", "SBR_TRACE_MAX_MB": "0",
+                    "SBR_FLIGHT_ROTATE_S": "0.2", "SBR_DEMAND_ROTATE_S": "0.2"}
+TELEM_BREACH_QUERIES = 512
+# The report knobs that make the breach run's util and demand gates fail
+# (its one or two dispatches arm the floor at 1).
+TELEM_REPORT_BREACH_ENV = {"SBR_FLIGHT_UTIL_FLOOR": "0.999", "SBR_FLIGHT_MIN_DISPATCHES": "1",
+                           "SBR_DEMAND_COVERAGE_FLOOR": "0.999"}
+# (report, run, knobs, expected exit): 0 on the clean runs, 1 on the breach
+TELEM_REPORTS = (("trace", "trace", {}, 0), ("slo", "trace", {}, 0),
+                 ("util", "flight", {}, 0), ("demand", "demand", {}, 0),
+                 ("trace", "population", {}, 0), ("trace", "loadgen", {}, 0),
+                 ("demand", "loadgen", {}, 0), ("util", "tiled", {}, 0),
+                 ("trace", "breach", {}, 1), ("slo", "breach", {}, 1),
+                 ("util", "breach", TELEM_REPORT_BREACH_ENV, 1),
+                 ("demand", "breach", TELEM_REPORT_BREACH_ENV, 1))
+TELEM_GC_KEEP = 1
+
+
+@contextlib.contextmanager
+def _env(changes: dict):
+    """``with _env({...}):`` os.environ changed for the block (a None value
+    unsets), then restored."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in changes}
+    try:
+        for k, v in changes.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _telem_report(sub: str, run_dir, knobs: dict, *extra) -> tuple:
+    """``report SUB RUN_DIR --json`` in this process under ``knobs``:
+    (exit, document)."""
+    import io
+
+    from sbr_tpu_torch.obs import report
+
+    buf = io.StringIO()
+    with _env(knobs), contextlib.redirect_stdout(buf):
+        code = report.main([sub, str(run_dir), *extra, "--json"])
+    return code, json.loads(buf.getvalue())
+
+
+def _telem_trace_spans(run_dir, ids) -> list:
+    """The committed spans of each trace id of ``ids``, in that order."""
+    from sbr_tpu_torch.obs import trace
+
+    spans, bad = trace.load_spans(run_dir)
+    if bad:
+        raise AssertionError(f"{bad} torn span line(s) in {run_dir}")
+    by = {}
+    for s in spans:
+        by.setdefault(s["trace"], []).append(s)
+    return [by.get(t, []) for t in ids]
+
+
+def _telem_shape(spans: list) -> list:
+    """A trace's spans as (name, parent's name): ids and times dropped."""
+    names = {s["span"]: s["name"] for s in spans}
+    return [(s["name"], names.get(s.get("parent"), "remote" if s.get("parent") else None))
+            for s in spans]
+
+
+def _telem_kinds(records) -> dict:
+    """Flight records counted by "stream/kind/tag" (begins and points)."""
+    out = {}
+    for r in records:
+        if r[5] in ("b", "p"):
+            key = f"{r[1]}/{r[2]}/{r[3]}"
+            out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def _telem_served(device, size: dict, name: str, env: dict, root, started: bool) -> dict:
+    """One served run under ``env``, its engine owning ``root / name``
+    (started, or inline when not ``started``): every pool member once (the
+    warm-up), the seeded mix, then a cold stream of distinct queries. With
+    tracing on, each measured query carries a minted trace committed with
+    its ``loadgen.query`` root, as loadgen does. The pool's answers are read
+    (all hits) after the mix; the flight recorder is folded and reset after
+    the warm-up and after that read (the metrics are read then too), and
+    folded again after the cold stream; the engine closes straight after
+    it, so ``flight.json`` covers the cold stream alone. Returns the
+    answers as bits, p50/p99 and seconds of the mix and of the cold stream
+    (exact percentiles of the engine's per-query latencies, and the live
+    histogram's quantiles as earlier phases read them), the flight folds
+    of the mix and of the cold stream, and what the recorders hold."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.obs import trace as qtrace
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix
+
+    pool = build_pool(0, size["pool"])
+    mix = query_mix(0, size["pool"], size["queries"])
+    cold = build_pool(7, size["cold"])
+    out = {"name": name, "spans": [], "kinds_mix": {}}
+    with _env(env):
+        if "SBR_FLIGHT" in env:
+            from sbr_tpu_torch.obs import flight
+
+            flight.reset_shared()
+        engine = Engine(config=st.SolverConfig(**size["cfg"]),
+                        serve=ServeConfig(buckets=size["buckets"]), device=device,
+                        run_dir=str(root / name))
+        if started:
+            engine.start()
+        tracing = qtrace.sample_rate() > 0
+        writer = engine.trace_writer()
+
+        def serve(params, group, scenario):
+            answers = []
+            for i in range(0, len(params), group):
+                chunk = params[i : i + group]
+                ctxs = None
+                if tracing:
+                    ctxs = [qtrace.mint("loadgen") for _ in chunk]
+                    for c in ctxs:
+                        c.parent_id = c.alloc_id()
+                t0w, t0m = time.time(), time.monotonic()
+                res = engine.query_many(chunk, scenario=scenario, timeout=600, traces=ctxs)
+                dur = time.monotonic() - t0m
+                for c, r in zip(ctxs or (), res):
+                    c.add("loadgen.query", t0w, dur, parent=c.remote_parent, span_id=c.parent_id,
+                          source=r.source)
+                    writer.commit(c)
+                    out["spans"].append(c.spans)
+                answers += res
+            return answers
+
+        try:
+            g = size["group"]
+            t0 = time.perf_counter()
+            for i in range(0, len(pool), g):
+                engine.query_many(pool[i : i + g], scenario="warmup", timeout=600)
+            out["warmup_s"] = time.perf_counter() - t0
+            if engine.flight is not None:
+                engine.flight.reset()
+            hist = engine.live.total_hist.copy()
+            t0 = time.perf_counter()
+            mix_res = serve([pool[j] for j in mix], g, "mix")
+            out["mix_s"] = time.perf_counter() - t0
+            lat = engine.live.total_hist.delta(hist)
+            ms = np.array([r.latency_s for r in mix_res]) * 1e3
+            out.update(p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                       p50_hist_ms=lat.quantile(0.5), p99_hist_ms=lat.quantile(0.99))
+            if engine.flight is not None:
+                from sbr_tpu_torch.obs import flight
+
+                snap = engine.flight.snapshot()
+                out["util_mix"] = flight.derive_utilization(snap)
+                out["kinds_mix"] = _telem_kinds(snap["records"])
+            pool_res = engine.query_many(pool, timeout=600)
+            text = engine.prometheus()
+            out["metrics_words"] = [w for w in ("sbr_flight", "sbr_demand", "sbr_trace_span_ms")
+                                    if w in text]
+            out["statz_blocks"] = [k for k in ("flight", "demand") if k in engine.statz()]
+            if engine.flight is not None:
+                engine.flight.reset()
+            t0 = time.perf_counter()
+            cold_res = serve(cold, size["cold_group"], "cold")
+            out["cold_s"] = time.perf_counter() - t0
+            if engine.flight is not None:
+                out["util_cold"] = flight.derive_utilization(engine.flight.snapshot())
+        finally:
+            engine.close()
+    ms = np.array([r.latency_s for r in cold_res]) * 1e3
+    out.update(cold_p50_ms=float(np.percentile(ms, 50)), cold_p99_ms=float(np.percentile(ms, 99)),
+               cold_eq_per_s=len(cold) / out["cold_s"])
+    out["bits"] = [(r.status, r.flags, np.float64(r.xi).tobytes(), np.float64(r.aw_max).tobytes())
+                   for r in pool_res + cold_res]
+    d = root / name
+    if (d / "flight.json").exists():
+        out["kinds_cold"] = _telem_kinds(json.loads((d / "flight.json").read_text())["records"])
+    if (d / "demand.json").exists():
+        out["demand_totals"] = json.loads((d / "demand.json").read_text())["totals"]
+        out["plan_bytes"] = (d / "advisor_plan.json").read_bytes()
+    return out
+
+
+def _telem_profiled_cold(device, size: dict, root) -> dict:
+    """The first ``profiled_cold`` queries of the off run's cold stream
+    again, on a fresh engine, under torch.profiler: their kernels' summed
+    device time over their wall time (the serve phase's busy share), and
+    the same for the (all-hit) mix before them. The stream runs ~10^5
+    kernels a 1,000 queries and the profiler's analysis costs ~0.1 ms a
+    kernel, so only device activity is traced, over a quarter of the
+    stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix
+
+    pool = build_pool(0, size["pool"])
+    mix = query_mix(0, size["pool"], size["queries"])
+    cold = build_pool(7, size["cold"])[: size["profiled_cold"]]
+    engine = Engine(config=st.SolverConfig(**size["cfg"]), serve=ServeConfig(
+        buckets=size["buckets"]), device=device).start()
+    out = {}
+    try:
+        g = size["group"]
+        for i in range(0, len(pool), g):
+            engine.query_many(pool[i : i + g], timeout=600)
+        for name, params, group in (("mix", [pool[j] for j in mix], g),
+                                    ("cold", cold, size["cold_group"])):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(0, len(params), group):
+                    engine.query_many(params[i : i + group], timeout=600)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            device_s = sum(e.self_device_time_total for e in rows) / 1e6
+            out[name] = dict(wall_s=wall_s, device_s=device_s, busy_share=device_s / wall_s,
+                             kernels=sum(e.count for e in rows))
+    finally:
+        engine.close()
+    if out["cold"]["device_s"] <= 0:
+        raise AssertionError("the profiler saw no device time in the cold stream")
+    return out
+
+
+def _telem_breach(device, size: dict, root) -> dict:
+    """The run built to breach: a started engine with every switch on, an
+    SLO no query meets and the rotation knobs; rounds of pool queries, half
+    of whose traces are committed without their root (so the join has
+    orphans), the other half with it (so the SLO has roots to judge), and
+    a pause after each round that lets the batcher's live writes rotate
+    ``flight.json`` and ``demand.json``."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.obs import flight
+    from sbr_tpu_torch.obs import trace as qtrace
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    pool = build_pool(0, size["pool"])
+    per_round = TELEM_BREACH_QUERIES // size["breach_rounds"]
+    with _env({**TELEM_ALL, **TELEM_BREACH_ENV}):
+        flight.reset_shared()
+        engine = Engine(config=st.SolverConfig(**size["cfg"]),
+                        serve=ServeConfig(buckets=size["buckets"]), device=device,
+                        run_dir=str(root / "breach")).start()
+        writer = engine.trace_writer()
+        try:
+            for _ in range(size["breach_rounds"]):
+                params = [pool[i % len(pool)] for i in range(per_round)]
+                ctxs = [qtrace.mint("loadgen") for _ in params]
+                for c in ctxs:
+                    c.parent_id = c.alloc_id()
+                t0w, t0m = time.time(), time.monotonic()
+                engine.query_many(params, timeout=600, traces=ctxs)
+                for k, c in enumerate(ctxs):
+                    if k % 2 == 0:  # the odd ones keep a root that is never added
+                        c.add("loadgen.query", t0w, time.monotonic() - t0m,
+                              parent=c.remote_parent, span_id=c.parent_id)
+                    writer.commit(c)
+                time.sleep(0.6)
+        finally:
+            engine.close()
+    d = root / "breach"
+    return {"rotated": {k: len(list(d.glob(p))) for k, p in (
+        ("trace", "trace.*.jsonl"), ("demand", "demand.*.json"), ("flight", "flight.*.json"))}}
+
+
+def _telem_population(device, size: dict, root) -> dict:
+    """Traced population queries over HTTP with every switch on: one a
+    channel through `ServeEndpoint` → `Engine.query_population`, each
+    query's kernel launches read before and after it. Returns the launches,
+    seconds, echoed and body trace ids, the joined spans and the demand
+    surface's kinds."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.obs import flight
+    from sbr_tpu_torch.obs import trace as qtrace
+    from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint
+    from sbr_tpu_torch.serve.loadgen import http_request
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    m = st.make_model_params(**FIG12)
+    steps = max(int(round(float(m.economic.eta) / 0.1)), 2)
+    # the CPU runs each kernel's plain version: no launch
+    expected = size["pop_seeds"] * steps if torch.device(device).type == "cuda" else 0
+    rows = {}
+    with _env(TELEM_ALL):
+        flight.reset_shared()
+        engine = Engine(config=st.SolverConfig(n_grid=POP_GRID), serve=ServeConfig(buckets=(1,)),
+                        device=device, run_dir=str(root / "population")).start()
+        endpoint = None
+        try:
+            endpoint = ServeEndpoint(engine).start()
+            _build.reset_launches()
+            for channel, kernel, other in (("bayes", BELIEF_KERNEL, KERNEL),
+                                           ("gossip", KERNEL, BELIEF_KERNEL)):
+                before = _launches()
+                t0 = time.perf_counter()
+                code, body, hdrs = http_request(endpoint.port, "/query", {
+                    **FIG12, "population": _obs_pop_doc(size, channel)}, timeout=600)
+                _sync(device)
+                secs = time.perf_counter() - t0
+                after = _launches()
+                if code != 200:
+                    raise AssertionError(f"population {channel}: /query answered {code}: {body}")
+                rec = json.loads(body)
+                rows[channel] = dict(
+                    seconds=secs, launches=after[kernel] - before[kernel],
+                    other_launches=after[other] - before[other],
+                    expected_launches=expected,
+                    echoed=hdrs.get(qtrace.TRACE_HEADER), trace_id=rec.get("trace_id"),
+                    source=rec["source"], run_probability=rec["run_probability"])
+            launches = _launches()
+            # each handler commits its trace after its response has gone out
+            deadline = time.monotonic() + 60
+            while engine.trace_writer().counters["traces"] < len(rows):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"traces committed: {engine.trace_writer().counters}")
+                time.sleep(0.01)
+        finally:
+            if endpoint is not None:
+                endpoint.close()
+            engine.close()
+    d = root / "population"
+    ids = [rows[c]["trace_id"] for c in ("bayes", "gossip")]
+    spans = _telem_trace_spans(d, ids)
+    code, doc = _telem_report("trace", d, {}, "--max-waterfalls", "10")
+    roots = {w["trace"]: w["rows"][0]["name"] for w in doc.get("waterfalls", [])}
+    kinds = sorted({(p or {}).get("kind") for _, _, p in json.loads(
+        (d / "demand.json").read_text())["totals"]["sketch"]["items"]})
+    return dict(rows=rows, launches=launches, shapes=[_telem_shape(s) for s in spans],
+                waterfall_roots=[roots.get(t) for t in ids], demand_kinds=kinds, trace_exit=code)
+
+
+def _telem_loadgen(device, size: dict, root) -> dict:
+    """loadgen with ``--trace-out`` and ``--run-dir`` (tracing and demand on),
+    then ``python -m sbr_tpu_torch.obs.demand replay`` over its rows as a
+    subprocess: the replayed surface must be the engine's, bin for bin,
+    once the warm-up (every pool member once, each computed) is taken out."""
+    import io
+    import os
+
+    from sbr_tpu_torch.obs import demand
+    from sbr_tpu_torch.serve import loadgen
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    d = root / "loadgen"
+    rows = root / "loadgen_rows.jsonl"
+    cfg = size["cfg"]
+    argv = ["--queries", str(size["loadgen_queries"]), "--pool", str(size["pool"]),
+            "--group", str(size["group"]), "--n-grid", str(cfg["n_grid"]),
+            "--bisect-iters", str(cfg["bisect_iters"]),
+            "--buckets", ",".join(str(b) for b in size["buckets"]), "--run-dir", str(d),
+            "--trace-out", str(rows)] + (["--device", "cpu"] if device == "cpu" else [])
+    buf = io.StringIO()
+    with _env({"SBR_TRACE_SAMPLE": "1", "SBR_DEMAND": "1"}), contextlib.redirect_stdout(buf):
+        rc = loadgen.main(argv)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0:
+        raise AssertionError(f"loadgen exited {rc}: {summary}")
+    surf, plan = root / "replayed.json", root / "replayed_plan.json"
+    env = {k: v for k, v in os.environ.items() if k not in TELEM_KNOBS}
+    proc = subprocess.run([sys.executable, "-m", "sbr_tpu_torch.obs.demand", "replay", str(rows),
+                           "--out", str(surf), "--plan-out", str(plan), "--json"],
+                          capture_output=True, text=True, timeout=120, cwd=str(_REPO_ROOT),
+                          env={**env, "PYTHONPATH": str(_REPO_ROOT)})
+    if proc.returncode != 0:
+        raise AssertionError(f"demand replay exited {proc.returncode}: {proc.stderr}")
+    replayed = json.loads(surf.read_text())
+    engine_surface = json.loads((d / "demand.json").read_text())["totals"]
+    warm = {}
+    for p in build_pool(0, size["pool"]):
+        i, j = demand.bin_of(p.learning.beta, p.economic.u, engine_surface["bins"])
+        warm[f"{i},{j}"] = warm.get(f"{i},{j}", 0) + 1
+    rebuilt = {}
+    for key, cell in engine_surface["cells"].items():
+        srcs = dict(cell["sources"])
+        srcs["computed"] = srcs.get("computed", 0) - warm.get(key, 0)
+        n = cell["count"] - warm.get(key, 0)
+        if n:
+            rebuilt[key] = {"count": n, "sources": {s: v for s, v in sorted(srcs.items()) if v}}
+    ids = [json.loads(line)["trace_id"] for line in rows.read_text().splitlines()]
+    shapes = [_telem_shape(s) for s in _telem_trace_spans(d, ids)]
+    return dict(summary=summary, replay=json.loads(proc.stdout),
+                same_bins=rebuilt == replayed["cells"], bins=len(replayed["cells"]),
+                engine_cells=engine_surface["cells"], plan_bytes=plan.read_bytes(),
+                shapes=shapes)
+
+
+def _telem_tiled(device, size: dict, root) -> dict:
+    """The obs phase's faulted tiled sweep twice, the flight recorder off
+    then on (the same seeded faults: a retried transient and a repaired
+    NaN): tile files byte-equal, and every tile with its ``compute`` and
+    ``ckpt_save`` records."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.resilience import FaultPlan, faults
+
+    betas = np.linspace(0.5, 2.0, size["sweep_n"])
+    us = np.linspace(0.02, 0.5, size["sweep_n"])
+    cfg = st.SolverConfig(**size["cfg"])
+    secs = {}
+    for name, env in (("off", {}), ("on", {"SBR_FLIGHT": "1"})):
+        with _env({**env, "SBR_RETRY_BASE_DELAY_S": "0.01"}):
+            if env:
+                from sbr_tpu_torch.obs import flight
+
+                flight.reset_shared()
+            faults.install(FaultPlan({"seed": 3, "rules": OBS_FAULTS}))
+            try:
+                rep = {}
+                secs[name], _ = _obs_timed(device, lambda: st.run_tiled_grid(
+                    betas, us, st.make_model_params(), config=cfg,
+                    tile_shape=(size["tile"], size["tile"]),
+                    checkpoint_dir=str(root / f"tiled_{name}"), device=device, report=rep))
+            finally:
+                faults.install(None)
+    from sbr_tpu_torch.obs import flight
+
+    snap = flight.shared().snapshot()
+    (root / "tiled").mkdir()
+    (root / "tiled" / "flight.json").write_text(json.dumps(snap))
+    tiles = sorted(p.name for p in (root / "tiled_off").glob("tile_*.npz"))
+    same = tiles == sorted(p.name for p in (root / "tiled_on").glob("tile_*.npz")) and all(
+        (root / "tiled_off" / t).read_bytes() == (root / "tiled_on" / t).read_bytes()
+        for t in tiles)
+    per_tile = {}
+    for r in snap["records"]:
+        if r[1] == "sweeps" and r[5] == "b":
+            per_tile.setdefault(r[3], []).append(r[2])
+    return dict(tiles=len(tiles), bytes_equal=same, seconds=secs, repairs=len(rep["repairs"]),
+                per_tile={t: sorted(k) for t, k in sorted(per_tile.items())},
+                kinds=_telem_kinds(snap["records"]))
+
+
+def _telem_gc(root) -> dict:
+    """``report gc`` over the drive's run directories with the three keep
+    flags: the removed files must be exactly the rotated ones past the
+    newest ``TELEM_GC_KEEP`` of each kind in each run (spans by mtime,
+    demand, advisor-plan and flight snapshots by name), and every active
+    file stays."""
+    import io
+
+    from sbr_tpu_torch.obs import report
+
+    runs = root
+    want = set()
+    for d in (p for p in runs.iterdir() if p.is_dir() and (p / "manifest.json").exists()):
+        rotated = sorted(d.glob("trace.*.jsonl"), key=lambda p: p.stat().st_mtime)
+        want |= {str(p) for p in rotated[: max(len(rotated) - TELEM_GC_KEEP, 0)]}
+        for pattern in ("demand.*.json", "advisor_plan.*.json", "flight.*.json"):
+            rotated = sorted(d.glob(pattern))
+            want |= {str(p) for p in rotated[: max(len(rotated) - TELEM_GC_KEEP, 0)]}
+    active = {str(p) for p in runs.glob("*/*") if p.name in (
+        "trace.jsonl", "demand.json", "advisor_plan.json", "flight.json")}
+    before = {str(p) for p in runs.rglob("*") if p.is_file()}
+    buf = io.StringIO()
+    keep = str(TELEM_GC_KEEP)
+    with contextlib.redirect_stdout(buf):
+        code = report.main(["gc", str(runs), "--keep", "1000", "--trace-keep", keep,
+                            "--demand-keep", keep, "--flight-keep", keep])
+    after = {str(p) for p in runs.rglob("*") if p.is_file()}
+    removed = before - after
+    return dict(exit=code, removed=len(removed), expected=len(want),
+                same=removed == want and active <= after)
+
+
+def _telem_drive(device, size_name: str, root, started: bool) -> dict:
+    """The slice's paths once on ``device`` below ``root``: the four served
+    runs, the breach run, the traced population queries, loadgen with its
+    replay, the faulted tiled sweep off and on, every report of
+    TELEM_REPORTS and gc's keep flags. Returns everything the phases
+    compare, with the population queries' launches counted from 0 just
+    before them."""
+    size = TELEM_SIZES[size_name]
+    runs = root / "runs"
+    out = {"warm": _telem_served(device, size, "warm", {}, runs, started), "rounds": []}
+    for r in range(size["rounds"]):
+        out["rounds"].append({name: _telem_served(device, size, f"{name}.{r}" if r else name,
+                                                  env, runs, started)
+                              for name, env in TELEM_RUNS})
+    out["served"] = out["rounds"][0]
+    out["breach"] = _telem_breach(device, size, runs)
+    out["population"] = _telem_population(device, size, runs)
+    out["loadgen"] = _telem_loadgen(device, size, runs)
+    out["tiled"] = _telem_tiled(device, size, runs)
+    out["reports"] = {f"{sub}:{run}": (_telem_report(sub, runs / run, knobs), want)
+                      for sub, run, knobs, want in TELEM_REPORTS}
+    out["gc"] = _telem_gc(runs)
+    return out
+
+
+def _telem_checks(drive: dict, size_name: str) -> dict:
+    """The drive's own checks (either device): answers the same bits in
+    the four runs, the metrics of each switch only while it is on, report
+    exit codes, no flight record dropped, the population queries' launches and joins, the replay,
+    the tiles, gc. Returns the verdicts; raises on a failed one."""
+    served = drive["served"]
+    base = drive["warm"]["bits"]
+    every = [r[n] for r in drive["rounds"] for n, _ in TELEM_RUNS]
+    verdicts = {
+        "answers_bitwise": all(run["bits"] == base for run in every),
+        "metrics": {run["name"]: run["metrics_words"] for run in every},
+        "statz": {run["name"]: run["statz_blocks"] for run in every},
+        "exits": {k: [code, want] for k, ((code, _), want) in drive["reports"].items()},
+    }
+    pop = drive["population"]
+    lg = drive["loadgen"]
+    tiled = drive["tiled"]
+    size = TELEM_SIZES[size_name]
+    ok = (verdicts["answers_bitwise"]
+          and all({"sbr_flight", "sbr_demand"} & set(r[n]["metrics_words"]) == want
+                  and r[n]["statz_blocks"] == sorted(w.removeprefix("sbr_") for w in want)
+                  for r in drive["rounds"] for n, want in (
+                      ("off", set()), ("trace", set()), ("flight", {"sbr_flight"}),
+                      ("demand", {"sbr_demand"})))
+          and all(code == want for code, want in verdicts["exits"].values())
+          and all(r["flight"][k]["dropped_records"] == 0
+                  for r in drive["rounds"] for k in ("util_mix", "util_cold"))
+          and drive["reports"]["util:flight"][0][1]["util"]["dropped_records"] == 0
+          and len(served["trace"]["spans"]) == size["queries"] + size["cold"]
+          and all(r["launches"] == r["expected_launches"] and r["other_launches"] == 0
+                  and r["echoed"] == r["trace_id"] and r["trace_id"]
+                  for r in pop["rows"].values())
+          and pop["waterfall_roots"] == ["worker.request"] * 2
+          and pop["shapes"] == [[("worker.request", None)]] * 2
+          and pop["demand_kinds"] == ["population"]
+          and lg["same_bins"] and lg["summary"]["traced_queries"] == size["loadgen_queries"]
+          and lg["replay"]["stats"]["replayed"] == size["loadgen_queries"]
+          and tiled["bytes_equal"] and tiled["tiles"] == (size["sweep_n"] // size["tile"]) ** 2
+          and len(tiled["per_tile"]) == tiled["tiles"]
+          and all("compute" in k and "ckpt_save" in k for k in tiled["per_tile"].values())
+          and drive["gc"]["exit"] == 0 and drive["gc"]["same"]
+          and drive["gc"]["removed"] > 0
+          and all(v >= 2 for v in drive["breach"]["rotated"].values()))
+    if not ok:
+        raise AssertionError(f"telemetry checks failed: {verdicts}, population {pop['rows']}, "
+                             f"{pop['waterfall_roots']}, {pop['demand_kinds']}, loadgen "
+                             f"{lg['same_bins']} {lg['summary'].get('traced_queries')}, tiled "
+                             f"{tiled['bytes_equal']} {tiled['per_tile']}, gc {drive['gc']}, "
+                             f"breach {drive['breach']}")
+    return verdicts
+
+
+def phase_telemetry(card: str) -> dict:
+    """Slice 13 on the card at bench.py's shapes (module docstring): the
+    served mix and a cold stream once untimed (every switch off, paying
+    the first engine's costs), then the four TELEM_RUNS (every switch off,
+    then tracing, the flight recorder and the demand observatory each
+    alone) in each of ``rounds`` rounds, answers bit-identical and p50/p99
+    of each; the flight recorder's device-busy and host-gap fractions,
+    queue depth and occupancy from ``report util`` (the first round's cold
+    stream) and the cold stream's fold in every round, beside the
+    profiler's busy share of the same stream on a fresh engine;
+    traced population queries over HTTP in both channels, each launching
+    its kernel members × steps times; loadgen's rows replayed into the
+    engine's surface; the faulted tiled sweep with the recorder, its tiles
+    byte-equal; every report's exit code; gc's keep flags. Returns the
+    launches by kernel of the traced population queries, counted from 0
+    just before them."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix="sbr_telem_") as tmp, \
+            _env({k: None for k in TELEM_KNOBS}):
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        drive = _telem_drive("cuda", "full", root, started=True)
+        drive_s = time.perf_counter() - t0
+        prof = _telem_profiled_cold("cuda", TELEM_SIZES["full"], root)
+        verdicts = _telem_checks(drive, "full")
+        served = drive["served"]
+        for name, _ in TELEM_RUNS:
+            runs = [r[name] for r in drive["rounds"]]
+
+            def each(key, runs=runs):
+                return [r[key] for r in runs]
+
+            emit("telemetry_served", run=name, rounds=len(runs),
+                 p50_ms=each("p50_ms"), p99_ms=each("p99_ms"),
+                 p50_ms_median=float(np.median(each("p50_ms"))),
+                 p99_ms_median=float(np.median(each("p99_ms"))),
+                 p50_hist_ms=each("p50_hist_ms"), p99_hist_ms=each("p99_hist_ms"),
+                 mix_s=each("mix_s"), cold_p50_ms=each("cold_p50_ms"),
+                 cold_p99_ms=each("cold_p99_ms"), cold_s=each("cold_s"),
+                 cold_eq_per_s=each("cold_eq_per_s"), warmup_s=each("warmup_s"),
+                 metrics=runs[0]["metrics_words"], card=card)
+        util_doc = drive["reports"]["util:flight"][0][1]["util"]
+        mix_util = served["flight"]["util_mix"]
+        colds = [r["flight"]["util_cold"] for r in drive["rounds"]]
+        emit("telemetry_util", window="cold stream", flight=dict(
+                 device_busy_frac=util_doc["device_busy_frac"],
+                 host_gap_frac=util_doc["host_gap_frac"], gap_causes=util_doc["gap_causes"],
+                 dispatches=util_doc["dispatches"], queue_depth=util_doc.get("queue_depth"),
+                 dropped_records=util_doc["dropped_records"],
+                 occupancy=util_doc.get("occupancy"), window_s=util_doc["window_s"]),
+             flight_cold_rounds={k: [u[k] for u in colds] for k in (
+                 "device_busy_frac", "host_gap_frac", "dispatches", "window_s",
+                 "dropped_records")},
+             flight_mix=dict(device_busy_frac=mix_util["device_busy_frac"],
+                             dispatches=mix_util["dispatches"],
+                             queue_depth=mix_util.get("queue_depth"),
+                             gap_causes=mix_util["gap_causes"]),
+             profiler=prof, card=card)
+        pop = drive["population"]
+        for channel, row in pop["rows"].items():
+            emit("telemetry_population", channel=channel, n_agents=POP_N, members=POP_SEEDS,
+                 **row, waterfall=pop["waterfall_roots"], demand_kinds=pop["demand_kinds"],
+                 card=card)
+        lg = drive["loadgen"]
+        emit("telemetry_loadgen", traced_queries=lg["summary"]["traced_queries"],
+             p50_ms=lg["summary"]["p50_ms"], p99_ms=lg["summary"]["p99_ms"],
+             replay=lg["replay"], same_bins=lg["same_bins"], bins=lg["bins"], card=card)
+        tiled = drive["tiled"]
+        emit("telemetry_tiled", tiles=tiled["tiles"], bytes_equal=tiled["bytes_equal"],
+             seconds=tiled["seconds"], repairs=tiled["repairs"], kinds=tiled["kinds"], card=card)
+        emit("telemetry_reports", exits=verdicts["exits"], gc=drive["gc"],
+             rotated=drive["breach"]["rotated"], answers_bitwise=verdicts["answers_bitwise"],
+             statz=verdicts["statz"], seconds=drive_s)
+    return pop["launches"]
+
+
+def phase_telemetry_cpu_vs_card() -> None:
+    """The telemetry drive small on the card and on the CPU, the served runs
+    inline (the thread-free path, so batches do not depend on timing):
+    span-name and parent sequences, flight record kinds and counts, demand
+    surfaces and advisor-plan bytes, and every report exit code equal."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix="sbr_telem_cpu_") as tmp, \
+            _env({k: None for k in TELEM_KNOBS}):
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        drives = {dev: _telem_drive(d, "small", root / dev, started=False)
+                  for dev, d in (("card", "cuda"), ("cpu", "cpu"))}
+        secs = time.perf_counter() - t0
+        for drive in drives.values():
+            _telem_checks(drive, "small")
+    a, b = drives["card"], drives["cpu"]
+    eq = {
+        "served_spans": [_telem_shape(s) for s in a["served"]["trace"]["spans"]]
+        == [_telem_shape(s) for s in b["served"]["trace"]["spans"]],
+        "population_spans": a["population"]["shapes"] == b["population"]["shapes"],
+        "loadgen_spans": a["loadgen"]["shapes"] == b["loadgen"]["shapes"],
+        "flight_kinds": [a["served"]["flight"][k] for k in ("kinds_mix", "kinds_cold")]
+        == [b["served"]["flight"][k] for k in ("kinds_mix", "kinds_cold")],
+        "tiled_kinds": a["tiled"]["kinds"] == b["tiled"]["kinds"],
+        "demand_surface": a["served"]["demand"]["demand_totals"]
+        == b["served"]["demand"]["demand_totals"],
+        "plan_bytes": a["served"]["demand"]["plan_bytes"] == b["served"]["demand"]["plan_bytes"],
+        "loadgen_surface": a["loadgen"]["engine_cells"] == b["loadgen"]["engine_cells"],
+        "replay_plan_bytes": a["loadgen"]["plan_bytes"] == b["loadgen"]["plan_bytes"],
+        "population_demand": a["population"]["demand_kinds"] == b["population"]["demand_kinds"],
+        "exits": {k: v[0][0] for k, v in a["reports"].items()}
+        == {k: v[0][0] for k, v in b["reports"].items()},
+        "gc": [a["gc"]["exit"], a["gc"]["same"]] == [b["gc"]["exit"], b["gc"]["same"]],
+    }
+    emit("telemetry_cpu_vs_card", equal=eq,
+         exits={k: [a["reports"][k][0][0], b["reports"][k][0][0], a["reports"][k][1]]
+                for k in a["reports"]},
+         flight_kinds_cold=a["served"]["flight"]["kinds_cold"],
+         population_launches={c: r["launches"] for c, r in a["population"]["rows"].items()},
+         seconds=secs)
+    if not all(eq.values()):
+        raise AssertionError(f"telemetry card vs CPU: {eq}")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
-          "figures", "figures_cpu", "obs", "obs_cpu")
+          "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu")
 
 
 def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict,
-                          obs_launches: dict) -> dict:
+                          obs_launches: dict, telem_launches: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
     from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
@@ -4024,7 +4750,8 @@ def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dic
         "launches_by_path": {"ablation": recount["launches"],
                              "tiled": tiled_launches[RECOUNT_KERNEL],
                              "figures": fig_launches[RECOUNT_KERNEL],
-                             "obs": obs_launches[RECOUNT_KERNEL]},
+                             "obs": obs_launches[RECOUNT_KERNEL],
+                             "telemetry": telem_launches[RECOUNT_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -4104,6 +4831,9 @@ def main(argv) -> int:
     obs_launches = phase_obs(info["nvidia_smi"]) if "obs" in wanted else {}
     if "obs_cpu" in wanted:
         phase_obs_cpu_vs_card()
+    telem_launches = phase_telemetry(info["nvidia_smi"]) if "telemetry" in wanted else {}
+    if "telemetry_cpu" in wanted:
+        phase_telemetry_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -4121,11 +4851,13 @@ def main(argv) -> int:
         "replaces": "sbr_tpu/social/fused.py:114",
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
         "launches": (launches + loop_launches[KERNEL] + pop_launches[KERNEL]
-                     + rewire_launches[KERNEL] + fig_launches[KERNEL] + obs_launches[KERNEL]),
+                     + rewire_launches[KERNEL] + fig_launches[KERNEL] + obs_launches[KERNEL]
+                     + telem_launches[KERNEL]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
                              "population": pop_launches[KERNEL],
                              "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL],
-                             "figures": fig_launches[KERNEL], "obs": obs_launches[KERNEL]},
+                             "figures": fig_launches[KERNEL], "obs": obs_launches[KERNEL],
+                             "telemetry": telem_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -4142,13 +4874,14 @@ def main(argv) -> int:
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_belief",
         "launches": (belief_launches + loop_launches[BELIEF_KERNEL]
                      + pop_launches[BELIEF_KERNEL] + rewire_launches[BELIEF_KERNEL]
-                     + obs_launches[BELIEF_KERNEL]),
+                     + obs_launches[BELIEF_KERNEL] + telem_launches[BELIEF_KERNEL]),
         "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
                              "population": pop_launches[BELIEF_KERNEL],
                              "rewire": rewire_launches[BELIEF_KERNEL],
                              "tiled": tiled_launches[BELIEF_KERNEL],
                              "figures": fig_launches[BELIEF_KERNEL],
-                             "obs": obs_launches[BELIEF_KERNEL]},
+                             "obs": obs_launches[BELIEF_KERNEL],
+                             "telemetry": telem_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],
@@ -4157,7 +4890,8 @@ def main(argv) -> int:
         "bound_by": belief_row["bound_by"],
         "library_ms": None,
         "shapes": belief_rows,
-    }, _recount_kernel_entry(recount, tiled_launches, fig_launches, obs_launches)]
+    }, _recount_kernel_entry(recount, tiled_launches, fig_launches, obs_launches,
+                             telem_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

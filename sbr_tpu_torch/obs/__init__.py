@@ -1,7 +1,7 @@
 """Run telemetry of the port: the port of ``sbr_tpu.obs``'s run-log core.
 
 - ``obs.timing``  — `fence` (waits for the CUDA devices of its tensors),
-  `StageTimer`, and `trace`, a `torch.profiler` capture.
+  `StageTimer`, and ``obs.timing.trace``, a `torch.profiler` capture.
 - ``obs.metrics`` — the process-global counters/gauges/timers registry
   (``obs.metrics.metrics()``) and the log-bucketed latency histograms
   that the serving engine folds.
@@ -17,18 +17,33 @@
   OOM preflight over measured footprints, and the ``tile_shape="auto"``
   capacity planner.
 
+- ``obs.trace``   — the request-tracing module: per-query spans across the
+  endpoint and the engine's layers, committed to the run's ``trace.jsonl``
+  (``SBR_TRACE_SAMPLE``), and the per-layer span histograms on ``/metrics``.
+- ``obs.flight``  — the dispatch-pipeline flight recorder (``SBR_FLIGHT``):
+  a lock-free ring of engine, sweep and barrier spans folded into
+  device-busy and host-gap fractions (``flight.json``).
+- ``obs.demand``  — the workload demand observatory (``SBR_DEMAND``): the
+  (β, u) demand histogram, the heavy-hitter sketch and the prefetch
+  advisor's plan (``demand.json``, ``advisor_plan.json``).
 - ``obs.history`` — the append-only perf history (``bench_history.jsonl``,
   the port's own file) and the trend gate (``report trend --check``).
 - ``obs.report``  — ``python -m sbr_tpu_torch.obs.report RUN_DIR [OTHER]``
   renders or diffs runs; its subcommands (``health``, ``resilience``,
-  ``elastic``, ``infomodel``, ``grad``, ``memory``, ``serve``, ``trend``,
-  ``gc``) gate on them with the reference's documents and exit codes.
+  ``elastic``, ``infomodel``, ``grad``, ``memory``, ``serve``, ``trace``,
+  ``slo``, ``util``, ``demand``, ``trend``, ``gc``) gate on them with the
+  reference's documents and exit codes.
 
-Unlike the reference, ``obs.metrics`` here is the module; the registry is
-``obs.metrics.metrics()``. ``history`` and ``report`` import no torch (nor
-does this package until `fence` or `StageTimer` is used), so a report never
-pays for a device runtime. The reference's ``trace``, ``flight``,
-``demand`` and ``audit`` are not ported yet (ROADMAP items 1.A 9c, 9d).
+As in the reference, ``obs.trace`` is the request-tracing module; the
+profiler capture lives at ``obs.timing.trace``. Unlike the reference,
+``obs.metrics`` here is the module; the registry is
+``obs.metrics.metrics()``. ``trace``, ``flight``, ``demand``, ``history``
+and ``report`` import no torch (nor does this package until `fence` or
+`StageTimer` is used), so a report never pays for a device runtime;
+``trace``, ``flight``, ``demand`` and ``report`` load on first use, so a
+serving engine with ``SBR_FLIGHT`` and ``SBR_DEMAND`` off never imports
+those two. The reference's ``audit`` is not ported yet (ROADMAP item 1.A
+9d).
 
 Enabling telemetry: set ``SBR_OBS=1`` (run directories land under
 ``SBR_OBS_DIR``, default ``obs_runs/``), or::
@@ -43,6 +58,16 @@ events, no fences, no extra device work.
 """
 
 import importlib
+import os
+
+
+def switch_on(var: str) -> bool:
+    """Whether the on/off switch ``var`` (``SBR_FLIGHT``, ``SBR_DEMAND``, ...)
+    is on: set to anything but empty or ``0``. The engine and the tile
+    runner read their recorders' switches through it, so an off switch
+    never imports the recorder's module."""
+    return os.environ.get(var, "").strip() not in ("", "0")
+
 
 from sbr_tpu_torch.obs import history, mem, metrics, prof
 from sbr_tpu_torch.obs.metrics import DEFAULT_LATENCY_BOUNDS_MS, LogHistogram, MetricsRegistry, log_bounds
@@ -80,12 +105,13 @@ from sbr_tpu_torch.obs.runlog import (
 
 
 def __getattr__(name: str):
-    # ``obs.timing`` imports torch, so its names load on first use; so does
-    # ``report``, which ``python -m`` must find unimported.
+    # ``obs.timing`` imports torch, so its names load on first use; so do
+    # ``report`` (which ``python -m`` must find unimported) and the
+    # switch-gated ``flight`` and ``demand`` (off, they stay unimported).
     if name in ("StageTimer", "fence"):
         return getattr(importlib.import_module(f"{__name__}.timing"), name)
-    if name == "report":
-        return importlib.import_module(f"{__name__}.report")
+    if name in ("demand", "flight", "report", "trace"):
+        return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -99,10 +125,12 @@ __all__ = [
     "active_span",
     "annotate",
     "current_run",
+    "demand",
     "enabled",
     "end_run",
     "event",
     "fence",
+    "flight",
     "gc_runs",
     "history",
     "interrupt_all",
@@ -134,4 +162,6 @@ __all__ = [
     "start_run",
     "step_annotation",
     "suspended",
+    "switch_on",
+    "trace",
 ]

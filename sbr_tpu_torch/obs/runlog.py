@@ -631,9 +631,14 @@ class RunContext:
         os.replace(tmp, self.run_dir / "manifest.json")
 
     def _trace_manifest(self) -> Optional[dict]:
-        """The distributed-tracing roll-up; `obs.trace` is not ported, so
-        there is none."""
-        return None
+        """The request-tracing roll-up: the run's `obs.trace.TraceWriter`
+        counters, when any process committed spans here."""
+        try:
+            from sbr_tpu_torch.obs import trace as _trace
+
+            return _trace.summary_for(self.run_dir)
+        except Exception:
+            return None
 
     def live_snapshot(self, doc: dict, name: str = "live.json") -> Path:
         """Atomically rewrite a rolling snapshot file inside the run dir

@@ -22,6 +22,10 @@ tile landing, a waiting process leases the stalled tiles (atomic
 lease, TTL ``SBR_STEAL_LEASE_TTL_S`` default 900 s, is taken over) and
 computes them itself.
 
+With ``SBR_FLIGHT`` on, each poll of the static barrier's wait (and each
+elastic loop turn) lands a ``barrier_poll`` record on the flight
+recorder's ``collectives`` stream.
+
 `initialize_distributed` and the mesh helpers of the reference wait for
 ROADMAP 1.A item 11; the static split takes its default rank and world
 size from ``torch.distributed`` when a process group is initialized.
@@ -160,6 +164,7 @@ def run_tiled_grid_multihost(
     scheduler's report (`resilience.elastic.run_elastic_grid`)."""
     from sbr_tpu_torch.resilience import elastic as elastic_mod
     from sbr_tpu_torch.utils.checkpoint import (
+        _flight_recorder,
         _tile_path,
         resolve_tile_shape,
         run_tiled_grid,
@@ -252,7 +257,12 @@ def run_tiled_grid_multihost(
                 )
             if verbose:
                 print(f"  waiting on {len(missing)} peer tiles …")
+            fl = _flight_recorder()
+            t_poll = time.monotonic()
             time.sleep(poll_s)
+            if fl is not None:
+                fl.mark("collectives", "barrier_poll", t_poll, time.monotonic(),
+                        tag=f"missing={len(missing)}")
 
     _cleanup_leases(ckpt)
     return run_tiled_grid(beta_values, u_values, base, verbose=verbose, **common)

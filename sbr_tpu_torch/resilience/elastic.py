@@ -569,6 +569,9 @@ def run_elastic_grid(
         try:
             while remaining:
                 faults.fire("barrier.poll", target=f"missing={len(remaining)}")
+                fl = ckpt_mod._flight_recorder()
+                if fl is not None:
+                    fl.point("collectives", "barrier_poll", tag=f"missing={len(remaining)}")
                 if next_in_order >= len(order) or claims_since_plan >= REPLAN_EVERY:
                     rates = {
                         h: float(rec.get("cells_per_sec") or 0.0) or 1.0

@@ -15,8 +15,10 @@ long-lived query engine with live, queryable-while-alive metrics.
 - ``serve.loadgen``: ``python -m sbr_tpu_torch.serve.loadgen``, the
   seeded query mix in direct mode.
 
-The router, the fleet workers, prewarm and tracing are not ported yet
-(ROADMAP 1.A items 9 and 10).
+Request tracing, the flight recorder and the demand observatory of the
+query path live in ``obs.trace``, ``obs.flight`` and ``obs.demand``. The
+router, the fleet workers, prewarm and the audit are not ported yet
+(ROADMAP 1.A items 9d and 10).
 """
 
 from sbr_tpu_torch.serve.endpoint import ServeEndpoint

@@ -24,8 +24,17 @@ A stdlib-only (``http.server``) thread serving four routes off an
   modifier are all ``400``. ``"grads": true`` on a plain query answers
   with dξ/d{β, u, κ} (``grads``) and ``grad_flags`` beside ξ.
 
-Tracing headers wait for ``obs.trace`` (ROADMAP item 1.A 9c). ``port=0``
-binds an ephemeral port; the bound port is `.port`.
+Request tracing: when ``SBR_TRACE_SAMPLE`` > 0, or when the caller sent
+``X-SBR-Trace-Id`` (and ``X-SBR-Parent-Span``), ``POST /query`` owns a
+``worker.request`` root span, hands the `obs.trace.TraceContext` to the
+engine (its admission, queue, cache, batch and dispatch spans), echoes the
+trace id as a response header on every response (429 and 503 included)
+and as a ``trace_id`` field of every answer, and commits the finished
+trace to the run directory's ``trace.jsonl``; a request over the SLO
+(``SBR_SERVE_SLO_MS``) is always kept, as an exemplar. Tracing never
+breaks serving: a failure to commit is dropped.
+
+``port=0`` binds an ephemeral port; the bound port is `.port`.
 """
 
 from __future__ import annotations
@@ -34,9 +43,11 @@ import json
 import math
 import sys
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from sbr_tpu_torch.models.params import make_interest_params, make_model_params
+from sbr_tpu_torch.obs import trace as qtrace
 from sbr_tpu_torch.scenario import ScenarioSpec
 from sbr_tpu_torch.serve.engine import DeadlineExceeded
 
@@ -97,8 +108,14 @@ class ServeEndpoint:
                 print(f"[serve.endpoint] {fmt % args}", file=sys.stderr)
 
             def _send(self, code: int, body: bytes, ctype: str, headers=None) -> None:
+                self._last_code = code
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
+                # the trace id rides every response, 429 and 503 included,
+                # so a shed or failed query links to its waterfall
+                ctx = getattr(self, "_trace_ctx", None)
+                if ctx is not None:
+                    self.send_header(qtrace.TRACE_HEADER, ctx.trace_id)
                 for k, v in (headers or {}).items():
                     self.send_header(k, v)
                 self.send_header("Content-Length", str(len(body)))
@@ -108,12 +125,40 @@ class ServeEndpoint:
             def _json(self, code: int, doc: dict, headers=None) -> None:
                 self._send(code, json.dumps(doc).encode(), "application/json", headers)
 
+            def _commit_trace(self, ctx, root_id, t0w, t0m) -> None:
+                """Close and persist this request's trace: the
+                ``worker.request`` root span (under the caller's span when
+                the trace came in a header) and everything the engine hung
+                under it. A request over the SLO is always kept."""
+                try:
+                    dur = time.monotonic() - t0m
+                    attrs = getattr(self, "_trace_attrs", None) or {}
+                    ctx.add("worker.request", t0w, dur, parent=ctx.remote_parent,
+                            span_id=root_id, status=getattr(self, "_last_code", None), **attrs)
+                    writer = endpoint.engine.trace_writer()
+                    if writer is not None:
+                        slo = qtrace.slo_ms()
+                        writer.commit(ctx, exemplar=slo is not None and dur * 1e3 > slo)
+                except Exception:
+                    pass  # tracing must never break serving
+
             def do_POST(self):
+                t0w, t0m = time.time(), time.monotonic()
+                self._trace_ctx = self._trace_attrs = self._last_code = None
+                ctx = root_id = None
                 try:
                     if self.path.split("?", 1)[0] != "/query":
                         self._json(404, {"error": "not found"})
                         return
-                    self._query()
+                    # adopt the caller's trace (header presence means
+                    # sampled), or mint one; None while tracing is off
+                    ctx = qtrace.from_headers(self.headers.get(qtrace.TRACE_HEADER),
+                                              self.headers.get(qtrace.PARENT_HEADER),
+                                              service="worker")
+                    if ctx is not None:
+                        self._trace_ctx = ctx
+                        root_id = ctx.parent_id = ctx.alloc_id()
+                    self._query(ctx)
                 except BrokenPipeError:
                     pass
                 except Exception as err:  # the route must never kill serving
@@ -121,8 +166,19 @@ class ServeEndpoint:
                         self._json(500, {"error": repr(err)})
                     except Exception:
                         pass
+                finally:
+                    if ctx is not None:
+                        self._commit_trace(ctx, root_id, t0w, t0m)
 
-            def _query(self):
+            def _traced(self, ctx, rec: dict, **attrs) -> dict:
+                """``rec`` with the trace id, and the root span's attributes
+                noted; ``rec`` itself when untraced."""
+                if ctx is None:
+                    return rec
+                self._trace_attrs = attrs
+                return {**rec, "trace_id": ctx.trace_id}
+
+            def _query(self, ctx):
                 try:
                     n = int(self.headers.get("Content-Length") or 0)
                     doc = json.loads(self.rfile.read(n).decode() or "{}")
@@ -199,7 +255,8 @@ class ServeEndpoint:
                             # error: 400, never a retryable 503
                             self._json(400, {"error": f"bad population query: {err}"})
                             return
-                        self._json(200, rec)
+                        self._json(200, self._traced(ctx, rec, route="population",
+                                                     source=rec.get("source")))
                         return
                     if spec is not None:
                         try:
@@ -211,12 +268,16 @@ class ServeEndpoint:
                             # matrix): no worker can serve it, so 400
                             self._json(400, {"error": f"unservable scenario: {err}"})
                             return
-                        self._json(200, rec)
+                        self._json(200, self._traced(ctx, rec, route="scenario",
+                                                     source=rec.get("source")))
                         return
                     result = endpoint.engine.query(
-                        params, scenario=scenario, deadline_ms=deadline_ms, grads=grads
+                        params, scenario=scenario, deadline_ms=deadline_ms, grads=grads,
+                        trace=ctx,
                     )
                 except DeadlineExceeded as err:
+                    if ctx is not None:
+                        self._trace_attrs = {"shed": True}
                     self._json(
                         429,
                         {"error": "deadline", "detail": str(err),
@@ -228,7 +289,8 @@ class ServeEndpoint:
                     # Solver down: an honest 503 a router can fail over on.
                     self._json(503, {"error": "dispatch failed", "detail": repr(err)})
                     return
-                self._json(200, query_result_doc(result))
+                self._json(200, self._traced(ctx, query_result_doc(result), source=result.source,
+                                             degraded=True if result.degraded else None))
 
             def do_GET(self):
                 try:

@@ -73,9 +73,28 @@ first build (on the card its capture), ``serve_batch`` per dispatch and a
 ``serve_summary`` at close; ``python -m sbr_tpu_torch.obs.report serve``
 gates on it.
 
+**Telemetry of the query path**, each off by default:
+
+- request tracing (`obs.trace`): a query given a ``TraceContext``
+  (``trace=`` on `submit` and `query`, ``traces=`` on `query_many`) gets
+  the spans ``engine.admission``, ``engine.queue``, ``engine.cache``
+  (``lru`` and ``disk`` outcomes), ``engine.batch`` and
+  ``engine.dispatch`` (or ``engine.tilecache`` on the ladder) under its
+  ``engine.query`` span, which closes when the ticket is fulfilled, shed
+  or failed. The root owner commits them through `trace_writer`;
+- the flight recorder (``SBR_FLIGHT``, `obs.flight`): admission, queue,
+  cache, batch, dispatch and unpack spans, the occupancy, queue-depth and
+  shed points, into ``flight.json``. The dispatch span closes after the
+  program's device-to-host copy, the port's fence;
+- the demand observatory (``SBR_DEMAND``, `obs.demand`): every answered
+  query, with its source, into ``demand.json`` and, at close,
+  ``advisor_plan.json`` (coverage from the bridged tile cache).
+
+With a switch off its module is never imported and ``/metrics`` carries
+none of its bytes; answers are bit-identical either way.
+
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-the audit (1.A 9d), demand and flight-recorder (1.A 9c) and prewarm (1.A
-10) switches.
+the audit (1.A 9d) and prewarm (1.A 10) switches.
 """
 
 from __future__ import annotations
@@ -122,11 +141,11 @@ _SHUTDOWN = object()
 _OUTPUTS = ("xi", "tau_bar_in", "aw_max", "status", "flags", "residual")
 _GRAD_OUTPUTS = _OUTPUTS + ("dxi_dbeta", "dxi_du", "dxi_dkappa", "grad_flags")
 _INT_OUTPUTS = ("status", "flags", "grad_flags")
+# The demand kind of a keyed record's tag (`Engine._serve_record`).
+_RECORD_KINDS = {"spec": "scenario", "pop": "population"}
 
 # Switches of the reference's engine that need modules not ported yet.
-_UNPORTED_ENV = {
-    "SBR_AUDIT": "1.A 9d", "SBR_DEMAND": "1.A 9c", "SBR_PREWARM": "1.A 10", "SBR_FLIGHT": "1.A 9c",
-}
+_UNPORTED_ENV = {"SBR_AUDIT": "1.A 9d", "SBR_PREWARM": "1.A 10"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -239,16 +258,26 @@ class QueryResult:
 
 
 class _Ticket:
-    __slots__ = ("params", "scenario", "key", "grads", "t0", "t_popped", "deadline",
-                 "event", "result", "error")
+    __slots__ = ("params", "scenario", "key", "grads", "t0", "t_wall0", "t_popped",
+                 "deadline", "event", "result", "error", "trace", "span_id", "tparent")
 
     def __init__(self, params: ModelParams, scenario: str, key: str,
-                 deadline: Optional[float] = None, grads: bool = False) -> None:
+                 deadline: Optional[float] = None, grads: bool = False,
+                 trace=None) -> None:
         self.params = params
         self.scenario = scenario
         self.key = key
         self.grads = grads
         self.t0 = time.monotonic()
+        # `trace` is an `obs.trace.TraceContext`, or None (untraced: every
+        # site below is one None check). The engine's spans of this query
+        # hang off `span_id` ("engine.query", added when the ticket ends),
+        # which hangs off the caller's `parent_id`.
+        self.trace = trace
+        self.span_id = trace.alloc_id() if trace is not None else None
+        self.tparent = trace.parent_id if trace is not None else None
+        # wall-clock twin of t0: spans join on the wall axis (`wall`)
+        self.t_wall0 = time.time()
         self.t_popped: Optional[float] = None  # when the batcher took it
         # Absolute monotonic deadline, or None. A ticket whose deadline
         # expires while QUEUED is shed at batch formation; one whose batch
@@ -257,6 +286,10 @@ class _Ticket:
         self.event = threading.Event()
         self.result: Optional[QueryResult] = None
         self.error: Optional[BaseException] = None
+
+    def wall(self, mono: float) -> float:
+        """Wall-clock time of the monotonic instant ``mono`` (span starts)."""
+        return self.t_wall0 + (mono - self.t0)
 
     def wait(self, timeout: Optional[float] = None) -> QueryResult:
         if not self.event.wait(timeout):
@@ -380,7 +413,7 @@ class Engine:
         device=None,
     ) -> None:
         for var, item in _UNPORTED_ENV.items():
-            if os.environ.get(var, "").strip() not in ("", "0"):
+            if obs.switch_on(var):
                 raise _not_ported(f"{var}={os.environ[var]!r}", item)
         # Sweep-default numerics (refinement OFF), matching beta_u_grid.
         self.config = config if config is not None else SolverConfig(refine_crossings=False)
@@ -447,6 +480,22 @@ class Engine:
         # ticket can land after the batcher's final drain.
         self._close_lock = threading.Lock()
 
+        # The demand observatory and the flight recorder: off (the default)
+        # their modules are never imported, /metrics carries none of their
+        # bytes, and answers are bit-identical.
+        self.demand = None
+        if obs.switch_on("SBR_DEMAND"):
+            from sbr_tpu_torch.obs import demand as _demand
+
+            self.demand = _demand.DemandTracker(run=self._run, coverage_fn=self._demand_coverage)
+        self.flight = None
+        if obs.switch_on("SBR_FLIGHT"):
+            from sbr_tpu_torch.obs import flight as _flight
+
+            # the process-wide recorder: the tiled sweep's and the barriers'
+            # records land on the same timeline
+            self.flight = _flight.shared()
+
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Engine":
         if self._thread is None:
@@ -477,6 +526,10 @@ class Engine:
                     t.event.set()
         with self._dispatch_lock:
             self._programs.clear()  # releases the captured graphs
+        if self.demand is not None:
+            self.demand.close(self._run)
+        if self.flight is not None:
+            self.flight.close(self._run)
         if self._run is not None:
             w = self.live.window()
             self.live.maybe_write(self._run, self._live_extra(window=w), window=w, force=True)
@@ -511,6 +564,10 @@ class Engine:
         if self._run is not None and self.live.write_due():
             w = self.live.window()
             self.live.maybe_write(self._run, self._live_extra(window=w), window=w)
+            if self.demand is not None:
+                self.demand.maybe_write(self._run)
+            if self.flight is not None:
+                self.flight.maybe_write(self._run)
 
     # -- deadlines / admission ----------------------------------------------
     def _retry_after(self) -> float:
@@ -529,6 +586,8 @@ class Engine:
         est = self._service_ewma_s
         if deadline_ms <= 0:
             self.live.record_shed()
+            if self.flight is not None:
+                self.flight.point("engine", "shed", tag="expired")
             self._log("log_fleet", "shed", reason="expired", deadline_ms=float(deadline_ms))
             raise DeadlineExceeded(
                 f"deadline already expired ({deadline_ms:g} ms)",
@@ -536,6 +595,8 @@ class Engine:
             )
         if est is not None and deadline_ms / 1e3 < est:
             self.live.record_shed()
+            if self.flight is not None:
+                self.flight.point("engine", "shed", tag="unmeetable")
             self._log("log_fleet", "shed", reason="unmeetable", deadline_ms=float(deadline_ms),
                       service_est_s=round(est, 4))
             raise DeadlineExceeded(
@@ -547,13 +608,30 @@ class Engine:
 
     # -- public query API ---------------------------------------------------
     def submit(self, params: ModelParams, scenario: str = "default",
-               deadline_ms: Optional[float] = None, grads: bool = False) -> _Ticket:
+               deadline_ms: Optional[float] = None, grads: bool = False,
+               trace=None) -> _Ticket:
         """Enqueue one query for the micro-batcher (requires `start()`).
         Raises once the engine is closed, and sheds (`DeadlineExceeded`)
         when the deadline cannot be met. With ``grads`` the answer carries
-        dξ/d{β, u, κ} beside ξ, cached under its own key."""
-        deadline = self._admit(deadline_ms)
-        ticket = _Ticket(params, scenario, self._result_key(params, grads), deadline, grads)
+        dξ/d{β, u, κ} beside ξ, cached under its own key. ``trace`` (an
+        `obs.trace.TraceContext`) hangs the engine's spans of this query
+        under the caller's span."""
+        t_adm_w = time.time() if trace is not None else 0.0
+        t_adm = time.monotonic()
+        try:
+            deadline = self._admit(deadline_ms)
+        except DeadlineExceeded:
+            if trace is not None:
+                trace.add("engine.admission", t_adm_w, time.monotonic() - t_adm,
+                          parent=trace.parent_id, shed=True)
+            raise
+        ticket = _Ticket(params, scenario, self._result_key(params, grads), deadline, grads,
+                         trace=trace)
+        if trace is not None:
+            trace.add("engine.admission", t_adm_w, time.monotonic() - t_adm,
+                      parent=ticket.span_id)
+        if self.flight is not None:
+            self.flight.mark("engine", "admission", t_adm, time.monotonic())
         with self._close_lock:
             if self._closed:
                 raise RuntimeError("engine is closed")
@@ -564,29 +642,52 @@ class Engine:
     def query(
         self, params: ModelParams, scenario: str = "default",
         timeout: Optional[float] = None, deadline_ms: Optional[float] = None,
-        grads: bool = False,
+        grads: bool = False, trace=None,
     ) -> QueryResult:
         """Synchronous single query. Batched with concurrent submitters
         when the engine is started; solved inline otherwise."""
         if self._thread is None:
             return self.query_many(
                 [params], scenario=scenario, deadline_ms=deadline_ms, grads=grads,
+                traces=[trace] if trace is not None else None,
             )[0]
-        return self.submit(params, scenario, deadline_ms=deadline_ms, grads=grads).wait(timeout)
+        return self.submit(params, scenario, deadline_ms=deadline_ms, grads=grads,
+                           trace=trace).wait(timeout)
 
     def query_many(
         self, params_list: List[ModelParams], scenario: str = "default",
         timeout: Optional[float] = None, deadline_ms: Optional[float] = None,
-        grads: bool = False,
+        grads: bool = False, traces=None,
     ) -> List[QueryResult]:
         """Solve a list of queries. Started engine: all enqueue at once (the
         natural micro-batch). Unstarted: processed inline in this thread,
-        the deterministic, thread-free path."""
+        the deterministic, thread-free path. ``traces`` (optional, parallel
+        to ``params_list``) holds one `obs.trace.TraceContext`, or None, a
+        query."""
         if self._closed:
             raise RuntimeError("engine is closed")
-        deadline = self._admit(deadline_ms)
-        tickets = [_Ticket(p, scenario, self._result_key(p, grads), deadline, grads)
-                   for p in params_list]
+        any_trace = traces is not None and any(tr is not None for tr in traces)
+        t_adm_w = time.time() if any_trace else 0.0
+        t_adm = time.monotonic()
+        try:
+            deadline = self._admit(deadline_ms)
+        except DeadlineExceeded:
+            if any_trace:
+                dur = time.monotonic() - t_adm
+                for tr in traces:
+                    if tr is not None:
+                        tr.add("engine.admission", t_adm_w, dur, parent=tr.parent_id, shed=True)
+            raise
+        tickets = [_Ticket(p, scenario, self._result_key(p, grads), deadline, grads,
+                           trace=traces[i] if traces is not None else None)
+                   for i, p in enumerate(params_list)]
+        if any_trace:
+            dur = time.monotonic() - t_adm
+            for t in tickets:
+                if t.trace is not None:
+                    t.trace.add("engine.admission", t_adm_w, dur, parent=t.span_id)
+        if self.flight is not None:
+            self.flight.mark("engine", "admission", t_adm, time.monotonic())
         if self._thread is None:
             self._process(tickets)
         else:
@@ -609,7 +710,7 @@ class Engine:
 
         self._admit(deadline_ms)
         key = spec_fingerprint(spec, (params, self._cfg_tag), self.config, self.dtype_name)
-        return self._serve_record(key, "scenario_fingerprint", "spec",
+        return self._serve_record(params, key, "scenario_fingerprint", "spec",
                                   lambda: self._solve_scenario(params, spec))
 
     def query_population(self, params, pop_doc: dict,
@@ -629,13 +730,13 @@ class Engine:
         key = pop.population_fingerprint(kw, (params, self._cfg_tag), self.config,
                                          self.dtype_name)
         g0 = {"g0": kw["g0"]} if "g0" in kw else {}
-        return self._serve_record(key, "population_fingerprint", "pop", lambda: (
+        return self._serve_record(params, key, "population_fingerprint", "pop", lambda: (
             pop.population_query(
                 kw["spec"], kw["graph"], params, seeds=kw["seeds"], vary=kw["vary"],
                 seed=kw["seed"], dt=kw["dt"], config=self.config, device=self.device, **g0,
             )))
 
-    def _serve_record(self, key: str, field: str, tag: str, compute) -> dict:
+    def _serve_record(self, params, key: str, field: str, tag: str, compute) -> dict:
         """A record from the cache, else ``compute()``d with the device held
         and stored verbatim with its fingerprint in ``field``; returned with
         its ``source`` and ``latency_ms``."""
@@ -649,6 +750,9 @@ class Engine:
             source = "computed"
         latency = time.monotonic() - t0
         self.live.record_query(latency, source, scenario=f"{tag}:{key[:12]}")
+        if self.demand is not None:
+            self.demand.record_params(params, scenario=f"{tag}:{key[:12]}", source=source,
+                                      kind=_RECORD_KINDS[tag])
         return {**rec, "source": source, "latency_ms": round(latency * 1e3, 3)}
 
     @contextmanager
@@ -755,6 +859,8 @@ class Engine:
         return self.live.snapshot(self._live_extra(window=window), window=window)
 
     def prometheus(self) -> str:
+        from sbr_tpu_torch.obs import trace as qtrace
+
         extra = {
             "sbr_serve_lru_entries": ("gauge", len(self._lru)),
             "sbr_serve_retry_budget_remaining": ("gauge", self.retry_budget.remaining),
@@ -762,7 +868,35 @@ class Engine:
         slo = slo_ms()
         if slo is not None:
             extra["sbr_serve_slo_ms"] = ("gauge", slo)
-        return self.live.to_prometheus(extra)
+        text = self.live.to_prometheus(extra)
+        # the per-layer span histograms (committed spans only: empty while
+        # tracing is off), then the demand and flight lines, which exist
+        # only while their switches are on
+        lines = list(qtrace.layer_prometheus())
+        if self.demand is not None:
+            lines += self.demand.prometheus_lines()
+        if self.flight is not None:
+            lines += self.flight.prometheus_lines()
+        if lines:
+            text = text.rstrip("\n") + "\n" + "\n".join(lines) + "\n"
+        return text
+
+    def trace_writer(self):
+        """This engine's span sink (`obs.trace.TraceWriter`), or None when
+        the engine has no run directory: the root-span owner (the endpoint,
+        loadgen) commits finished traces here."""
+        from sbr_tpu_torch.obs import trace as qtrace
+
+        return qtrace.writer_for(self._run)
+
+    def _demand_coverage(self) -> Optional[dict]:
+        """The advisor's coverage input: the cell index of the bridged tile
+        cache (None when none is bridged, which is not an empty cache)."""
+        if self.demand is None or not self.bridge.available:
+            return None
+        from sbr_tpu_torch.obs import demand as _demand
+
+        return _demand.coverage_from_cache_dir(self.bridge.cache.root)
 
     def _live_extra(self, window: Optional[dict] = None) -> dict:
         return {
@@ -800,6 +934,8 @@ class Engine:
                 "compiled": self._programs_built,
                 "loaded": 0,
             },
+            **({"demand": self.demand.snapshot()} if self.demand is not None else {}),
+            **({"flight": self.flight.heartbeat_block()} if self.flight is not None else {}),
         }
 
     # -- batcher loop --------------------------------------------------------
@@ -842,6 +978,8 @@ class Engine:
                         nxt.t_popped = time.monotonic()
                         batch.append(nxt)
             self.live.queue_depth = self._queue.qsize()
+            if self.flight is not None:
+                self.flight.point("engine", "queue_depth", val=self.live.queue_depth)
             if batch:
                 self.live.inflight = len(batch)
                 try:
@@ -859,8 +997,28 @@ class Engine:
         coalesced into a single lane. Never raises: failures land on
         tickets."""
         groups: "OrderedDict[str, List[_Ticket]]" = OrderedDict()
+        t_proc = time.monotonic()
+        fl = self.flight
         for t in tickets:
+            # queue wait: enqueue to the batcher taking the ticket (an
+            # inline query_many never queues: about 0)
+            popped = t.t_popped if t.t_popped is not None else t_proc
+            if fl is not None:
+                fl.mark("engine", "queue", t.t0, popped)
+            if t.trace is not None:
+                t.trace.add("engine.queue", t.wall(t.t0), popped - t.t0, parent=t.span_id)
+            t_lk = time.monotonic()
             rec, source = self._lookup(t.key)
+            if fl is not None:
+                fl.mark("engine", "cache", t_lk, time.monotonic(), tag=source or "miss")
+            if t.trace is not None:
+                # the LRU is always probed; the disk only on an LRU miss (no
+                # attribute when not consulted, "off" without a cache dir)
+                disk = (None if source == "lru" else "hit" if source == "disk"
+                        else "miss" if self.serve.cache_dir else "off")
+                t.trace.add("engine.cache", t.wall(t_lk), time.monotonic() - t_lk,
+                            parent=t.span_id, lru="hit" if source == "lru" else "miss",
+                            disk=disk)
             if rec is not None:
                 # A cache hit is free: serve it even past its deadline.
                 self._fulfill(t, rec, source)
@@ -868,10 +1026,15 @@ class Engine:
                 # Expired while queued: shed now instead of burning a
                 # dispatch on a dead query.
                 self.live.record_shed()
+                if fl is not None:
+                    fl.point("engine", "shed", tag="queue-expired")
                 self._log("log_fleet", "shed", reason="queue-expired", scenario=t.scenario)
                 t.error = DeadlineExceeded(
                     "deadline expired while queued", retry_after_s=self._retry_after(),
                 )
+                if t.trace is not None:
+                    t.trace.add("engine.query", t.t_wall0, time.monotonic() - t.t0,
+                                parent=t.tparent, span_id=t.span_id, shed="queue-expired")
                 t.event.set()
             else:
                 groups.setdefault(t.key, []).append(t)
@@ -884,6 +1047,15 @@ class Engine:
                 self._process_chunk(part[i : i + max_bucket], groups)
 
     def _process_chunk(self, chunk: List[_Ticket], groups) -> None:
+        fl = self.flight
+        n = len(chunk)
+        bucket = self._bucket_for(n)
+        t_d0w, t_d0m = time.time(), time.monotonic()
+        if fl is not None:
+            # batch formation: the first pop to the dispatch's start (what
+            # the device waits out between dispatches)
+            popped0 = min((t.t_popped for t in chunk if t.t_popped is not None), default=t_d0m)
+            fl.mark("engine", "batch", popped0, t_d0m, tag=f"b{bucket}")
         try:
             # positional for the plain path: `_dispatch(params)` is a
             # stubbing point of the failure-injection tests
@@ -899,23 +1071,47 @@ class Engine:
             # 503). Degraded answers are never cached: once the solver
             # recovers, fresh dispatches take over.
             for t in chunk:
+                t_lad = time.monotonic()
                 rec = self._degraded_rec(t)
+                lad_dur = time.monotonic() - t_lad
                 for dup in groups[t.key]:
+                    if dup.trace is not None:
+                        # the ladder's tile-cache rung: a cache-layer span
+                        dup.trace.add("engine.tilecache", dup.wall(t_lad), lad_dur,
+                                      parent=dup.span_id, hit=rec is not None)
                     if rec is not None:
                         self._fulfill(dup, dict(rec), "tilecache", degraded=True)
                     else:
                         self.live.record_error()
+                        if dup.trace is not None:
+                            dup.trace.add("engine.query", dup.t_wall0, time.monotonic() - dup.t0,
+                                          parent=dup.tparent, span_id=dup.span_id,
+                                          error=type(err).__name__)
                         dup.error = err
                         dup.event.set()
             return
+        t_up = time.monotonic()
         for t, rec in zip(chunk, records):
             # A divergent result is served (the caller sees the flags) but
             # never cached: a cached hit would replay the poisoned numbers
             # after /healthz recovered.
             if not (rec["flags"] & DIVERGENT_MASK):
                 self._store(t.key, rec)
+            disp_dur = time.monotonic() - t_d0m
             for j, dup in enumerate(groups[t.key]):
+                if dup.trace is not None:
+                    # batch formation (pop to dispatch start, earlier chunks
+                    # included) and the dispatch, with this bucket's padding
+                    popped = dup.t_popped if dup.t_popped is not None else t_d0m
+                    dup.trace.add("engine.batch", dup.wall(popped), max(t_d0m - popped, 0.0),
+                                  parent=dup.span_id, n=n, coalesced=True if j else None)
+                    dup.trace.add("engine.dispatch", t_d0w, disp_dur, parent=dup.span_id,
+                                  bucket=bucket, padded_lanes=bucket - n,
+                                  padded_share=round((bucket - n) / bucket, 4))
                 self._fulfill(dup, rec, "computed" if j == 0 else "coalesced")
+        if fl is not None:
+            # result unpack: store and fulfil after the device fence
+            fl.mark("engine", "unpack", t_up, time.monotonic(), tag=f"b{bucket}")
 
     def _degraded_rec(self, t: _Ticket) -> Optional[dict]:
         """The tile-cache rung for one ticket: the matching swept cell's
@@ -942,9 +1138,18 @@ class Engine:
                      "kappa": rec.pop("dxi_dkappa")}
         t.result = QueryResult(source=source, scenario=t.scenario, latency_s=latency,
                                degraded=degraded, grads=grads, grad_flags=grad_flags, **rec)
+        if t.trace is not None:
+            # the query's engine span: every span above hangs off it
+            t.trace.add("engine.query", t.t_wall0, latency, parent=t.tparent,
+                        span_id=t.span_id, source=source,
+                        degraded=True if degraded else None,
+                        divergent=True if t.result.divergent else None)
         self.live.record_query(
             latency, source, scenario=t.scenario, divergent=t.result.divergent
         )
+        if self.demand is not None:
+            self.demand.record_params(t.params, scenario=t.scenario, source=source,
+                                      grads=t.grads)
         t.event.set()
 
     def _bucket_for(self, n: int) -> int:
@@ -1022,6 +1227,12 @@ class Engine:
             dur if self._service_ewma_s is None
             else 0.3 * dur + 0.7 * self._service_ewma_s
         )
+        if self.flight is not None:
+            # the program returns only after its one device-to-host copy, so
+            # the span covers copy-in, the solve or replay and the fetch
+            # (and any retry backoff): what the device path occupied
+            self.flight.mark("engine", "dispatch", t_disp, t_disp + dur, tag=f"b{bucket}")
+            self.flight.point("engine", "occupancy", tag=f"b{bucket}", val=round(n / bucket, 4))
         self.live.record_batch(n, bucket)
         names = _GRAD_OUTPUTS if grads else _OUTPUTS
         if self._run is not None:

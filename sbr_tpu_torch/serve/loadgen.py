@@ -17,9 +17,16 @@ against an in-process `Engine` + `ServeEndpoint` (on the CUDA card unless
 
 ``--run-dir`` lands the engine's rolling ``live.json`` and its events in an
 obs run directory that ``python -m sbr_tpu_torch.obs.report serve``
-renders and gates. ``--fleet`` and its flags (ROADMAP 1.A 10),
-``--trace-out`` (1.A 9c) and the audit flags (1.A 9d) wait for their
-modules: they exit 2 with a "not ported" message.
+renders and gates. ``--trace-out PATH`` writes one JSONL row per measured
+query: trace id, client latency, source, degraded, status, (β, u),
+scenario and kind. With ``SBR_TRACE_SAMPLE`` > 0 loadgen mints one trace
+a query, hands the contexts to ``query_many(traces=...)`` and commits each
+trace, its ``loadgen.query`` root included, to the run directory's
+``trace.jsonl``; the rows are the client half that ``report trace``
+joins, and the input ``python -m sbr_tpu_torch.obs.demand replay``
+rebuilds a demand surface from. ``--fleet`` and its flags and
+``--answers-out`` (ROADMAP 1.A 10) and the audit flags (1.A 9d) wait for
+their modules: they exit 2 with a "not ported" message.
 
 Exit codes: 0 ok, 1 failed assertion (--assert-warm), 2 setup error.
 """
@@ -34,11 +41,12 @@ import sys
 import time
 import urllib.error
 import urllib.request
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from sbr_tpu_torch.models.params import ModelParams, SolverConfig, make_model_params
+from sbr_tpu_torch.obs import trace as qtrace
 from sbr_tpu_torch.serve.endpoint import ServeEndpoint
 from sbr_tpu_torch.serve.engine import Engine, ServeConfig, default_buckets
 
@@ -48,7 +56,6 @@ _UNPORTED_FLAGS = {
     "fleet_dir": ("--fleet-dir", "1.A 10"),
     "fleet_kill_after": ("--fleet-kill-after", "1.A 10"),
     "answers_out": ("--answers-out", "1.A 10"),
-    "trace_out": ("--trace-out", "1.A 9c"),
     "audit_fault": ("--audit-fault", "1.A 9d"),
     "audit_wait": ("--audit-wait", "1.A 9d"),
 }
@@ -114,6 +121,15 @@ def _scrape(port: int, path: str) -> tuple:
     return code, body
 
 
+def _write_trace_rows(path: str, rows: List[Optional[dict]]) -> None:
+    """``--trace-out``: one JSONL row per measured query (trace id, client
+    latency, source, degraded, status, (β, u), scenario and kind)."""
+    with open(path, "w") as fh:
+        for row in rows:
+            if row is not None:
+                fh.write(json.dumps(row) + "\n")
+
+
 def _metric_value(text: str, name: str) -> float:
     """Parse one un-labeled sample from Prometheus exposition text."""
     for line in text.splitlines():
@@ -159,7 +175,9 @@ def main(argv=None) -> int:
     parser.add_argument("--fleet-kill-after", type=int, default=None, dest="fleet_kill_after",
                         help="not ported")
     parser.add_argument("--answers-out", default=None, dest="answers_out", help="not ported")
-    parser.add_argument("--trace-out", default=None, dest="trace_out", help="not ported")
+    parser.add_argument("--trace-out", default=None, dest="trace_out",
+                        help="write per-measured-query JSONL rows (trace id, latency, source, "
+                        "degraded, beta, u) here; trace ids are null unless SBR_TRACE_SAMPLE > 0")
     parser.add_argument("--run-dir", default=None,
                         help="obs run dir for the rolling live.json (report serve reads it)")
     parser.add_argument("--audit-fault", default=None, dest="audit_fault", help="not ported")
@@ -215,10 +233,45 @@ def main(argv=None) -> int:
         # Measured-phase quantiles via the histogram delta: lifetime
         # quantiles would be dominated by the warm-up's captures.
         hist_before = engine.live.total_hist.copy()
+        tracing = qtrace.sample_rate() > 0
+        trace_rows: List[Optional[dict]] = [None] * len(mix)
+        writer = engine.trace_writer() if tracing else None
+        t_slo = qtrace.slo_ms()
         t0 = time.perf_counter()
         for i in range(0, len(mix), args.group):
-            engine.query_many([pool[j] for j in mix[i : i + args.group]], scenario="mix",
-                              timeout=600)
+            span_pos = list(range(i, min(i + args.group, len(mix))))
+            ctxs = None
+            if tracing:
+                # loadgen is the trace minter: its ``loadgen.query`` root
+                # stands where the endpoint's worker.request would
+                ctxs = [qtrace.mint(service="loadgen") for _ in span_pos]
+                for c in ctxs:
+                    if c is not None:
+                        c.parent_id = c.alloc_id()
+            t0g_w, t0g_m = time.time(), time.monotonic()
+            results = engine.query_many([pool[mix[p]] for p in span_pos], scenario="mix",
+                                        timeout=600, traces=ctxs)
+            dur_g = time.monotonic() - t0g_m
+            for k, p in enumerate(span_pos):
+                r = results[k]
+                row = {
+                    "query": p, "pool": mix[p], "trace_id": None,
+                    "latency_ms": round(dur_g * 1e3, 3), "status": 200,
+                    "source": r.source, "degraded": bool(r.degraded),
+                    # the demand replay's input
+                    "beta": pool[mix[p]].learning.beta,
+                    "u": pool[mix[p]].economic.u,
+                    "scenario": "mix",
+                    "kind": "plain",
+                }
+                c = ctxs[k] if ctxs is not None else None
+                if c is not None:
+                    c.add("loadgen.query", t0g_w, dur_g, parent=c.remote_parent,
+                          span_id=c.parent_id, pool=mix[p], source=r.source)
+                    row["trace_id"] = c.trace_id
+                    if writer is not None:
+                        writer.commit(c, exemplar=t_slo is not None and dur_g * 1e3 > t_slo)
+                trace_rows[p] = row
         measured_s = time.perf_counter() - t0
 
         _, metrics_text = _scrape(endpoint.port, "/metrics")
@@ -263,6 +316,12 @@ def main(argv=None) -> int:
             "endpoint_port": endpoint.port,
             "run_dir": args.run_dir,
         }
+        if args.trace_out:
+            _write_trace_rows(args.trace_out, trace_rows)
+            summary["trace_out"] = args.trace_out
+            summary["traced_queries"] = sum(
+                1 for r in trace_rows if r is not None and r.get("trace_id")
+            )
     finally:
         if endpoint is not None:
             endpoint.close()

@@ -42,8 +42,10 @@ sweep resumes instead of restarting:
 (`resolve_tile_shape`), and before any tile runs the OOM preflight
 (`_preflight_tile`) holds one full tile's measured footprint against the
 card's capacity and fails closed. With telemetry on, every computed tile
-lands a per-tile ``mem`` event. The reference's flight-recorder marks
-wait for ``obs.flight`` (ROADMAP 1.A 9c).
+lands a per-tile ``mem`` event. With ``SBR_FLIGHT`` on, `TileRunner.produce`
+marks each tile's ``ckpt_load``, ``cache_io``, ``compute`` and
+``ckpt_save`` on the flight recorder's ``sweeps`` stream; the tile bytes
+are the same either way.
 """
 
 from __future__ import annotations
@@ -354,6 +356,19 @@ def _record_repairs(ckpt: Path, repairs: list) -> None:
     _write_json_atomic(ckpt, manifest, doc)
 
 
+def _flight_recorder():
+    """The process-wide flight recorder when ``SBR_FLIGHT`` is on, else
+    None. The switch is read first, so the default path never imports
+    `obs.flight`."""
+    from sbr_tpu_torch import obs
+
+    if not obs.switch_on("SBR_FLIGHT"):
+        return None
+    from sbr_tpu_torch.obs import flight
+
+    return flight.shared()
+
+
 class TileRunner:
     """Makes one tile of a sweep exist: from the local checkpoint, else
     the cross-run tile cache, else computed, with the retry policy, the
@@ -433,23 +448,39 @@ class TileRunner:
         local read when the caller already made it."""
         path = self.path(bi, ui)
         tid = self.tile_id(bi, ui)
+        fl = _flight_recorder()
         if not skip_local:
+            t0 = time.monotonic()
             cached = self.load_local(bi, ui)
+            if fl is not None:
+                fl.mark("sweeps", "ckpt_load", t0, time.monotonic(), tag=tid)
             if cached is not None:
                 self.counts["local"] += 1
                 return "local", cached
         key = self.cache_key(bi, ui)
         if key is not None:
+            t0 = time.monotonic()
             arrays = self.tile_cache.load(key, tile=tid)
+            if fl is not None:
+                fl.mark("sweeps", "cache_io", t0, time.monotonic(), tag=tid)
             if arrays is not None:
                 self.counts["cache"] += 1
                 if path is not None:
+                    t0 = time.monotonic()
                     _save_atomic(path, arrays)
+                    if fl is not None:
+                        fl.mark("sweeps", "ckpt_save", t0, time.monotonic(), tag=tid)
                 return "cache", arrays
+        t0 = time.monotonic()
         arrays = self._compute(bi, ui)
+        if fl is not None:
+            fl.mark("sweeps", "compute", t0, time.monotonic(), tag=tid)
         self.counts["computed"] += 1
         if path is not None:
+            t0 = time.monotonic()
             _save_atomic(path, arrays)
+            if fl is not None:
+                fl.mark("sweeps", "ckpt_save", t0, time.monotonic(), tag=tid)
             # a ``corrupt`` rule tears the file after its save and sidecar
             # landed: the torn-write mode the check on load must catch
             inj = faults.fire("checkpoint.save", target=tid)
@@ -467,7 +498,10 @@ class TileRunner:
                 bs, us = self.slices(bi, ui)
                 meta = tile_meta(self.base, self.config, self.dtype,
                                  self.beta_values[bs], self.u_values[us], key)
+            t0 = time.monotonic()
             self.tile_cache.store(key, arrays, tile=tid, meta=meta)
+            if fl is not None:
+                fl.mark("sweeps", "cache_io", t0, time.monotonic(), tag=tid)
         return "computed", arrays
 
     def _grid(self, bs: slice, us: slice):

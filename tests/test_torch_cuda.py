@@ -956,3 +956,99 @@ def test_served_population_launches_members_times_steps_under_a_run(cuda_device,
     queries = [e for e in events if e["kind"] == "infomodel"
                and e.get("action") == "population_query"]
     assert len(queries) == 1 and queries[0]["run_probability"] == rec["run_probability"]
+
+
+@pytest.mark.parametrize("switch", ["SBR_FLIGHT", "SBR_DEMAND", "SBR_TRACE_SAMPLE"])
+def test_served_mix_on_card_is_bitwise_the_same_with_a_recorder(cuda_device, switch,
+                                                                 monkeypatch, tmp_path):
+    """The served mix on the card with one recorder on (every query traced
+    when tracing is) answers the same bits as with it off."""
+    from sbr_tpu_torch.obs import trace
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix
+
+    pool = build_pool(5, 16)
+    mix = [pool[i] for i in query_mix(5, 16, 96)] + build_pool(9, 24)
+    cfg = st.SolverConfig(n_grid=256, bisect_iters=40, refine_crossings=False)
+    bits = {}
+    for on in (False, True):
+        for var in ("SBR_FLIGHT", "SBR_DEMAND", "SBR_TRACE_SAMPLE"):
+            monkeypatch.delenv(var, raising=False)
+        if on:
+            monkeypatch.setenv(switch, "1")
+        with Engine(config=cfg, serve=ServeConfig(buckets=(1, 8)), device="cuda",
+                    run_dir=str(tmp_path / str(on))) as engine:
+            res = []
+            for i in range(0, len(mix), 8):
+                ctxs = [trace.mint("loadgen") for _ in mix[i : i + 8]]
+                res += engine.query_many(mix[i : i + 8], timeout=600, traces=ctxs)
+                for c in ctxs:
+                    engine.trace_writer().commit(c)
+            text = engine.prometheus()
+        bits[on] = [(r.status, r.flags, np.float64(r.xi).tobytes(),
+                     np.float64(r.aw_max).tobytes()) for r in res]
+        prefix = {"SBR_FLIGHT": "sbr_flight", "SBR_DEMAND": "sbr_demand"}.get(switch)
+        if prefix:
+            assert (prefix in text) == on
+    assert bits[True] == bits[False]
+
+
+@pytest.mark.parametrize("channel", ["bayes", "gossip"])
+def test_traced_population_query_on_card_equals_cpu(cuda_device, channel, monkeypatch,
+                                                    tmp_path):
+    """A population query traced over HTTP, on the card and on the CPU,
+    each from the CPU's fixed point and per-agent fields: the records are
+    equal but for latency and trace id, each a ``worker.request`` root,
+    and the card launches its channel's kernel members × steps times."""
+    import json
+
+    from sbr_tpu_torch.infomodels import engine as ie
+    from sbr_tpu_torch.infomodels import population as pop
+    from sbr_tpu_torch.obs import trace
+    from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint
+    from sbr_tpu_torch.serve.loadgen import http_request
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    monkeypatch.setenv("SBR_TRACE_SAMPLE", "1")
+    m = st.make_model_params(**FIG12)
+    cfg = st.SolverConfig(n_grid=256)
+    spec = st.InfoModelSpec(channel=channel)
+    fp = st.solve_fixed_point_info(spec, m, config=cfg, max_iter=500, device="cpu")
+    draw, query = ie._agent_fields, pop.population_query
+
+    def cpu_fields(spec_, n, seed, beta, dtype, device):
+        return tuple(f.to(device) for f in draw(spec_, n, seed, beta, dtype, "cpu"))
+
+    monkeypatch.setattr(ie, "_agent_fields", cpu_fields)
+    monkeypatch.setattr(pop, "population_query", lambda *a, **k: query(*a, fp=fp, **k))
+    doc = {**FIG12, "population": {"graph": {"model": "erdos_renyi", "n": 3000,
+                                             "avg_degree": 10.0},
+                                   "infomodel": {"channel": channel}, "seeds": 3,
+                                   "vary": "sim", "g0": None}}
+    kernel, other = (BELIEF_KERNEL, KERNEL) if channel == "bayes" else (KERNEL, BELIEF_KERNEL)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine = Engine(config=cfg, serve=ServeConfig(buckets=(1,)), device=dev,
+                        run_dir=str(tmp_path / dev)).start()
+        endpoint = None
+        try:
+            endpoint = ServeEndpoint(engine).start()
+            before = dict(_build.LAUNCHES)
+            code, body, hdrs = http_request(endpoint.port, "/query", doc, timeout=600)
+            torch.cuda.synchronize()
+            after = dict(_build.LAUNCHES)
+        finally:
+            if endpoint is not None:
+                endpoint.close()
+            engine.close()
+        rec = json.loads(body)
+        assert code == 200 and rec["trace_id"] == hdrs[trace.TRACE_HEADER]
+        spans, bad = trace.load_spans(tmp_path / dev)
+        assert bad == 0 and [s["name"] for s in spans] == ["worker.request"]
+        assert spans[0]["route"] == "population" and spans[0]["status"] == 200
+        out[dev] = ({k: v for k, v in rec.items() if k not in ("latency_ms", "trace_id")},
+                    {k: after.get(k, 0) - before.get(k, 0) for k in (kernel, other)})
+    steps = int(round(float(m.economic.eta) / 0.1))
+    assert out["cuda"][1] == {kernel: 3 * steps, other: 0}
+    assert out["cpu"][1] == {kernel: 0, other: 0}
+    assert out["cuda"][0] == out["cpu"][0]

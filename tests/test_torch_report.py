@@ -3,7 +3,9 @@ the same run directories.
 
 Each ported subcommand (the bare render, diff and ``--json``, ``health``,
 ``resilience``, ``elastic``, ``infomodel``, ``grad``, ``memory``,
-``serve``, ``gc``) reads a passing and a failing run directory, written
+``serve``, ``trace``, ``slo``, ``util``, ``demand``, ``gc`` with its
+``--trace-keep``, ``--demand-keep`` and ``--flight-keep``) reads a
+passing and a failing run directory, written
 once by each package's run log, and both packages' ``report.main`` give
 the same exit code, the same ``--json`` document and the same rendered
 lines. The program name is normalized (``sbr_tpu_torch`` → ``sbr_tpu``),
@@ -17,11 +19,15 @@ runs; those two are dropped before the comparison.
 Mirrors the report cases of tests/test_obs.py, test_mem.py,
 test_resilience.py, test_elastic.py, test_serve.py (the gate, the cache
 floor's scope and the torn event line), test_grad.py, test_infomodels.py
-and test_diag.py's health gate. Then ``python -m`` for every subcommand
-(the port's CLI loads no torch), and exit 2 with the ROADMAP item for
-each subcommand and gc flag that is not ported yet.
+and test_diag.py's health gate, test_trace.py's ``trace`` / ``slo``,
+test_flight.py's ``util`` and test_demand.py's ``demand``: span files,
+``flight.json`` and ``demand.json`` written by each package's own module
+from the same inputs. Then ``python -m`` for every subcommand (the port's
+CLI loads no torch), and exit 2 with the ROADMAP item for each subcommand
+and gc flag that is not ported yet.
 """
 
+import importlib
 import json
 import os
 import re
@@ -48,7 +54,9 @@ WRITERS = ("ref", "port")
 
 @pytest.fixture(autouse=True)
 def _no_active_run(monkeypatch):
-    for var in ("SBR_SERVE_SLO_MS", "SBR_SERVE_CACHE_FLOOR", "SBR_SERVE_WARMUP", "SBR_OBS"):
+    for var in ("SBR_SERVE_SLO_MS", "SBR_SERVE_CACHE_FLOOR", "SBR_SERVE_WARMUP", "SBR_OBS",
+                "SBR_FLIGHT_UTIL_FLOOR", "SBR_FLIGHT_MIN_DISPATCHES", "SBR_DEMAND_COVERAGE_FLOOR",
+                "SBR_DEMAND_TOPK", "SBR_DEMAND_BINS", "SBR_TRACE_SAMPLE"):
         monkeypatch.delenv(var, raising=False)
     assert obs.current_run() is None and jobs.current_run() is None
     yield
@@ -195,6 +203,67 @@ def _emit_nothing(writer, mod, run):
     run.event("status", stage="x", counts={})
 
 
+def _sub(mod, name):
+    """The telemetry module ``name`` of the package whose obs is ``mod``."""
+    return importlib.import_module(f"{mod.__name__}.{name}")
+
+
+def _emit_trace(kind):
+    """Span files: three traces (one an SLO exemplar) and, for ``orphan``,
+    a span whose parent is nowhere; ``slo`` also writes a live.json whose
+    resolved SLO every root breaches."""
+    def emit(writer, mod, run):
+        tr = _sub(mod, "trace")
+        w = tr.TraceWriter(run.run_dir)
+        for k in range(3):
+            ctx = tr.TraceContext(f"{k:016x}", keep=k != 2, service="worker")
+            t0 = 1_700_000_000.0 + k
+            root = ctx.add("worker.request", t0, 0.004 + k * 1e-3, span_id=f"r{k:07d}",
+                           status=200, source="lru")
+            q = ctx.add("engine.query", t0 + 1e-4, 0.003, parent=root, span_id=f"q{k:07d}")
+            for j, name in enumerate(("engine.admission", "engine.queue", "engine.cache")):
+                ctx.add(name, t0 + 2e-4 + j * 5e-4, 4e-4, parent=q, span_id=f"s{k}{j:06d}",
+                        lru="hit" if name == "engine.cache" else None)
+            if kind == "orphan" and k == 0:
+                ctx.add("engine.dispatch", t0 + 1e-3, 1e-3, parent="deadbeef",
+                        span_id="o0000000", bucket=8)
+            w.commit(ctx, exemplar=k == 2)
+        w.close()
+        if kind == "slo":
+            run.live_snapshot({"slo": {"slo_ms": 4.5}})
+    return emit
+
+
+def _emit_flight(writer, mod, run):
+    fl = _sub(mod, "flight")
+    clock = iter(range(10**6))
+    rec = fl.FlightRecorder(cap=256, time_fn=lambda: 100.0 + next(clock) * 1e-3)
+    t = 100.0
+    for k in range(6):
+        rec.mark("engine", "admission", t, t + 1e-4)
+        rec.mark("engine", "queue", t, t + 2e-4)
+        rec.mark("engine", "cache", t + 2e-4, t + 3e-4, tag="miss")
+        rec.mark("engine", "batch", t + 3e-4, t + 5e-4, tag="b8")
+        rec.mark("engine", "dispatch", t + 5e-4, t + 2.5e-3, tag="b8")
+        rec.point("engine", "occupancy", tag="b8", val=0.5)
+        rec.point("engine", "queue_depth", val=k % 3)
+        rec.mark("engine", "unpack", t + 2.5e-3, t + 2.6e-3, tag="b8")
+        t += 4e-3
+    rec.point("engine", "shed", tag="expired")
+    rec.mark("sweeps", "compute", t, t + 0.01, tag="tile_b00000_u00000")
+    rec.mark("collectives", "barrier_poll", t, t + 0.02, tag="missing=1")
+    rec.close(run)
+
+
+def _emit_demand(writer, mod, run):
+    dm = _sub(mod, "demand")
+    tr = dm.DemandTracker(bins=8, topk_n=6, time_fn=lambda: 1000.0)
+    for k in range(40):
+        tr.record(0.6 + (k % 5) * 0.7, 0.05 + (k % 3) * 0.2, scenario="mix",
+                  source="lru" if k % 4 else "computed")
+    tr.close(run)
+
+
 # (subcommand, extra argv, emit, exit code, env)
 CASES = {
     "render": ("", [], _timing, 0, {}),
@@ -225,6 +294,22 @@ CASES = {
     "serve_cache_floor": ("serve", ["--cache-floor", "1.1", "--warmup", "1"], _emit_serve, 1,
                           {}),
     "serve_no_data": ("serve", [], _emit_nothing, 3, {}),
+    "trace_joined": ("trace", [], _emit_trace("ok"), 0, {}),
+    "trace_waterfalls": ("trace", ["--max-waterfalls", "1"], _emit_trace("ok"), 0, {}),
+    "trace_orphaned": ("trace", [], _emit_trace("orphan"), 1, {}),
+    "trace_no_spans": ("trace", [], _emit_nothing, 3, {}),
+    "slo_exemplar": ("slo", [], _emit_trace("ok"), 1, {}),
+    "slo_breach": ("slo", ["--breach-limit", "2"], _emit_trace("slo"), 1, {}),
+    "slo_no_data": ("slo", [], _emit_nothing, 3, {}),
+    "util_ok": ("util", [], _emit_flight, 0, {}),
+    "util_floor": ("util", [], _emit_flight, 1, {"SBR_FLIGHT_UTIL_FLOOR": "0.9"}),
+    "util_disarmed": ("util", ["--floor", "0.9", "--min-dispatches", "50"], _emit_flight, 0,
+                      {}),
+    "util_no_data": ("util", [], _emit_nothing, 3, {}),
+    "demand_ok": ("demand", [], _emit_demand, 0, {}),
+    "demand_floor": ("demand", [], _emit_demand, 1, {"SBR_DEMAND_COVERAGE_FLOOR": "0.9"}),
+    "demand_floor_met": ("demand", ["--floor", "0.5"], _emit_demand, 0, {}),
+    "demand_no_data": ("demand", [], _emit_nothing, 3, {}),
 }
 
 
@@ -439,6 +524,44 @@ def test_gc_equals_reference(tmp_path, capsys, monkeypatch):
     assert outs[0] == outs[1] and outs[0][0] == 0
 
 
+def _gc_artifacts(root: Path) -> None:
+    """A complete run and a live one, each with rotated trace, demand,
+    advisor-plan and flight files beside the active ones."""
+    for name, status in (("done", "complete"), ("live", "running")):
+        d = root / "runs" / name
+        d.mkdir(parents=True)
+        (d / "manifest.json").write_text(json.dumps({"status": status}))
+        for base, ext in (("trace", "jsonl"), ("demand", "json"), ("advisor_plan", "json"),
+                          ("flight", "json")):
+            (d / f"{base}.{ext}").write_text("{}\n")
+            for k in range(1, 4):
+                p = d / f"{base}.{k:03d}.{ext}"
+                p.write_text("{}\n")
+                os.utime(p, (1000 + k, 1000 + k))
+
+
+@pytest.mark.parametrize("flags", [["--trace-keep", "1"], ["--demand-keep", "0"],
+                                   ["--flight-keep", "2"],
+                                   ["--trace-keep", "0", "--demand-keep", "2",
+                                    "--flight-keep", "0"]])
+def test_gc_keep_flags_equal_reference(tmp_path, capsys, flags):
+    outs = []
+    for name, main in (("port", report.main), ("ref", jreport.main)):
+        root = tmp_path / name
+        _gc_artifacts(root)
+        code = main(["gc", str(root / "runs"), "--keep", "5", *flags])
+        left = sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+        outs.append((code, capsys.readouterr().out.replace(str(root), "ROOT"), left))
+    assert outs[0] == outs[1] and outs[0][0] == 0
+    live = [p for p in outs[0][2] if p.startswith("runs/live/")]
+    assert len(live) == 1 + 4 * 4  # a live run is never pruned
+    done = [p for p in outs[0][2] if p.startswith("runs/done/")]
+    keep = dict(zip(flags[::2], map(int, flags[1::2])))
+    want = 1 + 4 + sum(min(keep.get(f"--{k}-keep", 3), 3) * n
+                       for k, n in (("trace", 1), ("demand", 2), ("flight", 1)))
+    assert len(done) == want
+
+
 # -- not ported yet -----------------------------------------------------------
 
 
@@ -474,7 +597,8 @@ def _cli(*argv, env=None):
 
 @pytest.mark.parametrize("case", ["render_json", "health_divergent", "resilience_gave_up",
                                   "elastic", "grad_nonfinite", "infomodel_breach",
-                                  "memory_over", "serve_ok"])
+                                  "memory_over", "serve_ok", "trace_orphaned", "slo_breach",
+                                  "util_floor", "demand_ok"])
 def test_cli_as_a_module_loads_no_torch(run_dirs, case):
     sub, args, _, code, env = CASES[case]
     argv = ([sub] if sub else []) + [str(run_dirs[(case, "port")])] + args + (

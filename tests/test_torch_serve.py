@@ -18,6 +18,12 @@ Contracts:
 - the served program reads nothing from the host and makes no host
   tensor, so a CUDA graph can capture it; the adaptive root-find's
   whole-budget form equals its checked form bit for bit;
+- the telemetry of the query path: with ``SBR_FLIGHT`` or ``SBR_DEMAND``
+  off its module is never imported and ``/metrics`` carries none of its
+  bytes; on, the engine constructs and its answers are the same bits; the
+  endpoint's trace headers, echoes and ``trace_id`` fields, its
+  ``worker.request`` spans against the reference endpoint's, and loadgen's
+  ``--trace-out`` rows and spans against the reference loadgen's;
 - a served run directory: the same query sequence (a first dispatch, a
   hit, an expired and an unmeetable deadline, then an outage through
   injected dispatch faults) logs the reference engine's ``fleet`` events
@@ -31,6 +37,7 @@ Every wait carries a timeout and every thread or server is closed in a
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -65,6 +72,17 @@ from torch_events import assert_same_events, events  # noqa: E402
 
 CPU = "cpu"
 WAIT = 120  # seconds: every wait in this file is bounded
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on one machine, and torch's default pool in each of them
+    oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfg(mod, numerics="fixed", **kw):
@@ -627,9 +645,8 @@ def test_loadgen_assert_warm_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--buckets", "-4"], ["--buckets", "x"], ["--buckets", ",,"],
-                                  ["--fleet", "2"], ["--trace-out", "t.jsonl"],
-                                  ["--answers-out", "a.jsonl"], ["--audit-wait", "1"],
-                                  ["--audit-fault", "{}"]])
+                                  ["--fleet", "2"], ["--answers-out", "a.jsonl"],
+                                  ["--audit-wait", "1"], ["--audit-fault", "{}"]])
 def test_loadgen_setup_errors_exit_2(argv, capsys):
     assert loadgen.main(argv + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
@@ -814,7 +831,7 @@ def test_run_directories_raise(kw, tmp_path):
     assert "serve_batch" in kinds and kinds.count("serve_summary") == 1
 
 
-@pytest.mark.parametrize("var", ["SBR_AUDIT", "SBR_DEMAND", "SBR_PREWARM", "SBR_FLIGHT"])
+@pytest.mark.parametrize("var", ["SBR_AUDIT", "SBR_PREWARM"])
 def test_unported_switches_raise(var, monkeypatch):
     monkeypatch.setenv(var, "0")
     Engine(device=CPU).close()  # off is fine
@@ -892,3 +909,255 @@ def test_served_run_events_equal_the_reference(tmp_path, monkeypatch):
     for mod, d in ((report, tmp_path / "port"), (jreport, tmp_path / "ref")):
         doc, code = mod.serve_doc(d)
         assert code == 0 and doc["live"]["totals"]["queries"] == 3
+
+
+# ---------------------------------------------------------------------------
+# Telemetry of the query path: tracing, the flight recorder, demand
+# ---------------------------------------------------------------------------
+
+_NO_OP_PROBE = r"""
+import json, os, sys
+import numpy as np
+from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+from sbr_tpu_torch.serve import Engine, ServeConfig
+out = {}
+for var in ("", "SBR_FLIGHT", "SBR_DEMAND"):
+    if var:
+        os.environ[var] = "1"
+    engine = Engine(config=SolverConfig(n_grid=64, bisect_iters=20, refine_crossings=False),
+                    serve=ServeConfig(buckets=(1, 8)), device="cpu")
+    try:
+        res = engine.query_many([make_model_params(), make_model_params(u=0.2)])
+        text = engine.prometheus()
+        statz = json.dumps(engine.statz())
+    finally:
+        engine.close()
+    out[var or "off"] = {
+        "modules": sorted(m for m in ("sbr_tpu_torch.obs.flight", "sbr_tpu_torch.obs.demand")
+                          if m in sys.modules),
+        "metrics": [w for w in ("sbr_flight", "sbr_demand") if w in text],
+        "statz": [w for w in ('"flight"', '"demand"') if w in statz],
+        "bits": [np.float64(r.xi).tobytes().hex() for r in res],
+    }
+    if var:
+        del os.environ[var]
+print(json.dumps(out))
+"""
+
+
+def test_switches_off_are_structural_no_ops():
+    """In a fresh process: with both switches off neither module is
+    imported and neither shows on /metrics or /statz; each switch on
+    imports its own module only and adds its own lines; the answers are
+    the same bits throughout."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SBR_FLIGHT", "SBR_DEMAND", "SBR_TRACE_SAMPLE")}
+    proc = subprocess.run([sys.executable, "-c", _NO_OP_PROBE], capture_output=True, text=True,
+                          timeout=WAIT, cwd=str(repo), env={**env, "PYTHONPATH": str(repo)})
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["off"]["modules"] == [] and out["off"]["metrics"] == [] == out["off"]["statz"]
+    assert out["SBR_FLIGHT"]["modules"] == ["sbr_tpu_torch.obs.flight"]
+    assert out["SBR_FLIGHT"]["metrics"] == ["sbr_flight"]
+    assert out["SBR_FLIGHT"]["statz"] == ['"flight"']
+    assert out["SBR_DEMAND"]["metrics"] == ["sbr_demand"]
+    assert out["SBR_DEMAND"]["statz"] == ['"demand"']
+    assert out["off"]["bits"] == out["SBR_FLIGHT"]["bits"] == out["SBR_DEMAND"]["bits"]
+
+
+@pytest.mark.parametrize("switches", [("SBR_FLIGHT",), ("SBR_DEMAND",),
+                                      ("SBR_FLIGHT", "SBR_DEMAND", "SBR_TRACE_SAMPLE")])
+def test_answers_are_bitwise_equal_with_recorders_on(switches, monkeypatch, tmp_path):
+    from sbr_tpu_torch.obs import flight, trace
+
+    for var in ("SBR_FLIGHT", "SBR_DEMAND", "SBR_TRACE_SAMPLE"):
+        monkeypatch.delenv(var, raising=False)
+    pool = build_pool(3, 10)
+    mix = [pool[i] for i in query_mix(3, 10, 24)]
+    off, _ = _served(mix, start=True)
+    for var in switches:
+        monkeypatch.setenv(var, "1")
+    flight.reset_shared()
+    engine = Engine(config=_cfg(tparams), serve=ServeConfig(buckets=(1, 8)),
+                    run_dir=str(tmp_path / "run"), device=CPU).start()
+    try:
+        traces = [trace.mint("loadgen") for _ in mix]
+        on = engine.query_many(mix, timeout=WAIT, traces=traces)
+        for c in traces:
+            engine.trace_writer().commit(c)
+    finally:
+        engine.close()
+    assert _bits(on) == _bits(off)
+    written = {f.name for f in (tmp_path / "run").iterdir()}
+    assert ("flight.json" in written) == ("SBR_FLIGHT" in switches)
+    assert ({"demand.json", "advisor_plan.json"} <= written) == ("SBR_DEMAND" in switches)
+    assert ("trace.jsonl" in written) == ("SBR_TRACE_SAMPLE" in switches)
+
+
+def _traced_endpoint_run(pkg, monkeypatch):
+    """Three POSTs carrying a trace header (a miss, a hit, a shed) through
+    ``pkg``'s endpoint; returns (codes, echoed ids, body ids, spans)."""
+    if pkg == "ref":
+        from sbr_tpu.obs import trace as tr
+        from sbr_tpu.serve.endpoint import ServeEndpoint as EP
+
+        engine = jengine.Engine(config=_cfg(jparams), serve=jengine.ServeConfig(buckets=(1,)))
+    else:
+        from sbr_tpu_torch.obs import trace as tr
+
+        EP = ServeEndpoint
+        engine = _engine(buckets=(1,))
+    ctxs = []
+    real = tr.from_headers
+
+    def keep(*a, **k):
+        ctxs.append(real(*a, **k))
+        return ctxs[-1]
+
+    monkeypatch.setattr(tr, "from_headers", keep)
+    engine.start()
+    endpoint, out = None, []
+    try:
+        endpoint = EP(engine).start()
+        for k, deadline in enumerate((None, None, "-1")):
+            hdrs = {"X-SBR-Trace-Id": f"{k:016x}", "X-SBR-Parent-Span": "0000feed"}
+            if deadline:
+                hdrs["X-SBR-Deadline-Ms"] = deadline
+            code, body, got = http_request(endpoint.port, "/query", {"beta": 1.5, "u": 0.3},
+                                           hdrs)
+            out.append((code, got.get("X-SBR-Trace-Id"), json.loads(body).get("trace_id")))
+        # the handler adds its root span after the response has gone out
+        deadline = time.monotonic() + WAIT
+        while not all(any(sp["name"] == "worker.request" for sp in c.spans) for c in ctxs):
+            assert time.monotonic() < deadline, "a request's root span never landed"
+            time.sleep(0.01)
+    finally:
+        if endpoint is not None:
+            endpoint.close()
+        engine.close()
+    return out, [c.spans for c in ctxs]
+
+
+def test_endpoint_spans_and_echoes_equal_the_reference(monkeypatch):
+    from torch_telemetry import span_structure
+
+    monkeypatch.delenv("SBR_TRACE_SAMPLE", raising=False)
+    want, want_spans = _traced_endpoint_run("ref", monkeypatch)
+    got, got_spans = _traced_endpoint_run("port", monkeypatch)
+    assert got == want == [(200, f"{k:016x}", f"{k:016x}") for k in range(2)] + [
+        (429, f"{2:016x}", None)]
+    assert [span_structure(s) for s in got_spans] == [span_structure(s) for s in want_spans]
+    roots = [s[-1] for s in got_spans]
+    assert [r["name"] for r in roots] == ["worker.request"] * 3
+    assert [r["parent"] for r in roots] == ["0000feed"] * 3
+    assert [(r.get("source"), r.get("status"), r.get("shed")) for r in roots] == [
+        ("computed", 200, None), ("lru", 200, None), (None, 429, True)]
+
+
+def test_endpoint_trace_ids_on_every_route_and_code(monkeypatch, tmp_path):
+    """Minted traces: the id is echoed on 200, 400, 429 and 503 and rides
+    the plain, scenario and population records; the committed file joins
+    into one waterfall a request; an SLO breach is kept as an exemplar
+    when sampling would drop it."""
+    from sbr_tpu_torch.obs import report
+
+    monkeypatch.setenv("SBR_TRACE_SAMPLE", "1")
+    engine = Engine(config=_cfg(tparams), serve=ServeConfig(buckets=(1,)),
+                    run_dir=str(tmp_path / "run"), device=CPU).start()
+    endpoint = None
+    pop = {"graph": {"n": 400, "avg_degree": 8}, "infomodel": {"channel": "bayes"},
+           "seeds": 2}
+    fig12 = {"beta": 0.9, "eta_bar": 30.0, "u": 0.5, "p": 0.99, "kappa": 0.25, "lam": 0.25}
+    try:
+        endpoint = ServeEndpoint(engine).start()
+        port = endpoint.port
+        answers = {}
+        for name, doc, hdrs in (
+                ("plain", {"beta": 1.2, "u": 0.3}, {}),
+                ("scenario", {"u": 0.08, "lolr_rate": 0.1, "scenario": {"modifiers": ["lolr"]}},
+                 {}),
+                ("population", {**fig12, "population": pop}, {}),
+                ("shed", {"beta": 1.2}, {"X-SBR-Deadline-Ms": "-1"}),
+                ("bad", {"bta": 1.0}, {})):
+            code, body, got = http_request(port, "/query", doc, hdrs)
+            answers[name] = (code, got.get("X-SBR-Trace-Id"), json.loads(body))
+        for name, code in (("plain", 200), ("scenario", 200), ("population", 200),
+                           ("shed", 429), ("bad", 400)):
+            assert answers[name][0] == code and len(answers[name][1]) == 16, name
+        for name in ("plain", "scenario", "population"):
+            assert answers[name][2]["trace_id"] == answers[name][1], name
+        _open_breaker(engine)
+        code, body, got = http_request(port, "/query", {"beta": 2.2, "u": 0.4})
+        assert code == 503 and len(got["X-SBR-Trace-Id"]) == 16
+        monkeypatch.setenv("SBR_TRACE_SAMPLE", "0.000000001")
+        monkeypatch.setenv("SBR_SERVE_SLO_MS", "0.000001")
+        code, _, got = http_request(port, "/query", {"beta": 1.2, "u": 0.3})
+        assert code == 200 and got.get("X-SBR-Trace-Id")
+        # each handler commits its trace after its response has gone out
+        deadline = time.monotonic() + WAIT
+        while engine.trace_writer().counters["traces"] < 7:
+            assert time.monotonic() < deadline, engine.trace_writer().counters
+            time.sleep(0.01)
+        assert http_request(port, "/metrics")[1].count("sbr_trace_span_ms_count") >= 5
+    finally:
+        if endpoint is not None:
+            endpoint.close()
+        engine.close()
+    doc, code = report.trace_doc([tmp_path / "run"])
+    assert code == 0 and doc["traces"] == 7 and doc["joined"] == 7
+    assert doc["exemplar_traces"] == 1
+    roots = {e["trace"]: e["root"] for e in doc["trace_table"]}
+    assert set(roots.values()) == {"worker.request"}
+    manifest = json.loads((tmp_path / "run" / "manifest.json").read_text())
+    assert manifest["trace"]["traces"] == 7 and manifest["trace"]["exemplars"] == 1
+
+
+def _ids(pkg, monkeypatch):
+    """Deterministic trace ids in ``pkg``'s trace module."""
+    mod = __import__(f"{pkg}.obs.trace", fromlist=["trace"])
+    counter = iter(range(10**6))
+    monkeypatch.setattr(mod, "new_trace_id", lambda: f"{next(counter):016x}")
+
+
+def test_loadgen_trace_out_equals_the_reference(tmp_path, monkeypatch, capsys):
+    from sbr_tpu.serve import loadgen as jloadgen
+    from sbr_tpu_torch.obs import trace
+    from torch_telemetry import span_structure
+
+    for var in ("SBR_FLIGHT", "SBR_DEMAND", "SBR_SERVE_SLO_MS"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--queries", "24", "--pool", "5", "--n-grid", "64", "--bisect-iters", "20",
+            "--buckets", "1,8", "--group", "8"]
+    monkeypatch.delenv("SBR_TRACE_SAMPLE", raising=False)
+    assert loadgen.main(argv + ["--device", "cpu", "--trace-out", str(tmp_path / "u.jsonl")]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["traced_queries"] == 0
+    untraced = [json.loads(line) for line in (tmp_path / "u.jsonl").read_text().splitlines()]
+    assert len(untraced) == 24 and {r["trace_id"] for r in untraced} == {None}
+    monkeypatch.setenv("SBR_TRACE_SAMPLE", "1")
+    out = {}
+    for pkg, main, extra in (("sbr_tpu", jloadgen.main, []),
+                             ("sbr_tpu_torch", loadgen.main, ["--device", "cpu"])):
+        _ids(pkg, monkeypatch)
+        d = tmp_path / pkg
+        assert main(argv + extra + ["--trace-out", str(d / "rows.jsonl"), "--run-dir",
+                                    str(d / "run")]) == 0
+        summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        rows = [json.loads(line) for line in (d / "rows.jsonl").read_text().splitlines()]
+        spans, bad = trace.load_spans(d / "run")
+        by_trace = {}
+        for sp in spans:
+            by_trace.setdefault(sp["trace"], []).append(sp)
+        out[pkg] = (summary["traced_queries"],
+                    [{k: v for k, v in r.items() if k != "latency_ms"} for r in rows],
+                    {t: span_structure(v) for t, v in by_trace.items()}, bad)
+    assert out["sbr_tpu_torch"] == out["sbr_tpu"]
+    assert out["sbr_tpu_torch"][0] == 24
+    roots = {t: [n for n, parent, _ in v if parent is None] for t, v in out["sbr_tpu"][2].items()}
+    assert set(map(tuple, roots.values())) == {("loadgen.query",)}
