@@ -81,9 +81,19 @@ launching its kernel members × steps times), loadgen's ``--trace-out``
 rows replayed into the engine's demand surface, the faulted tiled sweep
 with the recorder (tiles byte-equal), every report's exit code on clean
 and breaching runs and gc's keep flags; and the same drive small on the
-card against the CPU. It prints one JSON line per phase, and beside the
-serving, scenario, population, rewire, grad, tiled and telemetry numbers
-the card's name and power limit.
+card against the CPU. Then slice 14, the numerics audit: the battery's
+CLI records goldens, classifies (every probe a pass) and classifies under
+a seeded corrupt plan (one probe in drift), ``report audit`` gates both
+runs, the four parity CLIs run as processes with ``--obs-dir`` (and once
+in process, where the infomodels battery holds the infection kernel to
+the plain step and runs the belief kernel), ``bench.py``'s served mix
+runs with the audit scheduler off and on (answers bit-identical, the
+overhead ratio, a corrupt plan latching ``/healthz``), gc prunes the
+audit artifacts, and the battery runs on the card against the CPU. The
+profiles read the profiler's raw device events (`_device_rows`), held
+once to ``key_averages``. It prints one JSON line per phase, and beside
+the serving, scenario, population, rewire, grad, tiled, telemetry and
+audit numbers the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero
 before printing any result.
@@ -340,6 +350,27 @@ def phase_main_path() -> int:
     return main_launches
 
 
+def _device_rows(prof) -> dict:
+    """{kernel name: [device µs, launches]} of a finished torch.profiler
+    capture, read from its raw trace events (kernels, copies and sets on
+    the device). Building the profiler's function-event tree
+    (``key_averages``) costs ~70 µs an event; reading the raw events costs
+    ~3 µs. `phase_extensions` holds the two readings equal."""
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            row = rows.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+    return rows
+
+
+def _key_average_rows(prof) -> dict:
+    """The same rows as `_device_rows` through ``key_averages``."""
+    return {e.key: [e.self_device_time_total, e.count] for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def _profiled(run, kernel: str = "") -> dict:
     """One steady call of ``run`` under torch.profiler, after a warm-up
     call. Device time is the sum of the kernels' self times (one stream,
@@ -356,11 +387,7 @@ def _profiled(run, kernel: str = "") -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     # device-side events only: an operator's row repeats its kernels' time
-    rows = [
-        (e.key, e.self_device_time_total, e.count)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
+    rows = [(k, us, c) for k, (us, c) in _device_rows(prof).items()]
     device_s = sum(r[1] for r in rows) / 1e6
     if device_s <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -929,7 +956,9 @@ def phase_sweeps_profile() -> None:
 # kernel (bayes).
 FIG12 = dict(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
 FIG12_GRID = 4096
-PROFILE_ITERS = 10
+# the fixed point's first PROFILE_ITERS outer iterations are profiled (its
+# launches and busy share an iteration; ~4×10^3 kernels an iteration)
+PROFILE_ITERS = 3
 # test_social's envelope against the oracle, and its closure bounds
 ORACLE_XI_SHARE, ORACLE_AW_SUP = 2e-3, 5e-3
 FIG13 = dict(n_agents=200_000, avg_degree=60.0, dt=0.05, t_max=16.0, g0=0.02)
@@ -1013,8 +1042,7 @@ def phase_social() -> dict:
             fp = run()
             fenced_s = time.perf_counter() - t0
             it = int(fp.iterations)
-            # The profiler's own analysis costs ~70 µs an event (~40 s for
-            # the 5×10^5 events of one whole call), so each dtype profiles
+            # One whole call is ~2×10^5 device events; each dtype profiles
             # its first PROFILE_ITERS iterations.
             prof = _profiled(lambda: st.solve_equilibrium_social(
                 m, cfg, tol=1e-4, max_iter=PROFILE_ITERS, dtype=dtype))
@@ -1236,10 +1264,11 @@ def _bits_equal(a, b) -> bool:
     return bool(np.array_equal(nan, np.isnan(b)) and a[~nan].tobytes() == b[~nan].tobytes())
 
 
-def _kernel_profile(run) -> dict:
+def _kernel_profile(run, cross_check: bool = False) -> dict:
     """Kernels and device time of one call of ``run`` (after a warm-up)
     from torch.profiler: the count of device kernels, their summed time
-    and its share of the call's wall time."""
+    and its share of the call's wall time. ``cross_check`` also reads the
+    capture through ``key_averages`` and fails unless the two agree."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1249,11 +1278,19 @@ def _kernel_profile(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    device_s = sum(e.self_device_time_total for e in rows) / 1e6
-    return {"kernels": sum(e.count for e in rows), "device_ms": device_s * 1e3,
-            "wall_ms": wall_s * 1e3, "busy_share": device_s / wall_s}
+    rows = _device_rows(prof)
+    device_s = sum(us for us, _ in rows.values()) / 1e6
+    out = {"kernels": sum(c for _, c in rows.values()), "device_ms": device_s * 1e3,
+           "wall_ms": wall_s * 1e3, "busy_share": device_s / wall_s}
+    if cross_check:
+        t0 = time.perf_counter()
+        ka = _key_average_rows(prof)
+        ka_kernels, ka_us = sum(c for _, c in ka.values()), sum(us for us, _ in ka.values())
+        out.update(kernels_key_averages=ka_kernels, device_ms_key_averages=ka_us / 1e3,
+                   key_averages_s=time.perf_counter() - t0)
+        if ka_kernels != out["kernels"] or abs(ka_us / 1e3 - out["device_ms"]) > 1e-6 * ka_us:
+            raise AssertionError(f"raw device events and key_averages differ: {out}")
+    return out
 
 
 def _serve_bucket_rows(card: str) -> list:
@@ -1702,8 +1739,9 @@ SECTION3 = dict(beta=1.0, eta_bar=15.0, u=0.0, p=0.5, kappa=0.6, lam=0.01, r=0.0
 STRETCH = (np.linspace(0.5, 3.0, 10), np.linspace(0.0, 0.45, 10), np.linspace(0.0, 0.09, 10))
 # tests/test_hetero.py's and tests/test_interest.py's bounds against the oracle
 EXT_ORACLE_XI = 1e-5
-# the interest scan is profiled at this n_grid: the profiler's analysis
-# costs ~0.2 ms a kernel, and the full-width scan runs ~10^6 kernels
+# the interest scan is profiled at this n_grid (its kernels an interval):
+# the full-width scan runs ~10^6 kernels; the adaptive scan's count barely
+# shrinks with the grid (~3.8×10^5 at n_grid 64 too), so the grid stays
 EXT_PROFILE_GRID = 256
 # values that pass through bs32: its own rtol bounds what a step decision
 # that rounds the other way can move (tests/test_torch_ode.py)
@@ -1806,7 +1844,7 @@ def phase_extensions() -> dict:
         def run(numerics=numerics):
             return _ext_case("section3", numerics, "cuda", n_grid=EXT_PROFILE_GRID)
 
-        prof = _kernel_profile(run)
+        prof = _kernel_profile(run, cross_check=numerics == "fixed")
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -4241,9 +4279,8 @@ def _telem_profiled_cold(device, size: dict, root) -> dict:
     again, on a fresh engine, under torch.profiler: their kernels' summed
     device time over their wall time (the serve phase's busy share), and
     the same for the (all-hit) mix before them. The stream runs ~10^5
-    kernels a 1,000 queries and the profiler's analysis costs ~0.1 ms a
-    kernel, so only device activity is traced, over a quarter of the
-    stream."""
+    kernels a 1,000 queries; only device activity is traced, over a
+    quarter of the stream."""
     from torch.profiler import ProfilerActivity, profile
 
     import sbr_tpu_torch as st
@@ -4269,12 +4306,10 @@ def _telem_profiled_cold(device, size: dict, root) -> dict:
                     engine.query_many(params[i : i + group], timeout=600)
                 torch.cuda.synchronize()
                 wall_s = time.perf_counter() - t0
-            rows = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-            device_s = sum(e.self_device_time_total for e in rows) / 1e6
+            rows = _device_rows(prof)
+            device_s = sum(us for us, _ in rows.values()) / 1e6
             out[name] = dict(wall_s=wall_s, device_s=device_s, busy_share=device_s / wall_s,
-                             kernels=sum(e.count for e in rows))
+                             kernels=sum(c for _, c in rows.values()))
     finally:
         engine.close()
     if out["cold"]["device_s"] <= 0:
@@ -4724,15 +4759,395 @@ def phase_telemetry_cpu_vs_card() -> None:
         raise AssertionError(f"telemetry card vs CPU: {eq}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 14: the numerics audit
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_audit subset (its probes/s), and the probe the seeded
+# corrupt plan matches
+AUDIT_BENCH_PROBES = ("graphgen.layout", "scenario.composed", "infomodel.gossip")
+AUDIT_CORRUPT_PROBE = "scenario.composed"
+AUDIT_CORRUPT_PLAN = {"seed": 7, "rules": [{"point": "audit.canary", "kind": "corrupt",
+                                             "match": AUDIT_CORRUPT_PROBE}]}
+# the four parity CLIs at their defaults: (probe, module, arguments)
+AUDIT_CLIS = (("grad.ift_fd", "sbr_tpu_torch.grad.parity", []),
+              ("scenario.composed", "sbr_tpu_torch.scenario.parity", []),
+              ("infomodel.gossip", "sbr_tpu_torch.infomodels.parity", []),
+              ("graphgen.layout", "sbr_tpu_torch.social.graphgen_cli", ["--selfcheck"]))
+# the served mix of bench.py (TELEM_SIZES["full"]: pool 64, 2,048 queries
+# in groups of 16, buckets 1/8/64, n_grid 1024), AUDIT_SERVE_ROUNDS times,
+# with the scheduler off and on, its canaries due every
+# AUDIT_SERVE_INTERVAL_S, so that cycles run in the mix's idle gaps
+AUDIT_SERVE_INTERVAL_S = "0.1"
+AUDIT_SERVE_ROUNDS = 4
+AUDIT_KNOBS = ("SBR_AUDIT", "SBR_AUDIT_INTERVAL_S", "SBR_AUDIT_PROBES", "SBR_AUDIT_REGISTRY_DIR",
+               "SBR_FAULT_PLAN", "SBR_OBS")
+# card against CPU: the float values of a probe (f64); the counts exactly
+AUDIT_CPU_TOL = 1e-12
+AUDIT_EXACT = ("status", "iterations", "converged", "n_checked", "n_edges", "run_cells")
+
+
+def _audit_start(argvs, env_extra=None) -> tuple:
+    """Each argv as ``python -m ...``, all started at once: (processes,
+    start time), for `_audit_wait`."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(_REPO_ROOT), **(env_extra or {})}
+    procs = [subprocess.Popen([sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env, cwd=str(_REPO_ROOT))
+             for argv in argvs]
+    return procs, time.perf_counter()
+
+
+def _audit_wait(started, timeout_s: float = 600.0) -> list:
+    """(exit, stdout, stderr, wall s) a process of `_audit_start`; every
+    process is killed if it outlives ``timeout_s``."""
+    procs, t0 = started
+    out = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=timeout_s)
+            out.append((proc.returncode, stdout, stderr, time.perf_counter() - t0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    return out
+
+
+def _audit_procs(argvs, env_extra=None) -> list:
+    return _audit_wait(_audit_start(argvs, env_extra))
+
+
+def _audit_events(run_dir) -> list:
+    from pathlib import Path
+
+    lines = (Path(run_dir) / "events.jsonl").read_text().splitlines()
+    return [e for e in map(json.loads, lines) if e.get("kind") == "audit"]
+
+
+def _audit_cli_rows(root, procs) -> list:
+    """The four CLIs' subprocess results checked: exit 0, the ``obs run
+    dir:`` line, exactly one ``audit`` probe event, a pass."""
+    rows = []
+    for (probe, mod, _), (code, out, err, wall) in zip(AUDIT_CLIS, procs):
+        run_dir = root / f"cli_{probe}"
+        evs = _audit_events(run_dir) if (run_dir / "events.jsonl").exists() else []
+        row = dict(cli=mod, probe=probe, exit=code, wall_s=wall,
+                   obs_line=f"obs run dir: {run_dir}" in out,
+                   audit_events=[(e["action"], e["probe"], e["tier"], e["verdict"]) for e in evs],
+                   tail=out.strip().splitlines()[-1:] if out.strip() else [])
+        rows.append(row)
+        if not (code == 0 and row["obs_line"]
+                and row["audit_events"] == [("probe", probe, "legacy", "pass")]):
+            raise AssertionError(f"python -m {mod}: {row}\n{err[-2000:]}")
+    return rows
+
+
+def _audit_cli_launches() -> list:
+    """Each CLI's battery once in this process, its output discarded: the
+    launches of each kernel it made, counted from 0 just before it."""
+    import io
+
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.grad import parity as grad_parity
+    from sbr_tpu_torch.infomodels import parity as infomodels_parity
+    from sbr_tpu_torch.scenario import parity as scenario_parity
+    from sbr_tpu_torch.social import graphgen_cli
+
+    mains = {"grad.ift_fd": grad_parity.main, "scenario.composed": scenario_parity.main,
+             "infomodel.gossip": infomodels_parity.main, "graphgen.layout": graphgen_cli.main}
+    rows = []
+    for probe, mod, argv in AUDIT_CLIS:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            code = mains[probe](argv)
+        torch.cuda.synchronize()
+        rows.append(dict(cli=mod, probe=probe, exit=code, seconds=time.perf_counter() - t0,
+                         **_launches()))
+        if code != 0:
+            raise AssertionError(f"{mod} in process: exit {code}")
+    return rows
+
+
+def _audit_served(registry, root) -> dict:
+    """bench.py's served mix, AUDIT_SERVE_ROUNDS times, through an engine
+    with the scheduler off and on (the bench subset due every
+    AUDIT_SERVE_INTERVAL_S, run in idle gaps), twice in turns: the
+    answers as bits, p50/p99 of the mix, its seconds, and the canary
+    cycles completed during the mix and in all (at least one, waited for
+    after the mix). Then the corrupt plan is installed in this process
+    and, at the next cycle, must latch /healthz degraded with the
+    ``audit_drift`` reason."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.resilience import faults
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix
+
+    size = TELEM_SIZES["full"]
+    pool = build_pool(0, size["pool"])
+    mix = [pool[j] for j in query_mix(0, size["pool"], size["queries"])]
+    g = size["group"]
+    out = {}
+    for name in ("off", "on", "off_again", "on_again"):
+        on = name.startswith("on")
+        env = {"SBR_AUDIT": "1" if on else None, "SBR_AUDIT_INTERVAL_S": AUDIT_SERVE_INTERVAL_S,
+               "SBR_AUDIT_PROBES": ",".join(AUDIT_BENCH_PROBES),
+               "SBR_AUDIT_REGISTRY_DIR": str(registry)}
+        with _env(env):
+            engine = Engine(config=st.SolverConfig(**size["cfg"]),
+                            serve=ServeConfig(buckets=size["buckets"]), device="cuda",
+                            run_dir=str(root / f"served_{name}"))
+            engine.start()
+            try:
+                for i in range(0, len(pool), g):
+                    engine.query_many(pool[i : i + g], scenario="warmup", timeout=600)
+                cycles0 = engine.audit.snapshot()["cycles"] if on else 0
+                t0 = time.perf_counter()
+                res = []
+                for _ in range(AUDIT_SERVE_ROUNDS):
+                    for i in range(0, len(mix), g):
+                        res += engine.query_many(mix[i : i + g], scenario="mix", timeout=600)
+                mix_s = time.perf_counter() - t0
+                ms = np.array([r.latency_s for r in res]) * 1e3
+                row = dict(mix_s=mix_s, p50_ms=float(np.percentile(ms, 50)),
+                           p99_ms=float(np.percentile(ms, 99)),
+                           cycles_in_mix=(engine.audit.snapshot()["cycles"] - cycles0
+                                          if on else 0))
+                answers = engine.query_many(pool, timeout=600)
+                row["bits"] = [(r.status, r.flags, np.float64(r.xi).tobytes(),
+                                np.float64(r.aw_max).tobytes()) for r in answers]
+                row["metrics"] = "sbr_audit" in engine.prometheus()
+                if on:
+                    deadline = time.monotonic() + 120
+                    while engine.audit.snapshot()["cycles"] < 1 and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                    snap = engine.audit.snapshot()
+                    row.update(cycles=snap["cycles"], status=snap["status"],
+                               probe_ms={k: v.get("p50") for k, v in snap["probe_ms"].items()},
+                               statz=engine.statz()["audit"]["status"])
+                    if name == "on_again":
+                        cycles = snap["cycles"]
+                        faults.install(faults.FaultPlan(AUDIT_CORRUPT_PLAN))
+                        try:
+                            deadline = time.monotonic() + 120
+                            while (engine.audit.snapshot()["cycles"] <= cycles
+                                   and time.monotonic() < deadline):
+                                time.sleep(0.05)
+                        finally:
+                            faults.reset()
+                        row["healthz_after_corrupt"] = engine.healthz()
+                        row["metrics_after_corrupt"] = [
+                            ln for ln in engine.prometheus().splitlines()
+                            if ln.startswith("sbr_audit_status")]
+            finally:
+                engine.close()
+        out[name] = row
+    return out
+
+
+def phase_audit(card: str) -> dict:
+    """Slice 14 on the card (module docstring): the battery's CLI records
+    goldens into a temporary registry, then classifies (every probe a
+    pass; each probe's ms) and classifies again under the seeded corrupt
+    plan (exactly AUDIT_CORRUPT_PROBE in drift), each as a subprocess
+    with a run directory; ``report audit`` exits 0 and 1 on the two; the
+    bench subset's probes/s in this process; the four parity CLIs as
+    subprocesses with ``--obs-dir`` (exit 0, one audit event each), and
+    each battery once in this process for its launches; bench.py's served
+    mix with the scheduler off and on (answers bit-identical, p50/p99, the
+    overhead ratio, cycles), the corrupt plan latching /healthz; and gc's
+    ``--audit-keep``. Returns the launches by kernel of the whole phase
+    in this process, counted from 0 just before it."""
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.obs import audit, report
+
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    with tempfile.TemporaryDirectory(prefix="sbr_audit_") as tmp, \
+            _env({k: None for k in AUDIT_KNOBS}):
+        root = Path(tmp)
+        runs, reg = root / "runs", root / "reg"
+        cli = ["sbr_tpu_torch.obs.audit", "--registry", str(reg), "--json"]
+        # the goldens and the four CLIs as processes, all at once, while
+        # this process runs each CLI's battery for its launches; then the
+        # two classifying runs
+        t0 = time.perf_counter()
+        started = _audit_start([cli + ["--update"]] + [
+            [mod, *argv, "--obs-dir", str(runs / f"cli_{probe}")] for probe, mod, argv in AUDIT_CLIS])
+        cli_launches = _audit_cli_launches()
+        first = _audit_wait(started)
+        batch_s = time.perf_counter() - t0
+        code, out, err, update_s = first[0]
+        if code != 0:
+            raise AssertionError(f"audit --update: exit {code}\n{err[-2000:]}")
+        cli_rows = _audit_cli_rows(runs, first[1:])
+        (clean,) = _audit_procs([cli + ["--obs-dir", str(runs / "clean")]])
+        (corrupt,) = _audit_procs([cli + ["--obs-dir", str(runs / "corrupt")]],
+                                  env_extra={"SBR_FAULT_PLAN": json.dumps(AUDIT_CORRUPT_PLAN)})
+        reps = {}
+        for name, (code, out, err, wall) in (("clean", clean), ("corrupt", corrupt)):
+            rep = json.loads(out.strip().splitlines()[-1])
+            reps[name] = dict(exit=code, wall_s=wall, drift=rep["drift"], missing=rep["missing"],
+                              verdicts={n: p["verdict"] for n, p in rep["probes"].items()},
+                              probe_ms={n: p["duration_ms"] for n, p in rep["probes"].items()},
+                              duration_s=rep["duration_s"], key=rep["key"])
+        c, k = reps["clean"], reps["corrupt"]
+        if not (c["exit"] == 0 and set(c["verdicts"].values()) == {"pass"}
+                and len(c["verdicts"]) == len(audit.probes())):
+            raise AssertionError(f"the clean battery: {c}")
+        if not (k["exit"] == 1 and k["drift"] == [AUDIT_CORRUPT_PROBE]
+                and all(v == "pass" for n, v in k["verdicts"].items() if n != AUDIT_CORRUPT_PROBE)):
+            raise AssertionError(f"the corrupt battery: {k}")
+        report_exits = {name: _telem_report("audit", runs / name, {})[0]
+                        for name in ("clean", "corrupt")}
+        if report_exits != {"clean": 0, "corrupt": 1}:
+            raise AssertionError(f"report audit: {report_exits}")
+
+        _build.reset_launches()
+        bench_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rep = audit.run_battery(probe_names=AUDIT_BENCH_PROBES, reg_dir=reg, emit=False,
+                                    device="cuda")
+            torch.cuda.synchronize()
+            bench_s.append(time.perf_counter() - t0)
+            if not rep["ok"]:
+                raise AssertionError(f"the bench subset in process: {rep['drift']}")
+        bench_launches = _launches()
+        emit("audit_battery", key=c["key"], probe_ms=c["probe_ms"], battery_s=c["duration_s"],
+             clean_verdicts=c["verdicts"], corrupt_drift=k["drift"],
+             corrupt_verdicts=k["verdicts"], report_exits=report_exits,
+             cli_wall_s={"update": update_s, "clean": c["wall_s"], "corrupt": k["wall_s"]},
+             bench_probes=list(AUDIT_BENCH_PROBES), bench_battery_s=bench_s,
+             audit_probes_per_sec=len(AUDIT_BENCH_PROBES) / min(bench_s),
+             bench_launches_per_battery={n: v // 2 for n, v in bench_launches.items()}, card=card)
+        if bench_launches[KERNEL] != 2 * 20:
+            raise AssertionError(f"the gossip probe launched {bench_launches}, want 20 a battery")
+
+        emit("audit_clis", rows=cli_rows, launches=cli_launches, batch_wall_s=batch_s, card=card)
+        # the gossip reduction: the kernel lowering's 4 configurations × 2
+        # runs × 25 steps; the self-check: its default and "pallas" runs of
+        # 25 steps; the grad and scenario batteries launch nothing
+        by = {r["probe"]: r for r in cli_launches}
+        if not (by["infomodel.gossip"][KERNEL] == 4 * 2 * 25
+                and by["infomodel.gossip"][BELIEF_KERNEL] > 0
+                and by["graphgen.layout"][KERNEL] == 2 * 25
+                and not any(by[p][n] for p in ("grad.ift_fd", "scenario.composed")
+                            for n in (KERNEL, BELIEF_KERNEL))):
+            raise AssertionError(f"the CLIs' launches: {cli_launches}")
+
+        _build.reset_launches()
+        served = _audit_served(reg, runs)
+        served_launches = _launches()
+        on, off = served["on"], served["off"]
+        bits = {n: r.pop("bits") for n, r in served.items()}
+        ratio = [served[a]["mix_s"] / served[b]["mix_s"]
+                 for a, b in (("on", "off"), ("on_again", "off_again"))]
+        emit("audit_served", runs={n: {k: v for k, v in r.items() if k != "healthz_after_corrupt"}
+                                   for n, r in served.items()},
+             audit_overhead_ratio=ratio, p50_ratio=on["p50_ms"] / off["p50_ms"],
+             p99_ratio=on["p99_ms"] / off["p99_ms"],
+             answers_bitwise=len(set(map(tuple, bits.values()))) == 1,
+             healthz_after_corrupt=served["on_again"]["healthz_after_corrupt"],
+             launches=served_launches, card=card)
+        hz = served["on_again"]["healthz_after_corrupt"]
+        if not (len(set(map(tuple, bits.values()))) == 1
+                and all(served[n]["cycles"] >= 1 and served[n]["status"] == "pass"
+                        and served[n]["metrics"] for n in ("on", "on_again"))
+                and not off["metrics"] and not served["off_again"]["metrics"]
+                and hz["status"] == "degraded"
+                and f"audit_drift: {AUDIT_CORRUPT_PROBE}" in hz["reasons"]):
+            raise AssertionError(f"the served audit: {served}")
+
+        # gc --audit-keep 1: every finished run's battery artifacts but its
+        # newest, and all archived goldens of the key but the newest, go;
+        # the active golden stays
+        golden = next(reg.glob("goldens_*.json"))
+        for i in range(3):
+            shutil.copy(golden, golden.with_suffix(f".{i:03d}.json"))
+
+        def files():
+            return set(runs.rglob("battery_*.json")) | set(reg.glob("goldens_*.json"))
+
+        want = {p for d in runs.iterdir() if (d / "audit").is_dir()
+                for p in sorted((d / "audit").glob("battery_*.json"))[:-1]}
+        want |= {golden.with_suffix(f".{i:03d}.json") for i in range(2)}
+        before = files()
+        with _env({"SBR_AUDIT_REGISTRY_DIR": str(reg)}), \
+                contextlib.redirect_stdout(io.StringIO()):
+            code = report.main(["gc", str(runs), "--keep", "100", "--audit-keep", "1"])
+        gone = before - files()
+        emit("audit_gc", exit=code, removed=len(gone), expected=len(want),
+             batteries_before=len([p for p in before if p.name.startswith("battery_")]),
+             golden_kept=golden.is_file())
+        if not (code == 0 and gone == want and golden.is_file()):
+            raise AssertionError(f"gc --audit-keep: removed {sorted(map(str, gone))}, "
+                                 f"want {sorted(map(str, want))}")
+    return {k: bench_launches[k] + served_launches[k] + sum(r[k] for r in cli_launches)
+            for k in bench_launches}
+
+
+def phase_audit_cpu_vs_card() -> None:
+    """The whole battery on the CPU and on the card in this process:
+    verdicts, statuses, flags, iteration counts and counts equal, the
+    float values within AUDIT_CPU_TOL (``grad.ift_fd``'s worst relative
+    error under its tolerance on both), and the fingerprints of
+    ``infomodel.gossip`` (the kernel on the card, the plain step on the
+    CPU) and ``graphgen.layout`` equal."""
+    import tempfile
+
+    from sbr_tpu_torch.obs import audit
+
+    with tempfile.TemporaryDirectory(prefix="sbr_audit_cpu_") as tmp, \
+            _env({k: None for k in AUDIT_KNOBS}):
+        t0 = time.perf_counter()
+        reps = {dev: audit.run_battery(reg_dir=tmp, update=True, emit=False, device=dev)
+                for dev in ("cpu", "cuda")}
+        secs = time.perf_counter() - t0
+    a, b = reps["cpu"]["probes"], reps["cuda"]["probes"]
+    gaps, differ = {}, []
+    for name in a:
+        va, vb = a[name]["values"], b[name]["values"]
+        if a[name]["verdict"] != b[name]["verdict"] or set(va) != set(vb):
+            differ.append(name)
+            continue
+        for key in va:
+            if key in AUDIT_EXACT:
+                if va[key] != vb[key]:
+                    differ.append(f"{name}.{key}")
+            elif name == "grad.ift_fd":
+                if not (va[key] <= 1e-5 and vb[key] <= 1e-5):
+                    differ.append(f"{name}.{key}")
+            else:
+                gaps[f"{name}.{key}"] = abs(va[key] - vb[key])
+    same_fp = {n: a[n]["fingerprint"] == b[n]["fingerprint"] for n in a}
+    emit("audit_cpu_vs_card", max_abs=gaps, tolerance=AUDIT_CPU_TOL, differ=differ,
+         fingerprints_equal=same_fp, cpu_ms={n: p["duration_ms"] for n, p in a.items()},
+         card_ms={n: p["duration_ms"] for n, p in b.items()}, seconds=secs)
+    if differ or max(gaps.values()) > AUDIT_CPU_TOL or not (
+            same_fp["infomodel.gossip"] and same_fp["graphgen.layout"]):
+        raise AssertionError(f"the battery on the card and the CPU differ: {differ} {gaps} "
+                             f"{same_fp}")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
-          "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu")
+          "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu", "audit",
+          "audit_cpu")
 
 
 def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict,
-                          obs_launches: dict, telem_launches: dict) -> dict:
+                          obs_launches: dict, telem_launches: dict, audit_launches: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
     from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
@@ -4751,7 +5166,8 @@ def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dic
                              "tiled": tiled_launches[RECOUNT_KERNEL],
                              "figures": fig_launches[RECOUNT_KERNEL],
                              "obs": obs_launches[RECOUNT_KERNEL],
-                             "telemetry": telem_launches[RECOUNT_KERNEL]},
+                             "telemetry": telem_launches[RECOUNT_KERNEL],
+                             "audit": audit_launches[RECOUNT_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -4834,6 +5250,9 @@ def main(argv) -> int:
     telem_launches = phase_telemetry(info["nvidia_smi"]) if "telemetry" in wanted else {}
     if "telemetry_cpu" in wanted:
         phase_telemetry_cpu_vs_card()
+    audit_launches = phase_audit(info["nvidia_smi"]) if "audit" in wanted else {}
+    if "audit_cpu" in wanted:
+        phase_audit_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -4852,12 +5271,13 @@ def main(argv) -> int:
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
         "launches": (launches + loop_launches[KERNEL] + pop_launches[KERNEL]
                      + rewire_launches[KERNEL] + fig_launches[KERNEL] + obs_launches[KERNEL]
-                     + telem_launches[KERNEL]),
+                     + telem_launches[KERNEL] + audit_launches[KERNEL]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
                              "population": pop_launches[KERNEL],
                              "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL],
                              "figures": fig_launches[KERNEL], "obs": obs_launches[KERNEL],
-                             "telemetry": telem_launches[KERNEL]},
+                             "telemetry": telem_launches[KERNEL],
+                             "audit": audit_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -4874,14 +5294,16 @@ def main(argv) -> int:
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_belief",
         "launches": (belief_launches + loop_launches[BELIEF_KERNEL]
                      + pop_launches[BELIEF_KERNEL] + rewire_launches[BELIEF_KERNEL]
-                     + obs_launches[BELIEF_KERNEL] + telem_launches[BELIEF_KERNEL]),
+                     + obs_launches[BELIEF_KERNEL] + telem_launches[BELIEF_KERNEL]
+                     + audit_launches[BELIEF_KERNEL]),
         "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
                              "population": pop_launches[BELIEF_KERNEL],
                              "rewire": rewire_launches[BELIEF_KERNEL],
                              "tiled": tiled_launches[BELIEF_KERNEL],
                              "figures": fig_launches[BELIEF_KERNEL],
                              "obs": obs_launches[BELIEF_KERNEL],
-                             "telemetry": telem_launches[BELIEF_KERNEL]},
+                             "telemetry": telem_launches[BELIEF_KERNEL],
+                             "audit": audit_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],
@@ -4891,7 +5313,7 @@ def main(argv) -> int:
         "library_ms": None,
         "shapes": belief_rows,
     }, _recount_kernel_entry(recount, tiled_launches, fig_launches, obs_launches,
-                             telem_launches)]
+                             telem_launches, audit_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

@@ -9,9 +9,11 @@ gradient (grad/ift.py) and fail the match, so a pass shows that the IFT
 rule carries the derivative.
 
     python -m sbr_tpu_torch.grad.parity [--n 6] [--seed 0] [--tol 1e-5] [--json]
-        [--device cpu]
+        [--device cpu] [--obs-dir DIR]
 
-It runs on the CUDA card unless ``--device`` names another.
+It runs on the CUDA card unless ``--device`` names another. It runs
+through `obs.audit.run_legacy_cli`: with ``--obs-dir`` the verdict lands
+as an ``audit`` probe event (``grad.ift_fd``) in a run directory there.
 """
 
 from __future__ import annotations
@@ -94,28 +96,39 @@ def main(argv=None) -> int:
     parser.add_argument("--json", action="store_true", help="machine-readable output")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
+    parser.add_argument("--obs-dir", default=None,
+                        help="record the verdict as an audit probe event "
+                        "under this obs run root")
     args = parser.parse_args(argv)
-    report = run_battery(n=args.n, seed=args.seed, tol=args.tol, device=args.device)
-    if args.json:
-        print(json.dumps(report))
-    else:
-        for pt in report["points"]:
-            rels = pt.get("rel_errors")
-            head = f"β={pt['beta']:.3f} u={pt['u']:.3f} κ={pt['kappa']:.3f}"
-            if rels is None:
-                print(f"  skip  {head} (status {pt['status']}, flags {pt['flags']})")
-                continue
-            line = " ".join(f"d{k}: {v['rel']:.2e}" for k, v in rels.items())
-            print(f"  ok    {head}  {line}")
-        print(
-            f"grad parity: {report['n_checked']}/{report['n_points']} run points, "
-            f"worst rel {report['worst_rel']:.3e} vs tol {report['tol']:g} "
-            f"-> {'OK' if report['ok'] else 'FAIL'}"
-        )
-    if not report["ok"]:
-        print("grad parity FAILED", file=sys.stderr)
-        return 1
-    return 0
+
+    def _check() -> int:
+        report = run_battery(n=args.n, seed=args.seed, tol=args.tol, device=args.device)
+        if args.json:
+            print(json.dumps(report))
+        else:
+            for pt in report["points"]:
+                rels = pt.get("rel_errors")
+                head = f"β={pt['beta']:.3f} u={pt['u']:.3f} κ={pt['kappa']:.3f}"
+                if rels is None:
+                    print(f"  skip  {head} (status {pt['status']}, flags {pt['flags']})")
+                    continue
+                line = " ".join(f"d{k}: {v['rel']:.2e}" for k, v in rels.items())
+                print(f"  ok    {head}  {line}")
+            print(
+                f"grad parity: {report['n_checked']}/{report['n_points']} run points, "
+                f"worst rel {report['worst_rel']:.3e} vs tol {report['tol']:g} "
+                f"-> {'OK' if report['ok'] else 'FAIL'}"
+            )
+        if not report["ok"]:
+            print("grad parity FAILED", file=sys.stderr)
+            return 1
+        return 0
+
+    # the audit protocol: the verdict lands as an ``audit`` probe event;
+    # flags, output and exit code are the battery's
+    from sbr_tpu_torch.obs import audit
+
+    return audit.run_legacy_cli("grad.ift_fd", _check, obs_dir=args.obs_dir)
 
 
 if __name__ == "__main__":

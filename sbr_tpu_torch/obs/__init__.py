@@ -26,24 +26,28 @@
 - ``obs.demand``  — the workload demand observatory (``SBR_DEMAND``): the
   (β, u) demand histogram, the heavy-hitter sketch and the prefetch
   advisor's plan (``demand.json``, ``advisor_plan.json``).
+- ``obs.audit``   — the numerics audit: the versioned golden-surface
+  registry, the canary battery (``python -m sbr_tpu_torch.obs.audit``),
+  the serving engine's ``SBR_AUDIT`` scheduler and `run_legacy_cli`, the
+  protocol of the four parity CLIs. It imports no torch until a probe
+  runs, and loads on first use.
 - ``obs.history`` — the append-only perf history (``bench_history.jsonl``,
   the port's own file) and the trend gate (``report trend --check``).
 - ``obs.report``  — ``python -m sbr_tpu_torch.obs.report RUN_DIR [OTHER]``
   renders or diffs runs; its subcommands (``health``, ``resilience``,
   ``elastic``, ``infomodel``, ``grad``, ``memory``, ``serve``, ``trace``,
-  ``slo``, ``util``, ``demand``, ``trend``, ``gc``) gate on them with the
-  reference's documents and exit codes.
+  ``slo``, ``util``, ``demand``, ``audit``, ``trend``, ``gc``) gate on
+  them with the reference's documents and exit codes.
 
 As in the reference, ``obs.trace`` is the request-tracing module; the
 profiler capture lives at ``obs.timing.trace``. Unlike the reference,
 ``obs.metrics`` here is the module; the registry is
-``obs.metrics.metrics()``. ``trace``, ``flight``, ``demand``, ``history``
-and ``report`` import no torch (nor does this package until `fence` or
-`StageTimer` is used), so a report never pays for a device runtime;
-``trace``, ``flight``, ``demand`` and ``report`` load on first use, so a
-serving engine with ``SBR_FLIGHT`` and ``SBR_DEMAND`` off never imports
-those two. The reference's ``audit`` is not ported yet (ROADMAP item 1.A
-9d).
+``obs.metrics.metrics()``. ``trace``, ``flight``, ``demand``, ``audit``,
+``history`` and ``report`` import no torch (nor does this package until
+`fence` or `StageTimer` is used), so a report never pays for a device
+runtime; ``trace``, ``flight``, ``demand``, ``audit`` and ``report`` load
+on first use, so a serving engine with ``SBR_FLIGHT``, ``SBR_DEMAND`` and
+``SBR_AUDIT`` off never imports those three.
 
 Enabling telemetry: set ``SBR_OBS=1`` (run directories land under
 ``SBR_OBS_DIR``, default ``obs_runs/``), or::
@@ -110,7 +114,7 @@ def __getattr__(name: str):
     # switch-gated ``flight`` and ``demand`` (off, they stay unimported).
     if name in ("StageTimer", "fence"):
         return getattr(importlib.import_module(f"{__name__}.timing"), name)
-    if name in ("demand", "flight", "report", "trace"):
+    if name in ("audit", "demand", "flight", "report", "trace"):
         return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
@@ -124,6 +128,7 @@ __all__ = [
     "active_run",
     "active_span",
     "annotate",
+    "audit",
     "current_run",
     "demand",
     "enabled",

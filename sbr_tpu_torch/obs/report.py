@@ -31,15 +31,17 @@ Usage:
     python -m sbr_tpu_torch.obs.report demand RUN_DIR...  # demand.json; exit 1
                                                           # under the coverage
                                                           # floor
+    python -m sbr_tpu_torch.obs.report audit RUN_DIR      # exit 1 on a drift
+                                                          # verdict, 3 no data
     python -m sbr_tpu_torch.obs.report trend [HISTORY] [--check]
     python -m sbr_tpu_torch.obs.report gc [ROOT] --keep N [--tile-cache DIR]
-        [--trace-keep N] [--demand-keep N] [--flight-keep N]
+        [--trace-keep N] [--audit-keep N] [--demand-keep N] [--flight-keep N]
 
 Every subcommand takes ``--json`` and then prints one JSON document; its
 fields, verdicts and exit codes are the reference's, so the same gates read
-either package's runs. ``fleet``, ``audit``, ``prewarm`` and ``summary``,
-and gc's ``--audit-keep`` and ``--prewarm-keep``, read modules not ported
-yet: each exits 2 naming its ROADMAP item.
+either package's runs. ``fleet``, ``prewarm`` and ``summary``, and gc's
+``--prewarm-keep``, read modules not ported yet: each exits 2 naming its
+ROADMAP item.
 
 Reads only ``manifest.json``, ``events.jsonl``, ``live.json``,
 ``trace.jsonl``, ``flight.json`` and ``demand.json`` (or the history
@@ -1730,6 +1732,14 @@ def _main_gc(argv) -> int:
         "the active trace.jsonl are never touched",
     )
     parser.add_argument(
+        "--audit-keep", type=int, default=None, metavar="N", dest="audit_keep",
+        help="also prune audit battery artifacts (audit/battery_NNNN.json) "
+        "inside kept run dirs down to the N most recent per dir, plus "
+        "archived golden snapshots (goldens_*.NNN.json) in the audit "
+        "registry down to N per key; live runs and the active goldens "
+        "are never touched",
+    )
+    parser.add_argument(
         "--demand-keep", type=int, default=None, metavar="N", dest="demand_keep",
         help="also prune rotated demand snapshots (demand.NNN.json) and "
         "aged advisor plans (advisor_plan.NNN.json) inside kept run dirs "
@@ -1784,6 +1794,14 @@ def _main_gc(argv) -> int:
               f"(keep {args.trace_keep} per run dir)")
         for p in pruned:
             print(f"  {p}")
+    if args.audit_keep is not None:
+        from sbr_tpu_torch.obs.audit import gc_audit_files
+
+        pruned = gc_audit_files(root, keep=args.audit_keep)
+        print(f"removed {len(pruned)} audit artifact file(s) "
+              f"(keep {args.audit_keep} per run dir / golden key)")
+        for p in pruned:
+            print(f"  {p}")
     if args.demand_keep is not None:
         from sbr_tpu_torch.obs.demand import gc_demand_files
 
@@ -1801,6 +1819,203 @@ def _main_gc(argv) -> int:
         for p in pruned:
             print(f"  {p}")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Numerics-audit report (`audit` subcommand)
+# ---------------------------------------------------------------------------
+
+
+def audit_doc(run_dir) -> tuple:
+    """Machine-readable numerics-audit report (`obs.audit` of either
+    package): the manifest ``audit`` roll-up plus the per-event fold of
+    canary probe verdicts and cycle summaries. Returns (doc, exit_code).
+
+    Exit codes: 0 every probe passed; 1 on ANY drift verdict (probe event,
+    cycle roll-up, manifest tally, or a scheduler ``error`` event — an
+    audit that crashed mid-battery must not read as clean) — the manifest
+    tally and the event fold are merged max-style, never summed, so a run
+    killed before its manifest flushed still gates on its events; 3 when
+    the run recorded no audit data at all (a drift gate with nothing to
+    read must not pass silently); 2 when ``run_dir`` is not a directory."""
+    run_dir = Path(run_dir)
+    if not run_dir.is_dir():
+        return {"dir": str(run_dir), "error": "not a directory", "exit": 2}, 2
+    try:
+        run = load_run(run_dir)
+    except (FileNotFoundError, json.JSONDecodeError) as err:
+        return {"dir": str(run_dir), "error": str(err), "exit": 2}, 2
+    manifest_blk = run["manifest"].get("audit") or {}
+    events = [ev for ev in run["events"] if ev.get("kind") == "audit"]
+    if not manifest_blk and not events:
+        return {
+            "dir": str(run_dir),
+            "error": "no audit data (no audit events, no manifest roll-up)",
+            "exit": 3,
+        }, 3
+    # Per-probe LAST verdict (later events supersede: a probe that drifted
+    # once and then went green after --update-goldens reads as its final
+    # state; the drift still counts in the drift tally below).
+    probes: dict = {}
+    drift_events = 0
+    pass_events = 0
+    errors = 0
+    cycles: list = []
+    for ev in events:
+        action = str(ev.get("action", "?"))
+        if action == "probe":
+            name = str(ev.get("probe", "?"))
+            verdict = str(ev.get("verdict", "?"))
+            ent = probes.setdefault(name, {"events": 0})
+            ent["events"] += 1
+            ent["verdict"] = verdict
+            ent["tier"] = ev.get("tier")
+            ent["detail"] = ev.get("detail")
+            ent["duration_ms"] = ev.get("duration_ms")
+            if ev.get("cycle") is not None:
+                ent["cycle"] = ev.get("cycle")
+            if verdict == "drift":
+                drift_events += 1
+                ent["drift_cycle"] = ev.get("cycle")
+            elif verdict == "pass":
+                pass_events += 1
+        elif action == "cycle":
+            cycles.append({
+                "cycle": ev.get("cycle"),
+                "verdict": ev.get("verdict"),
+                "probes": ev.get("probes"),
+                "drift": ev.get("drift"),
+                "missing": ev.get("missing"),
+                "duration_s": ev.get("duration_s"),
+                "key_hash": ev.get("key_hash"),
+            })
+        elif action == "error":
+            errors += 1
+    # Manifest tally vs event fold: max of the two views for every gated
+    # count (the fleet report's rule — a worker killed before its manifest
+    # flushed still has its events; a torn events.jsonl still has the
+    # manifest), never the sum.
+    drift = max(drift_events, int(manifest_blk.get("drift", 0)))
+    passed = max(pass_events, int(manifest_blk.get("passed", 0)))
+    errors = max(errors, int(manifest_blk.get("error", 0)))
+    drifted = sorted(
+        n for n, e in probes.items() if e.get("verdict") == "drift"
+    )
+    last_cycle = manifest_blk.get("last_cycle")
+    last_verdict = manifest_blk.get("last_verdict")
+    if cycles:
+        last_cycle = cycles[-1].get("cycle", last_cycle)
+        last_verdict = cycles[-1].get("verdict", last_verdict)
+    breaches = []
+    if drift > 0:
+        who = f" ({', '.join(drifted)})" if drifted else ""
+        breaches.append(f"{drift} drift verdict(s){who}")
+    if last_verdict == "drift" and not breaches:
+        breaches.append("last cycle verdict is drift")
+    if errors > 0:
+        breaches.append(f"{errors} audit error event(s) — battery crashed")
+    code = 1 if breaches else 0
+    doc = {
+        "dir": str(run_dir),
+        "manifest_audit": manifest_blk or None,
+        "probes": probes,
+        "cycles": cycles,
+        "drift": drift,
+        "passed": passed,
+        "errors": errors,
+        "drifted_probes": drifted,
+        "last_cycle": last_cycle,
+        "last_verdict": last_verdict,
+        "breaches": breaches,
+        "bad_event_lines": run.get("bad_event_lines", 0),
+        "exit": code,
+    }
+    return doc, code
+
+
+def render_audit(doc: dict) -> str:
+    """Human-readable audit report; same exit contract as `audit_doc`."""
+    out = [f"run      {doc['dir']}"]
+    if doc["exit"] in (2, 3):
+        out.append(doc.get("error", "no audit data"))
+        if doc["exit"] == 3:
+            out.append(
+                "was the battery run with obs enabled (python -m "
+                "sbr_tpu_torch.obs.audit --obs-dir DIR, or SBR_AUDIT=1 serving)?"
+            )
+        return "\n".join(out)
+    out.append(
+        f"audit    {doc['passed']} pass, {doc['drift']} drift, "
+        f"{doc['errors']} error(s)"
+        + (f"   last cycle {doc['last_cycle']} ({doc['last_verdict']})"
+           if doc.get("last_cycle") is not None else "")
+    )
+    if doc.get("bad_event_lines"):
+        out.append(f"warning  {doc['bad_event_lines']} torn event line(s) skipped")
+    if doc["probes"]:
+        out += ["", "PROBES"]
+        out.append(
+            _table(
+                ["probe", "tier", "verdict", "runs", "last ms", "detail"],
+                [
+                    [
+                        n,
+                        e.get("tier") or "-",
+                        str(e.get("verdict", "?")).upper()
+                        if e.get("verdict") == "drift" else e.get("verdict", "?"),
+                        e.get("events", 0),
+                        "-" if e.get("duration_ms") is None
+                        else f"{e['duration_ms']:.1f}",
+                        (e.get("detail") or "-")[:60],
+                    ]
+                    for n, e in sorted(doc["probes"].items())
+                ],
+            )
+        )
+    if doc["cycles"]:
+        out += ["", "CYCLES"]
+        out.append(
+            _table(
+                ["cycle", "verdict", "probes", "drift", "missing", "s"],
+                [
+                    [
+                        "-" if c.get("cycle") is None else c["cycle"],
+                        c.get("verdict", "-"),
+                        c.get("probes", "-"), c.get("drift", "-"),
+                        c.get("missing", "-"),
+                        "-" if c.get("duration_s") is None
+                        else f"{c['duration_s']:.2f}",
+                    ]
+                    for c in doc["cycles"][-12:]
+                ],
+            )
+        )
+    out.append("")
+    if doc["breaches"]:
+        out.append("GATE: NUMERICS DRIFT")
+        for b in doc["breaches"]:
+            out.append(f"  {b}")
+    else:
+        out.append("GATE: ok (every audited probe matched its golden)")
+    return "\n".join(out)
+
+
+def _main_audit(argv) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m sbr_tpu_torch.obs.report audit",
+        description="Numerics-audit report for one run (audit events + "
+        "manifest roll-up from obs.audit canary batteries); exit 1 "
+        "on any drift verdict, 3 when no audit data was recorded",
+    )
+    parser.add_argument("run_dir", help="obs run directory with audit events")
+    parser.add_argument("--json", action="store_true", help="machine-readable output")
+    args = parser.parse_args(argv)
+    doc, code = audit_doc(args.run_dir)
+    if args.json:
+        print(json.dumps(doc, default=str))
+        return code
+    print(render_audit(doc))
+    return code
 
 
 # ---------------------------------------------------------------------------
@@ -2694,12 +2909,10 @@ def _main_slo(argv) -> int:
 # The ROADMAP item (queue 1.A) that brings each subcommand's module.
 _NOT_PORTED = {
     "fleet": "1.A 10",  # serve/router.py writes fleet.json
-    "audit": "1.A 9d",  # obs/audit.py
     "prewarm": "1.A 10",  # serve/prewarm.py
     "summary": "1.A 10",  # folds every gate above
 }
 _GC_ITEMS = {
-    "audit_keep": "1.A 9d",
     "prewarm_keep": "1.A 10",
 }
 
@@ -2723,6 +2936,7 @@ def main(argv=None) -> int:
         "grad": _main_grad,
         "infomodel": _main_infomodel,
         "demand": _main_demand,
+        "audit": _main_audit,
         "util": _main_util,
         "trace": _main_trace,
         "slo": _main_slo,
@@ -2741,7 +2955,7 @@ def main(argv=None) -> int:
         prog="python -m sbr_tpu_torch.obs.report",
         description="Render an obs run directory, diff two runs, or run the "
         "'health' / 'resilience' / 'memory' / 'elastic' / 'serve' / 'grad' / "
-        "'infomodel' / 'demand' / 'util' / 'trace' / 'slo' / 'trend' / 'gc' "
+        "'infomodel' / 'demand' / 'util' / 'trace' / 'slo' / 'audit' / 'trend' / 'gc' "
         "subcommands",
     )
     parser.add_argument("run_dir", help="run directory (contains manifest.json)")

@@ -15,10 +15,11 @@ long-lived query engine with live, queryable-while-alive metrics.
 - ``serve.loadgen``: ``python -m sbr_tpu_torch.serve.loadgen``, the
   seeded query mix in direct mode.
 
-Request tracing, the flight recorder and the demand observatory of the
-query path live in ``obs.trace``, ``obs.flight`` and ``obs.demand``. The
-router, the fleet workers, prewarm and the audit are not ported yet
-(ROADMAP 1.A items 9d and 10).
+Request tracing, the flight recorder, the demand observatory and the
+numerics audit of the query path live in ``obs.trace``, ``obs.flight``,
+``obs.demand`` and ``obs.audit``. The router, the fleet workers (with the
+audit's heartbeat block and quarantine) and prewarm are not ported yet
+(ROADMAP 1.A item 10).
 """
 
 from sbr_tpu_torch.serve.endpoint import ServeEndpoint

@@ -88,13 +88,19 @@ gates on it.
   program's device-to-host copy, the port's fence;
 - the demand observatory (``SBR_DEMAND``, `obs.demand`): every answered
   query, with its source, into ``demand.json`` and, at close,
-  ``advisor_plan.json`` (coverage from the bridged tile cache).
+  ``advisor_plan.json`` (coverage from the bridged tile cache);
+- the numerics audit (``SBR_AUDIT``, `obs.audit`): an `AuditScheduler`
+  runs the canary battery on the engine's device in its dtype while the
+  engine is idle, each probe under the dispatch lock; ``/statz`` gains its
+  ``audit`` snapshot, ``/metrics`` ``sbr_audit_status`` and the per-probe
+  ``sbr_audit_probe_ms`` histograms, and a drift verdict latches
+  ``/healthz`` degraded with an ``audit_drift: <probes>`` reason.
 
 With a switch off its module is never imported and ``/metrics`` carries
 none of its bytes; answers are bit-identical either way.
 
-Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-the audit (1.A 9d) and prewarm (1.A 10) switches.
+Not ported yet: the prewarm switch (``SBR_PREWARM``, ROADMAP 1.A 10)
+raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -145,7 +151,7 @@ _INT_OUTPUTS = ("status", "flags", "grad_flags")
 _RECORD_KINDS = {"spec": "scenario", "pop": "population"}
 
 # Switches of the reference's engine that need modules not ported yet.
-_UNPORTED_ENV = {"SBR_AUDIT": "1.A 9d", "SBR_PREWARM": "1.A 10"}
+_UNPORTED_ENV = {"SBR_PREWARM": "1.A 10"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -480,9 +486,16 @@ class Engine:
         # ticket can land after the batcher's final drain.
         self._close_lock = threading.Lock()
 
-        # The demand observatory and the flight recorder: off (the default)
-        # their modules are never imported, /metrics carries none of their
-        # bytes, and answers are bit-identical.
+        # The numerics-audit canaries, the demand observatory and the
+        # flight recorder: off (the default) their modules are never
+        # imported, /metrics carries none of their bytes, and answers are
+        # bit-identical. The audit's probes run on this engine's device in
+        # its dtype, only while the engine is idle.
+        self.audit = None
+        if obs.switch_on("SBR_AUDIT"):
+            from sbr_tpu_torch.obs import audit as _audit
+
+            self.audit = _audit.AuditScheduler(engine=self)
         self.demand = None
         if obs.switch_on("SBR_DEMAND"):
             from sbr_tpu_torch.obs import demand as _demand
@@ -503,6 +516,8 @@ class Engine:
                 target=self._loop, name="sbr-serve-batcher", daemon=True
             )
             self._thread.start()
+        if self.audit is not None:
+            self.audit.start()
         return self
 
     def close(self) -> None:
@@ -524,6 +539,8 @@ class Engine:
                 if t is not _SHUTDOWN:
                     t.error = RuntimeError("engine is closed before the query was served")
                     t.event.set()
+        if self.audit is not None:
+            self.audit.close()
         with self._dispatch_lock:
             self._programs.clear()  # releases the captured graphs
         if self.demand is not None:
@@ -804,8 +821,8 @@ class Engine:
         unhealthy: the batcher thread died, or the shared retry budget is
         exhausted until its next refill. degraded: divergent cells,
         dispatch errors, sheds or ladder answers in the current window, a
-        partially used retry budget, a breaker that is not closed, or a
-        window p99 over ``SBR_SERVE_SLO_MS``. ``window`` (a prior `LiveMetrics.window()`)
+        partially used retry budget, a breaker that is not closed, a
+        window p99 over ``SBR_SERVE_SLO_MS``, or a latched audit drift. ``window`` (a prior `LiveMetrics.window()`)
         lets a caller share one fold between the verdict and the window it
         embeds."""
         self.retry_budget.maybe_refill()
@@ -850,6 +867,9 @@ class Engine:
             if slo is not None and p99 is not None and p99 > slo:
                 status = "degraded"
                 reasons.append(f"window p99 {p99:.3f} ms over SLO {slo:g} ms")
+            if self.audit is not None and self.audit.status == "drift":
+                status = "degraded"
+                reasons.append("audit_drift: " + (",".join(self.audit.drift_probes) or "?"))
         return {"status": status, "reasons": reasons}
 
     def statz(self) -> dict:
@@ -870,9 +890,11 @@ class Engine:
             extra["sbr_serve_slo_ms"] = ("gauge", slo)
         text = self.live.to_prometheus(extra)
         # the per-layer span histograms (committed spans only: empty while
-        # tracing is off), then the demand and flight lines, which exist
-        # only while their switches are on
+        # tracing is off), then the audit, demand and flight lines, which
+        # exist only while their switches are on
         lines = list(qtrace.layer_prometheus())
+        if self.audit is not None:
+            lines += self.audit.prometheus_lines()
         if self.demand is not None:
             lines += self.demand.prometheus_lines()
         if self.flight is not None:
@@ -934,6 +956,7 @@ class Engine:
                 "compiled": self._programs_built,
                 "loaded": 0,
             },
+            **({"audit": self.audit.snapshot()} if self.audit is not None else {}),
             **({"demand": self.demand.snapshot()} if self.demand is not None else {}),
             **({"flight": self.flight.heartbeat_block()} if self.flight is not None else {}),
         }

@@ -25,8 +25,9 @@ trace, its ``loadgen.query`` root included, to the run directory's
 ``trace.jsonl``; the rows are the client half that ``report trace``
 joins, and the input ``python -m sbr_tpu_torch.obs.demand replay``
 rebuilds a demand surface from. ``--fleet`` and its flags and
-``--answers-out`` (ROADMAP 1.A 10) and the audit flags (1.A 9d) wait for
-their modules: they exit 2 with a "not ported" message.
+``--answers-out`` and the audit flags ``--audit-fault`` and
+``--audit-wait``, which act only on fleet workers (ROADMAP 1.A 10), wait
+for their modules: they exit 2 with a "not ported" message.
 
 Exit codes: 0 ok, 1 failed assertion (--assert-warm), 2 setup error.
 """
@@ -56,8 +57,8 @@ _UNPORTED_FLAGS = {
     "fleet_dir": ("--fleet-dir", "1.A 10"),
     "fleet_kill_after": ("--fleet-kill-after", "1.A 10"),
     "answers_out": ("--answers-out", "1.A 10"),
-    "audit_fault": ("--audit-fault", "1.A 9d"),
-    "audit_wait": ("--audit-wait", "1.A 9d"),
+    "audit_fault": ("--audit-fault", "1.A 10"),
+    "audit_wait": ("--audit-wait", "1.A 10"),
 }
 
 

@@ -563,3 +563,75 @@ def prepare_generated_graph(
             row_ptr=built.row_ptr, indeg=built.indeg.to(A._TORCH_DTYPE[dtype]),
             inc=inc,
         )
+
+
+# ---------------------------------------------------------------------------
+# Self-check (python -m sbr_tpu_torch.social.graphgen_cli --selfcheck)
+# ---------------------------------------------------------------------------
+
+
+def _selfcheck(n: int = 600, deg: float = 6.0, seed: int = 3, device=None) -> int:
+    """Bitwise parity battery on ``device`` (the CUDA card unless the
+    caller names one): the device's canonical layout against the host sort
+    of the same raw stream, chunk invariance, and the fused simulation
+    against the unfused one. Returns 0 on a pass, 1 on any failure.
+
+    The reference's sharded-against-single block runs only with more
+    than one device; the port's sharded build is not ported (``mesh=``),
+    so the block is skipped, as the reference skips it on one device. The
+    two simulation lines hold the infection step's two lowerings to each
+    other: the default ("auto") and "pallas" on the card are the CUDA
+    kernel, "unfused" the plain step; on the CPU all three are the plain
+    step ("interpret" stands in for "pallas")."""
+    device = torch.device(device) if device is not None else A.default_device()
+    failures = []
+
+    def check(label, ok):
+        print(("PASS  " if ok else "FAIL  ") + label)
+        if not ok:
+            failures.append(label)
+
+    def same(a, b) -> bool:
+        return np.array_equal(torch.as_tensor(a).cpu().numpy(), torch.as_tensor(b).cpu().numpy())
+
+    specs = [
+        ErdosRenyiSpec(n=n, avg_degree=deg),
+        ScaleFreeSpec(n=n, avg_degree=deg, gamma=2.5),
+        StochasticBlockSpec(n=n, avg_degree=deg, n_blocks=4, p_in=0.8),
+    ]
+    for spec in specs:
+        name = type(spec).__name__
+        src, dst = generate_edges(spec, seed=seed, device=device)
+        _, src_h, _, indeg_h, row_ptr_h = A._canonicalize_graph(1.0, src, dst, n, np.float32)
+        built = _SingleBuild(spec, seed, None, device)
+        check(f"{name}: device src == host canonical src", same(built.src_sorted(), src_h))
+        check(f"{name}: row_ptr match", same(built.row_ptr, row_ptr_h.astype(np.int32)))
+        check(f"{name}: indeg match", same(built.indeg, indeg_h.astype(np.int32)))
+        built2 = _SingleBuild(spec, seed, 97, device)
+        check(f"{name}: chunk invariance (97-edge chunks)",
+              same(built.src_sorted(), built2.src_sorted()))
+        pg_d = prepare_generated_graph(spec, seed=seed, engine="incremental", device=device)
+        pg_h = A.prepare_agent_graph(1.0, src, dst, n, engine="incremental", device=device)
+        check(
+            f"{name}: single-device incremental == host-prepared",
+            all(same(a, b) for a, b in zip(pg_d.inc, pg_h.inc)) and same(pg_d.src, pg_h.src),
+        )
+        check(f"{name}: chunk invariance (incremental, 97-edge chunks)",
+              same(built.inc_arrays()[0], built2.inc_arrays()[0]))
+
+    spec = specs[0]
+    cfg = A.AgentSimConfig(n_steps=25, dt=0.1)
+    pg = prepare_generated_graph(spec, seed=seed, config=cfg, device=device)
+    kernel = "pallas" if device.type == "cuda" else "interpret"
+    r_def = A.simulate_agents(prepared=pg, x0=0.02, config=cfg, seed=1)
+    r_unf = A.simulate_agents(prepared=pg, x0=0.02,
+                              config=dataclasses.replace(cfg, fused="unfused"), seed=1)
+    r_int = A.simulate_agents(prepared=pg, x0=0.02,
+                              config=dataclasses.replace(cfg, fused=kernel), seed=1)
+    check("fused lax == unfused (bitwise)",
+          same(r_def.informed, r_unf.informed) and same(r_def.t_inf, r_unf.t_inf))
+    check("fused pallas-interpret == unfused (bitwise)",
+          same(r_int.informed, r_unf.informed) and same(r_int.t_inf, r_unf.t_inf))
+
+    print(f"\ngraphgen selfcheck: {len(failures)} failure(s)")
+    return 1 if failures else 0

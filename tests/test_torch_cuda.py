@@ -1052,3 +1052,36 @@ def test_traced_population_query_on_card_equals_cpu(cuda_device, channel, monkey
     assert out["cuda"][1] == {kernel: 3 * steps, other: 0}
     assert out["cpu"][1] == {kernel: 0, other: 0}
     assert out["cuda"][0] == out["cpu"][0]
+
+
+# -- slice 14: the numerics audit ---------------------------------------------
+
+
+def test_audit_battery_on_card_is_stable(cuda_device, tmp_path):
+    """The whole battery on the card twice: goldens, then a classifying
+    run in which every probe passes with the same fingerprint; the gossip
+    probe launches the infection kernel once a step."""
+    from sbr_tpu_torch.obs import audit
+
+    before = _build.LAUNCHES[fused.KERNEL]
+    gold = audit.run_battery(reg_dir=tmp_path, update=True, device=cuda_device, emit=False)
+    assert _build.LAUNCHES[fused.KERNEL] - before == 20
+    again = audit.run_battery(reg_dir=tmp_path, device=cuda_device, emit=False)
+    assert again["ok"] and not again["drift"] and not again["missing"], again
+    assert gold["key"]["platform"] == "cuda" and gold["key"]["device_name"]
+    for name, p in gold["probes"].items():
+        assert again["probes"][name]["verdict"] == "pass"
+        assert again["probes"][name]["fingerprint"] == p["fingerprint"], name
+
+
+@pytest.mark.parametrize("name", ["graphgen.layout", "infomodel.gossip"])
+def test_audit_bitwise_probes_on_card_equal_cpu(cuda_device, name):
+    """The two probes whose surfaces are device-independent bits: the
+    generated edge stream, and the gossip trajectory (the kernel on the
+    card, the plain step on the CPU)."""
+    from sbr_tpu_torch.obs import audit
+
+    probe = audit.probes()[name]
+    card, cpu = probe.fn(device=cuda_device), probe.fn(device="cpu")
+    assert card["fingerprint"] == cpu["fingerprint"]
+    assert card["values"] == cpu["values"]

@@ -28,9 +28,10 @@ Contracts:
   (flag censuses, ``calib_start``/``calib_step``/``calib_done``,
   ``stress_done``) equal the reference's for the same calls, after a
   warm-up, and `report grad` folds them as the reference's does.
-
-Not mirrored: the reference's grad CLI and its obs audit tests, which need
-the port's `obs/audit` (ROADMAP 1.A item 9d).
+- the CLI (``python -m sbr_tpu_torch.grad.parity``) through the audit
+  protocol: with ``--obs-dir`` one ``audit`` probe event (``grad.ift_fd``)
+  equal to the reference's `run_legacy_cli` event, ``report audit`` exit 0
+  on a pass and 1 on a failed battery.
 """
 
 import json
@@ -284,6 +285,30 @@ def test_parity_cli_exit_code(capsys):
     doc = json.loads(capsys.readouterr().out)
     assert doc["ok"] and doc["n_points"] == 2
     assert main(["--n", "2", "--device", CPU, "--tol", "0"]) == 1
+
+
+@pytest.mark.parametrize("tol", ["1e-5", "0"])
+def test_parity_cli_audit_event_equals_reference(tol, tmp_path, capsys):
+    from sbr_tpu.obs import audit as jaudit
+    from sbr_tpu.obs import report as jreport
+    from sbr_tpu_torch.grad.parity import main
+    from sbr_tpu_torch.obs import report
+
+    fail = tol == "0"
+    run_dir = tmp_path / "port"
+    assert main(["--n", "2", "--device", CPU, "--tol", tol, "--obs-dir", str(run_dir)]) == fail
+    assert f"obs run dir: {run_dir}" in capsys.readouterr().out
+    assert jaudit.run_legacy_cli("grad.ift_fd", lambda: int(fail),
+                                 obs_dir=str(tmp_path / "ref")) == fail
+
+    def audit_events(d):
+        evs = [json.loads(line) for line in (d / "events.jsonl").read_text().splitlines()]
+        return [{k: v for k, v in e.items() if k not in ("mono", "ts", "duration_ms")}
+                for e in evs if e["kind"] == "audit"]
+
+    assert audit_events(run_dir) == audit_events(tmp_path / "ref")
+    assert audit_events(run_dir)[0]["verdict"] == ("drift" if fail else "pass")
+    assert report.audit_doc(run_dir)[1] == jreport.audit_doc(run_dir)[1] == int(fail)
 
 
 def test_adaptive_numerics_grad_matches_fixed():

@@ -562,6 +562,61 @@ def test_gc_keep_flags_equal_reference(tmp_path, capsys, flags):
     assert len(done) == want
 
 
+# -- audit (ported with obs/audit, ROADMAP 1.A 9d) -----------------------------
+
+
+@pytest.mark.parametrize("case", ["not_a_dir", "no_audit_data", "drift"])
+def test_audit_subcommand_equals_reference(case, tmp_path, capsys):
+    """``report audit``, which exited 2 as not ported: the reference's exit
+    codes and output on the same directory (2 not a directory, 3 no audit
+    data, 1 a drift verdict)."""
+    d = tmp_path / "run"
+    if case != "not_a_dir":
+        d.mkdir()
+        (d / "manifest.json").write_text(json.dumps({"status": "complete"}))
+        if case == "drift":
+            ev = {"mono": 1.0, "ts": 1.0, "kind": "audit", "action": "probe",
+                  "probe": "grid.baseline", "tier": "bitwise", "verdict": "drift",
+                  "detail": "fingerprint aaaa != golden bbbb", "duration_ms": 3.0, "cycle": 1}
+            (d / "events.jsonl").write_text(json.dumps(ev) + "\n")
+    outs = []
+    for main in (report.main, jreport.main):
+        code = main(["audit", str(d)])
+        outs.append((code, capsys.readouterr().out.replace("sbr_tpu_torch.", "sbr_tpu.")))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == {"not_a_dir": 2, "no_audit_data": 3, "drift": 1}[case]
+
+
+@pytest.mark.parametrize("keep", ["0", "2"])
+def test_gc_audit_keep_equals_reference(keep, tmp_path, capsys, monkeypatch):
+    """gc's ``--audit-keep``, which exited 2 as not ported: battery
+    artifacts of finished runs and archived goldens pruned as the
+    reference prunes them, live runs and active goldens kept."""
+    outs = []
+    for name, main in (("port", report.main), ("ref", jreport.main)):
+        root = tmp_path / name
+        _gc_artifacts(root)
+        for run in ("done", "live"):
+            (root / "runs" / run / "audit").mkdir()
+            for k in range(4):
+                (root / "runs" / run / "audit" / f"battery_{k:04d}.json").write_text("{}")
+        reg = root / "reg"
+        reg.mkdir()
+        (reg / "goldens_abc.json").write_text("{}")
+        for k in range(3):
+            (reg / f"goldens_abc.{k:03d}.json").write_text("{}")
+        monkeypatch.setenv("SBR_AUDIT_REGISTRY_DIR", str(reg))
+        code = main(["gc", str(root / "runs"), "--keep", "5", "--audit-keep", keep])
+        left = sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+        outs.append((code, capsys.readouterr().out.replace(str(root), "ROOT"), left))
+    assert outs[0] == outs[1] and outs[0][0] == 0
+    left = outs[0][2]
+    assert "reg/goldens_abc.json" in left
+    assert len([p for p in left if p.startswith("runs/live/audit/")]) == 4
+    assert len([p for p in left if p.startswith("runs/done/audit/")]) == int(keep)
+    assert len([p for p in left if p.startswith("reg/goldens_abc.0")]) == int(keep)
+
+
 # -- not ported yet -----------------------------------------------------------
 
 

@@ -831,13 +831,40 @@ def test_run_directories_raise(kw, tmp_path):
     assert "serve_batch" in kinds and kinds.count("serve_summary") == 1
 
 
-@pytest.mark.parametrize("var", ["SBR_AUDIT", "SBR_PREWARM"])
+@pytest.mark.parametrize("var", ["SBR_PREWARM"])
 def test_unported_switches_raise(var, monkeypatch):
     monkeypatch.setenv(var, "0")
     Engine(device=CPU).close()  # off is fine
     monkeypatch.setenv(var, "1")
     with pytest.raises(NotImplementedError, match=var):
         Engine(device=CPU)
+
+
+@pytest.mark.parametrize("value", ["0", "1"])
+def test_audit_switch_builds_a_scheduler(value, monkeypatch, tmp_path):
+    """``SBR_AUDIT``, which raised as not ported: off builds no scheduler,
+    on builds one on the engine's device and dtype (started with the
+    engine, closed with it), and neither changes an answer."""
+    monkeypatch.setenv("SBR_AUDIT", value)
+    monkeypatch.setenv("SBR_AUDIT_INTERVAL_S", "3600")
+    monkeypatch.setenv("SBR_AUDIT_REGISTRY_DIR", str(tmp_path))
+    engine = Engine(config=tparams.SolverConfig(n_grid=64, bisect_iters=20,
+                                                refine_crossings=False),
+                    dtype=torch.float32, device=CPU)
+    try:
+        engine.start()
+        res = engine.query(tparams.make_model_params())
+        if value == "0":
+            assert engine.audit is None and "sbr_audit" not in engine.prometheus()
+        else:
+            assert (engine.audit.device, engine.audit.dtype) == (engine.device, torch.float32)
+            assert engine.audit._thread.is_alive()
+            assert engine.statz()["audit"]["status"] == "pending"
+    finally:
+        engine.close()
+    if value == "1":
+        assert not engine.audit._thread.is_alive()
+    assert res.status == 0 and np.isfinite(res.xi)
 
 
 def test_engine_needs_cuda_unless_told_cpu(monkeypatch):
