@@ -106,6 +106,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1231,8 +1232,8 @@ def phase_social_cpu_vs_card() -> None:
 # ---------------------------------------------------------------------------
 
 SERVE_BUCKETS = (1, 8, 64, 512)
-SERVE_REPLAYS = 20
-SERVE_EAGER_REPS = 5
+SERVE_REPLAYS = 10
+SERVE_EAGER_REPS = 2
 
 
 def _serve_cols(seed: int, n: int, np_dtype):
@@ -1743,6 +1744,8 @@ EXT_ORACLE_XI = 1e-5
 # the full-width scan runs ~10^6 kernels; the adaptive scan's count barely
 # shrinks with the grid (~3.8×10^5 at n_grid 64 too), so the grid stays
 EXT_PROFILE_GRID = 256
+# a case whose cold call takes longer is not called a second time
+EXT_REPEAT_MAX_S = 5.0
 # values that pass through bs32: its own rtol bounds what a step decision
 # that rounds the other way can move (tests/test_torch_ode.py)
 BS32_TOL = 1e-6
@@ -1810,20 +1813,29 @@ def phase_extensions() -> dict:
     for name, dtype, cells in cases:
         for numerics in ("fixed", "adaptive"):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _ext_case(name, numerics, "cuda", dtype)
-            torch.cuda.synchronize()
-            cold_s = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = _ext_case(name, numerics, "cuda", dtype)
             torch.cuda.synchronize()
-            fenced_s = time.perf_counter() - t0
+            cold_s = time.perf_counter() - t0
+            cold_peak = torch.cuda.max_memory_allocated()
+            fenced_s = peak = None
+            if cold_s < EXT_REPEAT_MAX_S:
+                # a case slower than that is timed once, cold: its warm
+                # columns (fenced_ms, equilibria_per_s, peak_bytes) are null
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = _ext_case(name, numerics, "cuda", dtype)
+                torch.cuda.synchronize()
+                fenced_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
             status, xi = res["status"], res["xi"]
             run = status == 0
             row = dict(case=name, dtype=_dtype_name(dtype), numerics=numerics, cells=cells,
-                       cold_s=cold_s, fenced_ms=fenced_s * 1e3, equilibria_per_s=cells / fenced_s,
-                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       cold_s=cold_s, fenced_ms=None if fenced_s is None else fenced_s * 1e3,
+                       equilibria_per_s=None if fenced_s is None else cells / fenced_s,
+                       cold_equilibria_per_s=cells / cold_s, peak_bytes=peak,
+                       cold_peak_bytes=cold_peak,
                        status_counts=status_counts(status),
                        flags=flag_names(int(or_reduce_flags(res["flags"]))))
             if name in oracle:
@@ -1903,13 +1915,18 @@ def phase_extensions_cpu_vs_card() -> None:
 # and a 64-bank directed ring of exposures
 SCEN_N = 256
 SCEN_CFG = dict(n_grid=1024, bisect_iters=60, refine_crossings=False)
-SCEN_REPS = 3
+SCEN_REPS = 1
 SCEN_BANKS = 64
 # the composed social × hetero × interest × policy case's budget at the
-# default n_grid, past which it runs at n_grid 1024
+# default n_grid, past which it runs at SCEN_SOCIAL_GRID
 SCEN_SOCIAL_BUDGET_S = 60.0
+# the grid of social × hetero × interest × policy when its estimate passes
+# that budget (~45 outer iterations of the adaptive HJB pipeline), and the
+# cold time past which a family is not solved a second time
+SCEN_SOCIAL_GRID = 256
+SCEN_FENCED_MAX_S = 2.0
 # bench.py's population workload at its serving shape (bench.py:1564-1582)
-POP_N, POP_DEG, POP_SEEDS, POP_QUERIES = 20_000, 10.0, 16, 3
+POP_N, POP_DEG, POP_SEEDS, POP_QUERIES = 20_000, 10.0, 16, 1
 POP_GRID = 256
 POP_GRAPH_SEEDS = 4
 POP_BIG_N, POP_BIG_SEEDS = 1_000_000, 4
@@ -2067,13 +2084,14 @@ def _scenario_family_rows(card: str) -> None:
             # the grid
             estimate_s = 45 * hetero_interest_s
             if estimate_s > SCEN_SOCIAL_BUDGET_S:
-                cfg = st.SolverConfig(n_grid=1024)
-                note = (f"n_grid 1024: at the default 4096 the estimate is {estimate_s:.0f} s "
+                cfg = st.SolverConfig(n_grid=SCEN_SOCIAL_GRID)
+                note = (f"n_grid {SCEN_SOCIAL_GRID}: at the default 4096 the estimate is "
+                        f"{estimate_s:.0f} s "
                         f"(45 iterations × {hetero_interest_s:.2f} s), past "
                         f"{SCEN_SOCIAL_BUDGET_S:.0f} s")
         cold_s, res = _fenced(lambda: scenario.solve(spec, params, config=cfg))
         fenced_s = _fenced(lambda: scenario.solve(spec, params, config=cfg))[0] \
-            if cold_s < 20.0 else None
+            if cold_s < SCEN_FENCED_MAX_S else None
         if name == "hetero_interest":
             hetero_interest_s = fenced_s or cold_s
         status, xi = res.status.cpu(), res.xi.cpu()
@@ -2262,7 +2280,7 @@ def _served_scenario_population(card: str) -> dict:
 
 def phase_population(card: str) -> dict:
     """Population what-ifs on the card at bench_infomodels' serving shape
-    (bayes, 20,000 agents, 16 members, n_grid 256: a warm-up and 3 queries
+    (bayes, 20,000 agents, 16 members, n_grid 256: a warm-up and POP_QUERIES queries
     on distinct seeds), the same in the gossip channel, ``vary="graph"``
     with 4 members, one gossip query at 10^6 agents and 4 members, and the
     served routes. Every query launches its channel's kernel members ×
@@ -5138,16 +5156,710 @@ def phase_audit_cpu_vs_card() -> None:
                              f"{same_fp}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 15: the serving fleet
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_fleet on an accelerator: 3 workers, 1,024 queries over a
+# pool of 32, 8 at a time, n_grid 512, 60 bisections, buckets 1,8,64; the
+# kill drill SIGKILLs the router's favourite worker after a quarter of them.
+FLEET = dict(fleet=3, queries=1024, pool=32, group=8, n_grid=512, bisect_iters=60,
+             buckets="1,8,64", seed=0)
+FLEET_KILL_AFTER = 256
+# the audit drill: worker 0's graphgen.layout canary corrupted, a cycle
+# every 1.5 s, two cycles waited for (the reference's chaos drill)
+FLEET_AUDIT_ENV = {"SBR_AUDIT": "1", "SBR_AUDIT_INTERVAL_S": "1.5",
+                   "SBR_AUDIT_PROBES": "graphgen.layout"}
+FLEET_AUDIT_FAULT = {"seed": 7, "rules": [{"point": "audit.canary", "kind": "corrupt",
+                                           "match": "graphgen.layout"}]}
+# bench.py's bench_prewarm: a pool of 12, 4 plan tiles, n_grid 128, 40
+# bisections, 8 warm outage passes
+PREWARM = dict(pool=12, tiles=4, n_grid=128, bisect_iters=40, reps=8)
+# fleet_cpu: the same drive small
+FLEET_SMALL = dict(fleet=2, queries=48, pool=6, group=4, n_grid=96, bisect_iters=30,
+                   buckets="1,8", seed=0)
+FLEET_POP_SMALL, FLEET_POP_SMALL_SEEDS = 2_000, 4
+# the answer fields held bit for bit (the reference's chaos drill's)
+_ANSWER_FIELDS = ("xi", "tau_bar_in", "aw_max", "status", "flags", "residual")
+# the per-query fields of a served record that are not the answer
+_VOLATILE = ("latency_ms", "source", "trace_id", "degraded")
+
+
+def _fleet_args(root, name: str, shape: dict, **kw):
+    """run_fleet's arguments (loadgen's CLI namespace): the router's run
+    directory and the answers file under ``root``."""
+    base = dict(run_dir=str(root / name), cache_dir=None, fleet_dir=None, device=None,
+                fleet_kill_after=None, answers_out=str(root / f"{name}_answers.json"),
+                trace_out=None, audit_fault=None, audit_wait=0, audit_wait_s=120.0)
+    return types.SimpleNamespace(**{**shape, **base, **kw})
+
+
+def _fleet_run(root, name: str, shape: dict, **kw) -> tuple:
+    """One `loadgen.run_fleet`: (summary, answers); fails on a lost query."""
+    from sbr_tpu_torch.serve.loadgen import run_fleet
+
+    root.mkdir(parents=True, exist_ok=True)
+    args = _fleet_args(root, name, shape, **kw)
+    t0 = time.perf_counter()
+    summary = run_fleet(args)
+    summary["wall_s"] = time.perf_counter() - t0
+    answers = json.loads(open(args.answers_out).read())
+    if summary["failures"] or summary["fleet_lost"]:
+        raise AssertionError(f"fleet {name}: {summary['failures']}, lost "
+                             f"{summary['fleet_lost']}")
+    return summary, answers
+
+
+def _answers_identical(a: list, b: list) -> bool:
+    """Byte identity of two answer lists (JSON floats round-trip the
+    shortest repr exactly, None encodes NaN on both sides)."""
+    return len(a) == len(b) and all(
+        isinstance(x, dict) and isinstance(y, dict) and not x.get("degraded")
+        and not y.get("degraded") and "shed" not in x and "shed" not in y
+        and all(x.get(f) == y.get(f) for f in _ANSWER_FIELDS) for x, y in zip(a, b))
+
+
+def _wire(v):
+    """A float as the endpoint writes it (non-finite as None)."""
+    v = float(v)
+    return v if np.isfinite(v) else None
+
+
+def _engine_answers(shape: dict, device, dtype=None) -> list:
+    """The seeded mix's answers from one in-process engine, in the wire
+    form of a routed answer."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.endpoint import query_result_doc
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix
+
+    pool = build_pool(shape["seed"], shape["pool"])
+    mix = query_mix(shape["seed"], shape["pool"], shape["queries"])
+    cfg = SolverConfig(n_grid=shape["n_grid"], bisect_iters=shape["bisect_iters"],
+                       refine_crossings=False)
+    buckets = tuple(int(b) for b in shape["buckets"].split(","))
+    engine = Engine(config=cfg, dtype=dtype, serve=ServeConfig(buckets=buckets), device=device)
+    try:
+        res = engine.query_many(pool, timeout=600)
+    finally:
+        engine.close()
+    by_pool = [query_result_doc(r) for r in res]
+    return [by_pool[i] for i in mix]
+
+
+def _fleet_report(sub: str, run_dir, *extra) -> tuple:
+    """``python -m sbr_tpu_torch.obs.report SUB RUN_DIR --json``, as a
+    process: (exit, document)."""
+    proc = subprocess.run([sys.executable, "-m", "sbr_tpu_torch.obs.report", sub, str(run_dir),
+                           *extra, "--json"], capture_output=True, text=True, timeout=300,
+                          cwd=str(_REPO_ROOT))
+    return proc.returncode, json.loads(proc.stdout)
+
+
+def _pop_doc(channel: str, n: int, seeds: int = POP_SEEDS) -> dict:
+    """A Figure-12 population query's /query body (bench_infomodels'
+    serving shape at ``n`` agents and ``seeds`` members)."""
+    fig12 = {"beta": 0.9, "eta_bar": 30.0, "u": 0.5, "p": 0.99, "kappa": 0.25, "lam": 0.25}
+    return {**fig12, "population": {
+        "graph": {"model": "erdos_renyi", "n": n, "avg_degree": POP_DEG},
+        "infomodel": {"channel": channel}, "seeds": seeds, "vary": "sim", "g0": None}}
+
+
+def _post(router, doc: dict) -> dict:
+    from sbr_tpu_torch.serve.loadgen import http_request
+
+    code, body, _ = http_request(router.port, "/query", doc, timeout=900)
+    if code != 200:
+        raise AssertionError(f"routed /query answered {code}: {body}")
+    return json.loads(body)
+
+
+def _record(doc: dict) -> dict:
+    return {k: v for k, v in doc.items() if k not in _VOLATILE}
+
+
+@contextlib.contextmanager
+def _inproc_worker(fleet_dir, device, n_grid: int, bisect_iters: int, buckets=(1,)):
+    """The three pieces `serve.fleet.main` assembles, in this process (so
+    `_build.LAUNCHES` counts what the worker launches): an `Engine`, its
+    `ServeEndpoint` and a `WorkerAnnouncer` in ``fleet_dir``, beaten once."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint
+    from sbr_tpu_torch.serve.fleet import WorkerAnnouncer, _worker_stats
+
+    engine = Engine(config=SolverConfig(n_grid=n_grid, bisect_iters=bisect_iters,
+                                        refine_crossings=False),
+                    serve=ServeConfig(buckets=tuple(buckets)), device=device).start()
+    endpoint = ServeEndpoint(engine).start()
+    ann = WorkerAnnouncer(fleet_dir, f"http://127.0.0.1:{endpoint.port}", ttl_s=600)
+    try:
+        ann.beat(**_worker_stats(engine))
+        yield engine
+    finally:
+        endpoint.close()
+        engine.close()
+        ann.withdraw()
+
+
+def _fleet_hops(card: str, root) -> None:
+    """Where a routed answer's time goes: one warm query's latency over 50
+    sequential POSTs straight to a worker's endpoint in this process, and
+    the same through the router (one hop more), an LRU hit each time."""
+    from sbr_tpu_torch.serve.loadgen import build_pool, http_request, params_doc
+    from sbr_tpu_torch.serve.router import Router
+
+    doc = params_doc(build_pool(FLEET["seed"], 1)[0])
+    with _inproc_worker(root / "hops", "cuda", FLEET["n_grid"], FLEET["bisect_iters"]) as eng:
+        router = Router(root / "hops", poll_s=0.05).start()
+        try:
+            port = int(next(iter(router.statz()["workers"].values()))["url"].rsplit(":", 1)[1])
+            ms = {}
+            for name, target in (("direct", port), ("routed", router.port)):
+                http_request(target, "/query", doc)  # the miss, then hits
+                lat = []
+                for _ in range(50):
+                    t0 = time.perf_counter()
+                    code, _, _ = http_request(target, "/query", doc)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    if code != 200:
+                        raise AssertionError(f"{name} query answered {code}")
+                lat.sort()
+                ms[name] = {"p50": lat[25], "p90": lat[45], "min": lat[0]}
+        finally:
+            router.close()
+        engine_ms = eng.live.snapshot()["totals"]["latency_ms"]
+    emit("fleet_hops", ms=ms, engine_latency_ms=engine_ms, card=card)
+
+
+def _fleet_population(card: str, root) -> dict:
+    """A gossip and a bayes population query (bench_infomodels' shape:
+    20,000 agents, 16 members, 333 steps) routed to a worker in this
+    process, each query's launches counted (set to 0 just before it, read
+    just after: members × steps of its channel's kernel, 0 of the other
+    and of the recount); then the same queries routed to a worker process
+    on the card, whose records must equal the in-process worker's bit for
+    bit."""
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.serve.loadgen import spawn_worker, stop_workers
+    from sbr_tpu_torch.serve.router import Router
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+    from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
+
+    steps = max(int(round(float(30.0 / 0.9) / 0.1)), 2)
+    expected = POP_SEEDS * steps
+    launches = {KERNEL: 0, BELIEF_KERNEL: 0, RECOUNT_KERNEL: 0}
+    rows, recs = [], {}
+    with _inproc_worker(root / "pop_inproc", "cuda", POP_GRID, 60) as engine:
+        router = Router(root / "pop_inproc", poll_s=0.05).start()
+        try:
+            for channel, kernel, other in (("gossip", KERNEL, BELIEF_KERNEL),
+                                           ("bayes", BELIEF_KERNEL, KERNEL)):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                doc = _post(router, _pop_doc(channel, POP_N))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                got = (_build.LAUNCHES[kernel], _build.LAUNCHES[other],
+                       _build.LAUNCHES[RECOUNT_KERNEL])
+                launches[kernel] += got[0]
+                launches[RECOUNT_KERNEL] += got[2]
+                recs[channel] = _record(doc)
+                rows.append(dict(channel=channel, worker="in_process", wall_s=wall_s,
+                                 launches=got[0], other_launches=got[1],
+                                 recount_launches=got[2], expected=expected,
+                                 source=doc["source"], run_probability=doc["run_probability"]))
+                if got != (expected, 0, 0):
+                    raise AssertionError(f"routed {channel} population: launches {got}, want "
+                                         f"({expected}, 0, 0)")
+            counters = dict(router.counters)
+        finally:
+            router.close()
+        if engine.live.snapshot()["totals"]["queries"] != 2:
+            raise AssertionError("the in-process worker did not serve both queries")
+    t0 = time.perf_counter()
+    w = spawn_worker(str(root / "pop_proc"), POP_GRID, 60, "1", heartbeat_ttl=600)
+    ready_s = time.perf_counter() - t0
+    try:
+        router = Router(root / "pop_proc", poll_s=0.05).start()
+        try:
+            for channel in ("gossip", "bayes"):
+                t0 = time.perf_counter()
+                doc = _post(router, _pop_doc(channel, POP_N))
+                same = _record(doc) == recs[channel]
+                rows.append(dict(channel=channel, worker="process", wall_s=time.perf_counter() - t0,
+                                 ready_s=ready_s, device=w["device"], equal_in_process=same))
+                if not same:
+                    raise AssertionError(f"{channel} population: the worker process and the "
+                                         "in-process worker differ")
+        finally:
+            router.close()
+    finally:
+        stop_workers([w])
+    for r in rows:
+        emit("fleet_population", **r, n_agents=POP_N, members=POP_SEEDS, steps=steps, card=card)
+    emit("fleet_population_router", counters=counters)
+    return launches
+
+
+def _prewarm_plan(pool) -> dict:
+    """bench_prewarm's hand-ranked plan: a tile per pool chunk, its β and u
+    axes crossing the chunk's points."""
+    from sbr_tpu_torch.utils.checkpoint import params_fingerprint
+
+    chunk = max(PREWARM["pool"] // PREWARM["tiles"], 1)
+    tiles = []
+    for i in range(PREWARM["tiles"]):
+        pts = pool[i * chunk:(i + 1) * chunk] or pool[-chunk:]
+        tiles.append({"bin": f"{i},0", "betas": sorted({float(p.learning.beta) for p in pts}),
+                      "us": sorted({float(p.economic.u) for p in pts}), "rank": i + 1})
+    plan = {"schema": "sbr-demand-advisor/1", "tiles": tiles}
+    plan["plan_fingerprint"] = params_fingerprint(json.dumps(plan, sort_keys=True))[:16]
+    return plan
+
+
+def _prewarm_drive(card: str, root, device: str, reps: int) -> dict:
+    """bench_prewarm's three phases on ``device``: a cold outage (every
+    dispatch fails, an empty tile cache: every query 503s), the plan
+    drained by a standalone controller under a run directory (tiles/s),
+    and ``reps`` warm outage passes answered from the tile cache (hit
+    rate, p99 of the degraded answers); then a plan whose budget runs out
+    (``report prewarm`` exit 1)."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch import obs
+    from sbr_tpu_torch.resilience import faults
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.loadgen import build_pool
+    from sbr_tpu_torch.serve.prewarm import PrewarmController
+
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = SolverConfig(n_grid=PREWARM["n_grid"], bisect_iters=PREWARM["bisect_iters"],
+                       refine_crossings=False)
+    pool = build_pool(0, PREWARM["pool"])
+    plan = _prewarm_plan(pool)
+    cache = root / "tilecache"
+    plan_path = root / "advisor_plan.json"
+    plan_path.write_text(json.dumps(plan))
+    outage = {"rules": [{"point": "serve.dispatch", "kind": "transient", "p": 1.0}]}
+
+    def outage_pass(label):
+        hits, lat, answers = 0, [], []
+        engine = Engine(config=cfg, serve=ServeConfig(buckets=(1,)), device=device)
+        try:
+            for p in pool:
+                try:
+                    r = engine.query(p, scenario=label)
+                except Exception:
+                    answers.append(None)
+                    continue  # the ladder exhausted: the 503 path
+                answers.append((r.status, _wire(r.xi), _wire(r.aw_max)))
+                if r.source == "tilecache":
+                    hits += 1
+                    lat.append(r.latency_s * 1e3)
+        finally:
+            engine.close()
+        return hits, lat, answers
+
+    out = {}
+    with _env({"SBR_TILE_CACHE_DIR": str(cache), "SBR_RETRY_BASE_DELAY_S": "0.01",
+               "SBR_RETRY_MAX_DELAY_S": "0.05"}):
+        faults.install(faults.FaultPlan(outage))
+        try:
+            cold_hits, _, cold_answers = outage_pass("prewarm-cold")
+        finally:
+            faults.reset()
+        run = obs.start_run(label="prewarm", run_dir=str(root / "prewarm_run"))
+        try:
+            ctl = PrewarmController(engine=None, plan_file=plan_path,
+                                    state_root=root / "_prewarm", config=cfg,
+                                    cache_dir=str(cache), device=device)
+            t0 = time.perf_counter()
+            snap = ctl.drain(timeout_s=600.0)
+            drain_s = time.perf_counter() - t0
+            ctl.close()
+        finally:
+            obs.end_run()
+        faults.install(faults.FaultPlan(outage))
+        try:
+            warm = [outage_pass("prewarm-warm") for _ in range(reps)]
+        finally:
+            faults.reset()
+        run_b = obs.start_run(label="prewarm_budget", run_dir=str(root / "prewarm_budget"))
+        try:
+            (root / "plan_b.json").write_text(json.dumps({**plan, "plan_fingerprint": "b" * 16}))
+            ctl = PrewarmController(engine=None, plan_file=root / "plan_b.json",
+                                    state_root=root / "_prewarm_b", config=cfg,
+                                    cache_dir=str(root / "cache_b"), device=device,
+                                    max_tiles=1)
+            snap_b = ctl.drain(timeout_s=600.0)
+            ctl.close()
+        finally:
+            obs.end_run()
+    lat = sorted(v for _, l, _ in warm for v in l)
+    out.update(
+        cold_hits=cold_hits, cold_answered=sum(a is not None for a in cold_answers),
+        snapshot=snap, drain_s=drain_s, tiles_per_s=snap["counts"]["tiles_done"] / drain_s,
+        warm_hit_rate=sum(h for h, _, _ in warm) / (reps * len(pool)),
+        warm_outage_p50_ms=lat[len(lat) // 2] if lat else None,
+        warm_outage_p99_ms=lat[min(int(len(lat) * 0.99), len(lat) - 1)] if lat else None,
+        warm_answers=warm[0][2], budget_snapshot=snap_b,
+        run_dir=run.run_dir, budget_run_dir=run_b.run_dir, cache=cache, pool=pool, cfg=cfg,
+        plan=plan)
+    return out
+
+
+# the embedded controller's traffic: a round a bucket, first use each
+# (a capture), then each again (a replay); the second round waits for a
+# drained tile, so the later captures and the replays fall inside the sweep
+PREWARM_EMBEDDED_ROUNDS = (1, 8, 64, 1, 8, 64)
+
+
+def _prewarm_embedded(card: str, root, device: str = "cuda") -> None:
+    """``SBR_PREWARM=1`` inside an engine on ``device``: its controller's
+    daemon thread drains bench_prewarm's plan, each tile under the
+    engine's dispatch lock, in the idle windows between rounds of queries
+    that capture buckets 1, 8 and 64 and replay them. The answers must
+    equal an ``SBR_PREWARM=0`` engine's bit for bit, and the tiles
+    `beta_u_grid`'s on the same device."""
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.endpoint import query_result_doc
+    from sbr_tpu_torch.serve.loadgen import build_pool
+
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = SolverConfig(n_grid=PREWARM["n_grid"], bisect_iters=PREWARM["bisect_iters"],
+                       refine_crossings=False)
+    plan = _prewarm_plan(build_pool(0, PREWARM["pool"]))
+    plan_path, cache = root / "advisor_plan.json", root / "tilecache"
+    plan_path.write_text(json.dumps(plan))
+    traffic = build_pool(1, sum(PREWARM_EMBEDDED_ROUNDS))
+    answers, rows = {}, {}
+    for switch in ("1", "0"):
+        env = {"SBR_PREWARM": switch, "SBR_PREWARM_PLAN": str(plan_path),
+               "SBR_TILE_CACHE_DIR": str(cache), "SBR_PREWARM_POLL_S": "0.1",
+               "SBR_SERVE_SLO_MS": None}
+        with _env(env):
+            engine = Engine(config=cfg, serve=ServeConfig(buckets=(1, 8, 64)),
+                            device=device).start()
+            ctl = engine.prewarm
+            try:
+                got, at_round, i = [], [], 0
+                t0 = time.perf_counter()
+                for r, n in enumerate(PREWARM_EMBEDDED_ROUNDS):
+                    if ctl is not None and r == 1:
+                        deadline = time.monotonic() + 300
+                        while (ctl.snapshot()["tiles_done"] == 0 and ctl.status == "sweeping"
+                               and time.monotonic() < deadline):
+                            time.sleep(0.05)
+                    at_round.append(None if ctl is None else ctl.snapshot()["tiles_done"])
+                    got += [query_result_doc(x) for x in
+                            engine.query_many(traffic[i:i + n], timeout=600)]
+                    i += n
+                    time.sleep(0.3)  # an idle window
+                if ctl is not None:
+                    deadline = time.monotonic() + 300
+                    while ctl.status == "sweeping" and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                drive_s = time.perf_counter() - t0
+                snap = None if ctl is None else ctl.snapshot()
+                graphs = {"captured": dict(engine.graphs.captured),
+                          "replays": engine.graphs.replays}
+                metrics = engine.prometheus()
+            finally:
+                engine.close()
+        answers[switch] = [{f: a[f] for f in _ANSWER_FIELDS} for a in got]
+        rows[switch] = dict(tiles_done_at_round=at_round, snapshot=snap, graphs=graphs,
+                            drive_s=drive_s, prewarm_metrics="sbr_prewarm" in metrics)
+    on, off = rows["1"], rows["0"]
+    tiles = _prewarm_tiles_equal_grid({"cache": cache, "plan": plan, "cfg": cfg}, device)
+    same = answers["1"] == answers["0"]
+    emit("fleet_prewarm_embedded", rounds=list(PREWARM_EMBEDDED_ROUNDS),
+         tiles_done_at_round=on["tiles_done_at_round"], status=on["snapshot"]["status"],
+         tiles_total=on["snapshot"]["tiles_total"], warm=on["snapshot"]["warm"],
+         graphs=on["graphs"], graphs_off=off["graphs"], drive_s=on["drive_s"],
+         answers_equal_prewarm_off=same, tiles_vs_beta_u_grid=tiles,
+         metrics_on=on["prewarm_metrics"], metrics_off=off["prewarm_metrics"], card=card)
+    if not (same and tiles["equal"] and on["snapshot"]["status"] == "done"
+            and on["snapshot"]["warm"] == on["snapshot"]["tiles_total"]
+            and on["tiles_done_at_round"][1] >= 1
+            and on["graphs"]["captured"] == ({1: 1, 8: 1, 64: 1} if device == "cuda" else {})
+            and on["prewarm_metrics"] and not off["prewarm_metrics"]):
+        raise AssertionError(f"embedded prewarm: {on}, answers equal {same}, tiles {tiles}")
+
+
+def _prewarm_tiles_equal_grid(drive: dict, device: str) -> dict:
+    """Every drained tile against `beta_u_grid` of its axes on the same
+    device: {"equal": bit for bit on every cell, "flagged": the cells with
+    a health bit set, which the tile runner's degrade ladder looked at}."""
+    from sbr_tpu_torch.models.params import make_model_params
+    from sbr_tpu_torch.resilience.elastic import TileCache
+    from sbr_tpu_torch.serve import prewarm
+    from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid
+    from sbr_tpu_torch.utils import checkpoint as ckpt
+
+    cache = TileCache(drive["cache"])
+    flagged, equal = 0, True
+    for t in prewarm._plan_tiles(drive["plan"]):
+        base = make_model_params(beta=t["betas"][0])
+        key = cache.key(base, drive["cfg"], None, t["betas"], t["us"])
+        got = cache.load(key, tile="check")
+        want = beta_u_grid(np.array(t["betas"]), np.array(t["us"]), base, config=drive["cfg"],
+                           device=device)
+        flags = (want.health.flags if want.health is not None
+                 else torch.zeros_like(want.status, dtype=torch.int32))
+        host = ckpt.to_host(want.xi, want.max_aw, want.status, flags)
+        flagged += int((host[3] != 0).sum())
+        if got is None or not all(np.array_equal(got[f], h, equal_nan=f != "status")
+                                  and got[f].dtype == h.dtype
+                                  for f, h in zip(("xi", "max_aw", "status"), host[:3])):
+            equal = False
+    return {"equal": equal, "flagged": flagged}
+
+
+def phase_fleet(card: str) -> dict:
+    """The serving fleet on the card at bench.py's shapes: the seeded mix
+    through the router to three worker processes (p50, p99, qps,
+    failovers, sheds, 0 lost), its answers bit for bit an in-process
+    engine's; the kill drill, byte-identical with 0 lost; the audit drill
+    (worker 0's canary corrupted: exactly worker 0 quarantined); the
+    routed populations (`_fleet_population`, whose launches are returned);
+    bench_prewarm's three phases, the drained tiles bit for bit
+    `beta_u_grid`'s; and ``report fleet``, ``prewarm`` and ``summary`` on
+    the clean and the breached runs."""
+    import tempfile
+    from pathlib import Path
+
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.obs import audit
+
+    _build.build_all()  # published once, before any worker process starts
+    with tempfile.TemporaryDirectory(prefix="sbr_fleet_") as tmp, \
+            _env({"PYTHONPATH": str(_REPO_ROOT), "SBR_OBS_HISTORY": f"{tmp}/history.jsonl"}):
+        root = Path(tmp)
+        clean, clean_ans = _fleet_run(root, "clean", FLEET)
+        want = _engine_answers(FLEET, "cuda")
+        same_engine = all(all(a.get(f) == w[f] for f in _ANSWER_FIELDS)
+                          for a, w in zip(clean_ans, want)) and len(clean_ans) == len(want)
+        emit("fleet_mix", workers=FLEET["fleet"], queries=FLEET["queries"], pool=FLEET["pool"],
+             group=FLEET["group"], n_grid=FLEET["n_grid"], bisect_iters=FLEET["bisect_iters"],
+             buckets=FLEET["buckets"], p50_ms=clean["fleet_p50_ms"],
+             p99_ms=clean["fleet_p99_ms"], qps=clean["fleet_qps"],
+             failovers=clean["fleet_failover_count"], shed_rate=clean["fleet_shed_rate"],
+             lost=clean["fleet_lost"], workers_ready_s=clean["workers_ready_s"],
+             wall_s=clean["wall_s"], router_counters=clean["router_counters"],
+             answers_equal_in_process_engine=same_engine, card=card)
+        if not same_engine:
+            raise AssertionError("routed answers differ from an in-process engine's")
+
+        killed, killed_ans = _fleet_run(root, "killed", FLEET, fleet_kill_after=FLEET_KILL_AFTER)
+        same_kill = _answers_identical(clean_ans, killed_ans)
+        emit("fleet_kill", killed_worker=killed["killed_worker"], after=FLEET_KILL_AFTER,
+             lost=killed["fleet_lost"], failovers=killed["fleet_failover_count"],
+             p50_ms=killed["fleet_p50_ms"], p99_ms=killed["fleet_p99_ms"],
+             qps=killed["fleet_qps"], byte_identical=same_kill,
+             router_counters=killed["router_counters"], card=card)
+        if not (same_kill and killed["killed_worker"]):
+            raise AssertionError("the kill drill's answers differ from the clean run's")
+
+        goldens = root / "goldens"
+        rep = audit.run_battery(probe_names=("graphgen.layout",), reg_dir=goldens, update=True,
+                                emit=False, device="cuda")
+        if not rep.get("updated"):
+            raise AssertionError(f"audit goldens not recorded: {rep}")
+        with _env({**FLEET_AUDIT_ENV, "SBR_AUDIT_REGISTRY_DIR": str(goldens)}):
+            drilled, drilled_ans = _fleet_run(root, "audit", FLEET,
+                                              audit_fault=json.dumps(FLEET_AUDIT_FAULT),
+                                              audit_wait=2)
+        blocks = drilled["audit"]["workers"]
+        drifted = sorted(h for h, b in blocks.items() if b["status"] == "drift")
+        w0_code, _ = _fleet_report("audit", root / "audit_workers" / "w0")
+        _, fleet_doc = _fleet_report("fleet", root / "audit")
+        emit("fleet_audit", statuses={h: b["status"] for h, b in blocks.items()},
+             cycles={h: b["cycles"] for h, b in blocks.items()}, drifted=drifted,
+             quarantined=drilled["audit"]["quarantined"],
+             quarantine_events=fleet_doc["events"].get("audit_quarantine", 0),
+             report_audit_w0=w0_code, lost=drilled["fleet_lost"],
+             answers_identical=_answers_identical(clean_ans, drilled_ans), card=card)
+        w0 = json.loads((root / "audit_workers" / "w0" / "manifest.json").read_text())
+        if not (len(blocks) == 3 and len(drifted) == 1
+                and drilled["audit"]["quarantined"] == drifted
+                and fleet_doc["events"].get("audit_quarantine", 0) >= 1 and w0_code == 1
+                and _answers_identical(clean_ans, drilled_ans)):
+            raise AssertionError(f"the audit drill: {blocks}, {drilled['audit']}, w0 {w0_code}, "
+                                 f"manifest {w0.get('status')}")
+
+        _fleet_hops(card, root)
+        pop_launches = _fleet_population(card, root)
+
+        pw = _prewarm_drive(card, root / "prewarm", "cuda", PREWARM["reps"])
+        tiles = _prewarm_tiles_equal_grid(pw, "cuda")
+        _prewarm_embedded(card, root / "prewarm_embedded")
+        emit("fleet_prewarm", pool=PREWARM["pool"], plan_tiles=PREWARM["tiles"],
+             n_grid=PREWARM["n_grid"], reps=PREWARM["reps"], cold_hits=pw["cold_hits"],
+             cold_answered=pw["cold_answered"], status=pw["snapshot"]["status"],
+             tiles_total=pw["snapshot"]["tiles_total"], tiles_done=pw["snapshot"]["tiles_done"],
+             warm=pw["snapshot"]["warm"], drain_s=pw["drain_s"], tiles_per_s=pw["tiles_per_s"],
+             warm_hit_rate=pw["warm_hit_rate"], warm_outage_p50_ms=pw["warm_outage_p50_ms"],
+             warm_outage_p99_ms=pw["warm_outage_p99_ms"], tiles_vs_beta_u_grid=tiles,
+             budget_status=pw["budget_snapshot"]["status"], card=card)
+        if not (pw["cold_hits"] == 0 and pw["cold_answered"] == 0
+                and pw["snapshot"]["status"] == "done"
+                and pw["snapshot"]["warm"] == pw["snapshot"]["tiles_total"]
+                and pw["warm_hit_rate"] == 1.0 and tiles["equal"]
+                and pw["budget_snapshot"]["status"] == "budget_exhausted"):
+            raise AssertionError(f"prewarm: {pw['snapshot']}, hit rate {pw['warm_hit_rate']}, "
+                                 f"tiles {tiles}")
+
+        codes = {
+            "fleet:clean": _fleet_report("fleet", root / "clean")[0],
+            "fleet:killed": _fleet_report("fleet", root / "killed")[0],
+            "fleet:killed_stuck": _fleet_report("fleet", root / "killed", "--stuck-after-s",
+                                                "0.001")[0],
+            "prewarm:drained": _fleet_report("prewarm", pw["run_dir"])[0],
+            "prewarm:budget": _fleet_report("prewarm", pw["budget_run_dir"])[0],
+        }
+        summaries = {}
+        for name, d in (("clean", root / "clean"), ("killed", root / "killed"),
+                        ("drained", pw["run_dir"]), ("budget", pw["budget_run_dir"])):
+            code, doc = _fleet_report("summary", d)
+            summaries[name] = {"exit": code, **{g: v["exit"] for g, v in doc["gates"].items()}}
+        emit("fleet_reports", codes=codes, summaries=summaries,
+             want={"fleet:clean": 0, "fleet:killed": 0, "fleet:killed_stuck": 1,
+                   "prewarm:drained": 0, "prewarm:budget": 1})
+        ok = (codes == {"fleet:clean": 0, "fleet:killed": 0, "fleet:killed_stuck": 1,
+                        "prewarm:drained": 0, "prewarm:budget": 1}
+              and summaries["clean"]["fleet"] == 0 and summaries["killed"]["fleet"] == 0
+              and summaries["drained"]["prewarm"] == 0 and summaries["budget"]["prewarm"] == 1
+              and summaries["budget"]["exit"] >= 1
+              and all(s["exit"] == max(v for k, v in s.items() if k != "exit")
+                      for s in summaries.values()))
+        if not ok:
+            raise AssertionError(f"fleet reports: {codes}, summaries {summaries}")
+        # the fleet keys of history schema 7, in the port's own history
+        # file, by loadgen's ``--history`` writer
+        from sbr_tpu_torch.obs import history
+        from sbr_tpu_torch.serve.loadgen import _append_history
+
+        path = _append_history(None, {**clean, "prewarm_tiles_per_sec": pw["tiles_per_s"],
+                                      "prewarm_warm_hit_rate": pw["warm_hit_rate"],
+                                      "prewarm_outage_p99_ms": pw["warm_outage_p99_ms"]},
+                               "chip_smoke_fleet", "gpu")
+        emit("fleet_history", metrics=history.load(path)[-1]["metrics"])
+    return pop_launches
+
+
+def phase_fleet_cpu_vs_card() -> None:
+    """The fleet drive small on the card against the CPU: the routed mix
+    (statuses and flags equal, floats within 1e-12 f64, and an in-process
+    float32 engine's within 2e-5), a gossip and a bayes population query
+    routed to an in-process worker on each device from one fixed point
+    with the CPU's per-agent fields (records equal), prewarm's drive
+    (tiles equal `beta_u_grid` on their own device bit for bit; statuses
+    and the reports' exit codes equal), and the fleet reports' exit codes
+    and counts."""
+    import tempfile
+    from pathlib import Path
+
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.infomodels import engine as info_engine
+    from sbr_tpu_torch.infomodels import meanfield
+    from sbr_tpu_torch.serve.router import Router
+
+    with tempfile.TemporaryDirectory(prefix="sbr_fleet_cpu_") as tmp, \
+            _env({"PYTHONPATH": str(_REPO_ROOT), "OMP_NUM_THREADS": "2"}):
+        root = Path(tmp)
+        runs = {dev: _fleet_run(root / dev, "mix", FLEET_SMALL, device=d)
+                for dev, d in (("card", None), ("cpu", "cpu"))}
+        (card, card_ans), (cpu, cpu_ans) = runs["card"], runs["cpu"]
+        ints = all((a["status"], a["flags"]) == (b["status"], b["flags"])
+                   for a, b in zip(card_ans, cpu_ans))
+        gap = max((abs(a[f] - b[f]) for a, b in zip(card_ans, cpu_ans)
+                   for f in ("xi", "tau_bar_in", "aw_max")
+                   if a[f] is not None and b[f] is not None), default=0.0)
+        nulls = all((a[f] is None) == (b[f] is None) for a, b in zip(card_ans, cpu_ans)
+                    for f in ("xi", "tau_bar_in", "aw_max"))
+        f32 = {dev: _engine_answers(FLEET_SMALL, dev, torch.float32) for dev in ("cuda", "cpu")}
+        f32_ints = all((a["status"], a["flags"]) == (b["status"], b["flags"])
+                       for a, b in zip(f32["cuda"], f32["cpu"]))
+        f32_gap = max((abs(a[f] - b[f]) for a, b in zip(f32["cuda"], f32["cpu"])
+                       for f in ("xi", "aw_max") if a[f] is not None and b[f] is not None),
+                      default=0.0)
+        reports = {dev: (_fleet_report("fleet", root / dev / "mix")[1], run[0])
+                   for dev, run in runs.items()}
+        rep_equal = all(reports["card"][0][k] == reports["cpu"][0][k]
+                        for k in ("exit", "lost", "failover_count", "shed", "degraded"))
+        counters_equal = card["router_counters"] == cpu["router_counters"]
+        emit("fleet_cpu_vs_card", case="mix", queries=FLEET_SMALL["queries"], ints_equal=ints,
+             nan_equal=nulls, max_abs=gap, tol=1e-12, f32_ints_equal=f32_ints, f32_max_abs=f32_gap,
+             f32_tol=2e-5, report_fleet_equal=rep_equal, counters_equal=counters_equal,
+             qps=[card["fleet_qps"], cpu["fleet_qps"]])
+        if not (ints and nulls and gap <= 1e-12 and f32_ints and f32_gap <= 2e-5 and rep_equal
+                and counters_equal):
+            raise AssertionError("fleet mix: card and CPU differ")
+
+        m = st.make_model_params(**FIG12)
+        cfg = st.SolverConfig(n_grid=POP_GRID, bisect_iters=60, refine_crossings=False)
+        fps = {ch: meanfield.solve_fixed_point_info(st.InfoModelSpec(channel=ch), m, config=cfg,
+                                                    max_iter=500, device="cpu")
+               for ch in ("gossip", "bayes")}
+        solve, draw = meanfield.solve_fixed_point_info, info_engine._agent_fields
+
+        def carried(spec, model, *a, **kw):
+            return fps[spec.channel]
+
+        def cpu_fields(spec_, n, seed, beta, dtype, device):
+            return tuple(f.to(device) for f in draw(spec_, n, seed, beta, dtype, "cpu"))
+
+        meanfield.solve_fixed_point_info, info_engine._agent_fields = carried, cpu_fields
+        recs = {}
+        try:
+            for dev in ("cuda", "cpu"):
+                with _inproc_worker(root / f"pop_{dev}", dev, POP_GRID, 60):
+                    router = Router(root / f"pop_{dev}", poll_s=0.05).start()
+                    try:
+                        for ch in ("gossip", "bayes"):
+                            recs[(ch, dev)] = _record(_post(router, _pop_doc(
+                                ch, FLEET_POP_SMALL, FLEET_POP_SMALL_SEEDS)))
+                    finally:
+                        router.close()
+        finally:
+            meanfield.solve_fixed_point_info, info_engine._agent_fields = solve, draw
+        pops = {ch: recs[(ch, "cuda")] == recs[(ch, "cpu")] for ch in ("gossip", "bayes")}
+        emit("fleet_cpu_vs_card", case="population", n_agents=FLEET_POP_SMALL,
+             members=FLEET_POP_SMALL_SEEDS, equal=pops)
+        if not all(pops.values()):
+            raise AssertionError(f"routed populations: card and CPU differ: {pops}")
+
+        drives = {dev: _prewarm_drive("", root / f"prewarm_{dev}", dev, 1)
+                  for dev in ("cuda", "cpu")}
+        tiles = {dev: _prewarm_tiles_equal_grid(d, dev) for dev, d in drives.items()}
+        a, b = drives["cuda"], drives["cpu"]
+        same = ([w and w[0] for w in a["warm_answers"]] == [w and w[0] for w in b["warm_answers"]]
+                and a["snapshot"]["counts"] == b["snapshot"]["counts"]
+                and a["warm_hit_rate"] == b["warm_hit_rate"])
+        pgap = max((abs(x - y) for wa, wb in zip(a["warm_answers"], b["warm_answers"])
+                    if wa and wb for x, y in zip(wa[1:], wb[1:])
+                    if x is not None and y is not None), default=0.0)
+        codes = {dev: [_fleet_report("prewarm", d["run_dir"])[0],
+                       _fleet_report("prewarm", d["budget_run_dir"])[0]]
+                 for dev, d in drives.items()}
+        emit("fleet_cpu_vs_card", case="prewarm", tiles_equal_own_grid=tiles, discrete_equal=same,
+             max_abs=pgap, tol=1e-12, report_codes=codes)
+        if not (all(t["equal"] for t in tiles.values()) and same and pgap <= 1e-12
+                and codes["cuda"] == codes["cpu"] == [0, 1]):
+            raise AssertionError("prewarm: card and CPU differ")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
           "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu", "audit",
-          "audit_cpu")
+          "audit_cpu", "fleet", "fleet_cpu")
 
 
 def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict,
-                          obs_launches: dict, telem_launches: dict, audit_launches: dict) -> dict:
+                          obs_launches: dict, telem_launches: dict, audit_launches: dict,
+                          fleet_launches: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
     from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
@@ -5167,7 +5879,8 @@ def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dic
                              "figures": fig_launches[RECOUNT_KERNEL],
                              "obs": obs_launches[RECOUNT_KERNEL],
                              "telemetry": telem_launches[RECOUNT_KERNEL],
-                             "audit": audit_launches[RECOUNT_KERNEL]},
+                             "audit": audit_launches[RECOUNT_KERNEL],
+                             "fleet": fleet_launches[RECOUNT_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -5253,6 +5966,9 @@ def main(argv) -> int:
     audit_launches = phase_audit(info["nvidia_smi"]) if "audit" in wanted else {}
     if "audit_cpu" in wanted:
         phase_audit_cpu_vs_card()
+    fleet_launches = phase_fleet(info["nvidia_smi"]) if "fleet" in wanted else {}
+    if "fleet_cpu" in wanted:
+        phase_fleet_cpu_vs_card()
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -5271,13 +5987,13 @@ def main(argv) -> int:
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
         "launches": (launches + loop_launches[KERNEL] + pop_launches[KERNEL]
                      + rewire_launches[KERNEL] + fig_launches[KERNEL] + obs_launches[KERNEL]
-                     + telem_launches[KERNEL] + audit_launches[KERNEL]),
+                     + telem_launches[KERNEL] + audit_launches[KERNEL] + fleet_launches[KERNEL]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
                              "population": pop_launches[KERNEL],
                              "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL],
                              "figures": fig_launches[KERNEL], "obs": obs_launches[KERNEL],
                              "telemetry": telem_launches[KERNEL],
-                             "audit": audit_launches[KERNEL]},
+                             "audit": audit_launches[KERNEL], "fleet": fleet_launches[KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "mismatches": sum(r["mismatches"] for r in rows),
         "ms": main_row["ms"],
@@ -5295,7 +6011,7 @@ def main(argv) -> int:
         "launches": (belief_launches + loop_launches[BELIEF_KERNEL]
                      + pop_launches[BELIEF_KERNEL] + rewire_launches[BELIEF_KERNEL]
                      + obs_launches[BELIEF_KERNEL] + telem_launches[BELIEF_KERNEL]
-                     + audit_launches[BELIEF_KERNEL]),
+                     + audit_launches[BELIEF_KERNEL] + fleet_launches[BELIEF_KERNEL]),
         "launches_by_path": {"bayes": belief_launches, "closures": loop_launches[BELIEF_KERNEL],
                              "population": pop_launches[BELIEF_KERNEL],
                              "rewire": rewire_launches[BELIEF_KERNEL],
@@ -5303,7 +6019,8 @@ def main(argv) -> int:
                              "figures": fig_launches[BELIEF_KERNEL],
                              "obs": obs_launches[BELIEF_KERNEL],
                              "telemetry": telem_launches[BELIEF_KERNEL],
-                             "audit": audit_launches[BELIEF_KERNEL]},
+                             "audit": audit_launches[BELIEF_KERNEL],
+                             "fleet": fleet_launches[BELIEF_KERNEL]},
         "max_abs_err": max(r["max_abs_err"] for r in belief_rows),
         "mismatches": sum(r["mismatches"] for r in belief_rows),
         "ms": belief_row["ms"],
@@ -5313,7 +6030,7 @@ def main(argv) -> int:
         "library_ms": None,
         "shapes": belief_rows,
     }, _recount_kernel_entry(recount, tiled_launches, fig_launches, obs_launches,
-                             telem_launches, audit_launches)]
+                             telem_launches, audit_launches, fleet_launches)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

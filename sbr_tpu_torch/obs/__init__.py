@@ -35,9 +35,12 @@
   the port's own file) and the trend gate (``report trend --check``).
 - ``obs.report``  — ``python -m sbr_tpu_torch.obs.report RUN_DIR [OTHER]``
   renders or diffs runs; its subcommands (``health``, ``resilience``,
-  ``elastic``, ``infomodel``, ``grad``, ``memory``, ``serve``, ``trace``,
-  ``slo``, ``util``, ``demand``, ``audit``, ``trend``, ``gc``) gate on
-  them with the reference's documents and exit codes.
+  ``elastic``, ``infomodel``, ``grad``, ``memory``, ``serve``, ``fleet``,
+  ``trace``, ``slo``, ``util``, ``demand``, ``prewarm``, ``audit``,
+  ``summary``, ``trend``, ``gc``) gate on them with the reference's
+  documents and exit codes; ``fleet`` reads a router run's rolling
+  ``fleet.json`` and ``fleet`` events (exit 1 on a lost query or a breaker
+  stuck open), ``summary`` folds every gate over one run directory.
 
 As in the reference, ``obs.trace`` is the request-tracing module; the
 profiler capture lives at ``obs.timing.trace``. Unlike the reference,

@@ -983,7 +983,7 @@ class AuditScheduler:
 
     def heartbeat_block(self) -> dict:
         """The compact block a fleet worker's heartbeat carries (what the
-        router's quarantine check reads; the fleet is ROADMAP item 1.A 10)."""
+        router's quarantine check reads, `serve.router.Router`)."""
         with self._lock:
             return {
                 "status": self.status,

@@ -21,6 +21,12 @@ Usage:
                                                           # passes the headroom
     python -m sbr_tpu_torch.obs.report serve RUN_DIR      # live.json; exit 1
                                                           # on an SLO breach
+    python -m sbr_tpu_torch.obs.report fleet RUN_DIR      # fleet.json; exit 1
+                                                          # on a lost query or
+                                                          # a breaker stuck open
+    python -m sbr_tpu_torch.obs.report prewarm RUN_DIR    # exit 1 on budget
+                                                          # abandonment or a
+                                                          # plan done cold
     python -m sbr_tpu_torch.obs.report trace RUN_DIR...   # per-query waterfalls;
                                                           # exit 1 on an
                                                           # unjoined trace
@@ -33,18 +39,20 @@ Usage:
                                                           # floor
     python -m sbr_tpu_torch.obs.report audit RUN_DIR      # exit 1 on a drift
                                                           # verdict, 3 no data
+    python -m sbr_tpu_torch.obs.report summary RUN_DIR    # every gate above on
+                                                          # one dir; the worst
+                                                          # exit code
     python -m sbr_tpu_torch.obs.report trend [HISTORY] [--check]
     python -m sbr_tpu_torch.obs.report gc [ROOT] --keep N [--tile-cache DIR]
-        [--trace-keep N] [--audit-keep N] [--demand-keep N] [--flight-keep N]
+        [--trace-keep N] [--audit-keep N] [--demand-keep N] [--prewarm-keep N]
+        [--flight-keep N]
 
 Every subcommand takes ``--json`` and then prints one JSON document; its
 fields, verdicts and exit codes are the reference's, so the same gates read
-either package's runs. ``fleet``, ``prewarm`` and ``summary``, and gc's
-``--prewarm-keep``, read modules not ported yet: each exits 2 naming its
-ROADMAP item.
+either package's runs.
 
 Reads only ``manifest.json``, ``events.jsonl``, ``live.json``,
-``trace.jsonl``, ``flight.json`` and ``demand.json`` (or the history
+``fleet.json``, ``trace.jsonl``, ``flight.json`` and ``demand.json`` (or the history
 JSONL), tolerating torn event and span lines. Nothing here imports
 ``torch``, so a report never pays for a device runtime.
 """
@@ -1752,13 +1760,15 @@ def _main_gc(argv) -> int:
         "(flight.NNN.json) inside kept run dirs down to the N most recent "
         "per dir; live runs and the active flight.json are never touched",
     )
-    for dest in _GC_ITEMS:
-        parser.add_argument("--" + dest.replace("_", "-"), type=int, default=None, metavar="N",
-                            dest=dest, help="not ported yet: exits 2")
+    parser.add_argument(
+        "--prewarm-keep", type=int, default=None, metavar="N", dest="prewarm_keep",
+        help="also prune completed prewarm plan-state dirs "
+        "(plan_*/ under SBR_PREWARM_STATE_DIR) down to the N most recent, plus "
+        "leases whose tile already carries a done marker; epochs with live "
+        "leases or sweeper heartbeats and the newest (active) plan are never "
+        "touched",
+    )
     args = parser.parse_args(argv)
-    for dest, item in _GC_ITEMS.items():
-        if getattr(args, dest) is not None:
-            return _not_ported("gc --" + dest.replace("_", "-"), item)
     import os
 
     from sbr_tpu_torch.obs import mem
@@ -1810,6 +1820,14 @@ def _main_gc(argv) -> int:
               f"(keep {args.demand_keep} per run dir)")
         for p in pruned:
             print(f"  {p}")
+    if args.prewarm_keep is not None:
+        from sbr_tpu_torch.serve.prewarm import gc_prewarm_files
+
+        pruned = gc_prewarm_files(keep=args.prewarm_keep)
+        print(f"removed {len(pruned)} prewarm state path(s) "
+              f"(keep {args.prewarm_keep} plan epoch(s))")
+        for p in pruned:
+            print(f"  {p}")
     if args.flight_keep is not None:
         from sbr_tpu_torch.obs.flight import gc_flight_files
 
@@ -1819,6 +1837,191 @@ def _main_gc(argv) -> int:
         for p in pruned:
             print(f"  {p}")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Fleet report (`fleet` subcommand: the serving-fleet renderer and gate)
+# ---------------------------------------------------------------------------
+
+
+def fleet_doc(run_dir, stuck_after_s: float = 600.0) -> tuple:
+    """Machine-readable serving-fleet report from a ROUTER run dir: the
+    rolling ``fleet.json`` snapshot (`sbr_tpu_torch.serve.router`, atomic
+    rename — readable mid-flight) plus the obs ``fleet`` event fold.
+    Returns (doc, exit_code).
+
+    Exit codes: 0 healthy; 1 on LOST queries (a client got a non-200,
+    non-429 answer — failover exists precisely so this never happens) or
+    a breaker STUCK open (state "open" in the final snapshot for longer
+    than ``stuck_after_s`` — a breaker parked over a dead worker clears
+    when the heartbeat TTL reaps the worker from the table, so keep
+    ``stuck_after_s`` at or above the fleet's heartbeat TTL); 2 when
+    ``run_dir`` is not a directory; 3 when no fleet data was recorded
+    (a fleet gate with nothing to read must not pass silently)."""
+    run_dir = Path(run_dir)
+    if not run_dir.is_dir():
+        return {"dir": str(run_dir), "error": "not a directory", "exit": 2}, 2
+    snapshot = None
+    try:
+        snapshot = json.loads((run_dir / "fleet.json").read_text())
+    except (OSError, json.JSONDecodeError):
+        pass
+    events_fold: dict = {}
+    bad_lines = 0
+    try:
+        run = load_run(run_dir)
+        bad_lines = run.get("bad_event_lines", 0)
+        for ev in run["events"]:
+            if ev.get("kind") == "fleet":
+                action = str(ev.get("action", "?"))
+                events_fold[action] = events_fold.get(action, 0) + 1
+        manifest_fleet = run["manifest"].get("fleet") or {}
+    except (FileNotFoundError, json.JSONDecodeError):
+        manifest_fleet = {}
+    if snapshot is None and not events_fold and not manifest_fleet:
+        return {
+            "dir": str(run_dir),
+            "error": "no fleet data (no fleet.json, no fleet events)",
+            "exit": 3,
+        }, 3
+
+    counters = (snapshot or {}).get("counters") or {}
+    workers = (snapshot or {}).get("workers") or {}
+    # The event fold is the kill -9 fallback (a router that died before
+    # its throttled fleet.json caught up): take the max of the two views
+    # for EVERY gated/asserted count, never the sum — and never trust the
+    # snapshot alone, since Router initializes every counter key (a plain
+    # dict.get fallback would always pick the stale snapshot zero).
+    def _best(counter_key: str, event_key: str) -> int:
+        return max(int(counters.get(counter_key, 0)),
+                   int(events_fold.get(event_key, 0)))
+
+    lost = _best("failed", "lost")
+    stuck = sorted(
+        h
+        for h, w in workers.items()
+        if w.get("breaker") == "open"
+        and isinstance(w.get("breaker_age_s"), (int, float))
+        and w["breaker_age_s"] > stuck_after_s
+    )
+    breaches = []
+    if lost > 0:
+        breaches.append(f"{lost} lost quer(ies) — failover failed to absorb")
+    if stuck:
+        breaches.append(
+            f"breaker stuck open > {stuck_after_s:g}s for: {', '.join(stuck)}"
+        )
+    code = 1 if breaches else 0
+    doc = {
+        "dir": str(run_dir),
+        "snapshot": snapshot,
+        "counters": counters,
+        "workers": workers,
+        "events": events_fold,
+        "manifest_fleet": manifest_fleet or None,
+        "lost": lost,
+        "failover_count": _best("failover", "failover"),
+        "shed": _best("shed", "shed"),
+        "degraded": _best("degraded", "degraded"),
+        "stuck_breakers": stuck,
+        "stuck_after_s": stuck_after_s,
+        "breaches": breaches,
+        "bad_event_lines": bad_lines,
+        "exit": code,
+    }
+    return doc, code
+
+
+def render_fleet(doc: dict) -> str:
+    """Human-readable fleet report; same exit contract as `fleet_doc`."""
+    out = [f"run      {doc['dir']}"]
+    if doc["exit"] in (2, 3):
+        out.append(doc.get("error", "no fleet data"))
+        if doc["exit"] == 3:
+            out.append(
+                "was the run produced by sbr_tpu_torch.serve.router (it writes a "
+                "rolling fleet.json + fleet events)?"
+            )
+        return "\n".join(out)
+    snap = doc.get("snapshot") or {}
+    c = doc["counters"]
+    out.append(
+        f"fleet    {int(c.get('queries', 0))} quer(ies): "
+        f"{int(c.get('completed', 0))} completed, {doc['lost']} lost, "
+        f"{doc['shed']} shed, {doc['degraded']} degraded"
+    )
+    out.append(
+        f"routing  {doc['failover_count']} failover(s), "
+        f"{int(c.get('hedged', 0))} hedge(s) ({int(c.get('hedge_wins', 0))} won), "
+        f"{int(c.get('forward_errors', 0))} forward error(s)"
+    )
+    lat = snap.get("latency_ms") or {}
+    if lat.get("count"):
+        out.append(
+            f"latency  p50 {_fmt_val_ms(lat.get('p50'))}   "
+            f"p95 {_fmt_val_ms(lat.get('p95'))}   p99 {_fmt_val_ms(lat.get('p99'))}"
+        )
+    if doc["workers"]:
+        out += ["", "WORKERS"]
+        out.append(
+            _table(
+                ["worker", "breaker", "age s", "forwards", "failures",
+                 "ewma ms", "healthz"],
+                [
+                    [
+                        h,
+                        (w.get("breaker") or "-").upper()
+                        if h in doc["stuck_breakers"] else (w.get("breaker") or "-"),
+                        "-" if w.get("breaker_age_s") is None else f"{w['breaker_age_s']:g}",
+                        w.get("forwards", 0),
+                        w.get("failures", 0),
+                        w.get("ewma_ms", "-"),
+                        w.get("healthz") or "-",
+                    ]
+                    for h, w in sorted(doc["workers"].items())
+                ],
+            )
+        )
+    if doc["events"]:
+        out += ["", "FLEET EVENTS"]
+        out.append(
+            _table(
+                ["action", "count"],
+                [[k, v] for k, v in sorted(doc["events"].items())],
+            )
+        )
+    out.append("")
+    if doc["breaches"]:
+        out.append("GATE: FLEET BREACH")
+        for b in doc["breaches"]:
+            out.append(f"  {b}")
+    else:
+        out.append("GATE: ok (zero lost queries, no breaker stuck open)")
+    return "\n".join(out)
+
+
+def _main_fleet(argv) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m sbr_tpu_torch.obs.report fleet",
+        description="Serving-fleet report for one router run (rolling "
+        "fleet.json + fleet events); exit 1 on lost queries or a breaker "
+        "stuck open, 3 when no fleet data was recorded",
+    )
+    parser.add_argument("run_dir", help="router run directory (contains fleet.json)")
+    parser.add_argument(
+        "--stuck-after-s", type=float, default=600.0, dest="stuck_after_s",
+        help="age (s) past which an open breaker counts as stuck (default "
+        "600; keep >= the fleet heartbeat TTL so dead workers are reaped "
+        "from the table before their breakers can read as stuck)",
+    )
+    parser.add_argument("--json", action="store_true", help="machine-readable output")
+    args = parser.parse_args(argv)
+    doc, code = fleet_doc(args.run_dir, args.stuck_after_s)
+    if args.json:
+        print(json.dumps(doc, default=str))
+        return code
+    print(render_fleet(doc))
+    return code
 
 
 # ---------------------------------------------------------------------------
@@ -2220,6 +2423,192 @@ def _main_demand(argv) -> int:
         print(json.dumps(doc, default=str))
         return code
     print(render_demand(doc))
+    return code
+
+
+
+# ---------------------------------------------------------------------------
+# Prefetch-controller report (`prewarm` subcommand)
+# ---------------------------------------------------------------------------
+
+
+def prewarm_doc(run_dir) -> tuple:
+    """Machine-readable prefetch-controller report
+    (`sbr_tpu_torch.serve.prewarm`): folds the run's ``prewarm`` events (with
+    the manifest roll-up as fallback for a torn event log) into per-plan
+    progress, tile sources, abandonment by reason, and the final warm
+    verdict of every completed plan. Returns (doc, exit_code).
+
+    Exit codes: 0 healthy; 1 when tiles were abandoned over budget or a
+    plan completed COLD (``plan_done`` with warm < tiles — the sweep ran
+    but the hot region still can't be served from cache); 3 when the run
+    recorded no prewarm data (a prewarm gate with nothing to read must
+    not pass silently); 2 when ``run_dir`` is not a directory."""
+    run_dir = Path(run_dir)
+    if not run_dir.is_dir():
+        return {"dir": str(run_dir), "error": "not a directory", "exit": 2}, 2
+    try:
+        run = load_run(run_dir)
+    except (OSError, ValueError):
+        run = {"manifest": {}, "events": [], "bad_event_lines": 0}
+    events = [e for e in run["events"] if e.get("kind") == "prewarm"]
+    manifest_block = (run["manifest"] or {}).get("prewarm") or {}
+    if not events and not manifest_block:
+        return {
+            "dir": str(run_dir),
+            "error": "no prewarm data (no prewarm events or manifest "
+            "roll-up — was the run served with SBR_PREWARM=1?)",
+            "exit": 3,
+        }, 3
+
+    actions: dict = {}
+    abandoned = {"stale": 0, "budget": 0}
+    sources: dict = {}
+    plans: dict = {}
+    for e in events:
+        a = str(e.get("action") or "?")
+        actions[a] = actions.get(a, 0) + 1
+        fp = e.get("fingerprint")
+        if fp:
+            p = plans.setdefault(str(fp), {
+                "tiles": None, "tiles_done": 0, "failed_tiles": 0,
+                "adopted": 0, "warm": None, "done": False,
+                "rejected": False,
+            })
+        if a == "plan" and fp:
+            p["tiles"] = e.get("tiles")
+        elif a == "tile" and fp:
+            p["tiles_done"] += 1
+            src = str(e.get("source") or "?")
+            sources[src] = sources.get(src, 0) + 1
+        elif a == "tile_failed" and fp:
+            p["failed_tiles"] += 1
+        elif a == "adopt" and fp:
+            p["adopted"] += 1
+        elif a == "abandon":
+            reason = str(e.get("reason") or "unknown")
+            abandoned[reason] = abandoned.get(reason, 0) + int(e.get("count") or 1)
+        elif a == "plan_done" and fp:
+            p["done"] = True
+            p["warm"] = e.get("warm")
+            if e.get("tiles") is not None:
+                p["tiles"] = e.get("tiles")
+        elif a == "plan_reject" and fp:
+            p["rejected"] = True
+    if not events and manifest_block:
+        # Torn/absent event log: the manifest roll-up still gates.
+        actions = {k: v for k, v in manifest_block.items()
+                   if isinstance(v, int) and not k.startswith("abandoned_")
+                   and not k.startswith("last_")}
+        for reason in ("stale", "budget"):
+            abandoned[reason] = int(manifest_block.get(f"abandoned_{reason}") or 0)
+        fp = manifest_block.get("last_plan")
+        if fp:
+            plans[str(fp)] = {
+                "tiles": manifest_block.get("last_tiles"),
+                "tiles_done": int(manifest_block.get("tile") or 0),
+                "failed_tiles": int(manifest_block.get("tile_failed") or 0),
+                "adopted": int(manifest_block.get("adopt") or 0),
+                "warm": manifest_block.get("last_warm"),
+                "done": bool(manifest_block.get("plan_done")),
+                "rejected": bool(manifest_block.get("plan_reject")),
+            }
+
+    breaches = []
+    if abandoned.get("budget"):
+        breaches.append(
+            f"{abandoned['budget']} tile(s) abandoned over the work budget "
+            "(raise SBR_PREWARM_BUDGET_TILES/_SECONDS or shrink the plan)"
+        )
+    for fp, p in sorted(plans.items()):
+        if p["done"] and p["warm"] is not None and p["tiles"] is not None \
+                and int(p["warm"]) < int(p["tiles"]):
+            breaches.append(
+                f"plan {fp} completed cold: warm {p['warm']}/{p['tiles']} "
+                "tile(s) in the cache"
+            )
+    code = 1 if breaches else 0
+    doc = {
+        "dir": str(run_dir),
+        "actions": {k: actions[k] for k in sorted(actions)},
+        "plans": {k: plans[k] for k in sorted(plans)},
+        "sources": {k: sources[k] for k in sorted(sources)},
+        "abandoned": abandoned,
+        "bad_event_lines": run["bad_event_lines"],
+        "breaches": breaches,
+        "exit": code,
+    }
+    return doc, code
+
+
+def render_prewarm(doc: dict) -> str:
+    """Human-readable prewarm report; same exit contract as `prewarm_doc`."""
+    out = [f"run      {doc['dir']}"]
+    if doc["exit"] in (2, 3):
+        out.append(doc.get("error", "no prewarm data"))
+        return "\n".join(out)
+    plans = doc["plans"]
+    done = sum(1 for p in plans.values() if p["done"])
+    out.append(
+        f"prewarm  {len(plans)} plan(s) seen, {done} completed; "
+        f"{sum(p['tiles_done'] for p in plans.values())} tile(s) swept"
+    )
+    if doc["sources"]:
+        out.append("sources  " + ", ".join(
+            f"{k}={v}" for k, v in doc["sources"].items()
+        ))
+    if any(doc["abandoned"].values()):
+        out.append("abandoned " + ", ".join(
+            f"{k}={v}" for k, v in sorted(doc["abandoned"].items()) if v
+        ))
+    if doc.get("bad_event_lines"):
+        out.append(f"warning  {doc['bad_event_lines']} torn event line(s) skipped")
+    if plans:
+        out += ["", "PLANS"]
+        out.append(_table(
+            ["plan", "tiles", "done", "failed", "adopted", "warm", "status"],
+            [
+                [
+                    fp,
+                    "-" if p["tiles"] is None else p["tiles"],
+                    p["tiles_done"],
+                    p["failed_tiles"],
+                    p["adopted"],
+                    "-" if p["warm"] is None else p["warm"],
+                    "rejected" if p["rejected"]
+                    else ("done" if p["done"] else "in-flight"),
+                ]
+                for fp, p in sorted(plans.items())
+            ],
+        ))
+    out.append("")
+    if doc["breaches"]:
+        out.append("GATE: PREWARM DEGRADED")
+        for b in doc["breaches"]:
+            out.append(f"  {b}")
+    else:
+        out.append("GATE: ok (no budget abandonment, completed plans warm)")
+    return "\n".join(out)
+
+
+def _main_prewarm(argv) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m sbr_tpu_torch.obs.report prewarm",
+        description="Prefetch-controller report for one run dir "
+        "(prewarm events from sbr_tpu_torch.serve.prewarm): per-plan sweep "
+        "progress, tile sources, adoption and abandonment; exit 1 when "
+        "tiles were abandoned over budget or a completed plan left the "
+        "hot region cold, 3 when the run recorded no prewarm data",
+    )
+    parser.add_argument("run_dir", help="obs run directory of a prewarm-enabled "
+                        "engine or standalone sweeper")
+    parser.add_argument("--json", action="store_true", help="machine-readable output")
+    args = parser.parse_args(argv)
+    doc, code = prewarm_doc(args.run_dir)
+    if args.json:
+        print(json.dumps(doc, default=str))
+        return code
+    print(render_prewarm(doc))
     return code
 
 
@@ -2903,24 +3292,116 @@ def _main_slo(argv) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Subcommands whose modules are not ported yet
+# Meta-gate (`summary` subcommand)
 # ---------------------------------------------------------------------------
 
-# The ROADMAP item (queue 1.A) that brings each subcommand's module.
-_NOT_PORTED = {
-    "fleet": "1.A 10",  # serve/router.py writes fleet.json
-    "prewarm": "1.A 10",  # serve/prewarm.py
-    "summary": "1.A 10",  # folds every gate above
-}
-_GC_ITEMS = {
-    "prewarm_keep": "1.A 10",
-}
+#: The subgates `report summary` folds, in display order. Each entry maps
+#: the gate name to a callable of one run_dir returning (doc, code) —
+#: kept lazy (lambdas) so a crashing gate is contained per-row.
+_SUMMARY_GATES = (
+    ("health", lambda d: health_json(load_run(d))),
+    ("serve", lambda d: serve_doc(d)),
+    ("fleet", lambda d: fleet_doc(d)),
+    ("trace", lambda d: trace_doc([d])),
+    ("slo", lambda d: slo_doc([d])),
+    ("audit", lambda d: audit_doc(d)),
+    ("demand", lambda d: demand_doc([d])),
+    ("prewarm", lambda d: prewarm_doc(d)),
+    ("util", lambda d: util_doc(d)),
+)
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(f"report {what} is not ported to sbr_tpu_torch yet (ROADMAP item {item})",
-          file=sys.stderr)
-    return 2
+def _gate_reason(doc, code: int) -> str:
+    """One-line reason for a subgate row: 'ok' on 0, else the first
+    breach/error the gate reported (truncated for the table)."""
+    if code == 0:
+        return "ok"
+    reason = None
+    if isinstance(doc, dict):
+        for key in ("breaches", "reasons"):
+            vals = doc.get(key)
+            if vals:
+                reason = str(vals[0])
+                break
+        if reason is None and doc.get("error"):
+            reason = str(doc["error"])
+        if reason is None and code == 1 and doc.get("total_divergent"):
+            reason = f"{doc['total_divergent']} divergent cell(s)"
+    if reason is None:
+        reason = f"exit {code}"
+    return reason if len(reason) <= 90 else reason[:87] + "..."
+
+
+def summary_doc(run_dir) -> tuple:
+    """The meta-gate: every observatory gate —
+    health, serve, fleet, trace, slo, audit, demand, prewarm, util — run
+    against ONE run dir, folded into a single table. Returns
+    (doc, exit_code) where the merged exit is the MAX of the subgate
+    exits (so a single breach (1) outranks ok (0), and a bad dir (2) /
+    no-data (3) surfaces as itself — observatories that simply were not
+    enabled show their honest 3 rather than silently passing). A subgate
+    that CRASHES reads as exit 2 with the error as its reason: a broken
+    gate must not read as clean."""
+    run_dir = Path(run_dir)
+    if not run_dir.is_dir():
+        return {"dir": str(run_dir), "error": "not a directory", "exit": 2}, 2
+    gates = {}
+    for name, fn in _SUMMARY_GATES:
+        try:
+            doc, code = fn(str(run_dir))
+        except Exception as err:
+            doc, code = {"error": f"{type(err).__name__}: {err}"}, 2
+        gates[name] = {"exit": code, "reason": _gate_reason(doc, code)}
+    merged = max(g["exit"] for g in gates.values())
+    doc = {
+        "dir": str(run_dir),
+        "gates": gates,
+        "exit": merged,
+    }
+    return doc, merged
+
+
+def render_summary(doc: dict) -> str:
+    """Human-readable meta-gate table; same exit contract as `summary_doc`."""
+    out = [f"run      {doc['dir']}"]
+    if "gates" not in doc:
+        out.append(doc.get("error", "no data"))
+        return "\n".join(out)
+    out += ["", "GATES"]
+    out.append(_table(
+        ["gate", "exit", "reason"],
+        [[name, g["exit"], g["reason"]]
+         for name, g in doc["gates"].items()],
+    ))
+    out.append("")
+    worst = doc["exit"]
+    if worst == 0:
+        out.append("GATE: ok (every subgate passed)")
+    else:
+        failing = [n for n, g in doc["gates"].items() if g["exit"] == worst]
+        out.append(
+            f"GATE: exit {worst} (worst subgate(s): {', '.join(failing)})"
+        )
+    return "\n".join(out)
+
+
+def _main_summary(argv) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m sbr_tpu_torch.obs.report summary",
+        description="Meta-gate: run every observatory gate (health, serve, "
+        "fleet, trace, slo, audit, demand, prewarm, util) against one run "
+        "dir and fold them into a single table; the merged exit code is "
+        "the max of the subgate exits",
+    )
+    parser.add_argument("run_dir", help="obs run directory")
+    parser.add_argument("--json", action="store_true", help="machine-readable output")
+    args = parser.parse_args(argv)
+    doc, code = summary_doc(args.run_dir)
+    if args.json:
+        print(json.dumps(doc, default=str))
+        return code
+    print(render_summary(doc))
+    return code
 
 
 def main(argv=None) -> int:
@@ -2933,6 +3414,9 @@ def main(argv=None) -> int:
         "memory": _main_memory,
         "elastic": _main_elastic,
         "serve": _main_serve,
+        "fleet": _main_fleet,
+        "prewarm": _main_prewarm,
+        "summary": _main_summary,
         "grad": _main_grad,
         "infomodel": _main_infomodel,
         "demand": _main_demand,
@@ -2944,8 +3428,6 @@ def main(argv=None) -> int:
     }
     if argv and argv[0] in subcommands:
         return subcommands[argv[0]](argv[1:])
-    if argv and argv[0] in _NOT_PORTED:
-        return _not_ported(argv[0], _NOT_PORTED[argv[0]])
     if argv and argv[0] == "trend":
         from sbr_tpu_torch.obs.history import main_trend
 
@@ -2954,9 +3436,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m sbr_tpu_torch.obs.report",
         description="Render an obs run directory, diff two runs, or run the "
-        "'health' / 'resilience' / 'memory' / 'elastic' / 'serve' / 'grad' / "
-        "'infomodel' / 'demand' / 'util' / 'trace' / 'slo' / 'audit' / 'trend' / 'gc' "
-        "subcommands",
+        "'health' / 'resilience' / 'memory' / 'elastic' / 'serve' / 'fleet' / "
+        "'audit' / 'demand' / 'prewarm' / 'util' / 'summary' / 'grad' / "
+        "'infomodel' / 'trace' / 'slo' / 'trend' / 'gc' subcommands",
     )
     parser.add_argument("run_dir", help="run directory (contains manifest.json)")
     parser.add_argument("other_dir", nargs="?", help="second run directory to diff against")

@@ -96,11 +96,14 @@ gates on it.
   ``sbr_audit_probe_ms`` histograms, and a drift verdict latches
   ``/healthz`` degraded with an ``audit_drift: <probes>`` reason.
 
+- the prefetch controller (``SBR_PREWARM``, `serve.prewarm`): a
+  `PrewarmController` drains the demand advisor's tile plan into the tile
+  cache on the engine's device while the engine is idle, each tile under
+  the dispatch lock; ``/statz`` gains its ``prewarm`` snapshot and
+  ``/metrics`` the ``sbr_prewarm_*`` lines.
+
 With a switch off its module is never imported and ``/metrics`` carries
 none of its bytes; answers are bit-identical either way.
-
-Not ported yet: the prewarm switch (``SBR_PREWARM``, ROADMAP 1.A 10)
-raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -149,14 +152,6 @@ _GRAD_OUTPUTS = _OUTPUTS + ("dxi_dbeta", "dxi_du", "dxi_dkappa", "grad_flags")
 _INT_OUTPUTS = ("status", "flags", "grad_flags")
 # The demand kind of a keyed record's tag (`Engine._serve_record`).
 _RECORD_KINDS = {"spec": "scenario", "pop": "population"}
-
-# Switches of the reference's engine that need modules not ported yet.
-_UNPORTED_ENV = {"SBR_PREWARM": "1.A 10"}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to sbr_tpu_torch yet (ROADMAP item {item})")
-
 
 class DeadlineExceeded(RuntimeError):
     """Query shed at admission: its deadline has already passed, or the
@@ -418,9 +413,6 @@ class Engine:
         run_dir: Optional[str] = None,
         device=None,
     ) -> None:
-        for var, item in _UNPORTED_ENV.items():
-            if obs.switch_on(var):
-                raise _not_ported(f"{var}={os.environ[var]!r}", item)
         # Sweep-default numerics (refinement OFF), matching beta_u_grid.
         self.config = config if config is not None else SolverConfig(refine_crossings=False)
         self.dtype = torch.float64 if dtype is None else dtype
@@ -508,6 +500,15 @@ class Engine:
             # the process-wide recorder: the tiled sweep's and the barriers'
             # records land on the same timeline
             self.flight = _flight.shared()
+        # The prefetch controller: tiles of the advisor's plan into the tile
+        # cache, on this engine's device in its dtype, in idle windows.
+        self.prewarm = None
+        if obs.switch_on("SBR_PREWARM"):
+            from sbr_tpu_torch.serve import prewarm as _prewarm
+
+            self.prewarm = _prewarm.PrewarmController(
+                engine=self, config=self.config, dtype=self.dtype, device=self.device,
+            )
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "Engine":
@@ -518,6 +519,8 @@ class Engine:
             self._thread.start()
         if self.audit is not None:
             self.audit.start()
+        if self.prewarm is not None:
+            self.prewarm.start()
         return self
 
     def close(self) -> None:
@@ -539,6 +542,8 @@ class Engine:
                 if t is not _SHUTDOWN:
                     t.error = RuntimeError("engine is closed before the query was served")
                     t.event.set()
+        if self.prewarm is not None:
+            self.prewarm.close()
         if self.audit is not None:
             self.audit.close()
         with self._dispatch_lock:
@@ -890,13 +895,15 @@ class Engine:
             extra["sbr_serve_slo_ms"] = ("gauge", slo)
         text = self.live.to_prometheus(extra)
         # the per-layer span histograms (committed spans only: empty while
-        # tracing is off), then the audit, demand and flight lines, which
-        # exist only while their switches are on
+        # tracing is off), then the audit, demand, prewarm and flight lines,
+        # which exist only while their switches are on
         lines = list(qtrace.layer_prometheus())
         if self.audit is not None:
             lines += self.audit.prometheus_lines()
         if self.demand is not None:
             lines += self.demand.prometheus_lines()
+        if self.prewarm is not None:
+            lines += self.prewarm.prometheus_lines()
         if self.flight is not None:
             lines += self.flight.prometheus_lines()
         if lines:
@@ -958,6 +965,7 @@ class Engine:
             },
             **({"audit": self.audit.snapshot()} if self.audit is not None else {}),
             **({"demand": self.demand.snapshot()} if self.demand is not None else {}),
+            **({"prewarm": self.prewarm.snapshot()} if self.prewarm is not None else {}),
             **({"flight": self.flight.heartbeat_block()} if self.flight is not None else {}),
         }
 

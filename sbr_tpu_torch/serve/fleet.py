@@ -1,30 +1,58 @@
-"""Dispatch circuit breaking, the per-query deadline default and the
-tile-cache rung of the degradation ladder: the port of `CircuitBreaker`,
-`default_deadline_ms`, `_env_float` and `TileCacheBridge` from
+"""Serving-fleet membership, circuit breaking, the tile-cache rung of the
+degradation ladder and the fleet worker process: the port of
 ``sbr_tpu.serve.fleet``.
 
-`CircuitBreaker` is the closed → open → half-open state machine the
-engine holds over its own device dispatch: ``threshold`` consecutive
-failures open it, ``cooldown_s`` later exactly one half-open probe is let
-through, and a success closes it. Injectable clock, no threads: the state
-advances lazily on `allow()` reads.
+- **Membership.** A serve worker announces itself with the heartbeat
+  files of the elastic sweep (`resilience.elastic.Heartbeat`: atomic
+  rewrite, TTL, handed back by `resilience.shutdown`), written into a
+  shared *fleet dir* (``SBR_FLEET_DIR``). A beat carries the worker's HTTP
+  endpoint (``url``) and its live numbers (qps, p50 ms, inflight, queue
+  depth, ``/healthz``), and, while their switches are on, the audit,
+  demand, prewarm and flight blocks: the router's cost model and its
+  quarantine read the same record as the membership check.
+  `live_workers` is `elastic.live_hosts` restricted to records with an
+  endpoint.
+- **Circuit breaking.** `CircuitBreaker` is the closed → open → half-open
+  state machine: ``threshold`` consecutive failures open it,
+  ``cooldown_s`` later exactly one half-open probe is let through, and a
+  success closes it. The router holds one per worker, the engine one over
+  its own dispatch. Injectable clock, no threads: the state advances
+  lazily on `allow()` reads.
+- **Tile-cache rung.** `TileCacheBridge` answers a point query from the
+  cross-run tile cache (`resilience.elastic.TileCache`) when the solver
+  path is down: only a cell whose tag and (β, u) match the query exactly.
 
-`TileCacheBridge` answers a point query from the cross-run tile cache
-(`resilience.elastic.TileCache`) when the solver path is down: only a
-cell whose tag and (β, u) match the query exactly.
+Worker process: ``python -m sbr_tpu_torch.serve.fleet --fleet-dir DIR``
+runs one engine, its endpoint and the heartbeat loop under the graceful
+shutdown envelope. The engine runs on the CUDA card unless ``--device
+cpu``; with no card and no ``--device cpu`` the worker exits 2 before it
+announces anything. SIGTERM finishes in-flight batches, removes the
+heartbeat (peers reclaim at once instead of waiting out the TTL) and
+finalizes the obs manifest as ``"interrupted"`` (exit 143).
 
-Fleet membership (`WorkerAnnouncer`, `live_workers`) and the worker
-process entry wait for the fleet (ROADMAP 1.A item 10).
+Standard library and numpy at import: the router and loadgen's fleet
+mode import this module without starting a device runtime.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import sys
 import time
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
+from sbr_tpu_torch.resilience import elastic
 from sbr_tpu_torch.resilience.elastic import cell_tag, default_tile_cache
+
+
+def fleet_dir(value=None) -> Optional[Path]:
+    """The shared fleet rendezvous dir (``SBR_FLEET_DIR``); None = no fleet
+    (single-process serving)."""
+    root = value or os.environ.get("SBR_FLEET_DIR", "").strip()
+    return Path(root) if root else None
 
 
 def default_deadline_ms() -> Optional[float]:
@@ -38,6 +66,45 @@ def _env_float(name: str, default):
     """Float env override with a passthrough default (None allowed)."""
     raw = os.environ.get(name, "").strip()
     return float(raw) if raw else default
+
+
+class WorkerAnnouncer:
+    """One serve worker's membership record: an `elastic.Heartbeat` in the
+    fleet dir whose stats carry the worker's endpoint and live numbers.
+    `beat` passes through the ``fleet.heartbeat`` fault point, so a fault
+    plan can silence a worker's beats (the router then ages it out by the
+    TTL, as it would a silent death)."""
+
+    def __init__(self, fleet_root, url: str, ttl_s: Optional[float] = None,
+                 host: Optional[str] = None) -> None:
+        self.root = Path(fleet_root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.url = url
+        self.hb = elastic.Heartbeat(self.root, host=host, ttl_s=ttl_s)
+        self.host = self.hb.host
+
+    def beat(self, **stats) -> None:
+        from sbr_tpu_torch.resilience import faults
+        from sbr_tpu_torch.resilience.faults import InjectedFault
+
+        try:
+            faults.fire("fleet.heartbeat", target=self.host)
+        except InjectedFault:
+            return  # a silenced beat is a stale heartbeat, aged out by the TTL
+        self.hb.beat(url=self.url, role="serve_worker", **stats)
+
+    def withdraw(self) -> None:
+        self.hb.withdraw()
+
+
+def live_workers(fleet_root, now: Optional[float] = None) -> Dict[str, dict]:
+    """{host id: heartbeat record} of the live serve workers: elastic's
+    membership scan restricted to records with an HTTP endpoint (a sweep
+    host sharing the dir never routes traffic)."""
+    root = Path(fleet_root)
+    if not root.is_dir():
+        return {}
+    return {h: rec for h, rec in elastic.live_hosts(root, now=now).items() if rec.get("url")}
 
 
 class CircuitBreaker:
@@ -263,3 +330,125 @@ class TileCacheBridge:
             except (IndexError, KeyError, ValueError):
                 continue  # the meta drifted from the entry: not an answer
         return None
+
+
+# ---------------------------------------------------------------------------
+# Worker process entry
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    """One fleet worker: engine, HTTP endpoint and heartbeat announcements.
+
+    Runs until SIGTERM/SIGINT; the graceful-shutdown envelope then drains
+    in-flight batches (engine close), withdraws the heartbeat and finalizes
+    the obs manifest as "interrupted". Prints one JSON line ``{"url",
+    "host", "pid", "device"}`` on stdout once ready: ``loadgen --fleet``
+    reads it."""
+    parser = argparse.ArgumentParser(
+        prog="python -m sbr_tpu_torch.serve.fleet",
+        description="Run one serving-fleet worker (engine + endpoint + "
+        "heartbeat membership) until SIGTERM",
+    )
+    parser.add_argument("--fleet-dir", required=True,
+                        help="shared fleet rendezvous dir (heartbeats)")
+    parser.add_argument("--port", type=int, default=0,
+                        help="HTTP port (default 0 = ephemeral)")
+    parser.add_argument("--n-grid", type=int, default=192, dest="n_grid")
+    parser.add_argument("--bisect-iters", type=int, default=40, dest="bisect_iters")
+    parser.add_argument("--buckets", default="1,8,64")
+    parser.add_argument("--cache-dir", default=None,
+                        help="on-disk result cache (shared across the fleet: "
+                        "results are fingerprint-keyed and pure, so concurrent "
+                        "writers are benign)")
+    parser.add_argument("--run-dir", default=None,
+                        help="obs run dir for this worker's telemetry")
+    parser.add_argument("--heartbeat-ttl", type=float, default=None,
+                        help="heartbeat TTL seconds (default SBR_HEARTBEAT_TTL_S)")
+    parser.add_argument("--beat-s", type=float, default=0.5,
+                        help="announcement cadence (default 0.5 s)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card; 'cpu' runs eagerly)")
+    args = parser.parse_args(argv)
+
+    from sbr_tpu_torch.models.params import SolverConfig
+    from sbr_tpu_torch.resilience.shutdown import graceful_shutdown
+    from sbr_tpu_torch.serve.endpoint import ServeEndpoint
+    from sbr_tpu_torch.serve.engine import Engine, ServeConfig
+
+    buckets = tuple(sorted({int(v) for v in args.buckets.split(",") if v.strip()}))
+    serve_cfg = ServeConfig.from_env(
+        buckets=buckets, **({"cache_dir": args.cache_dir} if args.cache_dir else {})
+    )
+    config = SolverConfig(n_grid=args.n_grid, bisect_iters=args.bisect_iters,
+                          refine_crossings=False)
+
+    # The WORKER owns the obs run, not the engine: on SIGTERM the envelope
+    # must finalize the manifest as "interrupted", and an engine-owned run
+    # would be finalized "complete" by the drain's engine.close() first.
+    run = None
+    if args.run_dir:
+        from sbr_tpu_torch import obs
+
+        run = obs.start_run(label="serve_worker", run_dir=args.run_dir)
+    try:
+        engine = Engine(config=config, serve=serve_cfg, run=run, device=args.device)
+    except RuntimeError as err:  # no card and no --device cpu
+        print(f"[serve.fleet] {err}", file=sys.stderr)
+        return 2
+    engine.start()
+    endpoint = ServeEndpoint(engine, port=args.port).start()
+    url = f"http://127.0.0.1:{endpoint.port}"
+    announcer = WorkerAnnouncer(args.fleet_dir, url, ttl_s=args.heartbeat_ttl)
+    with graceful_shutdown(label="serve_worker"):
+        try:
+            announcer.beat(**_worker_stats(engine))
+            print(json.dumps({"url": url, "host": announcer.host, "pid": os.getpid(),
+                              "device": str(engine.device)}), flush=True)
+            while True:
+                time.sleep(args.beat_s)
+                announcer.beat(**_worker_stats(engine))
+        finally:
+            # The graceful drain, on SIGTERM while unwinding toward the
+            # envelope's handler: in-flight batches finish (engine.close
+            # drains the queue), the heartbeat goes so router peers reclaim
+            # at once, and only then does the envelope finalize the obs
+            # manifest as "interrupted" and exit 143.
+            endpoint.close()
+            engine.close()
+            announcer.withdraw()
+    return 0
+
+
+def _worker_stats(engine) -> dict:
+    """The heartbeat's stats block: what the router's cost model reads,
+    plus each switch-gated block while its switch is on (the router
+    quarantines on an audit "drift", merges the demand surfaces, rolls up
+    the prewarm and flight blocks)."""
+    from sbr_tpu_torch.obs import trace as qtrace
+
+    window = engine.live.window()
+    lat = window.get("latency_ms") or {}
+    qps = (window.get("queries", 0) or 0) / max(engine.live.window_s, 1e-9)
+    return {
+        "qps": round(qps, 3),
+        "p50_ms": lat.get("p50"),
+        "inflight": engine.live.inflight,
+        "queue_depth": engine.live.queue_depth,
+        "healthz": engine.healthz(window=window)["status"],
+        # resolved at the worker, so `report slo` judges each run dir
+        # against the SLO its owner served under
+        "slo_ms": qtrace.slo_ms(),
+        **({"audit": engine.audit.heartbeat_block()}
+           if getattr(engine, "audit", None) is not None else {}),
+        **({"demand": engine.demand.heartbeat_block()}
+           if getattr(engine, "demand", None) is not None else {}),
+        **({"prewarm": engine.prewarm.heartbeat_block()}
+           if getattr(engine, "prewarm", None) is not None else {}),
+        **({"flight": engine.flight.heartbeat_block()}
+           if getattr(engine, "flight", None) is not None else {}),
+    }
+
+
+if __name__ == "__main__":
+    sys.exit(main())

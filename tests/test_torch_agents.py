@@ -390,11 +390,12 @@ def test_chip_smoke_imports_only_torch_numpy_and_the_port():
     # must import no JAX either
     # (the standard library's os, pathlib, shutil and tempfile serve the
     # tiled phases' checkpoint directories and worker processes; contextlib
-    # and io capture the replication run's printed manifest)
+    # and io capture the replication run's printed manifest; types gives
+    # the fleet phase loadgen's argument namespace)
     roots = _import_roots(REPO / "chip_smoke.py")
     assert roots <= {"__future__", "contextlib", "io", "json", "os", "pathlib", "shutil",
-                     "subprocess", "sys", "tempfile", "time", "numpy", "torch", "sbr_tpu_torch",
-                     "oracle"}, roots
+                     "subprocess", "sys", "tempfile", "time", "types", "numpy", "torch",
+                     "sbr_tpu_torch", "oracle"}, roots
     assert _import_roots(REPO / "tests" / "oracle.py") <= {
         "__future__", "dataclasses", "numpy", "scipy"}
 

@@ -1085,3 +1085,189 @@ def test_audit_bitwise_probes_on_card_equal_cpu(cuda_device, name):
     card, cpu = probe.fn(device=cuda_device), probe.fn(device="cpu")
     assert card["fingerprint"] == cpu["fingerprint"]
     assert card["values"] == cpu["values"]
+
+
+# -- slice 15: the serving fleet ----------------------------------------------
+
+
+def _fleet_env():
+    """Worker processes find the package from the repository root."""
+    import os
+    from pathlib import Path
+
+    return {"PYTHONPATH": str(Path(__file__).resolve().parents[1]),
+            "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", "2")}
+
+
+def test_fleet_workers_on_card_answer_as_an_in_process_engine(cuda_device, tmp_path,
+                                                             monkeypatch):
+    """Two worker processes on the card behind the router answer the
+    seeded mix bit for bit like an in-process engine on the card."""
+    from types import SimpleNamespace
+
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.endpoint import query_result_doc
+    from sbr_tpu_torch.serve.loadgen import build_pool, query_mix, run_fleet
+
+    for k, v in _fleet_env().items():
+        monkeypatch.setenv(k, v)
+    shape = dict(fleet=2, queries=48, pool=6, group=4, n_grid=128, bisect_iters=30,
+                 buckets="1,8", seed=3)
+    args = SimpleNamespace(**shape, run_dir=None, cache_dir=None, fleet_dir=None, device=None,
+                           fleet_kill_after=None, answers_out=str(tmp_path / "a.json"),
+                           trace_out=None, audit_fault=None, audit_wait=0)
+    summary = run_fleet(args)
+    assert summary["failures"] == [] and summary["fleet_lost"] == 0
+    assert summary["device"].startswith("cuda")
+    import json
+
+    answers = json.loads((tmp_path / "a.json").read_text())
+    cfg = st.SolverConfig(n_grid=128, bisect_iters=30, refine_crossings=False)
+    engine = Engine(config=cfg, serve=ServeConfig(buckets=(1, 8)), device=cuda_device)
+    try:
+        res = engine.query_many(build_pool(3, 6))
+    finally:
+        engine.close()
+    want = [query_result_doc(res[i]) for i in query_mix(3, 6, 48)]
+    fields = ("xi", "tau_bar_in", "aw_max", "status", "flags", "residual")
+    assert [{f: a[f] for f in fields} for a in answers] == [{f: w[f] for f in fields}
+                                                            for w in want]
+
+
+def test_prewarm_drain_on_card_equals_beta_u_grid(cuda_device, tmp_path):
+    """A drained plan's tiles on the card are `beta_u_grid` on the card,
+    bit for bit."""
+    import json
+
+    from sbr_tpu_torch.resilience.elastic import TileCache
+    from sbr_tpu_torch.serve.prewarm import PLAN_SCHEMA, PrewarmController, _plan_tiles
+    from sbr_tpu_torch.utils.checkpoint import to_host
+
+    cfg = st.SolverConfig(n_grid=128, bisect_iters=40, refine_crossings=False)
+    plan = {"schema": PLAN_SCHEMA, "plan_fingerprint": "c0ffee" * 2 + "abcd",
+            "tiles": [{"bin": "1,2", "betas": [0.8, 1.6], "us": [0.1, 0.3, 0.5], "rank": 1}]}
+    (tmp_path / "plan.json").write_text(json.dumps(plan))
+    ctl = PrewarmController(plan_file=tmp_path / "plan.json", cache_dir=str(tmp_path / "c"),
+                            config=cfg, device=cuda_device, ttl_s=60)
+    try:
+        snap = ctl.drain(timeout_s=600)
+    finally:
+        ctl.close()
+    assert snap["status"] == "done" and snap["warm"] == 2 and snap["counts"]["computed"] == 2
+    cache = TileCache(tmp_path / "c")
+    for t in _plan_tiles(plan):
+        base = st.make_model_params(beta=t["betas"][0])
+        got = cache.load(cache.key(base, cfg, None, t["betas"], t["us"]), tile="t")
+        want = st.beta_u_grid(np.array(t["betas"]), np.array(t["us"]), base, config=cfg,
+                              device=cuda_device)
+        for f, h in zip(("xi", "max_aw", "status"), to_host(want.xi, want.max_aw, want.status)):
+            assert got[f].dtype == h.dtype and np.array_equal(got[f], h, equal_nan=f != "status")
+
+
+def test_embedded_prewarm_on_card_leaves_answers_and_tiles_bitwise(cuda_device, tmp_path,
+                                                                   monkeypatch):
+    """``SBR_PREWARM=1`` in an engine on the card: the controller's thread
+    drains the plan between rounds of queries that capture and replay
+    buckets 1 and 8. The answers equal an ``SBR_PREWARM=0`` engine's bit
+    for bit, and the tiles `beta_u_grid`'s on the card."""
+    import json
+    import time
+
+    from sbr_tpu_torch.resilience.elastic import TileCache
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+    from sbr_tpu_torch.serve.endpoint import query_result_doc
+    from sbr_tpu_torch.serve.loadgen import build_pool
+    from sbr_tpu_torch.serve.prewarm import PLAN_SCHEMA, _plan_tiles
+    from sbr_tpu_torch.utils.checkpoint import to_host
+
+    cfg = st.SolverConfig(n_grid=128, bisect_iters=40, refine_crossings=False)
+    plan = {"schema": PLAN_SCHEMA, "plan_fingerprint": "e1bedded" * 2,
+            "tiles": [{"bin": "0,0", "betas": [0.8, 1.6, 3.2], "us": [0.1, 0.3, 0.5],
+                       "rank": 1}]}
+    (tmp_path / "plan.json").write_text(json.dumps(plan))
+    monkeypatch.setenv("SBR_PREWARM_PLAN", str(tmp_path / "plan.json"))
+    monkeypatch.setenv("SBR_TILE_CACHE_DIR", str(tmp_path / "c"))
+    monkeypatch.setenv("SBR_PREWARM_POLL_S", "0.1")
+    monkeypatch.delenv("SBR_SERVE_SLO_MS", raising=False)
+    rounds = (1, 8, 1, 8)
+    traffic = build_pool(5, sum(rounds))
+    fields = ("xi", "tau_bar_in", "aw_max", "status", "flags", "residual")
+    answers, snap, captured = {}, None, {}
+    for switch in ("1", "0"):
+        monkeypatch.setenv("SBR_PREWARM", switch)
+        engine = Engine(config=cfg, serve=ServeConfig(buckets=(1, 8)),
+                        device=cuda_device).start()
+        ctl, got, i = engine.prewarm, [], 0
+        try:
+            for r, n in enumerate(rounds):
+                deadline = time.monotonic() + 300
+                while (ctl is not None and r == 1 and ctl.snapshot()["tiles_done"] == 0
+                       and time.monotonic() < deadline):
+                    time.sleep(0.05)
+                got += [query_result_doc(x) for x in engine.query_many(traffic[i:i + n],
+                                                                       timeout=600)]
+                i += n
+                time.sleep(0.3)
+            deadline = time.monotonic() + 300
+            while ctl is not None and ctl.status == "sweeping" and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if ctl is not None:
+                snap = ctl.snapshot()
+            captured[switch] = dict(engine.graphs.captured)
+        finally:
+            engine.close()
+        answers[switch] = [{f: a[f] for f in fields} for a in got]
+    assert answers["1"] == answers["0"]
+    assert captured["1"] == captured["0"] == {1: 1, 8: 1}
+    assert snap["status"] == "done" and snap["warm"] == snap["tiles_total"] == 3
+    cache = TileCache(tmp_path / "c")
+    for t in _plan_tiles(plan):
+        base = st.make_model_params(beta=t["betas"][0])
+        got = cache.load(cache.key(base, cfg, None, t["betas"], t["us"]), tile="t")
+        want = st.beta_u_grid(np.array(t["betas"]), np.array(t["us"]), base, config=cfg,
+                              device=cuda_device)
+        for f, h in zip(("xi", "max_aw", "status"), to_host(want.xi, want.max_aw, want.status)):
+            assert got[f].dtype == h.dtype and np.array_equal(got[f], h, equal_nan=f != "status")
+
+
+@pytest.mark.parametrize("channel", ["bayes", "gossip"])
+def test_routed_population_launches_members_times_steps(cuda_device, channel, tmp_path):
+    """A population query routed to a worker in this process (the pieces
+    `serve.fleet.main` assembles) launches its channel's kernel members ×
+    steps times there, the other kernel never."""
+    import json
+
+    from sbr_tpu_torch.serve import Engine, ServeConfig, ServeEndpoint
+    from sbr_tpu_torch.serve.fleet import WorkerAnnouncer, _worker_stats
+    from sbr_tpu_torch.serve.loadgen import http_request
+    from sbr_tpu_torch.serve.router import Router
+    from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
+
+    m = st.make_model_params(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
+    doc = {"beta": 0.9, "eta_bar": 30.0, "u": 0.5, "p": 0.99, "kappa": 0.25, "lam": 0.25,
+           "population": {"graph": {"model": "erdos_renyi", "n": 3000, "avg_degree": 8.0},
+                          "infomodel": {"channel": channel}, "seeds": 3, "vary": "sim",
+                          "g0": None}}
+    kernel, other = (BELIEF_KERNEL, KERNEL) if channel == "bayes" else (KERNEL, BELIEF_KERNEL)
+    engine = Engine(config=st.SolverConfig(n_grid=256), serve=ServeConfig(buckets=(1,)),
+                    device=cuda_device).start()
+    endpoint = ServeEndpoint(engine).start()
+    ann = WorkerAnnouncer(tmp_path, f"http://127.0.0.1:{endpoint.port}", ttl_s=600)
+    router = None
+    try:
+        ann.beat(**_worker_stats(engine))
+        router = Router(tmp_path, poll_s=0.05).start()
+        before = dict(_build.LAUNCHES)
+        code, body, _ = http_request(router.port, "/query", doc, timeout=600)
+        torch.cuda.synchronize()
+        after = dict(_build.LAUNCHES)
+    finally:
+        if router is not None:
+            router.close()
+        endpoint.close()
+        engine.close()
+        ann.withdraw()
+    assert code == 200 and json.loads(body)["source"] == "computed"
+    steps = int(round(float(m.economic.eta) / 0.1))
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in (kernel, other)} == \
+        {kernel: 3 * steps, other: 0}

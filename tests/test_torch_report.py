@@ -1,11 +1,12 @@
 """The port's run reader (sbr_tpu_torch.obs.report) against sbr_tpu's on
 the same run directories.
 
-Each ported subcommand (the bare render, diff and ``--json``, ``health``,
+Each subcommand (the bare render, diff and ``--json``, ``health``,
 ``resilience``, ``elastic``, ``infomodel``, ``grad``, ``memory``,
-``serve``, ``trace``, ``slo``, ``util``, ``demand``, ``gc`` with its
-``--trace-keep``, ``--demand-keep`` and ``--flight-keep``) reads a
-passing and a failing run directory, written
+``serve``, ``fleet``, ``trace``, ``slo``, ``util``, ``demand``,
+``prewarm``, ``audit``, ``summary``, ``gc`` with its ``--trace-keep``,
+``--demand-keep``, ``--flight-keep``, ``--audit-keep`` and
+``--prewarm-keep``) reads a passing and a failing run directory, written
 once by each package's run log, and both packages' ``report.main`` give
 the same exit code, the same ``--json`` document and the same rendered
 lines. The program name is normalized (``sbr_tpu_torch`` → ``sbr_tpu``),
@@ -20,11 +21,12 @@ Mirrors the report cases of tests/test_obs.py, test_mem.py,
 test_resilience.py, test_elastic.py, test_serve.py (the gate, the cache
 floor's scope and the torn event line), test_grad.py, test_infomodels.py
 and test_diag.py's health gate, test_trace.py's ``trace`` / ``slo``,
-test_flight.py's ``util`` and test_demand.py's ``demand``: span files,
-``flight.json`` and ``demand.json`` written by each package's own module
-from the same inputs. Then ``python -m`` for every subcommand (the port's
-CLI loads no torch), and exit 2 with the ROADMAP item for each subcommand
-and gc flag that is not ported yet.
+test_flight.py's ``util`` and ``summary``, test_demand.py's ``demand``,
+test_fleet.py's ``fleet`` and test_prewarm.py's ``prewarm`` and gc
+retention: span files, ``flight.json``, ``demand.json``, ``fleet.json``
+and the ``fleet`` and ``prewarm`` events written by each package's own
+module from the same inputs. Then ``python -m`` for every subcommand (the
+port's CLI loads no torch).
 """
 
 import importlib
@@ -264,6 +266,45 @@ def _emit_demand(writer, mod, run):
     tr.close(run)
 
 
+def _emit_fleet(counters, workers=None, events=()):
+    """A router run: its ``fleet`` events and its rolling fleet.json."""
+    def emit(writer, mod, run):
+        for action in events:
+            run.log_fleet(action)
+        run.live_snapshot({"schema": "sbr-fleet/1", "counters": counters,
+                           "workers": workers or {},
+                           "latency_ms": {"count": 3, "p50": 1.5, "p95": 2.0, "p99": 2.5}},
+                          name="fleet.json")
+    return emit
+
+
+def _emit_prewarm(emits):
+    def emit(writer, mod, run):
+        for action, kw in emits:
+            run.log_prewarm(action, **kw)
+    return emit
+
+
+_PREWARM_OK = [("plan", {"fingerprint": "f1", "tiles": 2}),
+               ("tile", {"tile": "t00000_00000", "source": "computed", "fingerprint": "f1"}),
+               ("adopt", {"tile": "t00001_00000", "fingerprint": "f1"}),
+               ("tile", {"tile": "t00001_00000", "source": "cache", "fingerprint": "f1"}),
+               ("plan_done", {"fingerprint": "f1", "tiles": 2, "warm": 2})]
+_FLEET_CLEAN = ({"queries": 10, "completed": 10, "failed": 0, "failover": 1, "hedged": 1,
+                 "hedge_wins": 1},
+                {"w1": {"breaker": "closed", "breaker_age_s": None, "forwards": 7,
+                        "failures": 0, "ewma_ms": 2.5, "healthz": "ready"}},
+                ["failover", "worker_join", "hedge", "hedge_win"])
+
+
+def _emit_summary(writer, mod, run):
+    """One run with a fleet snapshot, a completed prewarm plan and a
+    health census: some gates pass, the rest read no data."""
+    _emit_fleet(*_FLEET_CLEAN)(writer, mod, run)
+    _emit_prewarm(_PREWARM_OK)(writer, mod, run)
+    _emit_health(False)(writer, mod, run)
+
+
 # (subcommand, extra argv, emit, exit code, env)
 CASES = {
     "render": ("", [], _timing, 0, {}),
@@ -310,6 +351,33 @@ CASES = {
     "demand_floor": ("demand", [], _emit_demand, 1, {"SBR_DEMAND_COVERAGE_FLOOR": "0.9"}),
     "demand_floor_met": ("demand", ["--floor", "0.5"], _emit_demand, 0, {}),
     "demand_no_data": ("demand", [], _emit_nothing, 3, {}),
+    "fleet_clean": ("fleet", [], _emit_fleet(*_FLEET_CLEAN), 0, {}),
+    "fleet_lost": ("fleet", [], _emit_fleet({"queries": 10, "completed": 9, "failed": 1},
+                                            events=["lost"]), 1, {}),
+    "fleet_lost_events_only": ("fleet", [], _emit_fleet({"failed": 0}, events=["lost"]), 1, {}),
+    "fleet_stuck": ("fleet", ["--stuck-after-s", "60"],
+                    _emit_fleet({"queries": 1, "completed": 1, "failed": 0},
+                                {"w1": {"breaker": "open", "breaker_age_s": 120.0}},
+                                ["breaker_open"]), 1, {}),
+    "fleet_open_not_stuck": ("fleet", [], _emit_fleet(
+        {"queries": 1, "completed": 1, "failed": 0},
+        {"w1": {"breaker": "open", "breaker_age_s": 120.0}}, ["breaker_open"]), 0, {}),
+    "fleet_no_data": ("fleet", [], _emit_nothing, 3, {}),
+    "prewarm_ok": ("prewarm", [], _emit_prewarm(_PREWARM_OK), 0, {}),
+    "prewarm_cold": ("prewarm", [], _emit_prewarm(
+        [("plan", {"fingerprint": "f1", "tiles": 2}),
+         ("plan_done", {"fingerprint": "f1", "tiles": 2, "warm": 1})]), 1, {}),
+    "prewarm_budget": ("prewarm", [], _emit_prewarm(
+        [("plan", {"fingerprint": "f2", "tiles": 3}),
+         ("tile", {"tile": "t00000_00000", "source": "computed", "fingerprint": "f2"}),
+         ("abandon", {"reason": "budget", "count": 2, "fingerprint": "f2"}),
+         ("plan_reject", {"fingerprint": "f3", "reason": "program_version"})]), 1, {}),
+    "prewarm_no_data": ("prewarm", [], _emit_nothing, 3, {}),
+    "summary_mixed": ("summary", [], _emit_summary, 3, {}),
+    "summary_breach": ("summary", [], _emit_prewarm(
+        [("plan", {"fingerprint": "f1", "tiles": 2}),
+         ("plan_done", {"fingerprint": "f1", "tiles": 2, "warm": 1})]), 3, {}),
+    "summary_no_data": ("summary", [], _emit_nothing, 3, {}),
 }
 
 
@@ -617,23 +685,64 @@ def test_gc_audit_keep_equals_reference(keep, tmp_path, capsys, monkeypatch):
     assert len([p for p in left if p.startswith("reg/goldens_abc.0")]) == int(keep)
 
 
-# -- not ported yet -----------------------------------------------------------
+# -- fleet, prewarm and summary (ported with serve/, ROADMAP 1.A 10) ------------
 
 
-@pytest.mark.parametrize("sub", sorted(report._NOT_PORTED))
-def test_unported_subcommands_exit_2(sub, tmp_path, capsys):
-    assert report.main([sub, str(tmp_path)]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP item {report._NOT_PORTED[sub]}" in err
+@pytest.mark.parametrize("sub", ["fleet", "prewarm", "summary"])
+def test_fleet_prewarm_summary_not_a_directory(sub, tmp_path, capsys, monkeypatch):
+    """``report fleet|prewarm|summary``, which exited 2 as not ported: on a
+    path that is not a directory, the reference's exit 2 and output."""
+    (got, got_out, _), (want, want_out, _) = _both([sub, str(tmp_path / "nope"), "--json"],
+                                                  capsys, monkeypatch)
+    assert got == want == 2
+    assert _json_doc(got_out) == _json_doc(want_out)
 
 
-@pytest.mark.parametrize("flag", sorted(report._GC_ITEMS))
-def test_unported_gc_flags_exit_2_before_pruning(flag, tmp_path, capsys):
-    _gc_tree(tmp_path)
-    argv = ["gc", str(tmp_path / "runs"), "--keep", "0", "--" + flag.replace("_", "-"), "1"]
-    assert report.main(argv) == 2
-    assert f"ROADMAP item {report._GC_ITEMS[flag]}" in capsys.readouterr().err
-    assert len(list((tmp_path / "runs").iterdir())) == 5  # nothing was pruned
+def test_summary_gates_fold_as_the_reference(run_dirs, capsys, monkeypatch):
+    """The meta-gate's rows on a run with fleet, prewarm and health data:
+    those three pass, and so does ``slo`` (it reads the fleet snapshot's
+    latency against no SLO); the gates without data read 3, the merged
+    exit is the worst."""
+    d = str(run_dirs[("summary_mixed", "port")])
+    (got, out, _), (want, wout, _) = _both(["summary", d, "--json"], capsys, monkeypatch)
+    doc = json.loads(out)
+    assert got == want == 3 and doc == json.loads(wout)
+    assert {n: g["exit"] for n, g in doc["gates"].items()} == {
+        "health": 0, "serve": 3, "fleet": 0, "trace": 3, "slo": 0, "audit": 3, "demand": 3,
+        "prewarm": 0, "util": 3}
+
+
+def _prewarm_state(root: Path, now: float):
+    for i in range(5):
+        (root / f"plan_{i:02d}").mkdir(parents=True)
+    (root / "plan_00" / "tile_b00000_u00000.lease").write_text(
+        json.dumps({"ts": now, "ttl_s": 600.0, "nonce": "n"}))
+    (root / "plan_04" / "tile_b00001_u00000.lease").write_text(
+        json.dumps({"ts": now - 9999, "ttl_s": 1.0}))
+    (root / "plan_04" / "done_t00001_00000.json").write_text("{}")
+    for i in range(5):
+        os.utime(root / f"plan_{i:02d}", (now - 1000 + i, now - 1000 + i))
+
+
+@pytest.mark.parametrize("keep", ["1", "2"])
+def test_gc_prewarm_keep_equals_reference(keep, tmp_path, capsys, monkeypatch):
+    """gc's ``--prewarm-keep``, which exited 2 as not ported: old plan
+    epochs pruned unless a sweeper still holds a lease there, lease debris
+    of done tiles removed, the active epoch kept, as the reference does."""
+    now = time.time()
+    outs = []
+    for name, main in (("port", report.main), ("ref", jreport.main)):
+        root = tmp_path / name
+        _gc_tree(root)
+        _prewarm_state(root / "state", now)
+        monkeypatch.setenv("SBR_PREWARM_STATE_DIR", str(root / "state"))
+        code = main(["gc", str(root / "runs"), "--keep", "2", "--prewarm-keep", keep])
+        left = sorted(str(p.relative_to(root)) for p in (root / "state").rglob("*"))
+        outs.append((code, capsys.readouterr().out.replace(str(root), "ROOT"), left))
+    assert outs[0] == outs[1] and outs[0][0] == 0
+    epochs = sorted({p.split("/")[1] for p in outs[0][2]})
+    assert epochs == (["plan_00", "plan_04"] if keep == "1" else ["plan_00", "plan_03", "plan_04"])
+    assert "state/plan_04/tile_b00001_u00000.lease" not in outs[0][2]
 
 
 # -- python -m ---------------------------------------------------------------
@@ -653,7 +762,8 @@ def _cli(*argv, env=None):
 @pytest.mark.parametrize("case", ["render_json", "health_divergent", "resilience_gave_up",
                                   "elastic", "grad_nonfinite", "infomodel_breach",
                                   "memory_over", "serve_ok", "trace_orphaned", "slo_breach",
-                                  "util_floor", "demand_ok"])
+                                  "util_floor", "demand_ok", "fleet_lost", "prewarm_cold",
+                                  "summary_mixed"])
 def test_cli_as_a_module_loads_no_torch(run_dirs, case):
     sub, args, _, code, env = CASES[case]
     argv = ([sub] if sub else []) + [str(run_dirs[(case, "port")])] + args + (

@@ -12,9 +12,9 @@ Contracts:
   into one lane;
 - the result key differs from the reference's (the backend tag) while the
   params fingerprint equals it;
-- the caches, admission, the breaker, /healthz, the HTTP routes (the
-  scenario and population objects among them) and the not-ported entry
-  points behave as the reference's tests hold them;
+- the caches, admission, the breaker, /healthz and the HTTP routes (the
+  scenario and population objects among them) behave as the reference's
+  tests hold them; the audit and prewarm switches build their schedulers;
 - the served program reads nothing from the host and makes no host
   tensor, so a CUDA graph can capture it; the adaptive root-find's
   whole-budget form equals its checked form bit for bit;
@@ -644,13 +644,10 @@ def test_loadgen_assert_warm_on_the_cpu(capsys):
     assert summary["queries"] == 40 and summary["device"] == "cpu"
 
 
-@pytest.mark.parametrize("argv", [["--buckets", "-4"], ["--buckets", "x"], ["--buckets", ",,"],
-                                  ["--fleet", "2"], ["--answers-out", "a.jsonl"],
-                                  ["--audit-wait", "1"], ["--audit-fault", "{}"]])
+@pytest.mark.parametrize("argv", [["--buckets", "-4"], ["--buckets", "x"], ["--buckets", ",,"]])
 def test_loadgen_setup_errors_exit_2(argv, capsys):
     assert loadgen.main(argv + ["--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "bad --buckets" in err or "not ported" in err
+    assert "bad --buckets" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
@@ -831,13 +828,32 @@ def test_run_directories_raise(kw, tmp_path):
     assert "serve_batch" in kinds and kinds.count("serve_summary") == 1
 
 
-@pytest.mark.parametrize("var", ["SBR_PREWARM"])
-def test_unported_switches_raise(var, monkeypatch):
-    monkeypatch.setenv(var, "0")
-    Engine(device=CPU).close()  # off is fine
-    monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match=var):
-        Engine(device=CPU)
+@pytest.mark.parametrize("value", ["0", "1"])
+def test_prewarm_switch_builds_a_controller(value, monkeypatch, tmp_path):
+    """``SBR_PREWARM``, which raised as not ported: off builds no
+    controller, on builds one on the engine's device and dtype (started
+    with the engine, closed with it), and neither changes an answer."""
+    monkeypatch.setenv("SBR_PREWARM", value)
+    monkeypatch.setenv("SBR_TILE_CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.setenv("SBR_PREWARM_PLAN", str(tmp_path / "no_plan.json"))
+    engine = Engine(config=tparams.SolverConfig(n_grid=64, bisect_iters=20,
+                                                refine_crossings=False),
+                    dtype=torch.float32, device=CPU)
+    try:
+        engine.start()
+        res = engine.query(tparams.make_model_params())
+        if value == "0":
+            assert engine.prewarm is None and "sbr_prewarm" not in engine.prometheus()
+        else:
+            assert (engine.prewarm._device, engine.prewarm._dtype) == (engine.device,
+                                                                     torch.float32)
+            assert engine.prewarm._thread.is_alive()
+            assert engine.statz()["prewarm"]["status"] in ("idle", "no_cache")
+    finally:
+        engine.close()
+    if value == "1":
+        assert not engine.prewarm._thread.is_alive()
+    assert res.status == 0 and np.isfinite(res.xi)
 
 
 @pytest.mark.parametrize("value", ["0", "1"])
