@@ -91,7 +91,18 @@ runs with the audit scheduler off and on (answers bit-identical, the
 overhead ratio, a corrupt plan latching ``/healthz``), gc prunes the
 audit artifacts, and the battery runs on the card against the CPU. The
 profiles read the profiler's raw device events (`_device_rows`), held
-once to ``key_averages``. It prints one JSON line per phase, and beside
+once to ``key_averages``. Then slice 16, the sharded paths: the
+north-star graph's agent matrix (gather with the "scatter" and
+"allgather_psum" comms, incremental) on an agent mesh at world size 1
+(NCCL, in this process) and 2 (gloo ranks, two child processes of this
+script sharing the card), every rank bit for bit the single-device run,
+both kernels against their plain versions on the sharded shapes, the
+world-1 run profiled (collectives against kernels, launches from the raw
+device events), the sharded graph build byte-identical to the host
+prepare, the 500×500 float32 Figure-5 grid on a (1, 2) mesh and the
+K=1000 hetero solve on a 2-rank "k" mesh against one device; and the
+matrix on CPU and card meshes of one gloo group, bit for bit
+(``sharded_cpu``). It prints one JSON line per phase, and beside
 the serving, scenario, population, rewire, grad, tiled, telemetry and
 audit numbers the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -1742,8 +1753,13 @@ STRETCH = (np.linspace(0.5, 3.0, 10), np.linspace(0.0, 0.45, 10), np.linspace(0.
 EXT_ORACLE_XI = 1e-5
 # the interest scan is profiled at this n_grid (its kernels an interval):
 # the full-width scan runs ~10^6 kernels; the adaptive scan's count barely
-# shrinks with the grid (~3.8×10^5 at n_grid 64 too), so the grid stays
-EXT_PROFILE_GRID = 256
+# shrinks with the grid (~3.8×10^5 at n_grid 64 against 5.4×10^5 at 256),
+# and a kernel an interval is read the same at any grid
+EXT_PROFILE_GRID = 64
+# card against CPU: Sections 2 and 3 at this n_grid, and the stretch
+# sweep's sub-grid of EXT_CPU_SUB points an axis at n_grid 1024
+EXT_CPU_GRID = 1024
+EXT_CPU_SUB = 3
 # a case whose cold call takes longer is not called a second time
 EXT_REPEAT_MAX_S = 5.0
 # values that pass through bs32: its own rtol bounds what a step decision
@@ -1873,13 +1889,14 @@ def phase_extensions() -> dict:
 
 def phase_extensions_cpu_vs_card() -> None:
     """The port on the card against the port on the CPU: Sections 2 and 3
-    at n_grid 4096 in both numerics, and a 4×4×4 sub-grid of the stretch
-    policy sweep at n_grid 1024 in float32 and float64, both numerics.
+    at n_grid EXT_CPU_GRID in both numerics, and an EXT_CPU_SUB³ sub-grid
+    of the stretch policy sweep at n_grid 1024 in float32 and float64, both
+    numerics.
     Statuses and flags equal; floats within 1e-12 (f64) and 2e-5 (f32),
     and values that pass through bs32 (adaptive Section 3 and adaptive
     sweeps) within BS32_TOL."""
-    sub = tuple(a[np.linspace(0, 9, 4).astype(int)] for a in STRETCH)
-    cases = [("section2", torch.float64, 4096), ("section3", torch.float64, 4096),
+    sub = tuple(a[np.linspace(0, 9, EXT_CPU_SUB).astype(int)] for a in STRETCH)
+    cases = [("section2", torch.float64, EXT_CPU_GRID), ("section3", torch.float64, EXT_CPU_GRID),
              ("policy", torch.float64, 1024), ("policy", torch.float32, 1024)]
     for name, dtype, n_grid in cases:
         for numerics in ("fixed", "adaptive"):
@@ -3470,10 +3487,14 @@ def phase_figures_cpu_vs_card() -> None:
 # shape, bench_grad's calibration fixture, the 256×256 scenario grid, the
 # stretch policy sweep, a 10^6-agent generated graph). "small": the same
 # drive at sizes the CPU runs in seconds, for the card-against-CPU phase.
+# members of the obs and telemetry paths' population queries: half of
+# bench.py's 16 (POP_SEEDS, which the population phase keeps), a depth cut
+# that made room for the sharded phases
+OBS_POP_SEEDS = 8
 OBS_SIZES = {
     "full": dict(pool=64, queries=2048, group=16, buckets=(1, 8, 64), grads=64,
-                 cfg=BENCH_SWEEP_CFG, pop_n=POP_N, pop_seeds=POP_SEEDS, sweep_n=BENCH_SWEEP_N,
-                 tile=BENCH_SWEEP_TILE, calib_obs=48, scen_n=SCEN_N,
+                 cfg=BENCH_SWEEP_CFG, pop_n=POP_N, pop_seeds=OBS_POP_SEEDS,
+                 sweep_n=BENCH_SWEEP_N, tile=BENCH_SWEEP_TILE, calib_obs=48, scen_n=SCEN_N,
                  policy=(10, 10, 10), graph_n=1_000_000),
     "small": dict(pool=8, queries=48, group=8, buckets=(1, 8), grads=8,
                   cfg=dict(n_grid=96, bisect_iters=40, refine_crossings=False), pop_n=2_000,
@@ -4077,8 +4098,9 @@ def phase_obs_cpu_vs_card() -> None:
 TELEM_SIZES = {
     "full": dict(pool=64, queries=2048, group=16, buckets=(1, 8, 64), cold=4096, cold_group=64,
                  profiled_cold=1024,
-                 cfg=BENCH_SWEEP_CFG, pop_n=POP_N, pop_seeds=POP_SEEDS, sweep_n=BENCH_SWEEP_N,
-                 tile=BENCH_SWEEP_TILE, loadgen_queries=512, breach_rounds=6, rounds=3),
+                 cfg=BENCH_SWEEP_CFG, pop_n=POP_N, pop_seeds=OBS_POP_SEEDS,
+                 sweep_n=BENCH_SWEEP_N, tile=BENCH_SWEEP_TILE, loadgen_queries=512,
+                 breach_rounds=6, rounds=2),
     "small": dict(pool=8, queries=48, group=8, buckets=(1, 8), cold=32, cold_group=8,
                   cfg=dict(n_grid=96, bisect_iters=40, refine_crossings=False), pop_n=2_000,
                   pop_seeds=2, sweep_n=16, tile=8, loadgen_queries=48, breach_rounds=6,
@@ -5849,17 +5871,550 @@ def phase_fleet_cpu_vs_card() -> None:
             raise AssertionError("prewarm: card and CPU differ")
 
 
+# ---------------------------------------------------------------------------
+# Slice 16: the sharded paths (mesh=)
+# ---------------------------------------------------------------------------
+
+# The north-star graph (Erdős–Rényi, 10^6 agents, mean degree 10, seed 0)
+# and the agents' main-path config, sharded over 1 rank (NCCL, this
+# process) and 2 ranks (gloo, two child processes sharing the card).
+SHARD_WORLD = 2
+SHARD_TIMEOUT_S = 900
+# the comm × engine matrix: the incremental engine ignores comm
+SHARD_RUNS = (("gather", "scatter"), ("gather", "allgather_psum"), ("incremental", "scatter"))
+# sharded_cpu: the same matrix at this size on CPU and card meshes
+SHARD_CPU_N, SHARD_CPU_STEPS = 100_000, 60
+# tests/test_hetero.py's K-sharded case, at SolverConfig()
+SHARD_HETERO_K = 1000
+SHARD_HETERO_TOL = 1e-9
+
+
+def _shard_graph(n: int = N_FULL, seed: int = 0):
+    """(src, dst, canonical): the host graph once canonicalized, shared by
+    every prepare of the phase (`prepare_agent_graph`'s ``_canonical``)."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.social import agents as A
+
+    src, dst = st.erdos_renyi_edges(n, 10.0, seed=seed)
+    return src, dst, A._canonicalize_graph(1.0, src, dst, n, np.float32)
+
+
+@contextlib.contextmanager
+def _collective_clock():
+    """Host seconds spent inside the collectives the sharded engines call
+    (`parallel.collectives` through `social.agents`'s module alias). On a
+    gloo group on the card each call copies through the host, so its host
+    time is its whole cost; on NCCL it is the enqueue only (the device
+    side is read from the profiler)."""
+    from sbr_tpu_torch.parallel import collectives as C
+
+    clock = types.SimpleNamespace(seconds=0.0, calls=0)
+    names = ("all_gather", "psum", "psum_scatter")
+    saved = {k: getattr(C, k) for k in names}
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                clock.seconds += time.perf_counter() - t0
+                clock.calls += 1
+        return wrapper
+
+    for k in names:
+        setattr(C, k, timed(saved[k]))
+    try:
+        yield clock
+    finally:
+        for k, fn in saved.items():
+            setattr(C, k, fn)
+
+
+def _shard_sims(mesh, src, dst, canonical, n: int, steps: int, device: str, save=None) -> list:
+    """Each run of SHARD_RUNS on ``mesh``, after a 2-step warm-up on the
+    same prepared graph (the recount's launch plan and the allocator's
+    first blocks): its launches (set to 0 just before the run, read just
+    after), seconds, collective seconds; with ``save`` the state is
+    written to ``save(engine, comm)`` (an npz path)."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.social.fused import KERNEL
+    from sbr_tpu_torch.social.recount import KERNEL as RECOUNT
+
+    cfg = st.AgentSimConfig(n_steps=steps, dt=0.1)
+    rows, results = [], {}
+    for engine, comm in SHARD_RUNS:
+        t0 = time.perf_counter()
+        pg = st.prepare_agent_graph(1.0, src, dst, n, config=cfg, mesh=mesh, engine=engine,
+                                    comm=comm, _canonical=canonical)
+        prepare_s = time.perf_counter() - t0
+        st.simulate_agents(prepared=pg, x0=1e-4, seed=0,
+                           config=st.AgentSimConfig(n_steps=2, dt=0.1))
+        _build.reset_launches()
+        with _collective_clock() as clock:
+            t0 = time.perf_counter()
+            res = st.simulate_agents(prepared=pg, x0=1e-4, config=cfg, seed=0)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            sim_s = time.perf_counter() - t0
+        recounts = int(res.full_recount_steps.sum())
+        launches = {"infection_update": _build.LAUNCHES[KERNEL],
+                    "recount_gather": _build.LAUNCHES[RECOUNT]}
+        if device == "cuda":
+            want = {"infection_update": steps,
+                    "recount_gather": steps if (engine, comm) == ("gather", "scatter")
+                    else (recounts if engine == "incremental" else 0)}
+            if launches != want:
+                raise AssertionError(f"{engine}/{comm}: launches {launches}, want {want}")
+        rows.append(dict(engine=engine, comm=comm, n=n, steps=steps, n_gl=pg.n_gl,
+                         local_edges=int(pg.src.shape[0]), prepare_s=prepare_s, simulate_s=sim_s,
+                         step_ms=sim_s / steps * 1e3, collective_host_s=clock.seconds,
+                         collective_calls=clock.calls, recount_steps=recounts,
+                         launches=launches, agent_steps_per_s=n * steps / sim_s,
+                         final_informed_frac=float(res.informed_frac[-1])))
+        if save is not None:
+            np.savez(save(engine, comm), **{
+                f: getattr(res, f).cpu().numpy()
+                for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac")})
+        results[(engine, comm)] = res
+        del pg
+    return rows, results
+
+
+def _sharded_kernel_rows(canonical) -> tuple:
+    """Both kernels against their plain versions on the sharded shapes,
+    bit for bit, timed: the infection step on a rank's block (10^6 agents
+    at world 1; 500,000 at world 2, rank 1's with the global id0 500,000,
+    so a wrong offset would show as a different draw), and the recount
+    gather of the all-gathered packed mask (10^6 agents) over a rank's
+    edge chunk (all of it at world 1, rank 1's at world 2)."""
+    from sbr_tpu_torch.social import fused, recount
+    from sbr_tpu_torch.social import rng as R
+
+    k0, k1 = R.fold_in(R.prng_key(0), 17)
+    dt = 0.1
+    t_next = float(np.float32(18) * np.float32(dt))
+    inf_rows, rec_rows = [], []
+    for world, rank in ((1, 0), (SHARD_WORLD, SHARD_WORLD - 1)):
+        nb = N_FULL // world
+        id0 = rank * nb
+        informed, t_inf, counts, betas, safe_deg = _kernel_inputs(nb, np.float32, seed=world)
+        args = (informed, t_inf, counts, betas, safe_deg, id0, k0, k1, t_next, dt)
+        got_i, got_t = fused._update_cuda(*args)
+        want_i, want_t = fused._update_plain(*args)
+        torch.cuda.synchronize()
+        mism = int(((got_i != want_i) | (got_t != want_t)).sum())
+        # the draw of id0 + i differs from that of i: the offset is live
+        off_i, _ = fused._update_plain(informed, t_inf, counts, betas, safe_deg, 0, k0, k1,
+                                       t_next, dt)
+        offset_live = id0 == 0 or bool((off_i != want_i).any())
+        b_ms, b_by = bound_ms(nb, torch.float32)
+        row = dict(world=world, rank=rank, n=nb, id0=id0, dtype="float32", mismatches=mism,
+                   max_abs_err=0.0 if mism == 0 else float("nan"), offset_live=offset_live,
+                   ms=time_ms(lambda: fused._update_cuda(*args)),
+                   plain_ms=time_ms(lambda: fused._update_plain(*args)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        emit("sharded_kernel_vs_plain", kernel="infection_update", **row)
+        if mism or not offset_live:
+            raise AssertionError(f"infection kernel on the sharded shape: {row}")
+        inf_rows.append(row)
+        del informed, t_inf, counts, betas, safe_deg, got_i, got_t, want_i, want_t, off_i
+
+        src_all = canonical[1]
+        e_pad = (-len(src_all)) % world
+        src_p = np.concatenate([src_all, np.zeros(e_pad, np.int32)])
+        e_local = len(src_p) // world
+        src = torch.from_numpy(np.ascontiguousarray(src_p[rank * e_local:(rank + 1) * e_local]))
+        src = src.to("cuda")
+        wd = torch.from_numpy(np.random.default_rng(world).random(N_FULL) < 0.3).to("cuda")
+        packed = recount.pack_mask(wd)
+        got = recount.bit_gather(packed, src)
+        ref = recount.bit_gather_plain(packed, src)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum())
+        wd_i32 = wd.to(torch.int32)
+        b_ms, b_by = recount_bound_ms(packed.numel(), src.numel())
+        row = dict(world=world, rank=rank, n_agents=N_FULL, n_edges=src.numel(),
+                   mask_bytes=packed.numel(), branch=recount.LAST_BRANCH["packed"],
+                   mismatches=mism, max_abs_err=int((got - ref).abs().max()),
+                   ms=time_ms(lambda: recount.bit_gather(packed, src)),
+                   plain_ms=time_ms(lambda: recount.bit_gather_plain(packed, src)),
+                   library_ms=time_ms(lambda: torch.index_select(wd_i32, 0, src)),
+                   bound_ms=b_ms, bound_by=b_by)
+        emit("sharded_kernel_vs_plain", kernel="recount_gather", **row)
+        if mism:
+            raise AssertionError(f"recount kernel on the sharded shape: {row}")
+        rec_rows.append(row)
+        del src, wd, packed, got, ref, wd_i32
+        torch.cuda.empty_cache()
+    return inf_rows, rec_rows
+
+
+def _device_split(prof) -> tuple:
+    """Device ms of a profiled run by kind (NCCL's collectives, the two
+    kernels of the port, copies and sets, the rest), the largest rows,
+    the device's busy ms as the union of its events' intervals (streams
+    may overlap), and the two kernels' launches from the raw events."""
+    split = {"collectives_ms": 0.0, "infection_ms": 0.0, "recount_ms": 0.0, "copies_ms": 0.0,
+             "other_ms": 0.0}
+    counts = {"infection_update": 0, "recount_gather": 0}
+    rows, spans = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        # the schedule's ProfilerStep range is mirrored on the device as a
+        # user annotation spanning the step: not a kernel
+        if e.name().startswith("ProfilerStep") or e.is_user_annotation():
+            continue
+        name, ms = e.name(), e.duration_ns() / 1e6
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        row = rows.setdefault(name, [0.0, 0])
+        row[0] += ms
+        row[1] += 1
+        low = name.lower()
+        if "nccl" in low:
+            split["collectives_ms"] += ms
+        elif "infection_update_kernel" in name:
+            split["infection_ms"] += ms
+            counts["infection_update"] += 1
+        elif "recount_gather_kernel" in name:
+            split["recount_ms"] += ms
+            counts["recount_gather"] += 1
+        elif "memcpy" in low or "memset" in low:
+            split["copies_ms"] += ms
+        else:
+            split["other_ms"] += ms
+    busy_ns, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy_ns += b - a
+            end = b
+        elif b > end:
+            busy_ns += b - end
+            end = b
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
+    split["busy_ms"] = busy_ns / 1e6
+    split["top"] = [{"kernel": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]
+    return split, counts
+
+
+def _profile_sharded(mesh, src, dst, canonical, cfg) -> dict:
+    """One steady sharded gather/scatter run unprofiled (its wall time),
+    then one under torch.profiler as the active step of a schedule whose
+    warm-up step is one more run (the first kernels after the tracer
+    starts can go unrecorded): the device time split by kind, the busy
+    share against the unprofiled wall, and the two kernels' launch counts
+    read from the raw device events, held to the counters."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.social.fused import KERNEL
+    from sbr_tpu_torch.social.recount import KERNEL as RECOUNT
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    pg = st.prepare_agent_graph(1.0, src, dst, N_FULL, config=cfg, mesh=mesh, engine="gather",
+                                comm="scatter", _canonical=canonical)
+
+    def run():
+        st.simulate_agents(prepared=pg, x0=1e-4, config=cfg, seed=0)
+        torch.cuda.synchronize()
+
+    run()
+    with _collective_clock() as clock:
+        t0 = time.perf_counter()
+        run()
+        steady_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
+        prof.step()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run()
+        wall_s = time.perf_counter() - t0
+        counters = {"infection_update": _build.LAUNCHES[KERNEL],
+                    "recount_gather": _build.LAUNCHES[RECOUNT]}
+        prof.step()
+    split, counts = _device_split(prof)
+    if counts != counters:
+        raise AssertionError(f"profiler launches {counts} against the counters {counters}")
+    # busy: the union of the device's intervals in the profiled run, over
+    # that run's wall time
+    return dict(wall_ms_profiled=wall_s * 1e3, wall_ms=steady_s * 1e3,
+                collective_host_ms=clock.seconds * 1e3,
+                device_busy_share=split["busy_ms"] / (wall_s * 1e3), profiler_launches=counts,
+                step_wall_ms=steady_s * 1e3 / cfg.n_steps,
+                step_busy_ms=split["busy_ms"] / cfg.n_steps, **split)
+
+
+def _same_state(a: dict, b) -> bool:
+    return all(np.array_equal(a[f], getattr(b, f).cpu().numpy())
+               for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac"))
+
+
+def _world2(parts: tuple) -> dict:
+    """SHARD_WORLD child processes of this script, each a gloo rank on the
+    card (NCCL takes no two ranks on one device), run ``parts`` ("card",
+    "cpu"); joined with a timeout and killed in a ``finally``. Returns
+    each rank's rows and the directory of its saved states."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="sbr_sharded_")
+    store = f"{tmp}/store"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(SHARD_WORLD):
+            log = open(f"{tmp}/rank{r}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "_rank", str(r), str(SHARD_WORLD), store, tmp,
+                 ",".join(parts)], stdout=log, stderr=subprocess.STDOUT,
+            ))
+        for p in procs:
+            p.wait(timeout=SHARD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = open(f"{tmp}/rank{r}.log").read()[-4000:]
+            raise AssertionError(f"sharded rank {r} exited {p.returncode}:\n{tail}")
+    ranks = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(SHARD_WORLD)]
+    return {"dir": tmp, "ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def _rank_main(argv) -> int:
+    """A child rank of `_world2`: the group, then its parts; its rows go to
+    ``<dir>/rank<r>.json``, its states to npz files beside them."""
+    rank, world, store, tmp, parts = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    torch.cuda.set_device(0)
+    import torch.distributed as dist
+
+    from sbr_tpu_torch.parallel import initialize_distributed
+
+    t0 = time.perf_counter()
+    initialize_distributed(f"file://{store}", world, rank, backend="gloo", device="cuda",
+                           timeout_s=SHARD_TIMEOUT_S)
+    out = {"rank": rank, "ready_s": time.perf_counter() - T_START}
+    try:
+        if "card" in parts.split(","):
+            out.update(_rank_card(rank, tmp))
+        if "cpu" in parts.split(","):
+            out["cpu"] = _rank_cpu()
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _rank_card(rank: int, tmp: str) -> dict:
+    """A rank's card work: the agent matrix at full width, the sharded
+    build against the host prepare, the Figure-5 grid on a (1, 2) mesh and
+    the K=1000 hetero solve on a "k" mesh, each against the single-device
+    port on the card."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.hetero import (get_aw_hetero, solve_equilibrium_hetero,
+                                      solve_hetero_sharded, solve_learning_hetero)
+    from sbr_tpu_torch.models.params import SolverConfig, make_hetero_params, make_model_params
+    from sbr_tpu_torch.parallel import make_agent_mesh, make_grid_mesh
+    from sbr_tpu_torch.social import graphgen as G
+    from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid
+
+    out = {}
+    src, dst, canonical = _shard_graph()
+    mesh = make_agent_mesh(device="cuda")
+    out["agents"], _ = _shard_sims(mesh, src, dst, canonical, N_FULL, STEPS_FULL, "cuda",
+                                   save=lambda e, c: f"{tmp}/rank{rank}_{e}_{c}.npz")
+    out["profile"] = _profile_sharded(mesh, src, dst, canonical,
+                                      st.AgentSimConfig(n_steps=STEPS_FULL, dt=0.1))
+    del src, dst, canonical
+
+    # the sharded build of the same graph law against the host prepare
+    spec = G.ErdosRenyiSpec(N_FULL, 10.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg_d = G.prepare_generated_graph(spec, seed=0, mesh=mesh, engine="incremental")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gs, gd = G.generate_edges(spec, seed=0, device="cuda")
+    pg_h = st.prepare_agent_graph(1.0, gs, gd, N_FULL, mesh=mesh, engine="incremental")
+    pairs = {"src": (pg_d.src, pg_h.src), "row_ptr": (pg_d.row_ptr, pg_h.row_ptr),
+             "indeg": (pg_d.indeg, pg_h.indeg), "betas": (pg_d.betas, pg_h.betas),
+             **{k: (a, b) for k, a, b in zip(("dst2", "lstart", "ldeg"), pg_d.inc, pg_h.inc)}}
+    differ = [k for k, (a, b) in pairs.items() if not torch.equal(a.cpu(), b.cpu())]
+    out["build"] = dict(n=N_FULL, edges=pg_d.n_edges, local_edges=int(pg_d.src.shape[0]),
+                        build_s=build_s, differing=differ)
+    del pg_d, pg_h, gs, gd
+
+    # the 500×500 float32 Figure-5 grid on a (1, 2) mesh
+    betas, us = _figure5_axes(500)
+    cfg = SolverConfig(refine_crossings=False)
+    gmesh = make_grid_mesh(shape=(1, SHARD_WORLD), device="cuda")
+    secs = []
+    for _ in range(2):  # cold, then steady
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh = beta_u_grid(betas, us, make_model_params(), cfg, mesh=gmesh, dtype=torch.float32)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    one = beta_u_grid(betas, us, make_model_params(), cfg, dtype=torch.float32, device="cuda")
+    fields = ("xi", "max_aw", "status")
+    out["grid"] = dict(cells=500 * 500, cold_s=secs[0], seconds=secs[1],
+                       equilibria_per_s=500 * 500 / secs[1],
+                       differing=[f for f in fields if not _bits_equal(getattr(sh, f).cpu(),
+                                                                        getattr(one, f).cpu())]
+                       + ([] if torch.equal(sh.health.flags, one.health.flags) else ["flags"]))
+
+    # the K=1000 hetero solve on a "k" mesh, at SolverConfig()
+    rng = np.random.default_rng(0)
+    hb = np.exp(rng.uniform(np.log(0.2), np.log(5.0), SHARD_HETERO_K))
+    hd = rng.dirichlet(np.ones(SHARD_HETERO_K))
+    m = make_hetero_params(betas=hb, dist=hd / hd.sum(), eta_bar=15.0, u=0.1, p=0.5, kappa=0.6,
+                           lam=0.01)
+    hcfg = SolverConfig()
+    kmesh = make_agent_mesh(axis_name="k", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, res, aw = solve_hetero_sharded(m, kmesh, hcfg)
+    torch.cuda.synchronize()
+    hetero_s = time.perf_counter() - t0
+    lsh1 = solve_learning_hetero(m.learning, hcfg, device="cuda")
+    res1 = solve_equilibrium_hetero(lsh1, m.economic, hcfg)
+    aw1 = get_aw_hetero(res1, lsh1)
+    out["hetero"] = dict(k=SHARD_HETERO_K, seconds=hetero_s, xi=float(res.xi),
+                         xi_single=float(res1.xi), xi_err=abs(float(res.xi) - float(res1.xi)),
+                         aw_cum_err=float((aw.aw_cum - aw1.aw_cum).abs().max()),
+                         status_equal=bool(torch.equal(res.status, res1.status)),
+                         flags_equal=bool(torch.equal(res.health.flags, res1.health.flags)))
+    return out
+
+
+def _rank_cpu() -> list:
+    """sharded_cpu on a rank: the agent matrix at SHARD_CPU_N on a CPU
+    mesh and on a card mesh of the same gloo group, compared bit for bit."""
+    from sbr_tpu_torch.parallel import make_agent_mesh
+
+    src, dst, canonical = _shard_graph(SHARD_CPU_N, seed=3)
+    rows = []
+    _, on_cpu = _shard_sims(make_agent_mesh(device="cpu"), src, dst, canonical, SHARD_CPU_N,
+                            SHARD_CPU_STEPS, "cpu")
+    _, on_card = _shard_sims(make_agent_mesh(device="cuda"), src, dst, canonical, SHARD_CPU_N,
+                             SHARD_CPU_STEPS, "cuda")
+    for key, a in on_cpu.items():
+        b = on_card[key]
+        same = all(torch.equal(getattr(a, f), getattr(b, f).cpu())
+                   for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac",
+                             "full_recount_steps"))
+        rows.append(dict(engine=key[0], comm=key[1], n=SHARD_CPU_N, steps=SHARD_CPU_STEPS,
+                         equal=same, final_informed_frac=float(b.informed_frac[-1])))
+    return rows
+
+
+def phase_sharded(card: str, w2: dict) -> dict:
+    """The sharded paths on the card at full width: the agent matrix
+    (gather × {scatter, allgather_psum}, incremental) on the north-star
+    graph at world size 1 (NCCL, this process) and 2 (gloo ranks sharing
+    the card, `_world2`), each rank's result bit for bit the single-device
+    port's; both kernels against their plain versions on the sharded
+    shapes; the world-1 run profiled (device time by kind, busy share,
+    launches from the raw device events held to the counters); the
+    sharded build, the Figure-5 grid on a (1, 2) mesh and the K=1000
+    hetero solve on a 2-rank "k" mesh from the ranks. Returns each
+    kernel's launches on the path and its sharded-shape rows."""
+    import sbr_tpu_torch as st
+    import torch.distributed as dist
+
+    from sbr_tpu_torch.parallel import make_agent_mesh
+
+    src, dst, canonical = _shard_graph()
+    cfg = st.AgentSimConfig(n_steps=STEPS_FULL, dt=0.1)
+    single = st.simulate_agents(
+        prepared=st.prepare_agent_graph(1.0, src, dst, N_FULL, config=cfg, engine="gather",
+                                        _canonical=canonical, device="cuda"),
+        x0=1e-4, config=cfg, seed=0)
+    launches = {"infection_update": 0, "recount_gather": 0}
+    try:
+        mesh = make_agent_mesh(device="cuda")
+        backend = dist.get_backend()
+        rows, results = _shard_sims(mesh, src, dst, canonical, N_FULL, STEPS_FULL, "cuda")
+        for row in rows:
+            res = results[(row["engine"], row["comm"])]
+            same = _same(single, res)
+            emit("sharded_agents", card=card, world=1, backend=backend, equal_single=same, **row)
+            if not same:
+                raise AssertionError(f"world 1 {row['engine']}/{row['comm']} differs from one device")
+            for k in launches:
+                launches[k] += row["launches"][k]
+        prof = _profile_sharded(mesh, src, dst, canonical, cfg)
+        emit("sharded_profile", card=card, world=1, backend=backend, engine="gather",
+             comm="scatter", n=N_FULL, steps=STEPS_FULL, **prof)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    inf_rows, rec_rows = _sharded_kernel_rows(canonical)
+    del src, dst, canonical
+
+    single_np = {f: getattr(single, f).cpu().numpy()
+                 for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac")}
+    for r, out in enumerate(w2["ranks"]):
+        for row in out["agents"]:
+            with np.load(f"{w2['dir']}/rank{r}_{row['engine']}_{row['comm']}.npz") as z:
+                same = all(np.array_equal(z[f], v) for f, v in single_np.items())
+            emit("sharded_agents", card=card, world=SHARD_WORLD, backend="gloo", rank=r,
+                 equal_single=same, ready_s=out["ready_s"], **row)
+            if not same:
+                raise AssertionError(f"rank {r} {row['engine']}/{row['comm']} differs from one device")
+            if r == 0:
+                for k in launches:
+                    launches[k] += row["launches"][k]
+        emit("sharded_profile", card=card, world=SHARD_WORLD, backend="gloo", rank=r,
+             engine="gather", comm="scatter", n=N_FULL, steps=STEPS_FULL, **out["profile"])
+        emit("sharded_build", card=card, world=SHARD_WORLD, rank=r, **out["build"])
+        emit("sharded_grid", card=card, world=SHARD_WORLD, rank=r, mesh=[1, SHARD_WORLD],
+             dtype="float32", **out["grid"])
+        emit("sharded_hetero", card=card, world=SHARD_WORLD, rank=r, tol=SHARD_HETERO_TOL,
+             **out["hetero"])
+        h = out["hetero"]
+        if out["build"]["differing"] or out["grid"]["differing"]:
+            raise AssertionError(f"rank {r}: sharded build or grid differs: {out}")
+        if not (h["xi_err"] <= SHARD_HETERO_TOL and h["aw_cum_err"] <= SHARD_HETERO_TOL
+                and h["status_equal"] and h["flags_equal"]):
+            raise AssertionError(f"rank {r}: sharded hetero off the single-device solve: {h}")
+    emit("sharded_kernel_launches", launches=launches, world2_s=w2["seconds"])
+    for k, v in launches.items():
+        if not v:
+            raise AssertionError(f"the sharded path launched {k} no time")
+    return {"launches": launches, "infection_rows": inf_rows, "recount_rows": rec_rows}
+
+
+def phase_sharded_cpu(w2: dict) -> None:
+    """The sharded agent matrix on a CPU mesh against a card mesh of the
+    same 2-rank gloo group (`_rank_cpu`), bit for bit on every rank."""
+    for r, out in enumerate(w2["ranks"]):
+        for row in out["cpu"]:
+            emit("sharded_cpu_vs_card", world=SHARD_WORLD, rank=r, **row)
+            if not row["equal"]:
+                raise AssertionError(f"rank {r}: sharded CPU and card runs differ: {row}")
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
           "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu", "audit",
-          "audit_cpu", "fleet", "fleet_cpu")
+          "audit_cpu", "fleet", "fleet_cpu", "sharded", "sharded_cpu")
 
 
 def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict,
                           obs_launches: dict, telem_launches: dict, audit_launches: dict,
-                          fleet_launches: dict) -> dict:
+                          fleet_launches: dict, sharded: dict) -> dict:
     """The recount kernel's entry of the kernels line, its numbers from the
     production shape's packed row (10^6 agents, 10,092,544 edges)."""
     from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
@@ -5873,22 +6428,24 @@ def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dic
         "source": "sbr_tpu_torch/csrc/recount_gather.cu",
         "replaces": "benchmarks/ablate_pallas_recount.py:55",
         "replaces_function": "benchmarks/ablate_pallas_recount.py::_build_pallas_gather",
-        "launches": recount["launches"],
+        "launches": recount["launches"] + sharded["launches"]["recount_gather"],
         "launches_by_path": {"ablation": recount["launches"],
+                             "sharded": sharded["launches"]["recount_gather"],
                              "tiled": tiled_launches[RECOUNT_KERNEL],
                              "figures": fig_launches[RECOUNT_KERNEL],
                              "obs": obs_launches[RECOUNT_KERNEL],
                              "telemetry": telem_launches[RECOUNT_KERNEL],
                              "audit": audit_launches[RECOUNT_KERNEL],
                              "fleet": fleet_launches[RECOUNT_KERNEL]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "mismatches": sum(r["mismatches"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + sharded["recount_rows"]),
+        "mismatches": sum(r["mismatches"] for r in rows + sharded["recount_rows"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shapes": rows,
+        "sharded_shapes": sharded["recount_rows"],
     }
 
 
@@ -5969,6 +6526,12 @@ def main(argv) -> int:
     fleet_launches = phase_fleet(info["nvidia_smi"]) if "fleet" in wanted else {}
     if "fleet_cpu" in wanted:
         phase_fleet_cpu_vs_card()
+    parts = tuple(p for p, ph in (("card", "sharded"), ("cpu", "sharded_cpu")) if ph in wanted)
+    # one pair of child ranks serves both phases
+    w2 = _world2(parts) if parts else None
+    sharded = phase_sharded(info["nvidia_smi"], w2) if "sharded" in wanted else None
+    if "sharded_cpu" in wanted:
+        phase_sharded_cpu(w2)
     if "profile" in wanted:
         phase_profile()
     if wanted != set(PHASES):
@@ -5987,21 +6550,24 @@ def main(argv) -> int:
         "replaces_function": "sbr_tpu/social/fused.py::_pallas_update",
         "launches": (launches + loop_launches[KERNEL] + pop_launches[KERNEL]
                      + rewire_launches[KERNEL] + fig_launches[KERNEL] + obs_launches[KERNEL]
-                     + telem_launches[KERNEL] + audit_launches[KERNEL] + fleet_launches[KERNEL]),
+                     + telem_launches[KERNEL] + audit_launches[KERNEL] + fleet_launches[KERNEL]
+                     + sharded["launches"]["infection_update"]),
         "launches_by_path": {"agents": launches, "closures": loop_launches[KERNEL],
                              "population": pop_launches[KERNEL],
                              "rewire": rewire_launches[KERNEL], "tiled": tiled_launches[KERNEL],
                              "figures": fig_launches[KERNEL], "obs": obs_launches[KERNEL],
                              "telemetry": telem_launches[KERNEL],
-                             "audit": audit_launches[KERNEL], "fleet": fleet_launches[KERNEL]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "mismatches": sum(r["mismatches"] for r in rows),
+                             "audit": audit_launches[KERNEL], "fleet": fleet_launches[KERNEL],
+                             "sharded": sharded["launches"]["infection_update"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + sharded["infection_rows"]),
+        "mismatches": sum(r["mismatches"] for r in rows + sharded["infection_rows"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shapes": rows,
+        "sharded_shapes": sharded["infection_rows"],
     }, {
         "name": "belief_update",
         "route": "cuda",
@@ -6030,7 +6596,7 @@ def main(argv) -> int:
         "library_ms": None,
         "shapes": belief_rows,
     }, _recount_kernel_entry(recount, tiled_launches, fig_launches, obs_launches,
-                             telem_launches, audit_launches, fleet_launches)]
+                             telem_launches, audit_launches, fleet_launches, sharded)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],
@@ -6039,4 +6605,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["_rank"]:  # a child rank of the sharded phases
+        sys.exit(_rank_main(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

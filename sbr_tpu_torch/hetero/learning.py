@@ -15,8 +15,11 @@ Three routes, chosen as in the reference:
 - ``grid_warp == 0``, adaptive numerics: `core.ode.bs32` on the same grid;
   its flags ride along as ``ode_flags``.
 
-The group axis leads every table. The reference's ``axis_name`` (a group
-axis sharded across devices) is not ported yet: it raises.
+The group axis leads every table. ``axis_name`` is a sharded group axis,
+``(mesh, axis)`` of a ``DeviceMesh`` (the reference's shard_map axis name):
+each rank holds its block of the groups, and the ω reductions complete
+across ranks with a psum (summed in rank order, so at one rank it is the
+local sum itself; `hetero.sharded`).
 """
 
 from __future__ import annotations
@@ -34,20 +37,22 @@ from sbr_tpu_torch.models.results import LearningSolutionHetero
 from sbr_tpu_torch.social.agents import default_device
 
 
-def no_axis_name(axis_name) -> None:
-    """Refuse a sharded group axis, which the port does not have yet."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "a sharded group axis (axis_name) is not ported yet (ROADMAP.md 1.A "
-            "item 11); pass axis_name=None"
-        )
+def wreduce(x, axis_name):
+    """A group reduction completed over a sharded group axis
+    ``axis_name = (mesh, axis)`` (a psum); the identity without one."""
+    if axis_name is None:
+        return x
+    from sbr_tpu_torch.parallel.collectives import psum
+
+    return psum(x, *axis_name)
 
 
 def hetero_rhs(t, G, args):
-    """Coupled SI rhs for a (K,) state: (1 − G)·β·(dist·G)."""
+    """Coupled SI rhs for a (K,) state: (1 − G)·β·(dist·G), the ω sum
+    completed across ranks under a sharded group axis."""
     del t
-    betas, dist, _ = args
-    return (1.0 - G) * betas * torch.dot(dist, G)
+    betas, dist, axis_name = args
+    return (1.0 - G) * betas * wreduce(torch.dot(dist, G), axis_name)
 
 
 def hetero_substeps(params: LearningParamsHetero, config: SolverConfig) -> int:
@@ -62,11 +67,13 @@ def solve_learning_hetero_arrays(betas, dist, x0: float, grid, substeps: int,
                                  axis_name=None, adaptive_tols=None) -> LearningSolutionHetero:
     """The coupled K-ODE on ``grid``: RK4 with ``substeps`` micro-steps, or
     `bs32` with ``adaptive_tols = (rtol, atol)``, whose flags are kept as
-    ``ode_flags``."""
-    no_axis_name(axis_name)
+    ``ode_flags``. ``betas``/``dist`` are this rank's block of the groups
+    under ``axis_name``, where the ω reductions psum across ranks; the
+    sharded path keeps fixed RK4, as the reference's does (an adaptive
+    error norm would have to agree across ranks)."""
     g0 = torch.full(betas.shape, float(x0), dtype=betas.dtype, device=betas.device)
     ode_flags = None
-    if adaptive_tols is not None:
+    if adaptive_tols is not None and axis_name is None:
         rtol, atol = adaptive_tols
         cdfs, ode_health = bs32(
             hetero_rhs, g0, grid, args=(betas, dist, None), rtol=rtol, atol=atol,
@@ -74,9 +81,9 @@ def solve_learning_hetero_arrays(betas, dist, x0: float, grid, substeps: int,
         )
         ode_flags = ode_health.flags
     else:
-        cdfs = rk4(hetero_rhs, g0, grid, args=(betas, dist, None), substeps=substeps)
+        cdfs = rk4(hetero_rhs, g0, grid, args=(betas, dist, axis_name), substeps=substeps)
     cdfs = torch.clamp(cdfs.T, 0.0, 1.0)  # (K, n)
-    omega = dist @ cdfs
+    omega = wreduce(dist @ cdfs, axis_name)
     pdfs = (1.0 - cdfs) * betas[:, None] * omega[None, :]
     return LearningSolutionHetero(
         grid=grid, cdfs=cdfs, pdfs=pdfs, t0=grid[0], dt=grid[1] - grid[0],

@@ -13,9 +13,12 @@
 
 The scenario hooks ``hazard_transform`` and ``kappa_transform`` are the
 reference's, and so are its telemetry spans (``hetero.hazards``,
-``hetero.buffers``, ``hetero.xi``) and ``health`` census. Its
-``axis_name`` (a sharded group axis) is not ported yet: it raises unless
-``None``.
+``hetero.buffers``, ``hetero.xi``) and ``health`` census. Under ``axis_name``, a sharded group axis ``(mesh,
+axis)``, each rank holds its block of the groups; the dist-weighted AW
+sums are psums (in rank order), the bracket's upper end a pmax, and the
+no-crossing count and the crossing flags reduce across ranks, so every rank
+runs the identical ξ root-find and ξ, the status and the health come out
+replicated (`hetero.sharded`).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from sbr_tpu_torch.core.integrate import cumtrapz
 from sbr_tpu_torch.core.interp import interp, linspace
 from sbr_tpu_torch.core.rootfind import bisect, chandrupatla, first_upcrossing, last_downcrossing
 from sbr_tpu_torch.diag.health import as_out_crossing, or_reduce_flags
-from sbr_tpu_torch.hetero.learning import no_axis_name
+from sbr_tpu_torch.hetero.learning import wreduce
 from sbr_tpu_torch.models.params import EconomicParams, SolverConfig
 from sbr_tpu_torch.models.results import AWHetero, EquilibriumResultHetero, LearningSolutionHetero
 
@@ -81,7 +84,6 @@ def compute_xi_hetero(tau_bar_in_uncs, tau_bar_out_uncs, lsh: LearningSolutionHe
     is_increasing, first_crossing_ok), with the root-find's `Health`
     appended under ``with_health``. The slope test steps by the LOCAL
     learning-grid spacing at ξ (floored at 1e-9 of the span)."""
-    no_axis_name(axis_name)
     if config is None:
         config = SolverConfig()
     dtype, dev = lsh.dtype, lsh.device
@@ -91,11 +93,16 @@ def compute_xi_hetero(tau_bar_in_uncs, tau_bar_out_uncs, lsh: LearningSolutionHe
     def aw_of(xi):
         t_out = torch.minimum(tau_bar_out_uncs, xi)
         t_in = torch.minimum(tau_bar_in_uncs, xi)
-        return torch.dot(dist, _cdf_rows_at(lsh, t_out) - _cdf_rows_at(lsh, t_in))
+        return wreduce(torch.dot(dist, _cdf_rows_at(lsh, t_out) - _cdf_rows_at(lsh, t_in)),
+                       axis_name)
 
     lo = torch.zeros((), dtype=dtype, device=dev)
     hi = 2.0 * torch.max(tau_bar_out_uncs)
-    x0 = torch.dot(dist, 0.5 * (tau_bar_in_uncs + tau_bar_out_uncs))
+    if axis_name is not None:
+        from sbr_tpu_torch.parallel.collectives import pmax
+
+        hi = pmax(hi, *axis_name)
+    x0 = wreduce(torch.dot(dist, 0.5 * (tau_bar_in_uncs + tau_bar_out_uncs)), axis_name)
 
     if config.adaptive:
         out = chandrupatla(lambda x: aw_of(x) - kappa, lo, hi, budget=config.bisect_iters,
@@ -115,10 +122,12 @@ def compute_xi_hetero(tau_bar_in_uncs, tau_bar_out_uncs, lsh: LearningSolutionHe
     eps = torch.maximum(grid[i_xi + 1] - grid[i_xi], 1e-9 * (grid[-1] - grid[0]))
     t_out = torch.minimum(tau_bar_out_uncs, xi)
     t_in = torch.minimum(tau_bar_in_uncs, xi)
-    aw_eps = torch.dot(dist, _cdf_rows_at(lsh, t_out + eps) - _cdf_rows_at(lsh, t_in + eps))
+    aw_eps = wreduce(
+        torch.dot(dist, _cdf_rows_at(lsh, t_out + eps) - _cdf_rows_at(lsh, t_in + eps)),
+        axis_name)
     is_increasing = aw_eps >= aw
 
-    first_ok = _first_crossing_ok(xi, tau_bar_in_uncs, lsh, kappa)
+    first_ok = _first_crossing_ok(xi, tau_bar_in_uncs, lsh, kappa, axis_name=axis_name)
     if with_health:
         return xi, err, root_ok, is_increasing, first_ok, xi_health
     return xi, err, root_ok, is_increasing, first_ok
@@ -128,11 +137,10 @@ def _first_crossing_ok(xi_star, tau_bar_in_uncs, lsh: LearningSolutionHetero, ka
     """False when AW(t; ξ*) = Σ_k dist_k·(G_k(t) − G_k(max(0, t − τ_I_k)))
     crosses κ downward anywhere on the learning grid before ξ* (then an
     earlier crossing exists and the root is a false equilibrium)."""
-    no_axis_name(axis_name)
     t = lsh.grid
     tau_i = torch.clamp(xi_star - tau_bar_in_uncs, min=0.0)
     shifted = torch.clamp(t[None, :] - tau_i[:, None], min=0.0)  # (K, n)
-    aw_path = lsh.dist @ (lsh.cdfs - _cdf_rows_at(lsh, shifted))
+    aw_path = wreduce(lsh.dist @ (lsh.cdfs - _cdf_rows_at(lsh, shifted)), axis_name)
     in_range = t <= xi_star
     above = (aw_path > kappa) & in_range
     down = above[:-1] & ~above[1:] & in_range[1:]
@@ -155,7 +163,6 @@ def solve_equilibrium_hetero(lsh: LearningSolutionHetero, econ: EconomicParams,
     ``kappa_transform(kappa)`` gives the threshold of the ξ root-find.
     ``extra_health`` merges after the crossing and ξ health. With both
     ``None`` the solve is the hook-free one, bit for bit."""
-    no_axis_name(axis_name)
     if config is None:
         config = SolverConfig()
     t_start = time.perf_counter()
@@ -178,14 +185,20 @@ def solve_equilibrium_hetero(lsh: LearningSolutionHetero, econ: EconomicParams,
         tau_out_uncs, h_out = last_downcrossing(tau_grid, hrs, u, default, with_health=True)
         sp.sync(tau_in_uncs, tau_out_uncs)
     # no group can optimally exit
-    no_crossing = (tau_in_uncs != tau_out_uncs).sum() == 0
+    no_crossing = wreduce((tau_in_uncs != tau_out_uncs).sum(), axis_name) == 0
 
     with obs.span("hetero.xi") as sp:
         xi_c, err, root_ok, increasing, first_ok, xi_health = compute_xi_hetero(
-            tau_in_uncs, tau_out_uncs, lsh, kappa_eff, config, with_health=True
+            tau_in_uncs, tau_out_uncs, lsh, kappa_eff, config, axis_name=axis_name,
+            with_health=True,
         )
         sp.sync(xi_c)
     cross_flags = or_reduce_flags(h_in.flags | as_out_crossing(h_out).flags)
+    if axis_name is not None:
+        # OR across ranks: each rank's mask, gathered
+        from sbr_tpu_torch.parallel.collectives import all_gather
+
+        cross_flags = or_reduce_flags(all_gather(cross_flags.reshape(1), *axis_name))
     if lsh.ode_flags is not None:
         cross_flags = cross_flags | lsh.ode_flags
     health = xi_health.replace(flags=xi_health.flags | cross_flags)
@@ -219,8 +232,7 @@ def get_aw_hetero(result: EquilibriumResultHetero, lsh: LearningSolutionHetero,
     """Group-decomposed AW curves on the learning grid:
     AW_k(t) = G_k(max(0, t−ξ+τ̄_OUT_k^CON)) − G_k(max(0, t−ξ+τ̄_IN_k^CON)),
     each branch zeroed before its own start; the total is the dist-weighted
-    sum. A NaN ξ (no run) gives NaN curves."""
-    no_axis_name(axis_name)
+    sum (a psum under ``axis_name``). A NaN ξ (no run) gives NaN curves."""
     t = lsh.grid
     xi = result.xi
     nan_lane = torch.isnan(xi)
@@ -237,7 +249,7 @@ def get_aw_hetero(result: EquilibriumResultHetero, lsh: LearningSolutionHetero,
     aw_in_groups = branch(torch.minimum(result.tau_bar_in_uncs, xi))
     aw_out_groups = branch(torch.minimum(result.tau_bar_out_uncs, xi))
     aw_groups = aw_out_groups - aw_in_groups
-    aw_cum = lsh.dist @ aw_groups
+    aw_cum = wreduce(lsh.dist @ aw_groups, axis_name)
     return AWHetero(
         t_grid=t, aw_cum=aw_cum, aw_out_groups=aw_out_groups, aw_in_groups=aw_in_groups,
         aw_groups=aw_groups, aw_max=torch.max(aw_cum),

@@ -308,6 +308,11 @@ def simulate_info(
     if prepared is not None:
         if device is not None:
             raise ValueError("device= conflicts with prepared=: the prepared graph fixes it")
+        if prepared.mesh is not None:
+            raise ValueError(
+                "prepared= is sharded over a mesh: the information engines run on one "
+                "device (shard the gossip path through social.agents)"
+            )
         device = prepared.device
     device = torch.device(device) if device is not None else A.default_device()
     n = graph.n

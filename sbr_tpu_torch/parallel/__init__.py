@@ -1,8 +1,34 @@
-"""Multi-process sweep farming of the port (``sbr_tpu.parallel``): the
-storage-only part of ``parallel.distributed``, which shares a β×u sweep
-between processes through its checkpoint directory. The process-group
-bring-up and the mesh helpers wait for ROADMAP 1.A item 11."""
+"""Meshes, collectives and multi-process runs of the port
+(``sbr_tpu.parallel``).
 
-from sbr_tpu_torch.parallel.distributed import run_tiled_grid_multihost, tile_assignment
+- `mesh`: ``DeviceMesh`` construction (`make_agent_mesh`,
+  `make_grid_mesh`, `balanced_2d`) and `shard_axis_values`;
+- `collectives`: the ``lax`` collectives the sharded programs use, and
+  `exclusive_psum`;
+- `distributed`: `initialize_distributed` (one sharded program across
+  processes) and the storage-only sweep farm (`run_tiled_grid_multihost`).
+"""
 
-__all__ = ["run_tiled_grid_multihost", "tile_assignment"]
+from sbr_tpu_torch.parallel.collectives import exclusive_psum
+from sbr_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    run_tiled_grid_multihost,
+    tile_assignment,
+)
+from sbr_tpu_torch.parallel.mesh import (
+    balanced_2d,
+    make_agent_mesh,
+    make_grid_mesh,
+    shard_axis_values,
+)
+
+__all__ = [
+    "balanced_2d",
+    "exclusive_psum",
+    "initialize_distributed",
+    "make_agent_mesh",
+    "make_grid_mesh",
+    "run_tiled_grid_multihost",
+    "shard_axis_values",
+    "tile_assignment",
+]

@@ -26,9 +26,12 @@ With ``SBR_FLIGHT`` on, each poll of the static barrier's wait (and each
 elastic loop turn) lands a ``barrier_poll`` record on the flight
 recorder's ``collectives`` stream.
 
-`initialize_distributed` and the mesh helpers of the reference wait for
-ROADMAP 1.A item 11; the static split takes its default rank and world
-size from ``torch.distributed`` when a process group is initialized.
+**One sharded program across processes.** `initialize_distributed`
+brings up the ``torch.distributed`` process group (one rank a device);
+meshes built after it (`parallel.mesh`) span every rank, and the sharded
+agent sim, sweeps and hetero solve run across them unchanged. The static
+split takes its default rank and world size from that group when one is
+up.
 """
 
 from __future__ import annotations
@@ -44,6 +47,59 @@ from typing import Optional
 import numpy as np
 
 from sbr_tpu_torch.resilience import faults, heal, shutdown
+
+
+def initialize_distributed(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: Optional[str] = None,
+    device=None,
+    timeout_s: float = 600.0,
+) -> bool:
+    """Bring up the process group for a multi-process run; a single-process
+    no-op. Returns True when it initialized the group.
+
+    The arguments are the reference's: ``coordinator_address`` is
+    ``host:port`` (a TCP rendezvous), or a ``tcp://`` or ``file://`` URL;
+    with ``num_processes`` and ``process_id``. With no arguments the group
+    comes up only when the launcher's environment names one
+    (``MASTER_ADDR`` with ``RANK`` and ``WORLD_SIZE``, read by torch's
+    ``env://``), so single-process callers may call this unconditionally.
+
+    ``backend`` defaults to ``nccl`` for ranks on the card and ``gloo`` for
+    ranks on the CPU (``device``, default the CUDA card). Ranks that share
+    one card name ``gloo``: NCCL refuses two ranks on one device. Every
+    rendezvous and collective waits at most ``timeout_s``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    explicit = coordinator_address is not None or num_processes is not None
+    env = os.environ.get("MASTER_ADDR")
+    if not explicit and not env:
+        return False
+    if device is None:
+        from sbr_tpu_torch.social.agents import default_device
+
+        device = default_device()
+    device = torch.device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if coordinator_address is None:
+        init_method = "env://"
+    elif "://" in coordinator_address:
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
+    kw = {} if init_method == "env://" else dict(world_size=int(num_processes),
+                                                  rank=int(process_id))
+    dist.init_process_group(backend, init_method=init_method,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    if device.type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return True
 
 
 def tile_assignment(n_tiles: int, n_processes: int, process_id: int) -> range:

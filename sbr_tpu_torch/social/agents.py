@@ -9,8 +9,8 @@ dt::
     frac_i(t)      = (Σ_{j→i} withdrawn_j) / indegree_i    ← segmented reduce
     P(i informs)   = 1 - exp(-β_i · frac_i · dt)           ← exact hazard
 
-The port of ``sbr_tpu.social.agents`` for one device. Two engines compute
-the per-destination withdrawn-neighbor counts, bit-identical in results:
+The port of ``sbr_tpu.social.agents``. Two engines compute the
+per-destination withdrawn-neighbor counts, bit-identical in results:
 
 - "gather": full recount every step, an exact int32 prefix sum over the
   dst-sorted edges plus row-pointer gathers (`_seg_counts`).
@@ -26,8 +26,32 @@ come from the same numpy calls as in the JAX package, and the per-(agent,
 step) draw from the same Threefry stream, so the two packages agree bit for
 bit on the same inputs (tested).
 
-Not ported yet: device meshes (the sharded engines), ``engine="measure"``
-and the "foldin" RNG stream; each raises ``NotImplementedError``.
+**Sharding** (``mesh=``, a ``DeviceMesh`` of `parallel.mesh`): every rank
+of the mesh axis runs the same program on its block of agents
+(block-sharded by id, padded with inert agents to a multiple of the axis
+size, or of 8× it for the bitpacked paths) and its chunk of the
+dst-sorted edges (sharded by edge count). Agent ids stay global, so each
+rank's infection draws are keyed exactly as on one device, and the run is
+bit for bit the single-device run on any mesh. Per step, by ``comm``:
+
+- "scatter" (default): the withdrawn mask is packed to N/8 bytes
+  (`recount.pack_mask`), all-gathered, gathered per edge by
+  `recount.bit_gather` (the recount CUDA kernel on the card), reduced by
+  `_seg_counts` over this rank's edges and delivered by one
+  ``psum_scatter``, each rank receiving its own block's counts;
+- "allgather_psum": the naive baseline, a bool all-gather, `_seg_counts`,
+  a full psum and a slice.
+
+The incremental engine under a mesh (`_run_sharded`) shards the
+src-sorted out-edges by edge count, detects changes globally from the
+all-gathered packed mask, and falls back to the same bitpacked recount on
+an overflow anywhere. The collectives are those of
+`parallel.collectives`. The engines run eagerly: a CUDA graph cannot
+hold a collective of a gloo group.
+
+``engine="measure"`` in `prepare_agent_graph` times each candidate engine
+on the graph and keeps the faster. Not ported: the "foldin" RNG stream,
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +66,9 @@ import numpy as np
 import torch
 
 from sbr_tpu_torch.native import sort_edges_by_dst
+from sbr_tpu_torch.parallel import collectives as C
+from sbr_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
+from sbr_tpu_torch.social import recount
 from sbr_tpu_torch.social.fused import MODES, infection_update
 from sbr_tpu_torch.social.rng import prng_key
 
@@ -325,21 +352,52 @@ def _resolve_engine_from_outdeg(
     incremental_budget: Optional[int],
     d0: int,
     beta_mean: float,
+    mesh=None,
+    mesh_axis: str = "agents",
 ) -> str:
-    """The engine="auto" decision from the host out-degree census (one
-    device, so the census is the whole out-degree vector)."""
+    """The engine="auto" decision from the host out-degree census: the
+    whole out-degree vector on one device, the per-chunk slice tail under
+    a mesh, with the budget the runtime will use (per rank under a mesh,
+    times the axis size)."""
     if e == 0:
         return "gather"
+    outdeg_c = np.asarray(outdeg_c, dtype=np.int64)
+    if mesh is None:
+        census = outdeg_c
+        budget_est = incremental_budget or _default_incremental_budget(n)
+    else:
+        # edge-count sharding splits hub edges across chunks, and the
+        # per-rank change budget multiplies across ranks
+        n_dev_a = axis_size(mesh, mesh_axis)
+        ec_a = max(1, -(-e // n_dev_a))
+        out_ptr_c = np.concatenate([[0], np.cumsum(outdeg_c)])
+        census = _max_chunk_slice(out_ptr_c, ec_a, n)
+        nb_a = (n + (-n) % (8 * n_dev_a)) // n_dev_a
+        budget_est = (
+            incremental_budget or _default_incremental_budget(nb_a, floor=512)
+        ) * n_dev_a
     return _auto_engine(
-        np.asarray(outdeg_c, dtype=np.int64),
+        census,
         d0,
         config.n_steps,
         n,
         beta_mean,
         config.dt,
-        int(incremental_budget or _default_incremental_budget(n)),
+        int(budget_est),
         waves=_census_waves(config),
     )
+
+
+def _max_chunk_slice(out_ptr: np.ndarray, ec: int, n: int) -> np.ndarray:
+    """Per-agent largest out-edge slice under edge-count sharding with chunk
+    size ``ec``: an agent's src-sorted edge range lands in 1-2 chunks when
+    its degree is at most ``ec`` (middle chunks of longer spans are full)."""
+    starts = out_ptr[:-1].astype(np.int64)
+    ends = out_ptr[1:].astype(np.int64)
+    f = starts // ec
+    piece1 = np.minimum(ends, (f + 1) * ec) - starts
+    piece2 = np.clip(ends - (f + 1) * ec, 0, ec)
+    return np.maximum(piece1, piece2)[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +505,123 @@ def _run_engine(prepared, config: AgentSimConfig, informed0, t_init, key, k0: in
     )
 
 
+def _bit_at(bits: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Bit ``pos`` of a little-endian packed mask, as int32 0/1."""
+    return (bits[pos >> 3].to(torch.int32) >> (pos & 7)) & 1
+
+
+def _unpack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """A packed mask of 8·len(bits) agents as bool (``np.unpackbits`` in
+    little bit order)."""
+    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
+    return ((bits.to(torch.int32)[:, None] >> shifts) & 1).reshape(-1).to(torch.bool)
+
+
+def _bit_recount(bits_global, src, row_ptr, mesh, axis: str):
+    """Count this rank's dst-sorted edges against the gathered global bit
+    mask and psum_scatter each rank its own agent block's totals: the one
+    body of every bitpacked recount (the "scatter" comm and the
+    incremental engine's fallback). The per-edge gather is
+    `recount.bit_gather`, the recount CUDA kernel on the card."""
+    active = recount.bit_gather(bits_global, src)
+    counts = _seg_counts(active, row_ptr)[:-1]  # global ids; the pad segment dropped
+    return C.psum_scatter(counts, mesh, axis)
+
+
+def _bitpacked_block_counts(wd, src, row_ptr, mesh, axis: str):
+    """Sharded full recount from the local withdrawn mask: pack to nb/8
+    bytes, all-gather, `_bit_recount`. The local block is byte-aligned."""
+    return _bit_recount(C.all_gather(recount.pack_mask(wd), mesh, axis), src, row_ptr,
+                        mesh, axis)
+
+
+def _run_sharded(prepared, config: AgentSimConfig, informed0, t_init, key, k0: int):
+    """One launch on every rank of the mesh axis: this rank's agent block
+    (``informed0``/``t_init`` are its blocks), either engine. Returns the
+    replicated trajectories and the whole final state, padding trimmed."""
+    mesh, axis = prepared.mesh, prepared.mesh_axis
+    dev = prepared.device
+    dtype = prepared.betas.dtype
+    nb = prepared.betas.shape[0]
+    n_gl = prepared.n_gl
+    offset = axis_index(mesh, axis) * nb  # global id of this block's first agent
+    betas, src, row_ptr = prepared.betas, prepared.src, prepared.row_ptr
+    ts = _step_times(config, k0, prepared.dtype)
+    t_inf = torch.where(informed0, t_init, float("inf")).to(dtype)
+    informed = informed0
+    safe_deg = torch.clamp(prepared.indeg, min=1.0)
+    g_local = torch.empty(config.n_steps, dtype=torch.int64, device=dev)
+    w_local = torch.empty(config.n_steps, dtype=torch.int64, device=dev)
+    incremental = prepared.engine == "incremental"
+    recounts = []
+    if incremental:
+        dst2, lstart, ldeg = prepared.inc
+        ec = dst2.shape[0]
+        budget_agents, budget_deg = prepared.budget, prepared.max_degree
+        d_lane = torch.arange(budget_deg, dtype=torch.int32, device=dev)[None, :]
+        has_edges = ldeg > 0
+        counts = torch.zeros(nb, dtype=torch.int32, device=dev)
+        prev_bits = torch.zeros(n_gl // 8, dtype=torch.uint8, device=dev)
+
+    for j in range(config.n_steps):
+        k = k0 + j
+        t = float(ts[j])
+        wd = _withdrawn(informed, t_inf, t, config.exit_delay, config.reentry_delay)
+        if incremental:
+            # global change detection from the gathered packed mask
+            bits = C.all_gather(recount.pack_mask(wd), mesh, axis)
+            visible = _unpack_bits(bits ^ prev_bits) & has_edges
+            n_vis = visible.sum()
+            cids = _compact_ids(visible, budget_agents, n_gl, config.compact_impl)
+            valid = cids < n_gl
+            cids_c = torch.clamp(cids, max=n_gl - 1)
+            degs = torch.where(valid, ldeg[cids_c], 0)
+            overflow = (n_vis > budget_agents) | (degs.max() > budget_deg)
+            # every rank takes the same branch: the host reads the psum'd flag
+            overflow_any = bool(C.psum(overflow.to(torch.int32), mesh, axis) > 0)
+            if overflow_any:
+                counts = _bit_recount(bits, src, row_ptr, mesh, axis)
+            else:
+                emask = d_lane < degs[:, None]
+                eidx = torch.clamp(lstart[cids_c][:, None] + d_lane, max=ec - 1)
+                dsts = torch.where(emask, dst2[eidx], n_gl)  # pad lanes → dump slot
+                sign = torch.where(valid, _bit_at(bits, cids_c) - _bit_at(prev_bits, cids_c), 0)
+                delta = torch.where(emask, sign[:, None], 0)
+                buf = torch.zeros(n_gl + 1, dtype=torch.int32, device=dev).index_add(
+                    0, dsts.reshape(-1), delta.reshape(-1))
+                counts = counts + C.psum_scatter(buf[:n_gl], mesh, axis)
+            recounts.append(overflow_any)
+            prev_bits = bits
+        elif prepared.comm == "scatter":
+            counts = _bitpacked_block_counts(wd, src, row_ptr, mesh, axis)
+        else:
+            wd_global = C.all_gather(wd, mesh, axis)
+            full = C.psum(_seg_counts(wd_global[src], row_ptr)[:-1], mesh, axis)
+            counts = full[offset:offset + nb]
+        g_local[j] = informed.sum()
+        w_local[j] = wd.sum()
+        informed, t_inf = infection_update(
+            informed, t_inf, counts, betas, safe_deg, key, k, offset, float(ts[j + 1]),
+            config.dt, config.rng_stream, config.fused,
+        )
+    n = prepared.n
+    if incremental:
+        recount_flags = torch.tensor(recounts, dtype=torch.bool, device=dev)
+    else:
+        recount_flags = torch.ones(config.n_steps, dtype=torch.bool, device=dev)
+    # the trajectories are integer counts, so one psum at the end equals the
+    # reference's psum a step; normalized by the true N
+    return AgentSimResult(
+        t_grid=torch.from_numpy(ts[:-1]).to(dev),
+        informed_frac=_fractions(C.psum(g_local, mesh, axis), n, prepared.dtype),
+        withdrawn_frac=_fractions(C.psum(w_local, mesh, axis), n, prepared.dtype),
+        informed=C.all_gather(informed, mesh, axis)[:n],
+        t_inf=C.all_gather(t_inf, mesh, axis)[:n],
+        full_recount_steps=recount_flags,
+        agent_steps=n * config.n_steps,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Prepared graphs
 # ---------------------------------------------------------------------------
@@ -457,10 +632,17 @@ class PreparedAgentGraph:
     """Device-resident graph structures, reusable across simulations: the
     dst-sorted edges and row pointers, per-agent β and in-degrees, the
     resolved engine and, for "incremental", its src-sorted out-edge arrays
-    ``inc = (dst2, out_ptr, outdeg)``."""
+    ``inc = (dst2, out_ptr, outdeg)``.
+
+    Under a mesh every tensor is this rank's shard, as the reference's
+    sharded arrays hold it on each device: β and in-degrees of the agent
+    block (padded agents inert), the edge chunk's sources (pad edges have
+    source 0), its row-pointer table over the n_gl + 2 global segment ids,
+    and for "incremental" ``inc = (dst2, lstart, ldeg)``: the chunk of
+    src-sorted destinations and every global agent's slice in it."""
 
     n: int
-    n_edges: int
+    n_edges: int  # TRUE edge count (the sharded src may carry pad edges)
     dtype: np.dtype  # the simulation float type
     device: torch.device
     engine: str  # resolved: "gather" or "incremental"
@@ -471,6 +653,18 @@ class PreparedAgentGraph:
     row_ptr: torch.Tensor
     indeg: torch.Tensor
     inc: Optional[tuple] = None
+    mesh: object = None  # a DeviceMesh, or None on one device
+    mesh_axis: str = "agents"
+    comm: str = "scatter"
+    n_pad: int = 0  # inert pad agents (0 without a mesh)
+    # engine="measure" only: ((label, measured agent-steps/s), ...) of each
+    # timed candidate, in the order timed
+    measured_steps_per_sec: Optional[Tuple[Tuple[str, float], ...]] = None
+
+    @property
+    def n_gl(self) -> int:
+        """Padded agent count (``n`` without a mesh)."""
+        return self.n + self.n_pad
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -478,6 +672,94 @@ def _tensor(a, device) -> torch.Tensor:
     if not a.flags.writeable:  # e.g. a view of another framework's buffer
         a = a.copy()
     return torch.from_numpy(a).to(device)
+
+
+def _pad_block(n: int, n_dev: int, comm: str, engine: str) -> int:
+    """Padded agent count under a mesh: a multiple of the axis size, or of
+    8× it where local blocks are packed to bytes (the "scatter" comm, and
+    the incremental engine, whose fallback is the bitpacked recount)."""
+    block = 8 * n_dev if (comm == "scatter" or engine == "incremental") else n_dev
+    return n + (-n) % block
+
+
+def _check_sources(src_local: np.ndarray, n: int) -> None:
+    """The recount kernel's contract: every id it gathers lies in [0, N)."""
+    if src_local.size and (int(src_local.min()) < 0 or int(src_local.max()) >= n):
+        raise ValueError("an edge source lies outside [0, N): the recount gather needs ids in range")
+
+
+def _measure_engine(n, config, incremental_budget, d0, md_pinned, measure_probe, canonical,
+                    prepare):
+    """engine="measure": one warm-up and one timed simulation of each
+    candidate on this graph, config and device; the faster one's prepared
+    graph, carrying the measured rates. Under a mesh the elapsed times are
+    psum'd, so every rank makes the same choice."""
+    import time as _time
+    import warnings
+
+    probe = dict(measure_probe or {})
+    bad = set(probe) - {"x0", "seed", "informed0", "t_inf0", "exact_seeds"}
+    if bad:
+        raise ValueError(f"measure_probe: unknown keys {sorted(bad)}")
+    if np.size(canonical[1]) == 0:
+        # both candidates coerce to gather on an edgeless graph
+        return prepare("gather", d0)
+    candidates = [("gather", d0), ("incremental", d0)]
+    if not md_pinned:
+        # a widened cap is worth a timed try when the census predicts a
+        # recount-heavy run and widening shrinks the hub set
+        outdeg_m = np.bincount(canonical[1], minlength=n)
+        d_wide = 8 * d0
+        predicted = _census_fallback_steps(
+            outdeg_m, d0, config.n_steps, n,
+            float(np.mean(canonical[0], dtype=np.float64)), config.dt,
+            incremental_budget or _default_incremental_budget(n),
+            waves=_census_waves(config),
+        )
+        if predicted > 0.1 * config.n_steps and int((outdeg_m > d_wide).sum()) < int(
+            (outdeg_m > d0).sum()
+        ):
+            candidates.append(("incremental", d_wide))
+    measured = []
+    pg_c = cand_resident = None
+    for cand_eng, cand_d in candidates:
+        is_speculative = cand_d != d0
+        pg_c = None  # only one candidate's tensors are resident at a time
+        try:
+            pg_c = prepare(cand_eng, cand_d)
+            cand_resident = (cand_eng, cand_d)
+            res = simulate_agents(prepared=pg_c, config=config, **probe)
+            float(res.informed_frac[-1])  # warm-up, and the device fence
+            t0 = _time.perf_counter()
+            res = simulate_agents(prepared=pg_c, config=config, **probe)
+            float(res.informed_frac[-1])
+            elapsed = _time.perf_counter() - t0
+        except Exception:
+            # a speculative candidate must not abort a prepare that
+            # succeeds without it (its wide grid may not fit)
+            if not is_speculative:
+                raise
+            warnings.warn(
+                f"engine='measure': widened-cap candidate (max_degree={cand_d}) failed "
+                "to prepare/run and was dropped from the A/B",
+                RuntimeWarning, stacklevel=3,
+            )
+            pg_c, cand_resident = None, None
+            continue
+        if pg_c.mesh is not None:
+            elapsed = float(C.psum(torch.tensor([elapsed], dtype=torch.float64,
+                                                device=pg_c.device),
+                                   pg_c.mesh, pg_c.mesh_axis)[0])
+        label = cand_eng if cand_d == d0 else f"{cand_eng}(max_degree={cand_d})"
+        measured.append(((cand_eng, cand_d), label, n * config.n_steps / elapsed))
+        del res
+    winner = max(measured, key=lambda t: t[2])[0]
+    if winner != cand_resident:
+        pg_c = None
+        pg_c = prepare(*winner)
+    return dataclasses.replace(
+        pg_c, measured_steps_per_sec=tuple((lbl, rate) for _, lbl, rate in measured)
+    )
 
 
 def prepare_agent_graph(
@@ -492,34 +774,68 @@ def prepare_agent_graph(
     incremental_budget: Optional[int] = None,
     incremental_max_degree: Optional[int] = None,
     device=None,
+    mesh_axis: str = "agents",
+    comm: str = "scatter",
+    measure_probe: Optional[dict] = None,
+    _canonical: Optional[tuple] = None,
 ) -> PreparedAgentGraph:
     """Host-side canonicalization and upload, reusable across simulations.
 
     ``config`` enters only through the engine="auto" census. ``engine``:
-    "gather" or "incremental" pick explicitly; "auto" picks by the census.
-    ``device`` defaults to the CUDA card and raises when there is none;
-    pass ``device="cpu"`` to run on the CPU."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded (mesh) engines are not ported yet")
-    if engine == "measure":
-        raise NotImplementedError("engine='measure' is not ported yet")
-    if engine not in ("auto", "gather", "incremental"):
-        raise ValueError(f"Unknown engine {engine!r}")
-    device = torch.device(device) if device is not None else default_device()
-    dtype = np.dtype(dtype)
-    d0 = int(incremental_max_degree) if incremental_max_degree is not None else 64
+    "gather" or "incremental" pick explicitly; "auto" picks by the census;
+    "measure" times one simulation of each candidate on this graph and
+    device (after a warm-up) and keeps the faster, its rates on
+    ``measured_steps_per_sec`` (``measure_probe``: the state kwargs of the
+    timed runs: x0, seed, informed0, t_inf0, exact_seeds). ``device``
+    defaults to the CUDA card and raises when there is none; pass
+    ``device="cpu"`` to run on the CPU.
 
-    betas_h, src_h, dst_h, indeg_h, row_ptr_h = _canonicalize_graph(
-        betas, src, dst, n, dtype
-    )
+    ``mesh``: a 1-D ``DeviceMesh`` (`parallel.make_agent_mesh`); every rank
+    calls this with the same arguments and keeps its own shard (see
+    `PreparedAgentGraph`). Its device type sets the device. ``comm``
+    ("scatter" or "allgather_psum") is the gather engine's collective
+    scheme under a mesh."""
+    dtype = np.dtype(dtype)
+    md_pinned = incremental_max_degree is not None
+    d0 = int(incremental_max_degree) if md_pinned else 64
+    if engine not in ("auto", "gather", "incremental", "measure"):
+        raise ValueError(f"Unknown engine {engine!r}")
+    if comm not in ("scatter", "allgather_psum"):
+        raise ValueError(f"Unknown comm strategy {comm!r}")
+    if measure_probe is not None and engine != "measure":
+        raise ValueError(
+            f"measure_probe= only applies to engine='measure' (got engine={engine!r})"
+        )
+    if mesh is not None:
+        device = mesh_device(mesh)
+    device = torch.device(device) if device is not None else default_device()
+    if _canonical is None:
+        _canonical = _canonicalize_graph(betas, src, dst, n, dtype)
+
+    if engine == "measure":
+        def prepare(eng, d):
+            return prepare_agent_graph(
+                betas, src, dst, n, config=config, mesh=mesh, dtype=dtype, engine=eng,
+                incremental_budget=incremental_budget, incremental_max_degree=d,
+                device=device, mesh_axis=mesh_axis, comm=comm, _canonical=_canonical,
+            )
+
+        return _measure_engine(n, config, incremental_budget, d0, md_pinned, measure_probe,
+                               _canonical, prepare)
+
+    betas_h, src_h, dst_h, indeg_h, row_ptr_h = _canonical
     if engine == "auto":
         engine = _resolve_engine_from_outdeg(
             np.bincount(src_h, minlength=n), n, len(src_h), config,
             incremental_budget, d0, float(np.mean(betas_h, dtype=np.float64)),
+            mesh=mesh, mesh_axis=mesh_axis,
         )
     if engine == "incremental" and len(src_h) == 0:
         # the dense out-edge grid cannot gather from an empty edge array
         engine = "gather"
+    if mesh is not None:
+        return _prepare_sharded(betas_h, src_h, dst_h, indeg_h, n, dtype, device, engine,
+                                incremental_budget, d0, mesh, mesh_axis, comm)
 
     budget, inc = 0, None
     if engine == "incremental":
@@ -537,7 +853,60 @@ def prepare_agent_graph(
         budget=int(budget), max_degree=d0,
         betas=_tensor(betas_h, device), src=_tensor(src_h, device),
         row_ptr=_tensor(row_ptr_h, device), indeg=_tensor(indeg_h, device),
-        inc=inc,
+        inc=inc, comm=comm, mesh_axis=mesh_axis,
+    )
+
+
+def _prepare_sharded(betas_h, src_h, dst_h, indeg_h, n, dtype, device, engine,
+                     incremental_budget, d0, mesh, mesh_axis, comm) -> PreparedAgentGraph:
+    """This rank's shard of the canonical graph, laid out as the reference's
+    sharded prepare lays each device's: agents padded to `_pad_block`;
+    dst-sorted edges padded with source 0 and the sentinel destination n_gl
+    to a multiple of the axis size and cut into equal chunks, each with its
+    row-pointer table over the n_gl + 2 global segment ids; for the
+    incremental engine, the src-sorted destinations cut into chunks of
+    ⌈E/n_dev⌉ (padded with n_gl) and every agent's (start, length) in this
+    rank's chunk."""
+    n_dev = axis_size(mesh, mesh_axis)
+    d = axis_index(mesh, mesh_axis)
+    n_gl = _pad_block(n, n_dev, comm, engine)
+    n_pad = n_gl - n
+    nb = n_gl // n_dev
+    betas_p = np.concatenate([betas_h, np.zeros(n_pad, betas_h.dtype)])
+    indeg_p = np.concatenate([indeg_h, np.zeros(n_pad, indeg_h.dtype)])
+    e_pad = (-len(src_h)) % n_dev
+    src_p = np.concatenate([src_h, np.zeros(e_pad, np.int32)])
+    dst_p = np.concatenate([dst_h, np.full(e_pad, n_gl, np.int32)])
+    e_local = len(dst_p) // n_dev
+    lo = d * e_local
+    src_l = src_p[lo:lo + e_local]
+    _check_sources(src_l, n)
+    row_ptr_l = np.searchsorted(dst_p[lo:lo + e_local], np.arange(n_gl + 2),
+                                side="left").astype(np.int32)
+    budget, inc = 0, None
+    if engine == "incremental":
+        dst2_all, _, _, out_ptr_all = sort_edges_by_dst(dst_h, src_h, n)
+        e_all = int(out_ptr_all[-1])
+        ec = max(1, -(-e_all // n_dev))
+        dst2_sh = np.full(n_dev * ec, n_gl, np.int32)
+        dst2_sh[:e_all] = dst2_all
+        c_lo, c_hi = d * ec, (d + 1) * ec
+        s = np.clip(out_ptr_all[:-1].astype(np.int64), c_lo, c_hi)
+        e_ = np.clip(out_ptr_all[1:].astype(np.int64), c_lo, c_hi)
+        lstart = np.zeros(n_gl, np.int32)
+        ldeg = np.zeros(n_gl, np.int32)
+        lstart[:n] = s - c_lo
+        ldeg[:n] = e_ - s
+        budget = incremental_budget or _default_incremental_budget(nb, floor=512)
+        inc = (_tensor(dst2_sh[c_lo:c_hi], device), _tensor(lstart, device),
+               _tensor(ldeg, device))
+    blk = slice(d * nb, (d + 1) * nb)
+    return PreparedAgentGraph(
+        n=n, n_edges=len(src_h), dtype=dtype, device=device, engine=engine,
+        budget=int(budget), max_degree=d0,
+        betas=_tensor(betas_p[blk], device), src=_tensor(src_l, device),
+        row_ptr=_tensor(row_ptr_l, device), indeg=_tensor(indeg_p[blk], device),
+        inc=inc, mesh=mesh, mesh_axis=mesh_axis, comm=comm, n_pad=n_pad,
     )
 
 
@@ -651,6 +1020,8 @@ def simulate_agents(
     prepared: Optional[PreparedAgentGraph] = None,
     step_offset: int = 0,
     device=None,
+    mesh_axis: str = "agents",
+    comm: str = "scatter",
 ) -> AgentSimResult:
     """Simulate N explicit agents learning from neighbor withdrawals.
 
@@ -662,14 +1033,29 @@ def simulate_agents(
     exactly from a previous result's state. Results are bit-identical to
     ``sbr_tpu.social.agents.simulate_agents`` on the same inputs, with or
     without ``prepared`` and under any ``max_steps_per_launch``.
+
+    ``mesh`` (a 1-D ``DeviceMesh``; every rank calls this with the same
+    arguments) shards the agents and edges over ``mesh_axis``, with
+    ``comm`` the gather engine's collective scheme (module docstring).
+    Every rank gets back the whole result, bit for bit the single-device
+    run. ``engine="measure"`` is a `prepare_agent_graph` feature.
     """
     if prepared is None:
         if betas is None or src is None or dst is None or n is None:
             raise ValueError("simulate_agents needs (betas, src, dst, n) or prepared=")
+        if engine == "measure":
+            # measuring runs 2 warm-ups and 2 timed simulations; it pays only
+            # where a prepared graph is reused
+            raise ValueError(
+                "engine='measure' is a prepare_agent_graph feature: prepare "
+                "the graph once (the A/B timing amortizes over repeated "
+                "simulations) and pass prepared= here"
+            )
         prepared = prepare_agent_graph(
             betas, src, dst, n, config=config, mesh=mesh, dtype=dtype,
             engine=engine, incremental_budget=incremental_budget,
             incremental_max_degree=incremental_max_degree, device=device,
+            mesh_axis=mesh_axis, comm=comm,
         )
     else:
         conflicts = [
@@ -677,7 +1063,8 @@ def simulate_agents(
             for name, passed in (
                 ("betas", betas is not None), ("src", src is not None),
                 ("dst", dst is not None), ("n", n is not None),
-                ("mesh", mesh is not None), ("engine", engine != "auto"),
+                ("mesh", mesh is not None), ("comm", comm != "scatter"),
+                ("engine", engine != "auto"),
                 ("incremental_budget", incremental_budget is not None),
                 ("incremental_max_degree", incremental_max_degree is not None),
                 ("device", device is not None),
@@ -687,7 +1074,7 @@ def simulate_agents(
         if conflicts:
             raise ValueError(
                 f"simulate_agents: {conflicts} conflict with prepared= — the "
-                "prepared graph already fixes the graph/engine/device; rebuild "
+                "prepared graph already fixes the graph/mesh/engine/device; rebuild "
                 "it with prepare_agent_graph(...) to change them"
             )
     n = prepared.n
@@ -736,4 +1123,12 @@ def simulate_agents(
             full_recount_steps=torch.cat([p.full_recount_steps for p in parts]),
             agent_steps=sum(p.agent_steps for p in parts),
         )
-    return _run_engine(prepared, config, informed0_d, t_init_d, key, int(step_offset))
+    if prepared.mesh is None:
+        return _run_engine(prepared, config, informed0_d, t_init_d, key, int(step_offset))
+    # this rank's block of the padded state
+    nb = prepared.betas.shape[0]
+    lo = axis_index(prepared.mesh, prepared.mesh_axis) * nb
+    pad = prepared.n_pad
+    informed0_d = torch.cat([informed0_d, informed0_d.new_zeros(pad)])[lo:lo + nb]
+    t_init_d = torch.cat([t_init_d, t_init_d.new_zeros(pad)])[lo:lo + nb]
+    return _run_sharded(prepared, config, informed0_d, t_init_d, key, int(step_offset))

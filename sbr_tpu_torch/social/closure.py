@@ -27,8 +27,11 @@ A ``dynamics="rewire"`` information model closes against its tilted
 mean-field curve, each member regenerating its graph every epoch.
 
 An information-model closure emits the reference's ``infomodel``
-``closure`` census event when telemetry is on. Not ported: ``mesh=``
-(raises ``NotImplementedError``).
+``closure`` census event when telemetry is on. ``mesh=`` (a 1-D
+``DeviceMesh``; every rank calls `close_loop` alike) runs the gossip
+members on the sharded agent engines, on the mesh's device, bit for bit
+the single-device members; an information model with a mesh raises
+``ValueError``, as in the reference.
 """
 
 from __future__ import annotations
@@ -150,6 +153,8 @@ def close_loop(
     - ``seeds``: member seeds replacing the ``n_reps`` ladder; the graph
       is then prepared once (at ``seed``) and reused by every member, whose
       AW rows land on ``aw_seeds``.
+    - ``mesh``: shard each member's agents and edges over this agent
+      mesh (not with ``infomodel``).
     - ``tolerance``: recorded on the ``closure`` telemetry event of an
       information-model closure, so its report can flag a breach; no
       effect on the result.
@@ -163,7 +168,9 @@ def close_loop(
             "infomodel= runs the single-device info engines; mesh= is not supported"
         )
     if mesh is not None:
-        raise NotImplementedError("the sharded agent engines (mesh=) are not ported yet")
+        from sbr_tpu_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     device = torch.device(device) if device is not None else default_device()
     if infomodel is not None:
         if graph is None:
@@ -245,12 +252,12 @@ def close_loop(
             )
         elif graph is not None:
             shared_pg = prepare_generated_graph(
-                graph, seed=seed, betas=beta, config=sim_cfg, device=device
+                graph, seed=seed, betas=beta, config=sim_cfg, mesh=mesh, device=device
             )
         else:
             src, dst = erdos_renyi_edges(n_agents, avg_degree, seed=seed)
             shared_pg = prepare_agent_graph(
-                beta, src, dst, n_agents, config=sim_cfg, device=device
+                beta, src, dst, n_agents, config=sim_cfg, mesh=mesh, device=device
             )
 
     aw_acc = g_acc = None
@@ -294,7 +301,7 @@ def close_loop(
             from sbr_tpu_torch.social.graphgen import prepare_generated_graph
 
             pg = prepare_generated_graph(
-                graph, seed=rep_seed, betas=beta, config=sim_cfg, device=device
+                graph, seed=rep_seed, betas=beta, config=sim_cfg, mesh=mesh, device=device
             )
             sim = simulate_agents(
                 prepared=pg, x0=x0, config=sim_cfg, seed=rep_seed,
@@ -303,8 +310,9 @@ def close_loop(
         else:
             src, dst = erdos_renyi_edges(n_agents, avg_degree, seed=rep_seed)
             sim = simulate_agents(
-                beta, src, dst, n_agents, x0=x0, config=sim_cfg, seed=rep_seed,
-                exact_seeds=True, informed0=informed0, t_inf0=t_inf0, device=device,
+                beta, src, dst, n_agents, x0=x0, config=sim_cfg, seed=rep_seed, mesh=mesh,
+                exact_seeds=True, informed0=informed0, t_inf0=t_inf0,
+                device=None if mesh is not None else device,
             )
         aw = _host(sim.withdrawn_frac)
         g = _host(sim.informed_frac)

@@ -31,7 +31,15 @@ toward the withdrawing agents, and `generate_tilted_sources` draws the
 dst-sorted sources against it, keyed by `epoch_key_words`. The table and
 the sources equal ``sbr_tpu``'s bit for bit (tested).
 
-Not ported yet: the sharded build (``mesh=`` raises ``NotImplementedError``).
+**Sharded build** (``mesh=``, `_prepare_mesh`): each rank draws only its
+own contiguous range of edge positions, so the gather layout needs no
+collective at all (a position's source is a pure function of the seed and
+the edge id). The incremental orientation is a distributed counting sort:
+each rank histograms its own sources, `parallel.exclusive_psum` merges the
+histograms into every rank's offsets, each rank scatters its edges to
+their global src-sorted positions, and one tiled ``psum_scatter`` delivers
+each rank its edge chunk. The shards equal the host prepare's
+(`agents.prepare_agent_graph` with the same mesh) byte for byte (tested).
 """
 
 from __future__ import annotations
@@ -512,6 +520,8 @@ def prepare_generated_graph(
     incremental_max_degree: Optional[int] = None,
     chunk_edges=None,
     device=None,
+    mesh_axis: str = "agents",
+    comm: str = "scatter",
 ) -> A.PreparedAgentGraph:
     """A `PreparedAgentGraph` generated on ``device`` (the CUDA card unless
     the caller names one): `prepare_agent_graph` without the host edge
@@ -525,9 +535,13 @@ def prepare_generated_graph(
     pay for neither the out-degree census nor the incremental
     orientation. Only node-length data touches the host: β, the spec
     tables, the in-degrees and, for "auto", the out-degree census. With
-    telemetry on, the build runs under the ``graphgen.build`` span."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded graph build (mesh=) is not ported yet")
+    telemetry on, the build runs under the ``graphgen.build`` span.
+
+    ``mesh`` (a 1-D ``DeviceMesh``; every rank calls this with the same
+    arguments) builds each rank's shard on its own device, with the mesh
+    padding of the host prepare (module docstring), under the
+    ``graphgen.build_sharded`` span; ``comm`` is kept on the prepared graph
+    and sets the padding as in `agents.prepare_agent_graph`."""
     if config is None:
         config = A.AgentSimConfig()
     dtype = np.dtype(dtype)
@@ -536,10 +550,21 @@ def prepare_generated_graph(
             f"engine must be 'auto', 'gather', or 'incremental' for generated "
             f"graphs (got {engine!r})"
         )
+    if comm not in ("scatter", "allgather_psum"):
+        raise ValueError(f"Unknown comm strategy {comm!r}")
+    if mesh is not None:
+        from sbr_tpu_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     device = torch.device(device) if device is not None else A.default_device()
     n = spec.n
     d0 = int(incremental_max_degree) if incremental_max_degree is not None else 64
     betas_h = np.broadcast_to(np.asarray(betas, dtype=dtype), (n,)).copy()
+
+    if mesh is not None:
+        with obs.span("graphgen.build_sharded", spec=type(spec).__name__, n=n):
+            return _prepare_mesh(spec, seed, betas_h, config, mesh, mesh_axis, dtype, comm,
+                                 engine, incremental_budget, d0, chunk_edges, device)
 
     with obs.span("graphgen.build", spec=type(spec).__name__, n=n):
         built = _SingleBuild(spec, seed, chunk_edges, device)
@@ -561,8 +586,140 @@ def prepare_generated_graph(
             budget=int(budget), max_degree=d0,
             betas=A._tensor(betas_h, device), src=built.src_sorted(),
             row_ptr=built.row_ptr, indeg=built.indeg.to(A._TORCH_DTYPE[dtype]),
-            inc=inc,
+            inc=inc, mesh_axis=mesh_axis, comm=comm,
         )
+
+
+def _local_edges(spec, tables, key, row_ptr, lo: int, hi: int, e: int, chunk: int,
+                 device):
+    """Sources and structural destinations of the edge positions [lo, hi),
+    drawn in chunks; positions at or past E are left out."""
+    srcs, dsts = [], []
+    for c0 in range(lo, min(hi, e), chunk):
+        count = min(chunk, min(hi, e) - c0)
+        eid = torch.arange(c0, c0 + count, dtype=torch.int64, device=device)
+        d = _dst_chunk(row_ptr, spec.n, c0, count)
+        srcs.append(_src_at(spec, tables, key[0], key[1], eid, d))
+        dsts.append(d)
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    return (torch.cat(srcs) if srcs else empty), (torch.cat(dsts) if dsts else empty)
+
+
+def _inc_shard(src_l, dst_l, out_ptr, lo: int, el: int, e: int, n: int, n_gl: int,
+               mesh, axis: str):
+    """This rank's chunk of the src-sorted destinations, by a distributed
+    counting sort: edges keyed by source (n for pad lanes), the ranks'
+    histograms merged by `exclusive_psum` into this rank's prior counts,
+    each edge scattered to out_ptr[src] + prior[src] + its stable rank
+    among this rank's equal keys, and one tiled ``psum_scatter`` delivering
+    chunk i to rank i. The order is (src, dst, raw id), the host re-sort's."""
+    from sbr_tpu_torch.parallel import collectives as C
+    from sbr_tpu_torch.parallel.mesh import axis_size
+
+    device = src_l.device
+    n_dev = axis_size(mesh, axis)
+    key = torch.full((el,), n, dtype=torch.int64, device=device)
+    key[:src_l.shape[0]] = src_l.to(torch.int64)
+    val = torch.zeros(el, dtype=torch.int32, device=device)
+    val[:dst_l.shape[0]] = dst_l
+    hist = torch.bincount(key, minlength=n + 1).to(torch.int32)
+    prior = C.exclusive_psum(hist, mesh, axis, n_dev).to(torch.int64)
+    order = torch.sort(key, stable=True).indices
+    k_s = key[order]
+    start = (torch.cumsum(hist.to(torch.int64), 0) - hist)[k_s]
+    rank = torch.arange(el, dtype=torch.int64, device=device) - start
+    # out_ptr[n] = E: pad lanes stream past the last real edge
+    pos = out_ptr.to(torch.int64)[k_s] + prior[k_s] + rank
+    keep = pos < n_dev * el
+    out = torch.zeros(n_dev * el, dtype=torch.int32, device=device)
+    out[pos[keep]] = val[order][keep]
+    local = C.psum_scatter(out, mesh, axis)
+    gpos = lo + torch.arange(el, dtype=torch.int64, device=device)
+    local = torch.where(gpos < e, local, n_gl)
+    s_c = torch.clamp(out_ptr[:-1].to(torch.int64), lo, lo + el)
+    e_c = torch.clamp(out_ptr[1:].to(torch.int64), lo, lo + el)
+    lstart = torch.zeros(n_gl, dtype=torch.int32, device=device)
+    ldeg = torch.zeros(n_gl, dtype=torch.int32, device=device)
+    lstart[:n] = (s_c - lo).to(torch.int32)
+    ldeg[:n] = (e_c - s_c).to(torch.int32)
+    return local, lstart, ldeg
+
+
+def _prepare_mesh(spec, seed, betas_h, config, mesh, mesh_axis, dtype, comm, engine,
+                  incremental_budget, d0, chunk_edges, device) -> A.PreparedAgentGraph:
+    """This rank's shard of the generated graph (module docstring), laid
+    out as `agents.prepare_agent_graph` lays it under the same mesh."""
+    from sbr_tpu_torch.parallel import collectives as C
+    from sbr_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    n = spec.n
+    n_dev = axis_size(mesh, mesh_axis)
+    idx = axis_index(mesh, mesh_axis)
+    e = _check_edges(spec.edge_count(seed))
+    el = max(1, (e + (-e) % n_dev) // n_dev)
+    chunk = (plan_chunk_edges(e, n, device=device) if chunk_edges in (None, "auto")
+             else int(chunk_edges))
+    chunk = max(1, min(chunk, el, _MAX_CHUNK))
+    k0, k1 = _spec_key_words(seed)
+    key = (int(k0), int(k1))
+    tables = _device_tables(spec, device)
+    indeg_h = _indeg_host(spec, seed, e)
+    row_ptr = torch.from_numpy(_row_ptr_host(indeg_h)).to(device)
+    lo = idx * el
+    src_l, dst_l = _local_edges(spec, tables, key, row_ptr, lo, lo + el, e, chunk, device)
+
+    outdeg = None
+    if engine in ("auto", "incremental"):
+        # each rank histograms its own positions; a psum merges them
+        outdeg = C.psum(torch.bincount(src_l, minlength=n).to(torch.int32), mesh, mesh_axis)
+    if engine == "auto":
+        engine = A._resolve_engine_from_outdeg(
+            outdeg.cpu().numpy(), n, e, config, incremental_budget, d0,
+            float(np.mean(betas_h, dtype=np.float64)), mesh=mesh, mesh_axis=mesh_axis,
+        )
+    if engine == "incremental" and e == 0:
+        engine = "gather"
+    n_gl = A._pad_block(n, n_dev, comm, engine)
+    n_pad = n_gl - n
+    nb = n_gl // n_dev
+
+    # the gather layout: pad lanes take source 0 and the sentinel n_gl
+    src_sh = torch.zeros(el, dtype=torch.int32, device=device)
+    src_sh[:src_l.shape[0]] = src_l
+    dst_sh = torch.full((el,), n_gl, dtype=torch.int32, device=device)
+    dst_sh[:dst_l.shape[0]] = dst_l
+    seg_ids = torch.arange(n_gl + 2, dtype=torch.int32, device=device)
+    row_table = torch.searchsorted(dst_sh, seg_ids, side="left", out_int32=True)
+
+    budget, inc = 0, None
+    if engine == "incremental":
+        out_ptr = torch.cat([outdeg.new_zeros(1), torch.cumsum(outdeg, 0, dtype=torch.int32)])
+        if os.environ.get("SBR_FLIGHT", "").strip() not in ("", "0"):
+            # the exclusive_psum-bearing pass as one mark on the flight
+            # recorder's collectives stream, fenced by a device sync; the
+            # values are untouched
+            import time as _time
+
+            from sbr_tpu_torch.obs import flight as _flight
+
+            t0 = _time.monotonic()
+            inc = _inc_shard(src_l, dst_l, out_ptr, lo, el, e, n, n_gl, mesh, mesh_axis)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            _flight.shared().mark("collectives", "psum", t0, _time.monotonic(), tag="inc")
+        else:
+            inc = _inc_shard(src_l, dst_l, out_ptr, lo, el, e, n, n_gl, mesh, mesh_axis)
+        budget = incremental_budget or A._default_incremental_budget(nb, floor=512)
+
+    blk = slice(idx * nb, (idx + 1) * nb)
+    betas_p = np.concatenate([betas_h, np.zeros(n_pad, betas_h.dtype)])
+    indeg_p = np.concatenate([indeg_h, np.zeros(n_pad, indeg_h.dtype)]).astype(dtype)
+    return A.PreparedAgentGraph(
+        n=n, n_edges=e, dtype=dtype, device=device, engine=engine, budget=int(budget),
+        max_degree=d0, betas=A._tensor(betas_p[blk], device), src=src_sh,
+        row_ptr=row_table, indeg=A._tensor(indeg_p[blk], device), inc=inc,
+        mesh=mesh, mesh_axis=mesh_axis, comm=comm, n_pad=n_pad,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -576,10 +733,11 @@ def _selfcheck(n: int = 600, deg: float = 6.0, seed: int = 3, device=None) -> in
     of the same raw stream, chunk invariance, and the fused simulation
     against the unfused one. Returns 0 on a pass, 1 on any failure.
 
-    The reference's sharded-against-single block runs only with more
-    than one device; the port's sharded build is not ported (``mesh=``),
-    so the block is skipped, as the reference skips it on one device. The
-    two simulation lines hold the infection step's two lowerings to each
+    The reference's sharded block runs only with more than one device; here
+    it runs when a process group of more than one rank is up
+    (`parallel.initialize_distributed`; every rank runs the self-check):
+    the sharded build of each engine against the host prepare under the
+    same agent mesh, byte for byte. The two simulation lines hold the infection step's two lowerings to each
     other: the default ("auto") and "pallas" on the card are the CUDA
     kernel, "unfused" the plain step; on the CPU all three are the plain
     step ("interpret" stands in for "pallas")."""
@@ -620,6 +778,22 @@ def _selfcheck(n: int = 600, deg: float = 6.0, seed: int = 3, device=None) -> in
               same(built.inc_arrays()[0], built2.inc_arrays()[0]))
 
     spec = specs[0]
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        from sbr_tpu_torch.parallel import make_agent_mesh
+
+        mesh = make_agent_mesh(device=device)
+        src, dst = generate_edges(spec, seed=seed, device=device)
+        for eng in ("gather", "incremental"):
+            pg_d = prepare_generated_graph(spec, seed=seed, mesh=mesh, engine=eng)
+            pg_h = A.prepare_agent_graph(1.0, src, dst, n, mesh=mesh, engine=eng)
+            ok = (same(pg_d.src, pg_h.src) and same(pg_d.row_ptr, pg_h.row_ptr)
+                  and same(pg_d.indeg, pg_h.indeg))
+            if eng == "incremental":
+                ok = ok and all(same(a, b) for a, b in zip(pg_d.inc, pg_h.inc))
+            check(f"sharded {eng}: generated == host-prepared (byte-identical)", ok)
+
     cfg = A.AgentSimConfig(n_steps=25, dt=0.1)
     pg = prepare_generated_graph(spec, seed=seed, config=cfg, device=device)
     kernel = "pallas" if device.type == "cuda" else "interpret"

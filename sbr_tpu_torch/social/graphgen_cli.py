@@ -4,7 +4,9 @@
     python -m sbr_tpu_torch.social.graphgen_cli --selfcheck [--n 600]
         [--deg 6.0] [--seed 3] [--device cpu] [--obs-dir DIR]
 
-It lives outside `graphgen` itself, which the package imports: ``python
+Launched as several ranks (``torchrun --nproc-per-node 2 -m
+sbr_tpu_torch.social.graphgen_cli --selfcheck --device cpu``), it also
+runs the sharded block. It lives outside `graphgen` itself, which the package imports: ``python
 -m`` on an imported module runs a second ``__main__`` copy of it, with
 duplicate spec classes that break ``isinstance`` dispatch. It runs on the
 CUDA card unless ``--device`` names another, through
@@ -37,7 +39,12 @@ def main(argv=None) -> int:
         parser.print_help()
         return 2
     from sbr_tpu_torch.obs import audit
+    from sbr_tpu_torch.parallel import initialize_distributed
     from sbr_tpu_torch.social.graphgen import _selfcheck
+
+    # under a launcher's environment (MASTER_ADDR, RANK, WORLD_SIZE) every
+    # rank joins one group, and the sharded block runs
+    initialize_distributed(device=args.device)
 
     # the audit protocol: a nonzero return is a drift verdict and exit 1;
     # the output is the self-check's

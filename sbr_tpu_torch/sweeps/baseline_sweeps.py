@@ -8,6 +8,13 @@ the Stage-1 and hazard tables are built once per β row (shape
 root-find and the classification at once. Cells are independent, so
 the result does not depend on the batching.
 
+With ``mesh`` (a ``DeviceMesh`` of `parallel.mesh`; every rank calls the
+sweep alike), each rank solves only its block of the cells (the value
+arrays cut along the named mesh axes, `parallel.shard_axis_values`), and
+one all-gather along each axis hands every rank the whole grid. A cell's
+bits depend on its own row alone, so a sharded sweep equals the unsharded
+one bit for bit.
+
 With telemetry on (`sbr_tpu_torch.obs`), each sweep is one program through
 `obs.jit_call` inside its span, followed by ``status`` and ``health``
 censuses, as in the reference. `grid_tile_footprint` measures one grid
@@ -94,11 +101,14 @@ def _grid_fn(config: SolverConfig):
     return fn
 
 
-def _no_mesh(mesh) -> None:
+def _mesh_device(mesh, device):
+    """The device a sweep runs on: the mesh's, else ``device`` (default:
+    the CUDA card)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded sweeps are not ported yet (ROADMAP item 1.A 11); pass mesh=None"
-        )
+        from sbr_tpu_torch.parallel.mesh import mesh_device
+
+        return mesh_device(mesh)
+    return torch.device(device) if device is not None else default_device()
 
 
 def u_sweep(
@@ -111,23 +121,33 @@ def u_sweep(
     mesh_axis: str = "u",
 ) -> USweepResult:
     """Figure-4 u-sweep: one Stage-1 solution shared across all u, on its
-    device and in its dtype; Stages 2-3 for every u at once."""
-    _no_mesh(mesh)
+    device and in its dtype; Stages 2-3 for every u at once. With
+    ``mesh``, each rank solves its block of u along ``mesh_axis`` (whose
+    size must divide len(u_values)) and every rank gets the whole sweep."""
     if config is None:
         config = SolverConfig()
     if tspan_end is None:
         tspan_end = ls.grid[..., -1]
     dtype, device = ls.dtype, ls.device
     u_values = torch.as_tensor(u_values, dtype=dtype, device=device)
+    u_local = u_values
+    if mesh is not None:
+        from sbr_tpu_torch.parallel import shard_axis_values
+
+        (u_local,) = shard_axis_values(mesh, (mesh_axis,), u_values)
     scalars = (econ.p, econ.kappa, econ.lam, econ.eta, tspan_end)
-    args = (ls, u_values) + tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in scalars)
+    args = (ls, u_local) + tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in scalars)
     n_u = int(u_values.shape[0])
     # fault point (resilience.faults): a transient here is a failure at
     # dispatch; without a plan it costs one check of a module global
     faults.fire("sweep.dispatch", target=f"u_sweep[{n_u}]")
-    with obs.span("sweeps.u_sweep", n_u=n_u, sharded=False) as sp:
-        xi, tau_in, aw_max, status, health = obs.jit_call(
-            "sweeps.u_sweep", _u_sweep_fn(config), *args)
+    with obs.span("sweeps.u_sweep", n_u=n_u, sharded=mesh is not None) as sp:
+        out = obs.jit_call("sweeps.u_sweep", _u_sweep_fn(config), *args)
+        if mesh is not None:
+            from sbr_tpu_torch.parallel.collectives import all_gather_blocks
+
+            out = tuple(all_gather_blocks(o, mesh, (mesh_axis,)) for o in out)
+        xi, tau_in, aw_max, status, health = out
         sp.sync(status)
     obs.metrics.metrics().inc("sweeps.u_sweep.cells", n_u)
     obs.log_status("sweeps.u_sweep", status)
@@ -156,12 +176,16 @@ def beta_u_grid(
     crossing refinement off, as in the reference. η and tspan stay pinned
     at the base model's resolved values for every β (the copy-constructor
     semantics of `models.params.with_overrides`). Runs on ``device``
-    (default: the CUDA card) in ``dtype`` (default: float64)."""
-    _no_mesh(mesh)
+    (default: the CUDA card) in ``dtype`` (default: float64).
+
+    With ``mesh``, the (B, U) grid is cut along the mesh axes named by
+    ``mesh_axes``, each of whose sizes must divide the matching value
+    array's length; each rank solves its block on the mesh's device and
+    every rank gets the whole grid (module docstring)."""
     if config is None:
         config = SolverConfig(refine_crossings=False)
     dtype = torch.float64 if dtype is None else dtype
-    device = torch.device(device) if device is not None else default_device()
+    device = _mesh_device(mesh, device)
     econ = base.economic
     t0, t1 = base.learning.tspan
     beta_values = torch.as_tensor(beta_values, dtype=dtype, device=device)
@@ -169,13 +193,22 @@ def beta_u_grid(
     scalars = tuple(torch.as_tensor(v, dtype=dtype, device=device)
                     for v in (econ.p, econ.kappa, econ.lam, econ.eta, t0, t1, base.learning.x0))
     n_b, n_u = int(beta_values.shape[0]), int(u_values.shape[0])
+    b_local, u_local = beta_values, u_values
+    if mesh is not None:
+        from sbr_tpu_torch.parallel import shard_axis_values
+
+        b_local, u_local = shard_axis_values(mesh, mesh_axes, beta_values, u_values)
     # fault point: the tile loop's retry policy wraps this call, so a
     # transient injected here exercises the real recovery path
     faults.fire("sweep.dispatch", target=f"beta_u_grid[{n_b}x{n_u}]")
     with obs.span("sweeps.beta_u_grid", n_beta=n_b, n_u=n_u,
-                  dtype=str(dtype).removeprefix("torch."), sharded=False) as sp:
-        xi, _, aw_max, status, health = obs.jit_call(
-            "sweeps.beta_u_grid", _grid_fn(config), beta_values, u_values, *scalars)
+                  dtype=str(dtype).removeprefix("torch."), sharded=mesh is not None) as sp:
+        out = obs.jit_call("sweeps.beta_u_grid", _grid_fn(config), b_local, u_local, *scalars)
+        if mesh is not None:
+            from sbr_tpu_torch.parallel.collectives import all_gather_blocks
+
+            out = tuple(all_gather_blocks(o, mesh, tuple(mesh_axes)) for o in out)
+        xi, _, aw_max, status, health = out
         sp.sync(status)
     obs.metrics.metrics().inc("sweeps.beta_u_grid.cells", n_b * n_u)
     obs.log_status("sweeps.beta_u_grid", status)

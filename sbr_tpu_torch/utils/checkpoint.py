@@ -158,22 +158,30 @@ def resolve_tile_shape(nb: int, nu: int, tile_shape, config=None, dtype=None,
     skips the probes and falls back to (256, 256) clamped to the grid,
     verdict ``"skipped"``. The same capacity and grid give the same shape.
     The decision lands as a ``plan`` event and the manifest's
-    ``memory.plan`` when telemetry is on. ``mesh=`` waits for ROADMAP 1.A
-    item 11."""
+    ``memory.plan`` when telemetry is on. Under a ``mesh`` the candidate
+    tiles must divide by its "b" and "u" axis sizes, and the model is
+    budgeted per rank: a sharded tile puts 1/(n_b·n_u) of its cells on
+    each."""
     if tile_shape != "auto":
         tb, tu = tile_shape
         return (int(tb), int(tu)), None
     from sbr_tpu_torch import obs
     from sbr_tpu_torch.models.params import SolverConfig
-    from sbr_tpu_torch.sweeps.baseline_sweeps import _no_mesh, grid_tile_footprint
+    from sbr_tpu_torch.sweeps.baseline_sweeps import grid_tile_footprint
 
-    _no_mesh(mesh)
     if config is None:  # the sweep default, matching run_tiled_grid
         config = SolverConfig(refine_crossings=False)
+    multiple = (1, 1)
+    if mesh is not None:
+        from sbr_tpu_torch.parallel.mesh import axis_size
+
+        multiple = (axis_size(mesh, "b"), axis_size(mesh, "u"))
     shape, rec = obs.mem.plan_from_probes(
         int(nb), int(nu),
         lambda tb, tu: grid_tile_footprint(tb, tu, config=config, dtype=sweep_dtype(dtype),
                                            device=device),
+        multiple_of=multiple,
+        per_device_divisor=multiple[0] * multiple[1],
     )
     try:
         run = obs.current_run()
@@ -184,12 +192,14 @@ def resolve_tile_shape(nb: int, nu: int, tile_shape, config=None, dtype=None,
     return shape, rec
 
 
-def _preflight_tile(nb, nu, tb, tu, config, dtype, device, plan=None) -> Optional[dict]:
+def _preflight_tile(nb, nu, tb, tu, config, dtype, device, plan=None,
+                    mesh=None) -> Optional[dict]:
     """OOM preflight for the tiled sweep: one worst-case (full) tile's
     measured footprint against headroom × the card's memory, failing CLOSED
     (`MemoryPreflightError`) before any tile runs. Graceful skips, recorded
-    and never fatal: ``SBR_MEM_PREFLIGHT=0`` and no capacity (the CPU; no
-    probe runs). When the planner already fitted this grid (``plan`` from
+    and never fatal: ``SBR_MEM_PREFLIGHT=0``, no capacity (the CPU; no
+    probe runs) and a mesh (reason "sharded": the unsharded measure would
+    overstate a rank's share by the mesh size). When the planner already fitted this grid (``plan`` from
     ``tile_shape="auto"``), the verdict comes from its model rather than a
     third probe."""
     from sbr_tpu_torch.obs import mem as obs_mem
@@ -199,8 +209,9 @@ def _preflight_tile(nb, nu, tb, tu, config, dtype, device, plan=None) -> Optiona
     tb_eff, tu_eff = min(tb, nb), min(tu, nu)
     label = f"tile[{tb_eff}x{tu_eff}]"
     capacity = obs_mem.device_capacity()
-    if capacity is None:
-        return obs_mem.preflight(label, None, capacity=None)
+    if capacity is None or mesh is not None:
+        return obs_mem.preflight(label, None, capacity=None,
+                                 skip_reason="sharded" if mesh is not None else None)
     if plan is not None and plan.get("verdict") == "ok":
         fp = {
             "total_bytes": int(
@@ -384,7 +395,7 @@ class TileRunner:
     def __init__(
         self, beta_values, u_values, base, config, tile_shape, ckpt,
         dtype=None, policy=None, retry_budget=None, heal_divergent: bool = True,
-        tile_cache=None, scenario_spec=None, device=None,
+        tile_cache=None, scenario_spec=None, device=None, mesh=None,
     ) -> None:
         self.beta_values = np.asarray(beta_values)
         self.u_values = np.asarray(u_values)
@@ -398,6 +409,11 @@ class TileRunner:
         self.ckpt = Path(ckpt) if ckpt is not None else None
         self.dtype = dtype
         self.device = device
+        self.mesh = mesh  # a (b, u) DeviceMesh: each tile is one sharded grid
+        # under a mesh every rank computes every tile and only rank 0 writes
+        # the checkpoint and the cache: two ranks' npz bytes differ in their
+        # zip timestamps, and a sidecar must describe the bytes on disk
+        self.writer = mesh is None or torch.distributed.get_rank() == 0
         self.policy = policy
         self.retry_budget = retry_budget
         self.heal_divergent = heal_divergent
@@ -465,7 +481,7 @@ class TileRunner:
                 fl.mark("sweeps", "cache_io", t0, time.monotonic(), tag=tid)
             if arrays is not None:
                 self.counts["cache"] += 1
-                if path is not None:
+                if path is not None and self.writer:
                     t0 = time.monotonic()
                     _save_atomic(path, arrays)
                     if fl is not None:
@@ -476,7 +492,7 @@ class TileRunner:
         if fl is not None:
             fl.mark("sweeps", "compute", t0, time.monotonic(), tag=tid)
         self.counts["computed"] += 1
-        if path is not None:
+        if path is not None and self.writer:
             t0 = time.monotonic()
             _save_atomic(path, arrays)
             if fl is not None:
@@ -486,7 +502,7 @@ class TileRunner:
             inj = faults.fire("checkpoint.save", target=tid)
             if inj is not None and inj.kind == "corrupt":
                 faults.corrupt_file(path)
-        if key is not None:
+        if key is not None and self.writer:
             # stored after the local save, from the same arrays. The meta
             # sidecar makes a plain tile's cells addressable for the serving
             # ladder; a scenario tile gets none (its cells answer another
@@ -516,7 +532,7 @@ class TileRunner:
 
         return beta_u_grid(
             self.beta_values[bs], self.u_values[us], self.base,
-            config=self.config, dtype=self.dtype, device=self.device,
+            config=self.config, dtype=self.dtype, device=self.device, mesh=self.mesh,
         )
 
     def _compute(self, bi: int, ui: int) -> dict:
@@ -627,20 +643,40 @@ def tile_runner(
     defaults resolved as `run_tiled_grid` resolves them (so fingerprints
     agree), the checkpoint directory created and its fingerprint checked,
     and the OOM preflight run once (`_preflight_tile`). Tiles compute on
-    ``device`` (default: the CUDA card; raises without one). ``mesh=``
-    (sharded tiles) waits for ROADMAP 1.A item 11 and raises."""
+    ``device`` (default: the CUDA card; raises without one). With a
+    (b, u) ``mesh`` every tile is one sharded `beta_u_grid` on the mesh's
+    device (every rank runs the sweep alike); every tile, ragged edge tiles
+    included, must divide by the mesh's "b" and "u" sizes, checked before
+    anything is written."""
     from sbr_tpu_torch.models.params import SolverConfig
-    from sbr_tpu_torch.social.agents import default_device
-    from sbr_tpu_torch.sweeps.baseline_sweeps import _no_mesh
+    from sbr_tpu_torch.sweeps.baseline_sweeps import _mesh_device
 
-    _no_mesh(mesh)
+    if mesh is not None and scenario_spec is not None:
+        raise ValueError(
+            "scenario_spec tiles compute through scenario_grid, which is "
+            "single-device — mesh= is not supported on scenario sweeps"
+        )
     if config is None:  # the sweep default: refinement off, as in beta_u_grid
         config = SolverConfig(refine_crossings=False)
-    device = torch.device(device) if device is not None else default_device()
+    device = _mesh_device(mesh, device)
     beta_values = np.asarray(beta_values)
     u_values = np.asarray(u_values)
     nb, nu = len(beta_values), len(u_values)
-    tile_shape, plan = resolve_tile_shape(nb, nu, tile_shape, config, dtype, device=device)
+    tile_shape, plan = resolve_tile_shape(nb, nu, tile_shape, config, dtype, mesh=mesh,
+                                          device=device)
+    if mesh is not None:
+        from sbr_tpu_torch.parallel.mesh import axis_size
+
+        tb, tu = tile_shape
+        mb, mu = axis_size(mesh, "b"), axis_size(mesh, "u")
+        tile_dims = ({min(tb, nb - bi) for bi in range(0, nb, tb)},
+                     {min(tu, nu - ui) for ui in range(0, nu, tu)})
+        if any(d % mb for d in tile_dims[0]) or any(d % mu for d in tile_dims[1]):
+            raise ValueError(
+                f"Tile sizes {sorted(tile_dims[0])}×{sorted(tile_dims[1])} must be "
+                f"divisible by the mesh axes {mb}×{mu}; choose tile_shape/grid "
+                "sizes that are multiples of the mesh shape."
+            )
     if heal_divergent is None:
         heal_divergent = os.environ.get("SBR_HEAL", "").strip() != "0"
     ckpt = None
@@ -653,14 +689,15 @@ def tile_runner(
             _sweep_fingerprint(beta_values, u_values, fp_base, config, tile_shape, dtype),
             tile_shape=tile_shape,
         )
-    _preflight_tile(nb, nu, tile_shape[0], tile_shape[1], config, dtype, device, plan=plan)
+    _preflight_tile(nb, nu, tile_shape[0], tile_shape[1], config, dtype, device, plan=plan,
+                    mesh=mesh)
     if retry_budget is None:
         retry_budget = default_retry_budget(len(tile_origins(nb, nu, tile_shape)))
     return TileRunner(
         beta_values, u_values, base, config, tile_shape, ckpt,
         dtype=dtype, policy=default_tile_policy(max_retries),
         retry_budget=retry_budget, heal_divergent=heal_divergent,
-        tile_cache=tile_cache, scenario_spec=scenario_spec, device=device,
+        tile_cache=tile_cache, scenario_spec=scenario_spec, device=device, mesh=mesh,
     )
 
 

@@ -411,10 +411,18 @@ def test_entry_points_need_cuda_unless_told_cpu(graph, monkeypatch):
 
 def test_unported_options_raise(graph):
     src, dst = graph
-    with pytest.raises(NotImplementedError):
-        ta.prepare_agent_graph(1.0, src, dst, N, engine="measure", device=CPU)
-    with pytest.raises(NotImplementedError):
-        ta.prepare_agent_graph(1.0, src, dst, N, mesh=object(), device=CPU)
+    # engine="measure" is ported: it times both engines and keeps one, and
+    # only prepare_agent_graph takes it
+    cfg = ta.AgentSimConfig(n_steps=4)
+    pg = ta.prepare_agent_graph(1.0, src, dst, N, config=cfg, engine="measure", device=CPU)
+    assert [lbl for lbl, _ in pg.measured_steps_per_sec] == ["gather", "incremental"]
+    with pytest.raises(ValueError, match="prepare_agent_graph feature"):
+        ta.simulate_agents(1.0, src, dst, N, engine="measure", device=CPU)
+    with pytest.raises(ValueError, match="measure_probe"):
+        ta.prepare_agent_graph(1.0, src, dst, N, measure_probe={}, device=CPU)
+    # mesh= is ported (tests/test_torch_sharded_agents.py); its comm is checked
+    with pytest.raises(ValueError, match="comm"):
+        ta.prepare_agent_graph(1.0, src, dst, N, comm="ring", device=CPU)
     with pytest.raises(NotImplementedError):
         ta.simulate_agents(1.0, src, dst, N, device=CPU,
                            config=ta.AgentSimConfig(n_steps=2, rng_stream="foldin"))

@@ -296,8 +296,8 @@ def test_close_loop_validation(social_fp):
         tc.close_loop(m, fp=fp, seeds=[], device=CPU, **SMALL)
     with pytest.raises(ValueError, match="does not match n_agents"):
         tc.close_loop(m, fp=fp, graph=tg.ErdosRenyiSpec(4000, 15.0), device=CPU, **SMALL)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tc.close_loop(m, fp=fp, mesh=object(), device=CPU, **SMALL)
+    # mesh= is ported (tests/test_torch_sharded_agents.py), but not with an
+    # information model
     with pytest.raises(ValueError, match="mesh= is not supported"):
         tc.close_loop(m, fp=fp, mesh=object(), infomodel=TSpec(channel="bayes"),
                       device=CPU, **SMALL)

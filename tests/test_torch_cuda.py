@@ -1271,3 +1271,38 @@ def test_routed_population_launches_members_times_steps(cuda_device, channel, tm
     steps = int(round(float(m.economic.eta) / 0.1))
     assert {k: after.get(k, 0) - before.get(k, 0) for k in (kernel, other)} == \
         {kernel: 3 * steps, other: 0}
+
+
+@pytest.mark.parametrize("engine,comm", [("gather", "scatter"), ("gather", "allgather_psum"),
+                                         ("incremental", "scatter")])
+def test_sharded_world_one_on_card_equals_single_device(cuda_device, engine, comm):
+    """A world-size-1 NCCL mesh on the card: the sharded engines are the
+    single-device run bit for bit, and the "scatter" comm and the
+    incremental fallback launch the recount kernel (a budget of 8 makes
+    the fallback fire)."""
+    import torch.distributed as dist
+
+    from sbr_tpu_torch.parallel import make_agent_mesh
+    from sbr_tpu_torch.social import recount
+
+    n = 5003
+    src, dst = st.erdos_renyi_edges(n, 8.0, seed=4)
+    cfg = st.AgentSimConfig(n_steps=30, dt=0.1, exit_delay=0.1, reentry_delay=2.0)
+    kw = dict(x0=0.01, config=cfg, seed=3, engine=engine, incremental_budget=8)
+    one = st.simulate_agents(1.0, src, dst, n, device=cuda_device, **kw)
+    fresh = not dist.is_initialized()
+    try:
+        mesh = make_agent_mesh(device="cuda")
+        assert dist.get_backend() == "nccl"
+        before = _build.LAUNCHES[recount.KERNEL]
+        sh = st.simulate_agents(1.0, src, dst, n, mesh=mesh, comm=comm, **kw)
+        launched = _build.LAUNCHES[recount.KERNEL] - before
+    finally:
+        if fresh and dist.is_initialized():
+            dist.destroy_process_group()
+    for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac"):
+        assert torch.equal(getattr(one, f), getattr(sh, f)), f
+    if comm == "scatter":
+        assert launched == int(sh.full_recount_steps.sum()) > 0
+    else:
+        assert launched == 0

@@ -157,8 +157,9 @@ def test_edge_counts_and_plan_follow_the_reference(monkeypatch):
 
 def test_unported_and_device_rules(monkeypatch):
     spec = _specs(tg)["er"]
-    with pytest.raises(NotImplementedError):
-        tg.prepare_generated_graph(spec, mesh=object(), device=CPU)
+    # mesh= is ported (tests/test_torch_sharded_agents.py); its comm is checked
+    with pytest.raises(ValueError, match="comm"):
+        tg.prepare_generated_graph(spec, comm="ring", device=CPU)
     with pytest.raises(ValueError, match="engine"):
         tg.prepare_generated_graph(spec, engine="measure", device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

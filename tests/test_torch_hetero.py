@@ -180,8 +180,17 @@ def test_params_and_not_ported_options():
     with pytest.raises(ValueError, match="sum to 1"):
         tp.make_hetero_params(betas=[1.0, 2.0], dist=[0.5, 0.6])
     tl, *_ = _stage1(_key(SECTION2), "fixed", 0.5)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        ths.solve_equilibrium_hetero(tl, tm.economic, axis_name="k")
+    # axis_name is ported: a one-rank group axis is the plain solve bit for
+    # bit (more ranks: tests/test_torch_parallel.py)
+    from sbr_tpu_torch.parallel import make_agent_mesh
+    from torch_mesh import world_one
+
+    with world_one():
+        mesh = make_agent_mesh(axis_name="k", device=CPU)
+        one = ths.solve_equilibrium_hetero(tl, tm.economic, axis_name=(mesh, "k"))
+    ref = ths.solve_equilibrium_hetero(tl, tm.economic)
+    for a, b in ((one.xi, ref.xi), (one.status, ref.status), (one.health.flags, ref.health.flags)):
+        assert torch.equal(a, b)
     # the scenario hooks are ported: an identity hook is the hook-free
     # solve bit for bit, and a hook's rows are the ones solved on
     plain = ths.solve_equilibrium_hetero(tl, tm.economic)

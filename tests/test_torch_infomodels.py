@@ -455,8 +455,15 @@ def test_unported_and_device_rules(monkeypatch):
         r = ti.simulate_info(ts.InfoModelSpec(channel=channel, dynamics="rewire"), graph,
                              device=CPU)
         assert r.epochs == 8 and r.informed.device.type == CPU
-    with pytest.raises(NotImplementedError):
-        tg.prepare_generated_graph(graph, mesh=object(), device=CPU)
+    # the sharded build is ported (tests/test_torch_sharded_agents.py); the
+    # information engines run on one device and refuse a sharded graph
+    from sbr_tpu_torch.parallel import make_agent_mesh
+    from torch_mesh import world_one
+
+    with world_one():
+        sharded = tg.prepare_generated_graph(graph, mesh=make_agent_mesh(device=CPU))
+        with pytest.raises(ValueError, match="mesh"):
+            ti.simulate_info(ts.InfoModelSpec(), graph, prepared=sharded)
     pg = tg.prepare_generated_graph(graph, device=CPU)
     with pytest.raises(ValueError, match="prepared"):
         ti.simulate_info(ts.InfoModelSpec(channel="bayes"), graph, prepared=pg, device=CPU)

@@ -139,8 +139,13 @@ def test_policy_sweep_validation_and_not_ported_options():
     base = tp.make_interest_params(delta=0.1)
     with pytest.raises(ValueError, match="delta"):
         tps.policy_sweep_interest([1.0], [0.1], [0.1], base, device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tps.policy_sweep_interest([1.0], [0.1], [0.0], base, mesh=object(), device=CPU)
+    # mesh= is ported (tests/test_torch_parallel.py); an axis that does not
+    # divide its values is refused before any collective
+    from torch_mesh import AxisStub
+
+    with pytest.raises(ValueError, match="does not divide"):
+        tps.policy_sweep_interest([1.0], [0.1, 0.2, 0.3], [0.0], base,
+                                  mesh=AxisStub(b=(1, 0), u=(2, 0)))
     assert tps.POLICY_PROGRAM_VERSION == jps.POLICY_PROGRAM_VERSION
 
 

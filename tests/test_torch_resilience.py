@@ -274,8 +274,13 @@ def test_auto_tile_shape_and_mesh_wait_for_their_items():
     # "auto" came with obs.mem: on the CPU (no capacity) the planner falls
     # back to the covering tile, and the grid is the monolithic one bit for bit
     assert _same_grid(_tiled(tile_shape="auto"), _mono())
-    with pytest.raises(NotImplementedError, match="1.A 11"):
-        _tiled(mesh=object())
+    # mesh= is ported (tests/test_torch_parallel.py): a tile the mesh does
+    # not divide is refused before anything is written
+    from torch_mesh import AxisStub
+
+    with pytest.raises(ValueError, match="divisible by the mesh axes 1×2"):
+        run_tiled_grid(BETAS, US, _base(), config=CFG, tile_shape=(3, 3),
+                       mesh=AxisStub(b=(1, 0), u=(2, 0)))
 
 
 def test_entry_points_need_the_card_unless_told_cpu(tmp_path):

@@ -168,12 +168,17 @@ def test_u_sweep_matches_reference(mode):
 
 
 def test_sharding_is_not_ported():
+    """mesh= is ported (tests/test_torch_parallel.py); a mesh axis that does
+    not divide its value array is refused before any collective, as
+    sbr_tpu's sharding refuses it."""
+    from torch_mesh import AxisStub
+
     m = tparams.make_model_params()
-    with pytest.raises(NotImplementedError, match="1.A 11"):
-        tsw.beta_u_grid([1.0], [0.1], m, mesh=object(), device=CPU)
+    with pytest.raises(ValueError, match="does not divide"):
+        tsw.beta_u_grid([1.0], [0.1, 0.2, 0.3], m, mesh=AxisStub(b=(1, 0), u=(2, 1)))
     ls = solve_learning(m.learning, tparams.SolverConfig(n_grid=64), device=CPU)
-    with pytest.raises(NotImplementedError):
-        tsw.u_sweep(ls, [0.1], m.economic, mesh=object())
+    with pytest.raises(ValueError, match="does not divide"):
+        tsw.u_sweep(ls, [0.1], m.economic, mesh=AxisStub(u=(2, 0)))
 
 
 def test_program_version_is_the_reference():
