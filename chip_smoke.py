@@ -57,8 +57,8 @@ which launches no kernel: the paper-resolution Figure-5 heatmap (5000×5000
 f32 in 500×500 tiles) cold and resumed, with four tiles and a 1000×1000
 sub-sweep bit for bit against `beta_u_grid`; a seeded fault drill on its
 first four tiles (a retried transient, a NaN result the degrade ladder
-repairs, a torn save quarantined on the resume, a port process on the
-card preempted by SIGTERM), byte-identical to the fault-free grid;
+repairs, a torn save quarantined on the resume), byte-identical to the
+fault-free grid;
 bench.py's `bench_sweep` shape elastic with the tile cache (cold, warm
 with 0 tiles computed, two processes on the card sharing a directory);
 the serving engine answering an outage from the tile cache; the tiled
@@ -68,8 +68,8 @@ wiring and its reader: every instrumented path under a run directory at
 bench.py's shapes (the served mix, populations, a grads stream and a
 breaker drill over the tile cache in a served run directory; the faulted
 tiled sweep; the elastic sweep cold and warm; a converged calibration; the
-scenario, policy and graph runs; a sweep and a calibration built to breach;
-a SIGTERM drill), once without run directories for the run log's cost,
+scenario, policy and graph runs; a sweep and a calibration built to
+breach), once without run directories for the run log's cost,
 with every report subcommand as ``python -m sbr_tpu_torch.obs.report``
 exiting 0 on the clean runs and 1 on the breaching ones;
 and the same drive small on the card against the CPU. Then slice 13,
@@ -102,7 +102,19 @@ device events), the sharded graph build byte-identical to the host
 prepare, the 500×500 float32 Figure-5 grid on a (1, 2) mesh and the
 K=1000 hetero solve on a 2-rank "k" mesh against one device; and the
 matrix on CPU and card meshes of one gloo group, bit for bit
-(``sharded_cpu``). It prints one JSON line per phase, and beside
+(``sharded_cpu``). Then slice 17: both agent kernels in float16 and
+bfloat16 (bit for bit their plain versions, with their bounds), the
+foldin stream and the half types run on the card against the CPU, the
+policy sweep's measured OOM preflight, and the five recovery drills of
+``python -m sbr_tpu_torch.resilience.chaos`` on the card (``chaos``: four
+of them beside ``fleet_cpu``, which times nothing, then the fleet drill,
+whose trace coverage is a check of the router's host time, alone). The
+phases up to the recount gather's, which time the kernels, run alone;
+after them two more processes of this script run the extensions,
+scenario, population, rewire and grad phases, and the tiled, figures and
+obs phases (LANES), beside the telemetry, audit and fleet phases and the
+sharded ranks, and all of these end before the fleet drill starts. It
+prints one JSON line per phase, and beside
 the serving, scenario, population, rewire, grad, tiled, telemetry and
 audit numbers the card's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -114,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -147,7 +160,9 @@ N_BAYES = 2_000_000
 STEPS_BAYES = 100
 
 
-T_START = time.perf_counter()
+# a child of `_lane_start` counts its phases' elapsed seconds from the
+# parent's start (the monotonic clock is the system's)
+T_START = float(os.environ.get("CHIP_SMOKE_T0") or time.perf_counter())
 
 
 def emit(phase: str, **fields) -> None:
@@ -194,12 +209,12 @@ def bound_ms(n: int, dtype: torch.dtype):
 def belief_bound_ms(n: int, dtype: torch.dtype):
     """Least time for the belief step on n agents: the larger of its bytes
     (informed 1 B, t_inf, belief, counts 4 B, awareness, deg, θ read;
-    informed' 1 B, t_inf', belief' written: 34 B in f32, 62 B in f64) over
-    the memory rate and its operations over the rate of its type."""
+    informed' 1 B, t_inf', belief' written: 34 B in f32, 62 B in f64, 20 B
+    in the half types) over the memory rate and its operations over the
+    rate of the type they run in."""
     size = torch.finfo(dtype).bits // 8
     bytes_ms = n * (6 + 7 * size) / HBM_BYTES_PER_S * 1e3
-    rate = VECTOR_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S
-    ops_ms = n * BELIEF_OPS_PER_AGENT / rate * 1e3
+    ops_ms = n * BELIEF_OPS_PER_AGENT / _dtype_ops_per_s(dtype) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -235,7 +250,20 @@ def phase_build() -> None:
     emit("build", seconds=seconds, kernels=sorted(paths), ptxas=ptxas)
 
 
-def _kernel_inputs(n: int, np_dtype, seed: int = 0):
+# The four types of both agent kernels, as (numpy type the inputs are drawn
+# in, torch type they run in): the half types are drawn in float32 and
+# rounded on the card, which needs no numpy bfloat16.
+KERNEL_DTYPES = ((np.float32, torch.float32), (np.float64, torch.float64),
+                 (np.float32, torch.float16), (np.float32, torch.bfloat16))
+
+
+def _dtype_ops_per_s(dtype: torch.dtype) -> float:
+    """The rate of a kernel's arithmetic: float64 at its own rate, every
+    other type in float32 (the half kernels compute in float32)."""
+    return F64_OPS_PER_S if dtype == torch.float64 else VECTOR_OPS_PER_S
+
+
+def _kernel_inputs(n: int, np_dtype, seed: int = 0, dtype=None):
     rng = np.random.default_rng(seed)
     informed = rng.random(n) < 0.3
     t_inf = np.where(informed, rng.uniform(-1.0, 5.0, n), np.inf).astype(np_dtype)
@@ -245,9 +273,10 @@ def _kernel_inputs(n: int, np_dtype, seed: int = 0):
     safe_deg = np.maximum(deg, 1).astype(np_dtype)
     betas = rng.lognormal(0.0, 0.5, n).astype(np_dtype)
     dev = torch.device("cuda")
-    return tuple(
-        torch.from_numpy(a).to(dev) for a in (informed, t_inf, counts, betas, safe_deg)
-    )
+    out = [torch.from_numpy(a).to(dev) for a in (informed, t_inf, counts, betas, safe_deg)]
+    if dtype is not None:
+        out = [t.to(dtype) if t.is_floating_point() else t for t in out]
+    return tuple(out)
 
 
 def phase_kernel_vs_plain() -> list:
@@ -256,10 +285,10 @@ def phase_kernel_vs_plain() -> list:
     k0, k1 = rng.fold_in(rng.prng_key(0), 17)
     rows = []
     for n in (1_000_003, 10_000_019):
-        for np_dtype, dtype in ((np.float32, torch.float32), (np.float64, torch.float64)):
-            informed, t_inf, counts, betas, safe_deg = _kernel_inputs(n, np_dtype)
+        for np_dtype, dtype in KERNEL_DTYPES:
+            informed, t_inf, counts, betas, safe_deg = _kernel_inputs(n, np_dtype, dtype=dtype)
             dt = 0.1
-            t_next = float(np_dtype(18) * np_dtype(dt))
+            t_next = fused.host_round(18 * fused.host_round(dt, dtype), dtype)
             args = (informed, t_inf, counts, betas, safe_deg, 0, k0, k1, t_next, dt)
             got_i, got_t = fused._update_cuda(*args)
             want_i, got_p = fused._update_plain(*args)
@@ -271,9 +300,10 @@ def phase_kernel_vs_plain() -> list:
             # lanes whose decision an exp one ulp off could have flipped
             ids = torch.arange(n, dtype=torch.int64, device="cuda")
             x0, x1 = rng._threefry2x32(k0, k1, ids, torch.zeros_like(ids))
-            u = rng._uniform_from_bits(x0, x1, dtype)
-            p = 1.0 - torch.exp((-betas) * (counts.to(dtype) / safe_deg) * dt)
-            ulp = torch.nextafter(p, torch.full_like(p, float("inf"))) - p
+            u = rng._uniform_from_bits(x0, x1, dtype).double()
+            p = (1.0 - torch.exp((-betas) * (counts.to(dtype) / safe_deg)
+                                 * fused.host_round(dt, dtype))).double()
+            ulp = torch.finfo(dtype).eps * p.abs()
             near = int(((u - p).abs() <= 4 * ulp).sum())
             del x0, x1, u, p, ulp, ids
             kernel_ms = time_ms(lambda: fused._update_cuda(*args))
@@ -461,9 +491,45 @@ def phase_cpu_vs_card() -> None:
                  final_informed_frac=float(b.informed_frac[-1]))
             if dtype == np.float64 and not _same(a, b):
                 raise AssertionError(f"{engine}: float64 CPU and card runs differ")
+    _foldin_and_half_cpu_vs_card(src, dst, n, cfg)
 
 
-def _belief_inputs(n: int, np_dtype, seed: int = 0):
+def _foldin_and_half_cpu_vs_card(src, dst, n: int, cfg) -> None:
+    """The foldin stream (unfused in every mode: no kernel launch) and the
+    half types (the kernel on the card) against the CPU's plain runs. The
+    float64 foldin run is held bit for bit; float32 and the half types
+    count the agents whose decision an exp one ulp apart flipped."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.social.agents import _TORCH_DTYPE
+    from sbr_tpu_torch.social.fused import KERNEL
+
+    half = [k for k, v in _TORCH_DTYPE.items() if v in (torch.float16, torch.bfloat16)]
+    runs = [("foldin", np.dtype(np.float64)), ("foldin", np.dtype(np.float32))]
+    runs += [("counter", d) for d in half]
+    for stream, dtype in runs:
+        c = st.AgentSimConfig(n_steps=cfg.n_steps, dt=cfg.dt, exit_delay=cfg.exit_delay,
+                              reentry_delay=cfg.reentry_delay, rng_stream=stream)
+        out, launches = {}, {}
+        for device in ("cpu", "cuda"):
+            before = _build.LAUNCHES[KERNEL]
+            out[device] = st.simulate_agents(1.0, src, dst, n, x0=0.01, config=c, seed=2,
+                                             engine="gather", dtype=dtype, device=device)
+            launches[device] = _build.LAUNCHES[KERNEL] - before
+        a, b = out["cpu"], out["cuda"]
+        diff = int(((a.informed != b.informed.cpu()) | (a.t_inf != b.t_inf.cpu())).sum())
+        emit("cpu_vs_card", engine="gather", dtype=dtype.name, rng_stream=stream,
+             differing_agents=diff, kernel_launches_on_card=launches["cuda"],
+             final_informed_frac=float(b.informed_frac[-1]))
+        want_launches = 0 if stream == "foldin" else c.n_steps
+        if launches["cuda"] != want_launches:
+            raise AssertionError(f"{stream}/{dtype.name}: {launches['cuda']} kernel launches "
+                                 f"on the card, not {want_launches}")
+        if dtype == np.float64 and not _same(a, b):
+            raise AssertionError("foldin: float64 CPU and card runs differ")
+
+
+def _belief_inputs(n: int, np_dtype, seed: int = 0, dtype=None):
     rng = np.random.default_rng(seed)
     informed = rng.random(n) < 0.1
     t_inf = np.where(informed, rng.uniform(-1.0, 5.0, n), np.inf).astype(np_dtype)
@@ -472,7 +538,10 @@ def _belief_inputs(n: int, np_dtype, seed: int = 0):
     arrays = (informed, t_inf, rng.normal(0.5, 2.0, n).astype(np_dtype), counts,
               rng.uniform(0.5, 3.0, n).astype(np_dtype), np.maximum(deg, 1).astype(np_dtype),
               rng.logistic(3.0, 1.5, n).astype(np_dtype))
-    return tuple(torch.from_numpy(a).to("cuda") for a in arrays)
+    out = [torch.from_numpy(a).to("cuda") for a in arrays]
+    if dtype is not None:
+        out = [t.to(dtype) if t.is_floating_point() else t for t in out]
+    return tuple(out)
 
 
 def phase_belief_kernel_vs_plain() -> list:
@@ -481,10 +550,12 @@ def phase_belief_kernel_vs_plain() -> list:
 
     rows = []
     for n in (2_000_003, 10_000_019):
-        for np_dtype, dtype in ((np.float32, torch.float32), (np.float64, torch.float64)):
-            ins = _belief_inputs(n, np_dtype)
-            llr0, llr1 = (float(np_dtype(v)) for v in st.InfoModelSpec(channel="bayes").llr)
-            args = (*ins, float(np_dtype(18) * np_dtype(0.05)), 0.05, llr0, llr1)
+        for np_dtype, dtype in KERNEL_DTYPES:
+            ins = _belief_inputs(n, np_dtype, dtype=dtype)
+            llr0, llr1 = (fused.host_round(v, dtype)
+                          for v in st.InfoModelSpec(channel="bayes").llr)
+            t_next = fused.host_round(18 * fused.host_round(0.05, dtype), dtype)
+            args = (*ins, t_next, 0.05, llr0, llr1)
             got = fused._belief_cuda(*args)
             want = fused._belief_plain(*args)
             torch.cuda.synchronize()
@@ -1807,6 +1878,56 @@ def _ext_oracles() -> dict:
             "section3": solve_interest_oracle(n_scan=400).xi}
 
 
+@contextlib.contextmanager
+def _preflight_records():
+    """The OOM preflight records made in the block, in order."""
+    from sbr_tpu_torch.obs import mem
+
+    records, real = [], mem.preflight
+
+    def spy(*args, **kwargs):
+        records.append(real(*args, **kwargs))
+        return records[-1]
+
+    mem.preflight = spy
+    try:
+        yield records
+    finally:
+        mem.preflight = real
+
+
+def _policy_preflight_row() -> None:
+    """The policy sweep's measured preflight on the card: the stretch grid
+    (float64, fixed numerics) gets an "ok" verdict from the two probe
+    grids' measured footprints, and a grid 10^4 times larger fails closed
+    before it runs."""
+    from sbr_tpu_torch.obs import mem
+    from sbr_tpu_torch.sweeps import policy_sweeps
+
+    with _preflight_records() as records:
+        _ext_case("policy", "fixed", "cuda", torch.float64)
+    rec = records[-1]
+    cfg = __import__("sbr_tpu_torch").SolverConfig(numerics="fixed", n_grid=4096,
+                                                   refine_crossings=False)
+    big = policy_sweeps._preflight_footprint(1000, 1000, 10, cfg, torch.float64,
+                                             torch.device("cuda"))
+    refused = mem.preflight("policy[1000x1000x10]", big)
+    try:
+        mem.check_preflight(refused)
+        failed_closed = False
+    except mem.MemoryPreflightError:
+        failed_closed = True
+    probes = {str(k[0]): v["total_bytes"] for k, v in policy_sweeps._FOOTPRINT_CACHE.items()
+              if k[1] == cfg and k[2] == torch.float64}
+    emit("policy_preflight", label=rec["label"], verdict=rec["verdict"],
+         footprint_bytes=rec.get("footprint_bytes"), budget_bytes=rec.get("budget_bytes"),
+         capacity_bytes=rec.get("capacity_bytes"), probe_total_bytes=probes,
+         oversized_verdict=refused["verdict"], oversized_bytes=refused.get("footprint_bytes"),
+         oversized_failed_closed=failed_closed)
+    if rec["verdict"] != "ok" or not failed_closed or len(probes) != 2:
+        raise AssertionError(f"policy preflight: {rec}, oversized {refused}, probes {probes}")
+
+
 def phase_extensions() -> dict:
     """Sections 2 and 3 and the stretch-shape policy sweep on the card at
     full width (n_grid 4096), in both numerics modes (the sweep in float32
@@ -1868,6 +1989,7 @@ def phase_extensions() -> dict:
             sf, sa = out[(name, "float64", "fixed")]["status"], out[(name, "float64", "adaptive")]["status"]
             if not torch.equal(sf, sa):
                 raise AssertionError(f"{name}: fixed and adaptive statuses differ")
+    _policy_preflight_row()
     for numerics in ("fixed", "adaptive"):
         def run(numerics=numerics):
             return _ext_case("section3", numerics, "cuda", n_grid=EXT_PROFILE_GRID)
@@ -2890,9 +3012,9 @@ def _tiled_paper(card: str, scratch) -> dict:
 
 def _tiled_drill(card: str, scratch, clean: dict) -> None:
     """The paper shape's first 4 tiles under a seeded fault plan (a
-    transient compute, a NaN result, a torn save), resumed; then a port
-    subprocess on the card preempted by SIGTERM between two tiles, and
-    resumed. Both end byte-identical to the fault-free sub-sweep."""
+    transient compute, a NaN result, a torn save), resumed, byte-identical
+    to the fault-free sub-sweep (the SIGTERM of a port process is the chaos
+    phase's)."""
     import sbr_tpu_torch as st
     from sbr_tpu_torch.resilience import FaultPlan, faults, heal
     from sbr_tpu_torch.utils import checkpoint as ckpt
@@ -2936,29 +3058,15 @@ def _tiled_drill(card: str, scratch, clean: dict) -> None:
         torch.float32, first, flags, device=TILED_DEVICE))
     rungs = sum(r["rung"] + 1 for r in ladder if r["repaired"])
 
-    # SIGTERM to a port process on the card before its third tile
-    sig_dir = scratch / "sigterm"
-    plan = {"seed": 0, "rules": [{"point": "tile.compute", "kind": "preempt", "at_hits": [3]}]}
-    job = dict(betas=sub_b.tolist(), us=sub_u.tolist(), params=PAPER_PARAMS, config=None,
-               dtype="float32", tile=[PAPER_TILE, PAPER_TILE], ckpt=str(sig_dir),
-               device=TILED_DEVICE)
-    t0 = time.perf_counter()
-    (rc, out), = _sweep_workers([job], env_extra={"SBR_FAULT_PLAN": json.dumps(plan)})
-    sig_s = time.perf_counter() - t0
-    left = {pat: sorted(p.name for p in sig_dir.glob(pat))
-            for pat in ("*.tmp", "*.lease", "host_*.hb")}
-    landed = len(list(sig_dir.glob("tile_*.npz")))
-    sig_report = {}
-    sig_resumed = ckpt.run_tiled_grid(sub_b, sub_u, base, checkpoint_dir=str(sig_dir),
-                                      report=sig_report, **kw)
-    same = {"faulted": _same_bytes(faulted, clean), "resumed": _same_bytes(resumed, clean),
-            "sigterm_resumed": _same_bytes(sig_resumed, clean)}
+    # the SIGTERM run of a port process gave way to the chaos phase's base
+    # and churn drills (`phase_chaos`), which hold its assertions: exit
+    # 143, two tiles landed, no lease, heartbeat or temp file left, the
+    # rest computed on the resume, byte-identical
+    same = {"faulted": _same_bytes(faulted, clean), "resumed": _same_bytes(resumed, clean)}
     emit("tiled_fault_drill", cells=SUB_RES ** 2, tiles=4, firings=firings,
          faulted_s=faulted_s, repairs=repairs, resume_counts=resume_report["counts"],
          quarantined=quarantined, ladder_cells=len(ladder), ladder_rungs=rungs,
-         ladder_s=ladder_s, ms_per_rung=1e3 * ladder_s / max(rungs, 1),
-         sigterm_exit=rc, sigterm_process_s=sig_s, sigterm_tiles_landed=landed,
-         sigterm_left=left, sigterm_resume_counts=sig_report["counts"], byte_identical=same,
+         ladder_s=ladder_s, ms_per_rung=1e3 * ladder_s / max(rungs, 1), byte_identical=same,
          card=card)
     if not (firings == ["transient", "nan", "corrupt"] and len(repairs) == 2
             and all(r["repaired"] for r in repairs) and len(quarantined) == 1
@@ -2966,8 +3074,6 @@ def _tiled_drill(card: str, scratch, clean: dict) -> None:
             and all(r["repaired"] for r in ladder) and len(ladder) == 2):
         raise AssertionError(f"fault drill: {firings}, {repairs}, {quarantined}, "
                              f"{resume_report['counts']}, {ladder}")
-    if rc != 143 or any(left.values()) or landed != 2 or sig_report["counts"]["computed"] != 2:
-        raise AssertionError(f"SIGTERM drill: exit {rc}, left {left}, landed {landed}\n{out}")
     if not all(same.values()):
         raise AssertionError(f"fault drill: not byte-identical to the fault-free grid: {same}")
 
@@ -3336,12 +3442,13 @@ def phase_figures(card: str, tiled_paper_counts) -> dict:
         events = [json.loads(ln) for ln in (run_dir / "events.jsonl").read_text().splitlines()]
         manifest = json.loads((run_dir / "manifest.json").read_text())
         tex = (out / "replication_figures.tex").read_text()
-        # the run log's cost: the four sections again, warm, without and then
-        # with --obs (one pair, host clock around the whole call)
+        # the run log's cost: the sections again at --fast depth (a depth
+        # cut), warm, without and then with --obs (one pair, host clock
+        # around the whole call)
         walls = {}
         for mode, extra in (("off", []), ("on", ["--obs"])):
             t1 = time.perf_counter()
-            _run_master(["--output", str(scratch / mode), "--device", "cuda"] + extra)
+            _run_master(["--output", str(scratch / mode), "--device", "cuda", "--fast"] + extra)
             walls[mode] = time.perf_counter() - t1
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
@@ -3522,24 +3629,6 @@ OBS_REPORTS = (("render", "serve", 0), ("serve", "serve", 0), ("infomodel", "ser
                ("elastic", "elastic_cold", 0), ("elastic", "elastic_warm", 0),
                ("grad", "grad", 0), ("health", "sweeps", 0),
                ("resilience", "breach", 1), ("grad", "grad_breach", 1))
-
-_OBS_SIGTERM_CHILD = r"""
-import sys
-import numpy as np
-import torch
-import sbr_tpu_torch as st
-from sbr_tpu_torch import obs
-from sbr_tpu_torch.resilience import FaultPlan, faults
-
-faults.install(FaultPlan({"seed": 0, "rules": [
-    {"point": "tile.compute", "kind": "preempt", "at_hits": [2]}]}))
-obs.start_run(label="drill", run_dir=sys.argv[2])
-st.run_tiled_grid(np.linspace(0.5, 2.0, 64), np.linspace(0.02, 0.5, 64), st.make_model_params(),
-                  config=st.SolverConfig(n_grid=1024, bisect_iters=60, refine_crossings=False),
-                  tile_shape=(32, 32), checkpoint_dir=sys.argv[1], device=sys.argv[3])
-print("UNREACHABLE", flush=True)
-"""
-
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
@@ -3855,29 +3944,6 @@ def _obs_cli(drive: dict) -> list:
     return rows
 
 
-def _obs_sigterm_drill(device, root) -> dict:
-    """A port process on the card preempted by SIGTERM mid-sweep under a
-    run: it exits 143 and its manifest reads "interrupted"."""
-    import os
-
-    run_dir, ckpt = root / "sigterm_run", root / "sigterm_ck"
-    env = {**os.environ, "PYTHONPATH": str(_REPO_ROOT), "SBR_FAULT_PLAN": ""}
-    proc = subprocess.Popen([sys.executable, "-c", _OBS_SIGTERM_CHILD, str(ckpt), str(run_dir),
-                             device], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, env=env, cwd=str(_REPO_ROOT))
-    try:
-        text, _ = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=30)
-    status = json.loads((run_dir / "manifest.json").read_text())["status"]
-    row = dict(exit=proc.returncode, status=status, tiles=len(list(ckpt.glob("tile_*.npz"))))
-    if proc.returncode != 143 or status != "interrupted" or "UNREACHABLE" in text:
-        raise AssertionError(f"SIGTERM drill: {row}\n{text}")
-    return row
-
-
 def phase_obs(card: str) -> dict:
     """The run log's wiring and its reader on the card at bench.py's shapes
     (module docstring): the drive (`_obs_drive`) once without run
@@ -3885,7 +3951,7 @@ def phase_obs(card: str) -> dict:
     served p50/p99 with and without ``run_dir``; every report subcommand
     in process and as a subprocess, with its expected exit code; the folded
     counts against the events, ``statz()`` and the sweeps' ``report=``;
-    ``trend --check`` over three appended records; a SIGTERM drill. The
+    ``trend --check`` over three appended records. The
     served population queries launch the infection and belief kernels
     members × steps times each. Returns the launches by kernel of the drive
     with run directories, counted from 0 just before it."""
@@ -3959,9 +4025,10 @@ def phase_obs(card: str) -> dict:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             trend = report.main(["trend", str(hist), "--check", "--tolerance", "10", "--json"])
-        drill = _obs_sigterm_drill(device, root)
+        # the SIGTERM drill under a run gave way to the chaos phase's base
+        # drill: exit 143 and an "interrupted" manifest (`phase_chaos`)
         emit("obs_trend_and_drill", trend_exit=trend, trend=json.loads(buf.getvalue()),
-             sigterm=drill, card=card)
+             card=card)
         if trend != 0:
             raise AssertionError(f"trend --check exited {trend}")
     return launches
@@ -5029,9 +5096,16 @@ def phase_audit(card: str) -> dict:
         if code != 0:
             raise AssertionError(f"audit --update: exit {code}\n{err[-2000:]}")
         cli_rows = _audit_cli_rows(runs, first[1:])
-        (clean,) = _audit_procs([cli + ["--obs-dir", str(runs / "clean")]])
-        (corrupt,) = _audit_procs([cli + ["--obs-dir", str(runs / "corrupt")]],
-                                  env_extra={"SBR_FAULT_PLAN": json.dumps(AUDIT_CORRUPT_PLAN)})
+        # the clean and the corrupt runs together, each in its own process
+        procs, t0 = _audit_start([cli + ["--obs-dir", str(runs / "clean")]])
+        try:
+            procs += _audit_start([cli + ["--obs-dir", str(runs / "corrupt")]], env_extra={
+                "SBR_FAULT_PLAN": json.dumps(AUDIT_CORRUPT_PLAN)})[0]
+        except BaseException:
+            procs[0].kill()
+            procs[0].wait(timeout=30)
+            raise
+        clean, corrupt = _audit_wait((procs, t0))
         reps = {}
         for name, (code, out, err, wall) in (("clean", clean), ("corrupt", corrupt)):
             rep = json.loads(out.strip().splitlines()[-1])
@@ -5183,17 +5257,10 @@ def phase_audit_cpu_vs_card() -> None:
 # ---------------------------------------------------------------------------
 
 # bench.py's bench_fleet on an accelerator: 3 workers, 1,024 queries over a
-# pool of 32, 8 at a time, n_grid 512, 60 bisections, buckets 1,8,64; the
-# kill drill SIGKILLs the router's favourite worker after a quarter of them.
+# pool of 32, 8 at a time, n_grid 512, 60 bisections, buckets 1,8,64 (the
+# kill and audit drills run in the chaos phase).
 FLEET = dict(fleet=3, queries=1024, pool=32, group=8, n_grid=512, bisect_iters=60,
              buckets="1,8,64", seed=0)
-FLEET_KILL_AFTER = 256
-# the audit drill: worker 0's graphgen.layout canary corrupted, a cycle
-# every 1.5 s, two cycles waited for (the reference's chaos drill)
-FLEET_AUDIT_ENV = {"SBR_AUDIT": "1", "SBR_AUDIT_INTERVAL_S": "1.5",
-                   "SBR_AUDIT_PROBES": "graphgen.layout"}
-FLEET_AUDIT_FAULT = {"seed": 7, "rules": [{"point": "audit.canary", "kind": "corrupt",
-                                           "match": "graphgen.layout"}]}
 # bench.py's bench_prewarm: a pool of 12, 4 plan tiles, n_grid 128, 40
 # bisections, 8 warm outage passes
 PREWARM = dict(pool=12, tiles=4, n_grid=128, bisect_iters=40, reps=8)
@@ -5201,6 +5268,10 @@ PREWARM = dict(pool=12, tiles=4, n_grid=128, bisect_iters=40, reps=8)
 FLEET_SMALL = dict(fleet=2, queries=48, pool=6, group=4, n_grid=96, bisect_iters=30,
                    buckets="1,8", seed=0)
 FLEET_POP_SMALL, FLEET_POP_SMALL_SEEDS = 2_000, 4
+# members of the routed population queries: half of bench.py's 16, the
+# obs and telemetry paths' depth cut (OBS_POP_SEEDS), made to give the
+# chaos phase room
+FLEET_POP_SEEDS = 8
 # the answer fields held bit for bit (the reference's chaos drill's)
 _ANSWER_FIELDS = ("xi", "tau_bar_in", "aw_max", "status", "flags", "residual")
 # the per-query fields of a served record that are not the answer
@@ -5354,9 +5425,9 @@ def _fleet_hops(card: str, root) -> None:
 
 
 def _fleet_population(card: str, root) -> dict:
-    """A gossip and a bayes population query (bench_infomodels' shape:
-    20,000 agents, 16 members, 333 steps) routed to a worker in this
-    process, each query's launches counted (set to 0 just before it, read
+    """A gossip and a bayes population query (bench_infomodels' shape,
+    20,000 agents and 333 steps, with FLEET_POP_SEEDS members) routed to a
+    worker in this process, each query's launches counted (set to 0 just before it, read
     just after: members × steps of its channel's kernel, 0 of the other
     and of the recount); then the same queries routed to a worker process
     on the card, whose records must equal the in-process worker's bit for
@@ -5368,7 +5439,7 @@ def _fleet_population(card: str, root) -> dict:
     from sbr_tpu_torch.social.recount import KERNEL as RECOUNT_KERNEL
 
     steps = max(int(round(float(30.0 / 0.9) / 0.1)), 2)
-    expected = POP_SEEDS * steps
+    expected = FLEET_POP_SEEDS * steps
     launches = {KERNEL: 0, BELIEF_KERNEL: 0, RECOUNT_KERNEL: 0}
     rows, recs = [], {}
     with _inproc_worker(root / "pop_inproc", "cuda", POP_GRID, 60) as engine:
@@ -5378,7 +5449,7 @@ def _fleet_population(card: str, root) -> dict:
                                            ("bayes", BELIEF_KERNEL, KERNEL)):
                 _build.reset_launches()
                 t0 = time.perf_counter()
-                doc = _post(router, _pop_doc(channel, POP_N))
+                doc = _post(router, _pop_doc(channel, POP_N, FLEET_POP_SEEDS))
                 torch.cuda.synchronize()
                 wall_s = time.perf_counter() - t0
                 got = (_build.LAUNCHES[kernel], _build.LAUNCHES[other],
@@ -5406,7 +5477,7 @@ def _fleet_population(card: str, root) -> dict:
         try:
             for channel in ("gossip", "bayes"):
                 t0 = time.perf_counter()
-                doc = _post(router, _pop_doc(channel, POP_N))
+                doc = _post(router, _pop_doc(channel, POP_N, FLEET_POP_SEEDS))
                 same = _record(doc) == recs[channel]
                 rows.append(dict(channel=channel, worker="process", wall_s=time.perf_counter() - t0,
                                  ready_s=ready_s, device=w["device"], equal_in_process=same))
@@ -5418,7 +5489,8 @@ def _fleet_population(card: str, root) -> dict:
     finally:
         stop_workers([w])
     for r in rows:
-        emit("fleet_population", **r, n_agents=POP_N, members=POP_SEEDS, steps=steps, card=card)
+        emit("fleet_population", **r, n_agents=POP_N, members=FLEET_POP_SEEDS, steps=steps,
+             card=card)
     emit("fleet_population_router", counters=counters)
     return launches
 
@@ -5641,17 +5713,15 @@ def phase_fleet(card: str) -> dict:
     """The serving fleet on the card at bench.py's shapes: the seeded mix
     through the router to three worker processes (p50, p99, qps,
     failovers, sheds, 0 lost), its answers bit for bit an in-process
-    engine's; the kill drill, byte-identical with 0 lost; the audit drill
-    (worker 0's canary corrupted: exactly worker 0 quarantined); the
-    routed populations (`_fleet_population`, whose launches are returned);
-    bench_prewarm's three phases, the drained tiles bit for bit
-    `beta_u_grid`'s; and ``report fleet``, ``prewarm`` and ``summary`` on
-    the clean and the breached runs."""
+    engine's; the routed populations (`_fleet_population`, whose launches
+    are returned); bench_prewarm's three phases, the drained tiles bit for
+    bit `beta_u_grid`'s; and ``report fleet``, ``prewarm`` and ``summary``
+    on the clean and the breached runs. The kill and audit drills are the
+    chaos phase's."""
     import tempfile
     from pathlib import Path
 
     from sbr_tpu_torch import _build
-    from sbr_tpu_torch.obs import audit
 
     _build.build_all()  # published once, before any worker process starts
     with tempfile.TemporaryDirectory(prefix="sbr_fleet_") as tmp, \
@@ -5672,42 +5742,15 @@ def phase_fleet(card: str) -> dict:
         if not same_engine:
             raise AssertionError("routed answers differ from an in-process engine's")
 
-        killed, killed_ans = _fleet_run(root, "killed", FLEET, fleet_kill_after=FLEET_KILL_AFTER)
-        same_kill = _answers_identical(clean_ans, killed_ans)
-        emit("fleet_kill", killed_worker=killed["killed_worker"], after=FLEET_KILL_AFTER,
-             lost=killed["fleet_lost"], failovers=killed["fleet_failover_count"],
-             p50_ms=killed["fleet_p50_ms"], p99_ms=killed["fleet_p99_ms"],
-             qps=killed["fleet_qps"], byte_identical=same_kill,
-             router_counters=killed["router_counters"], card=card)
-        if not (same_kill and killed["killed_worker"]):
-            raise AssertionError("the kill drill's answers differ from the clean run's")
-
-        goldens = root / "goldens"
-        rep = audit.run_battery(probe_names=("graphgen.layout",), reg_dir=goldens, update=True,
-                                emit=False, device="cuda")
-        if not rep.get("updated"):
-            raise AssertionError(f"audit goldens not recorded: {rep}")
-        with _env({**FLEET_AUDIT_ENV, "SBR_AUDIT_REGISTRY_DIR": str(goldens)}):
-            drilled, drilled_ans = _fleet_run(root, "audit", FLEET,
-                                              audit_fault=json.dumps(FLEET_AUDIT_FAULT),
-                                              audit_wait=2)
-        blocks = drilled["audit"]["workers"]
-        drifted = sorted(h for h, b in blocks.items() if b["status"] == "drift")
-        w0_code, _ = _fleet_report("audit", root / "audit_workers" / "w0")
-        _, fleet_doc = _fleet_report("fleet", root / "audit")
-        emit("fleet_audit", statuses={h: b["status"] for h, b in blocks.items()},
-             cycles={h: b["cycles"] for h, b in blocks.items()}, drifted=drifted,
-             quarantined=drilled["audit"]["quarantined"],
-             quarantine_events=fleet_doc["events"].get("audit_quarantine", 0),
-             report_audit_w0=w0_code, lost=drilled["fleet_lost"],
-             answers_identical=_answers_identical(clean_ans, drilled_ans), card=card)
-        w0 = json.loads((root / "audit_workers" / "w0" / "manifest.json").read_text())
-        if not (len(blocks) == 3 and len(drifted) == 1
-                and drilled["audit"]["quarantined"] == drifted
-                and fleet_doc["events"].get("audit_quarantine", 0) >= 1 and w0_code == 1
-                and _answers_identical(clean_ans, drilled_ans)):
-            raise AssertionError(f"the audit drill: {blocks}, {drilled['audit']}, w0 {w0_code}, "
-                                 f"manifest {w0.get('status')}")
+        # the kill and audit drills at this shape gave way to the chaos
+        # drills --fleet and --audit (`phase_chaos_fleet`, `phase_chaos`),
+        # a cut of their size: the drills' fleets serve 36 queries of a
+        # pool of 6 at n_grid 96, where these served 1,024 of 32 at n_grid
+        # 512. Their assertions are held there: the kill's answers equal in
+        # all six fields (residual included), 0 lost, the killed worker,
+        # report fleet 0 (1 with a stuck breaker) and the summary; the
+        # audit's one drifted worker quarantined, its quarantine event,
+        # report audit 1 on worker 0, answers equal in all six fields
 
         _fleet_hops(card, root)
         pop_launches = _fleet_population(card, root)
@@ -5733,23 +5776,18 @@ def phase_fleet(card: str) -> dict:
 
         codes = {
             "fleet:clean": _fleet_report("fleet", root / "clean")[0],
-            "fleet:killed": _fleet_report("fleet", root / "killed")[0],
-            "fleet:killed_stuck": _fleet_report("fleet", root / "killed", "--stuck-after-s",
-                                                "0.001")[0],
             "prewarm:drained": _fleet_report("prewarm", pw["run_dir"])[0],
             "prewarm:budget": _fleet_report("prewarm", pw["budget_run_dir"])[0],
         }
         summaries = {}
-        for name, d in (("clean", root / "clean"), ("killed", root / "killed"),
-                        ("drained", pw["run_dir"]), ("budget", pw["budget_run_dir"])):
+        for name, d in (("clean", root / "clean"), ("drained", pw["run_dir"]),
+                        ("budget", pw["budget_run_dir"])):
             code, doc = _fleet_report("summary", d)
             summaries[name] = {"exit": code, **{g: v["exit"] for g, v in doc["gates"].items()}}
         emit("fleet_reports", codes=codes, summaries=summaries,
-             want={"fleet:clean": 0, "fleet:killed": 0, "fleet:killed_stuck": 1,
-                   "prewarm:drained": 0, "prewarm:budget": 1})
-        ok = (codes == {"fleet:clean": 0, "fleet:killed": 0, "fleet:killed_stuck": 1,
-                        "prewarm:drained": 0, "prewarm:budget": 1}
-              and summaries["clean"]["fleet"] == 0 and summaries["killed"]["fleet"] == 0
+             want={"fleet:clean": 0, "prewarm:drained": 0, "prewarm:budget": 1})
+        ok = (codes == {"fleet:clean": 0, "prewarm:drained": 0, "prewarm:budget": 1}
+              and summaries["clean"]["fleet"] == 0
               and summaries["drained"]["prewarm"] == 0 and summaries["budget"]["prewarm"] == 1
               and summaries["budget"]["exit"] >= 1
               and all(s["exit"] == max(v for k, v in s.items() if k != "exit")
@@ -6152,44 +6190,60 @@ def _same_state(a: dict, b) -> bool:
                for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac"))
 
 
-def _world2(parts: tuple) -> dict:
-    """SHARD_WORLD child processes of this script, each a gloo rank on the
-    card (NCCL takes no two ranks on one device), run ``parts`` ("card",
-    "cpu"); joined with a timeout and killed in a ``finally``. Returns
-    each rank's rows and the directory of its saved states."""
+def _world2_start(parts: tuple) -> dict:
+    """Start SHARD_WORLD child processes of this script, each a gloo rank
+    on the card (NCCL takes no two ranks on one device), to run ``parts``
+    ("card", "cpu"); their handles for `_world2_join`."""
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="sbr_sharded_")
     store = f"{tmp}/store"
-    procs, logs = [], []
-    t0 = time.perf_counter()
+    started = {"dir": tmp, "procs": [], "logs": [], "t0": time.perf_counter()}
     try:
         for r in range(SHARD_WORLD):
             log = open(f"{tmp}/rank{r}.log", "w")
-            logs.append(log)
-            procs.append(subprocess.Popen(
+            started["logs"].append(log)
+            started["procs"].append(subprocess.Popen(
                 [sys.executable, __file__, "_rank", str(r), str(SHARD_WORLD), store, tmp,
                  ",".join(parts)], stdout=log, stderr=subprocess.STDOUT,
             ))
-        for p in procs:
-            p.wait(timeout=SHARD_TIMEOUT_S)
+    except BaseException:
+        _world2_stop(started)
+        raise
+    return started
+
+
+def _world2_stop(started: dict) -> None:
+    """Kill every rank still running and close the logs."""
+    for p in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+    for log in started["logs"]:
+        log.close()
+
+
+def _world2_join(started: dict) -> dict:
+    """Wait for the ranks of `_world2_start` (SHARD_TIMEOUT_S from their
+    start; killed in a ``finally``). Returns each rank's rows and the
+    directory of its saved states."""
+    tmp = started["dir"]
+    try:
+        for p in started["procs"]:
+            p.wait(timeout=max(1.0, SHARD_TIMEOUT_S - (time.perf_counter() - started["t0"])))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=60)
-        for log in logs:
-            log.close()
-    for r, p in enumerate(procs):
+        _world2_stop(started)
+    for r, p in enumerate(started["procs"]):
         if p.returncode != 0:
             tail = open(f"{tmp}/rank{r}.log").read()[-4000:]
             raise AssertionError(f"sharded rank {r} exited {p.returncode}:\n{tail}")
     ranks = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(SHARD_WORLD)]
-    return {"dir": tmp, "ranks": ranks, "seconds": time.perf_counter() - t0}
+    # the ranks' own seconds: the join may come long after they ended
+    return {"dir": tmp, "ranks": ranks, "seconds": max(r["seconds"] for r in ranks)}
 
 
 def _rank_main(argv) -> int:
-    """A child rank of `_world2`: the group, then its parts; its rows go to
+    """A child rank of `_world2_start`: the group, then its parts; its rows go to
     ``<dir>/rank<r>.json``, its states to npz files beside them."""
     rank, world, store, tmp, parts = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
     torch.cuda.set_device(0)
@@ -6321,7 +6375,7 @@ def phase_sharded(card: str, w2: dict) -> dict:
     """The sharded paths on the card at full width: the agent matrix
     (gather × {scatter, allgather_psum}, incremental) on the north-star
     graph at world size 1 (NCCL, this process) and 2 (gloo ranks sharing
-    the card, `_world2`), each rank's result bit for bit the single-device
+    the card, `_world2_start`), each rank's result bit for bit the single-device
     port's; both kernels against their plain versions on the sharded
     shapes; the world-1 run profiled (device time by kind, busy share,
     launches from the raw device events held to the counters); the
@@ -6404,12 +6458,345 @@ def phase_sharded_cpu(w2: dict) -> None:
                 raise AssertionError(f"rank {r}: sharded CPU and card runs differ: {row}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 17: the recovery drills
+# ---------------------------------------------------------------------------
+
+CHAOS_DRILLS = {"base": None, "churn": "--churn", "fleet": "--fleet", "audit": "--audit",
+                "prewarm": "--prewarm"}
+# the fleet drill holds its traced waterfalls to 95% of the routed time, a
+# check of the router's host time: it runs with no other drill and no
+# other phase beside it
+CHAOS_ALONE = ("fleet",)
+CHAOS_TIMEOUT_S = 600
+
+
+def _chaos_start(names) -> dict:
+    """Start the named recovery drills of ``python -m
+    sbr_tpu_torch.resilience.chaos`` on the card, each a process of its own
+    (at a raised priority where the system allows it), all together; their
+    handles for `_chaos_collect`."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from sbr_tpu_torch import _build
+
+    _build.build_all()  # published once, before any worker process starts
+    env = {**os.environ, "PYTHONPATH": str(_REPO_ROOT)}
+    tmp = tempfile.TemporaryDirectory(prefix="sbr_chaos_")
+    root = Path(tmp.name)
+    started = {"tmp": tmp, "root": root, "t0": time.perf_counter(), "procs": {}, "errs": []}
+    try:
+        for name in names:
+            flag = CHAOS_DRILLS[name]
+            argv = [sys.executable, "-m", "sbr_tpu_torch.resilience.chaos", "--json",
+                    "--out", str(root / name), *([flag] if flag else [])]
+            started["errs"].append(open(root / f"{name}.err", "w"))
+            proc = subprocess.Popen(argv, env=env, cwd=str(_REPO_ROOT), stdout=subprocess.PIPE,
+                                    stderr=started["errs"][-1], text=True)
+            started["procs"][name] = proc
+            try:  # before the drill starts a child, which inherits it
+                os.setpriority(os.PRIO_PROCESS, proc.pid, -10)
+            except OSError:
+                pass
+    except BaseException:
+        _chaos_stop(started)
+        raise
+    return started
+
+
+def _chaos_stop(started: dict) -> None:
+    """Kill every drill still running, close the logs, drop the scratch."""
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    for fh in started["errs"]:
+        fh.close()
+    started["tmp"].cleanup()
+
+
+def _chaos_collect(card: str, started: dict, check: bool = True) -> dict:
+    """Wait for the drills of `_chaos_start`: one line a drill with its
+    wall time (from their common start) and its checks; with ``check``,
+    any drill not ok fails (`_chaos_check`)."""
+    root, t0, rows = started["root"], started["t0"], {}
+    for name, proc in started["procs"].items():
+        out, _ = proc.communicate(timeout=max(1.0, CHAOS_TIMEOUT_S
+                                              - (time.perf_counter() - t0)))
+        wall = time.perf_counter() - t0
+        try:
+            doc = json.loads(out.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            doc = {}
+        rows[name] = {"rc": proc.returncode, "ok": doc.get("ok") is True, "wall_s": wall,
+                      "together_with": sorted(started["procs"]), "checks": doc.get("checks", {})}
+        emit("chaos_drill", drill=name, **rows[name], card=card)
+    if check:
+        _chaos_check(root, rows)
+    return rows
+
+
+def _chaos_check(root, rows: dict) -> None:
+    """Fail on any drill not ok, with the end of its log."""
+    failed = sorted(n for n, r in rows.items() if not (r["ok"] and r["rc"] == 0))
+    if failed:
+        for name in failed:
+            print((root / f"{name}.err").read_text()[-3000:], file=sys.stderr)
+        raise AssertionError(f"chaos drills not ok: {failed}")
+
+
+def _trace_gaps(run_dirs) -> dict:
+    """Where the traced queries' root spans are not covered by their
+    children, summed over the traces of ``run_dirs``' ``trace.jsonl``:
+    milliseconds by gap, a gap named by the spans around it ("start" and
+    "end" for the root's own edges), with the root spans' total."""
+    spans = {}
+    for d in run_dirs:
+        path = d / "trace.jsonl"
+        if path.exists():
+            for line in path.read_text().splitlines():
+                try:
+                    sp = json.loads(line)
+                except ValueError:
+                    continue  # a torn last line of a killed worker
+                spans.setdefault(sp["trace"], []).append(sp)
+    gaps, total = {}, 0.0
+    for trace in spans.values():
+        roots = [x for x in trace if not x.get("parent")]
+        if not roots:
+            continue
+        root = min(roots, key=lambda x: x["ts"])
+        r0, r1 = root["ts"], root["ts"] + root["dur_ms"] / 1e3
+        total += root["dur_ms"]
+        ivals = sorted((max(x["ts"], r0), min(x["ts"] + x["dur_ms"] / 1e3, r1), x["name"])
+                       for x in trace if x is not root)
+        at, prev = r0, "start"
+        for a, b, name in ivals:
+            if b <= a:
+                continue
+            if a > at:
+                key = f"{prev}->{name}"
+                gaps[key] = gaps.get(key, 0.0) + (a - at) * 1e3
+            if b > at:
+                at, prev = b, name
+        if r1 > at:
+            gaps[f"{prev}->end"] = gaps.get(f"{prev}->end", 0.0) + (r1 - at) * 1e3
+    return {"root_ms": total,
+            "uncovered_ms": dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def _chaos_answers(root, pairs) -> dict:
+    """The drills' served answers held to this script's six-field byte
+    identity (`_answers_identical`, ``residual`` included, which the
+    drills' own comparison leaves out): (reference run, compared run)
+    answer files under ``root``."""
+    out = {}
+    for ref, other in pairs:
+        a, b = (json.loads((root / f"{n}_answers.json").read_text()) for n in (ref, other))
+        out[other] = {"vs": ref, "answers": len(b), "identical": _answers_identical(a, b)}
+    return out
+
+
+def phase_chaos(card: str, started: dict) -> dict:
+    """The drills that run together (`_chaos_start`): the faulted and
+    resumed tiled sweep, the elastic churn, the audit's corrupted canary and
+    the prefetch controller's lease adoption and outage, at the reference
+    drills' own shapes (the audit drill's fleets: 36 queries of a pool of 6
+    at n_grid 96). Beyond the drills' checks: the preempted runs left no
+    partial file, and the audit drill's clean and faulted runs' answers
+    equal its audit-off control's in all six fields."""
+    try:
+        rows = _chaos_collect(card, started)
+        root = started["root"]
+        # the preempted runs left no partial file behind (the tiled SIGTERM
+        # run's check, which the base and churn drills took over)
+        left = sorted(str(p.relative_to(root)) for d in ("base/ckpt_chaos", "churn/ckpt_churn")
+                      for p in (root / d).glob("*.tmp"))
+        emit("chaos_preempted_left", tmp_files=left)
+        if left:
+            raise AssertionError(f"a preempted run left partial files: {left}")
+        same = _chaos_answers(root / "audit", (("audit_off", "audit_clean"),
+                                               ("audit_off", "audit_fault")))
+        emit("chaos_audit_answers", fields=list(_ANSWER_FIELDS), runs=same, card=card)
+        if not all(r["identical"] for r in same.values()):
+            raise AssertionError(f"the audit drill's answers differ: {same}")
+    finally:
+        _chaos_stop(started)
+    return rows
+
+
+def phase_chaos_fleet(card: str) -> dict:
+    """The fleet drill (`CHAOS_ALONE`) with nothing else running: three
+    workers, one SIGKILLed after 8 of 36 queries (pool 6, n_grid 96: the
+    reference drill's shape), tracing on. Beyond the drill's checks: its
+    answers equal the single-worker run's in all six fields; the traced
+    waterfalls' coverage (what the drill holds to 0.95 weighted, 0.70 the
+    least); and the gates that `phase_fleet`'s kill run held on the killed
+    run's directory: ``report fleet`` 0, 1 with a breaker stuck for over a
+    millisecond, and ``report summary``'s exit the worst of its gates."""
+    started = _chaos_start(CHAOS_ALONE)
+    try:
+        rows = _chaos_collect(card, started, check=False)
+        root = started["root"] / "fleet"
+        killed = root / "obs_fleet_churn"
+        workers = sorted((root / "obs_fleet_churn_workers").glob("w*"))
+        code, doc = _fleet_report("trace", killed, *workers)
+        low = sorted((t for t in doc.get("trace_table", []) if t.get("coverage") is not None),
+                     key=lambda t: t["coverage"])[:5]
+        emit("chaos_fleet_trace", exit=code, traces=doc.get("traces"), joined=doc.get("joined"),
+             failover_traces=doc.get("failover_traces"),
+             coverage_weighted=doc.get("coverage_weighted"),
+             coverage_mean=doc.get("coverage_mean"), coverage_min=doc.get("coverage_min"),
+             lowest=[{"dur_ms": t["dur_ms"], "coverage": t["coverage"], "spans": t["spans"]}
+                     for t in low], gaps=_trace_gaps([killed]), card=card)
+        _chaos_check(started["root"], rows)
+        same = _chaos_answers(root, (("fleet_solo", "fleet_churn"),))
+        emit("chaos_fleet_answers", fields=list(_ANSWER_FIELDS), runs=same, card=card)
+        if not same["fleet_churn"]["identical"]:
+            raise AssertionError(f"the kill drill's answers differ: {same}")
+        codes = {"fleet": _fleet_report("fleet", killed)[0],
+                 "fleet_stuck": _fleet_report("fleet", killed, "--stuck-after-s", "0.001")[0]}
+        code, doc = _fleet_report("summary", killed)
+        gates = {g: v["exit"] for g, v in doc["gates"].items()}
+        emit("chaos_fleet_reports", codes=codes, summary_exit=code, summary_gates=gates,
+             want={"fleet": 0, "fleet_stuck": 1})
+        if not (codes == {"fleet": 0, "fleet_stuck": 1} and gates.get("fleet") == 0
+                and code == max(gates.values())):
+            raise AssertionError(f"the kill drill's reports: {codes}, summary {code} {gates}")
+    finally:
+        _chaos_stop(started)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The lanes: phases run by child processes of this script
+# ---------------------------------------------------------------------------
+
+# Phases that hold no time to a bound and share no state with the phases
+# beside them: once the kernels' timed phases are done, each lane is one
+# child process of this script (`_lane_start`) that runs its phases in
+# order, beside the other lane, the telemetry, audit and fleet phases of
+# this process and the sharded ranks.
+LANES = (("extensions", "extensions_cpu", "scenario", "population", "scenario_cpu", "rewire",
+          "rewire_cpu", "grad", "grad_cpu"),
+         ("tiled", "tiled_cpu", "figures", "figures_cpu", "obs", "obs_cpu"))
+LANE_TIMEOUT_S = 900
+_LANE_RESULT = '{"lane": '
+
+
+def _lane_phases(card: str, wanted) -> dict:
+    """The phases of LANES in ``wanted``, each lane's in its order; returns
+    the launches by kernel of the population, rewire, tiled, figures and
+    obs phases that ran."""
+    out = {}
+    if "extensions" in wanted:
+        phase_extensions()
+    if "extensions_cpu" in wanted:
+        phase_extensions_cpu_vs_card()
+    if "scenario" in wanted:
+        phase_scenario(card)
+    if "population" in wanted:
+        out["population"] = phase_population(card)
+    if "scenario_cpu" in wanted:
+        phase_scenario_cpu_vs_card()
+    if "rewire" in wanted:
+        out["rewire"] = phase_rewire(card)
+    if "rewire_cpu" in wanted:
+        phase_rewire_cpu_vs_card()
+    if "grad" in wanted:
+        phase_grad(card)
+    if "grad_cpu" in wanted:
+        phase_grad_cpu_vs_card()
+    if "tiled" in wanted:
+        out["tiled"] = phase_tiled(card)
+    if "tiled_cpu" in wanted:
+        phase_tiled_cpu_vs_card()
+    if "figures" in wanted:
+        # the paper heatmap's counts when the tiled phase ran before it
+        out["figures"] = phase_figures(card, PAPER_STATUS_COUNTS or None)
+    if "figures_cpu" in wanted:
+        phase_figures_cpu_vs_card()
+    if "obs" in wanted:
+        out["obs"] = phase_obs(card)
+    if "obs_cpu" in wanted:
+        phase_obs_cpu_vs_card()
+    return out
+
+
+def _lane_main(argv) -> int:
+    """The child of `_lane_start`: the card's name, then the phases; prints
+    their lines, then `_lane_phases`' result as ``{"lane": {...}}``."""
+    import sbr_tpu_torch  # noqa: F401  (fails outside the repository)
+
+    out = _lane_phases(argv[0], set(argv[1:]))
+    print(json.dumps({"lane": out}), flush=True)
+    return 0
+
+
+def _lane_start(card: str, names) -> dict | None:
+    """Start the lane (`_lane_main`) on ``names``, its standard output
+    into a file; its handle for `_lane_join` (None with no phase)."""
+    import tempfile
+    from pathlib import Path
+
+    if not names:
+        return None
+    tmp = tempfile.TemporaryDirectory(prefix="sbr_lane_")
+    out = open(Path(tmp.name) / "lane.out", "w")
+    env = {**os.environ, "CHIP_SMOKE_T0": repr(T_START)}
+    try:
+        proc = subprocess.Popen([sys.executable, __file__, "_lane", card, *names], stdout=out,
+                                env=env, cwd=str(_REPO_ROOT))
+    except BaseException:
+        out.close()
+        tmp.cleanup()
+        raise
+    return {"tmp": tmp, "out": out, "proc": proc, "t0": time.perf_counter(), "text": None}
+
+
+def _lane_stop(lane) -> None:
+    """Kill the lane if it still runs, print the phase lines it printed
+    (their ``elapsed_s`` counted from this process's start) and drop its
+    scratch; its output stays in ``lane["text"]``."""
+    if lane is None or lane["text"] is not None:
+        return
+    proc = lane["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=30)
+    lane["out"].close()
+    with open(os.path.join(lane["tmp"].name, "lane.out")) as f:
+        lane["text"] = f.read()
+    lane["tmp"].cleanup()
+    for line in lane["text"].splitlines():
+        if not line.startswith(_LANE_RESULT):
+            print(line, flush=True)
+
+
+def _lane_join(lane) -> dict:
+    """Wait for the lane (LANE_TIMEOUT_S from its start; killed in a
+    ``finally``), print its lines; fails if any of its phases failed.
+    Returns `_lane_phases`' result."""
+    if lane is None:
+        return {}
+    try:
+        lane["proc"].wait(timeout=max(1.0, LANE_TIMEOUT_S - (time.perf_counter() - lane["t0"])))
+    finally:
+        _lane_stop(lane)
+    results = [ln for ln in lane["text"].splitlines() if ln.startswith(_LANE_RESULT)]
+    if lane["proc"].returncode != 0 or not results:
+        raise AssertionError(f"the lane's phases failed: exit {lane['proc'].returncode}")
+    return json.loads(results[-1])["lane"]
+
+
 PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
           "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
           "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
           "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu", "audit",
-          "audit_cpu", "fleet", "fleet_cpu", "sharded", "sharded_cpu")
+          "audit_cpu", "fleet", "fleet_cpu", "sharded", "sharded_cpu", "chaos")
 
 
 def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict,
@@ -6491,44 +6878,47 @@ def main(argv) -> int:
     if "serve_cpu" in wanted:
         phase_serve_cpu_vs_card()
     recount = phase_recount() if "recount" in wanted else None
-    if "extensions" in wanted:
-        phase_extensions()
-    if "extensions_cpu" in wanted:
-        phase_extensions_cpu_vs_card()
-    if "scenario" in wanted:
-        phase_scenario(info["nvidia_smi"])
-    pop_launches = phase_population(info["nvidia_smi"]) if "population" in wanted else {}
-    if "scenario_cpu" in wanted:
-        phase_scenario_cpu_vs_card()
-    rewire_launches = phase_rewire(info["nvidia_smi"]) if "rewire" in wanted else {}
-    if "rewire_cpu" in wanted:
-        phase_rewire_cpu_vs_card()
-    if "grad" in wanted:
-        phase_grad(info["nvidia_smi"])
-    if "grad_cpu" in wanted:
-        phase_grad_cpu_vs_card()
-    tiled_launches = phase_tiled(info["nvidia_smi"]) if "tiled" in wanted else {}
-    if "tiled_cpu" in wanted:
-        phase_tiled_cpu_vs_card()
-    fig_launches = (phase_figures(info["nvidia_smi"], PAPER_STATUS_COUNTS or None)
-                    if "figures" in wanted else {})
-    if "figures_cpu" in wanted:
-        phase_figures_cpu_vs_card()
-    obs_launches = phase_obs(info["nvidia_smi"]) if "obs" in wanted else {}
-    if "obs_cpu" in wanted:
-        phase_obs_cpu_vs_card()
-    telem_launches = phase_telemetry(info["nvidia_smi"]) if "telemetry" in wanted else {}
-    if "telemetry_cpu" in wanted:
-        phase_telemetry_cpu_vs_card()
-    audit_launches = phase_audit(info["nvidia_smi"]) if "audit" in wanted else {}
-    if "audit_cpu" in wanted:
-        phase_audit_cpu_vs_card()
-    fleet_launches = phase_fleet(info["nvidia_smi"]) if "fleet" in wanted else {}
-    if "fleet_cpu" in wanted:
-        phase_fleet_cpu_vs_card()
+    # the kernels' timed phases above ran alone; the rest run in the two
+    # lanes and here, beside the sharded ranks, and the fleet drill (whose
+    # trace coverage is a check of the router's host time) after all of
+    # them have ended
+    lanes, out = [], {"population": {}, "rewire": {}, "tiled": {}, "figures": {}, "obs": {}}
     parts = tuple(p for p, ph in (("card", "sharded"), ("cpu", "sharded_cpu")) if ph in wanted)
-    # one pair of child ranks serves both phases
-    w2 = _world2(parts) if parts else None
+    ranks = chaos = None
+    try:
+        for names in LANES:
+            lanes.append(_lane_start(info["nvidia_smi"], [p for p in names if p in wanted]))
+        # one pair of child ranks serves both sharded phases
+        ranks = _world2_start(parts) if parts else None
+        telem_launches = phase_telemetry(info["nvidia_smi"]) if "telemetry" in wanted else {}
+        if "telemetry_cpu" in wanted:
+            phase_telemetry_cpu_vs_card()
+        audit_launches = phase_audit(info["nvidia_smi"]) if "audit" in wanted else {}
+        if "audit_cpu" in wanted:
+            phase_audit_cpu_vs_card()
+        fleet_launches = phase_fleet(info["nvidia_smi"]) if "fleet" in wanted else {}
+        # all drills but the fleet's run beside the fleet's card-against-CPU
+        # phase, which times nothing
+        chaos = (_chaos_start([d for d in CHAOS_DRILLS if d not in CHAOS_ALONE])
+                 if "chaos" in wanted else None)
+        if "fleet_cpu" in wanted:
+            phase_fleet_cpu_vs_card()
+        if chaos is not None:
+            phase_chaos(info["nvidia_smi"], chaos)
+        for lane in lanes:
+            out.update(_lane_join(lane))
+        w2 = _world2_join(ranks) if ranks is not None else None
+        if "chaos" in wanted:
+            phase_chaos_fleet(info["nvidia_smi"])
+    finally:
+        if chaos is not None:
+            _chaos_stop(chaos)
+        for lane in lanes:
+            _lane_stop(lane)
+        if ranks is not None:
+            _world2_stop(ranks)
+    pop_launches, rewire_launches = out["population"], out["rewire"]
+    tiled_launches, fig_launches, obs_launches = out["tiled"], out["figures"], out["obs"]
     sharded = phase_sharded(info["nvidia_smi"], w2) if "sharded" in wanted else None
     if "sharded_cpu" in wanted:
         phase_sharded_cpu(w2)
@@ -6607,4 +6997,6 @@ def main(argv) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["_rank"]:  # a child rank of the sharded phases
         sys.exit(_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["_lane"]:  # a lane of LANES
+        sys.exit(_lane_main(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

@@ -140,6 +140,7 @@ def _bayes_sim(prepared: A.PreparedAgentGraph, awareness, thr, llr01, informed0,
     dtype = prepared.indeg.dtype
     src, row_ptr = prepared.src, prepared.row_ptr
     ts = A._step_times(config, k0, prepared.dtype)
+    t_next = A._next_times(config, k0, prepared.dtype)
     llr0, llr1 = (float(v) for v in llr01)
     t_inf = torch.where(informed0, t_init, float("inf")).to(dtype)
     informed, belief = informed0, belief0
@@ -155,7 +156,7 @@ def _bayes_sim(prepared: A.PreparedAgentGraph, awareness, thr, llr01, informed0,
         # agents crossing in step k get t_{k+1} (see social.fused)
         informed, t_inf, belief = belief_update(
             informed, t_inf, belief, counts, awareness, safe_deg, thr,
-            float(ts[j + 1]), config.dt, llr0, llr1, config.fused,
+            float(t_next[j]), config.dt, llr0, llr1, config.fused,
         )
     return (
         A._fractions(g_counts, n, prepared.dtype),
@@ -225,7 +226,7 @@ def _simulate_rewire(spec: InfoModelSpec, graph, seed: int, config: A.AgentSimCo
         )
         indeg_h = G.epoch_indegrees(graph, seed, n_epochs, e)
         row_ptr = torch.from_numpy(G._row_ptr_host(indeg_h)).to(device)
-        indeg = torch.from_numpy(indeg_h.astype(dtype)).to(device)
+        indeg = A._tensor(indeg_h.astype(dtype), device)
         pg = _gather_prepared(n, e, betas_d, src, row_ptr, indeg, dtype, device)
         cfg_ep = dataclasses.replace(config, n_steps=this_len, max_steps_per_launch=None)
         t_start = torch.where(torch.isfinite(t_inf), t_inf, 0.0).to(tdtype)
@@ -252,7 +253,7 @@ def _simulate_rewire(spec: InfoModelSpec, graph, seed: int, config: A.AgentSimCo
     if bayes and obs.enabled():
         _log_belief_census("rewire", int(informed.sum()), belief)
     return InfoSimResult(
-        t_grid=torch.from_numpy(A._step_times(config, 0, dtype)[:-1]).to(device),
+        t_grid=A._tensor(A._step_times(config, 0, dtype)[:-1], device),
         informed_frac=torch.cat(gs_parts), withdrawn_frac=torch.cat(aws_parts),
         informed=informed, t_inf=t_inf, belief=belief if bayes else None,
         epochs=n_epochs, agent_steps=n * config.n_steps,
@@ -376,7 +377,7 @@ def simulate_info(
     if obs.enabled():
         _log_belief_census("static", int(informed.sum()) - int(informed_d.sum()), belief)
     return InfoSimResult(
-        t_grid=torch.from_numpy(A._step_times(config, 0, dtype)[:-1]).to(device),
+        t_grid=A._tensor(A._step_times(config, 0, dtype)[:-1], device),
         informed_frac=gs, withdrawn_frac=aws, informed=informed, t_inf=t_inf,
         belief=belief, epochs=1, agent_steps=n * config.n_steps,
         belief_updates=n * config.n_steps,

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import threading
 import time
 from pathlib import Path
@@ -148,7 +149,11 @@ class TraceContext:
         self.spans: List[dict] = []
 
     def alloc_id(self) -> str:
-        return os.urandom(4).hex()
+        # from the interpreter's generator, not os.urandom: its syscall
+        # lets go of the interpreter lock, and in a process of many threads
+        # (the router beside loadgen's clients) taking it back stalled a
+        # forward for milliseconds between its ranking and its send
+        return f"{random.getrandbits(32):08x}"
 
     def add(
         self,

@@ -11,33 +11,39 @@
   and hands back held leases and heartbeats;
 - ``elastic``: the elastic sweep scheduler (heartbeats, throughput-weighted
   claim plans, leases) and the cross-run tile cache
-  (``SBR_TILE_CACHE_DIR``).
+  (``SBR_TILE_CACHE_DIR``);
+- ``chaos``: the five recovery drills (``python -m
+  sbr_tpu_torch.resilience.chaos [--churn|--fleet|--audit|--prewarm]``),
+  which drive the tiled sweep, the elastic scheduler, the serving fleet,
+  the numerics audit and the prefetch controller as worker processes and
+  gate on the obs report CLI.
 
-The chaos drills of the reference (``resilience.chaos``) gate on its obs
-report CLI and on the serving fleet, and wait for ROADMAP 1.A items 9 and
-10; the obs events of every module here wait for item 9.
-
-`faults` and `retry` are standard library only.
+`faults`, `retry`, `shutdown` and `chaos` are standard library (and numpy)
+only. The submodules and the names below load on first use, so the chaos
+drills' own process, like the reference's, never imports torch: its
+workers do.
 """
 
-from sbr_tpu_torch.resilience import elastic, faults, heal, retry, shutdown
-from sbr_tpu_torch.resilience.elastic import TileCache
-from sbr_tpu_torch.resilience.faults import FaultPlan, InjectedFault
-from sbr_tpu_torch.resilience.retry import RetryBudget, RetryError, RetryPolicy, policy_from_env
-from sbr_tpu_torch.resilience.shutdown import graceful_shutdown
+import importlib
 
-__all__ = [
-    "FaultPlan",
-    "InjectedFault",
-    "RetryBudget",
-    "RetryError",
-    "RetryPolicy",
-    "TileCache",
-    "elastic",
-    "faults",
-    "graceful_shutdown",
-    "heal",
-    "policy_from_env",
-    "retry",
-    "shutdown",
-]
+_SUBMODULES = ("chaos", "elastic", "faults", "heal", "retry", "shutdown")
+_NAMES = {
+    "TileCache": "elastic",
+    "FaultPlan": "faults",
+    "InjectedFault": "faults",
+    "RetryBudget": "retry",
+    "RetryError": "retry",
+    "RetryPolicy": "retry",
+    "policy_from_env": "retry",
+    "graceful_shutdown": "shutdown",
+}
+
+__all__ = sorted(set(_SUBMODULES) | set(_NAMES))
+
+
+def __getattr__(name: str):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name in _NAMES:
+        return getattr(importlib.import_module(f"{__name__}.{_NAMES[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1209,6 +1209,26 @@ class Engine:
                       compile_s=round(time.monotonic() - t0, 3))
         return program
 
+    def capture_programs(self) -> int:
+        """Build every bucket's program now, so that no query waits on its
+        capture: on the card each is captured into a CUDA graph, seconds a
+        bucket, and a process cannot reload a graph from a cache as the
+        reference reloads its compiled executables. The warm-up inputs are
+        the default model's columns. Call it before `start`. Returns the
+        programs built; on the CPU, where programs run eagerly, none."""
+        if self.device.type != "cuda":
+            return 0
+        from sbr_tpu_torch.models.params import make_model_params
+
+        one = _query_columns([make_model_params()], self._np_dtype)
+        built = 0
+        with self._on_device():
+            for bucket in self.serve.buckets:
+                if bucket not in self._programs:
+                    self._program(bucket, np.ascontiguousarray(np.repeat(one, bucket, axis=1)))
+                    built += 1
+        return built
+
     def _aprime_tol(self) -> float:
         return aprime_tol(self.dtype)
 

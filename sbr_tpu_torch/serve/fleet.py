@@ -205,6 +205,16 @@ class CircuitBreaker:
             self._opened_at = self._clock()
             self._transition("open")
 
+    def trip(self) -> None:
+        """Open now, whatever the count: the peer is known to be down (it
+        refused the connection), so the threshold's grace for transient
+        errors does not apply."""
+        self.consecutive_failures = max(self.consecutive_failures + 1, self.threshold)
+        self._probe_inflight = False
+        if self.state != "open":
+            self._opened_at = self._clock()
+            self._transition("open")
+
 
 class TileCacheBridge:
     """Point-query lookups in the cross-run tile cache.
@@ -343,8 +353,8 @@ def main(argv=None) -> int:
     Runs until SIGTERM/SIGINT; the graceful-shutdown envelope then drains
     in-flight batches (engine close), withdraws the heartbeat and finalizes
     the obs manifest as "interrupted". Prints one JSON line ``{"url",
-    "host", "pid", "device"}`` on stdout once ready: ``loadgen --fleet``
-    reads it."""
+    "host", "pid", "device"}`` on stdout once ready, every bucket's program
+    built (on the card, captured): ``loadgen --fleet`` reads it."""
     parser = argparse.ArgumentParser(
         prog="python -m sbr_tpu_torch.serve.fleet",
         description="Run one serving-fleet worker (engine + endpoint + "
@@ -396,6 +406,10 @@ def main(argv=None) -> int:
     except RuntimeError as err:  # no card and no --device cpu
         print(f"[serve.fleet] {err}", file=sys.stderr)
         return 2
+    # a worker on the card captures every bucket before it announces
+    # itself: the router ranks workers by their latency, and a capture in
+    # the first queries would charge the worker seconds of it
+    engine.capture_programs()
     engine.start()
     endpoint = ServeEndpoint(engine, port=args.port).start()
     url = f"http://127.0.0.1:{endpoint.port}"

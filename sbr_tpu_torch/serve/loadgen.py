@@ -320,14 +320,24 @@ def run_fleet(args) -> dict:
             with kill_lock:
                 if killed or completed[0] < args.fleet_kill_after:
                     return
-                # the router's FAVOURITE worker (most forwards): its EWMA
-                # score is the lowest, so the router keeps preferring it
-                # after its death, the hardest failover case
+                # the router's FAVOURITE worker: the lowest routing score
+                # (EWMA × (1 + in flight), most forwards on a tie), so the
+                # router keeps preferring it after its death until its
+                # breaker opens, the hardest failover case
                 stats = router.statz()["workers"]
-                victim = max(workers,
-                             key=lambda w: stats.get(w["host"], {}).get("forwards", 0))
+
+                def favourite(w):
+                    st = stats.get(w["host"], {})
+                    score = st.get("ewma_ms", float("inf")) * (1 + st.get("inflight", 0))
+                    return score, -st.get("forwards", 0)
+
+                victim = min(workers, key=favourite)
                 killed.update(host=victim["host"], pid=victim["pid"])
                 os.kill(victim["pid"], signal.SIGKILL)
+                # the kill is complete once the process is gone: from here on
+                # its address refuses connections instead of accepting into a
+                # dying socket
+                victim["proc"].wait(timeout=30)
                 print(f"[loadgen] SIGKILLed worker {victim['host']} (pid {victim['pid']}) "
                       f"after {completed[0]} queries", file=sys.stderr)
 

@@ -35,14 +35,20 @@ The same stdlib-http shape as `serve.endpoint` — one daemon-thread
   touching a worker.
 - **Breakers.** One `serve.fleet.CircuitBreaker` per worker: consecutive
   forward failures open it (the worker stops absorbing traffic), a
-  cooldown later one half-open probe decides. Transitions are obs
-  ``fleet`` events and `/healthz` degraded reasons.
+  cooldown later one half-open probe decides. A refused connection (no
+  process listens at the worker's address) opens it at once. Transitions
+  are obs ``fleet`` events and `/healthz` degraded reasons.
 
 Telemetry: every failover/hedge/shed/loss is an obs ``fleet`` event
 (manifest roll-up included), and a rolling ``fleet.json`` snapshot lands
 in the run dir via `RunContext.live_snapshot` — ``python -m
 sbr_tpu_torch.obs.report fleet RUN_DIR`` renders and GATES it (exit 1 on lost
-queries or a breaker stuck open).
+queries or a breaker stuck open). A traced query's ``router.request``
+root holds, besides a ``router.forward`` per attempt, a ``router.rank``
+per ranking of the workers (a wait for the worker table's lock
+included), the ``router.refresh`` (heartbeat scan) made inside one, and
+the ``router.snapshot`` (``fleet.json`` write) it made; each span times
+its own call, from its start to its end.
 
 No torch import in this module: the router is pure host networking. The
 workers behind it hold the card.
@@ -275,11 +281,13 @@ class Router:
             pass
         return 50.0
 
-    def refresh_workers(self, force: bool = False) -> None:
+    def refresh_workers(self, force: bool = False, trace=None, parent=None) -> None:
         """Sync the worker table with the fleet dir's live heartbeats (at
         most every ``poll_s`` unless forced). Vanished heartbeats (expired
         TTL or a graceful drain's withdrawal) drop the worker — reclaim is
-        instant for drained workers, TTL-bounded for silent deaths."""
+        instant for drained workers, TTL-bounded for silent deaths. A
+        traced request that makes the scan records it, from the scan's
+        start, as a ``router.refresh`` span under ``parent``."""
         now = time.monotonic()
         if not force and now - self._scanned_at < self.poll_s:
             return
@@ -287,6 +295,7 @@ class Router:
             if not force and now - self._scanned_at < self.poll_s:
                 return
             self._scanned_at = now
+            t0w, t0 = time.time(), time.monotonic()
             live = live_workers(self.fleet_root)
             for host, rec in live.items():
                 w = self._workers.get(host)
@@ -316,6 +325,9 @@ class Router:
                 if host not in live:
                     self._log_fleet("worker_lost", worker=host)
                     del self._workers[host]
+            if trace is not None:
+                trace.add("router.refresh", t0w, time.monotonic() - t0, parent=parent,
+                          span_id=trace.alloc_id(), workers=len(live))
 
     def _breaker_logger(self, host: str):
         def on_transition(old: str, new: str) -> None:
@@ -323,13 +335,15 @@ class Router:
 
         return on_transition
 
-    def _candidates(self, exclude=()) -> list:
+    def _candidates(self, exclude=(), trace=None, parent=None) -> list:
         """Admissible workers, best first (see module docstring). Uses the
         breaker's side-effect-free `admissible()` — `allow()` (which grants
         the single half-open probe) is called by `_forward` only for the
         worker actually sent to, so ranking can never strand a breaker in
-        half-open with a probe nobody owns."""
-        self.refresh_workers()
+        half-open with a probe nobody owns. A traced request records the
+        call as a ``router.rank`` span under ``parent``."""
+        t0w, t0 = time.time(), time.monotonic()
+        self.refresh_workers(trace=trace, parent=parent)
         with self._workers_lock:
             workers = [
                 w for h, w in self._workers.items() if h not in exclude
@@ -340,7 +354,11 @@ class Router:
         admissible = [
             w for w in workers if w.breaker.admissible() and not w.quarantined
         ]
-        return sorted(admissible, key=lambda w: (w.score(), w.host))
+        ranked = sorted(admissible, key=lambda w: (w.score(), w.host))
+        if trace is not None:
+            trace.add("router.rank", t0w, time.monotonic() - t0, parent=parent,
+                      span_id=trace.alloc_id(), candidates=len(ranked))
+        return ranked
 
     # -- the query path ------------------------------------------------------
     def handle_query(self, body: bytes, deadline_header: Optional[str],
@@ -417,7 +435,7 @@ class Router:
         except _Shed as err:
             self._inc("shed")
             self._log_fleet("shed", reason=str(err))
-            self._write_fleet_snapshot()
+            self._write_fleet_snapshot(trace=trace, parent=parent)
             return (
                 429,
                 json.dumps({"error": "deadline", "detail": str(err),
@@ -427,13 +445,13 @@ class Router:
         except Exception as err:
             self._inc("failed")
             self._log_fleet("lost", error=repr(err))
-            self._write_fleet_snapshot()
+            self._write_fleet_snapshot(trace=trace, parent=parent)
             return 503, json.dumps({"error": repr(err)}).encode(), {}
         if 400 <= code < 500:
             # Worker-answered client error, passed through verbatim: not a
             # completion, not a loss, and not a latency sample.
             self._inc("client_errors")
-            self._write_fleet_snapshot()
+            self._write_fleet_snapshot(trace=trace, parent=parent)
             return code, out, {}
         self._inc("completed")
         try:
@@ -444,7 +462,7 @@ class Router:
         # Exactly ONE latency sample per query — a hedged win must not
         # record both racers (tested deadline/hedging semantics).
         self.latency_hist.record((time.monotonic() - t0) * 1e3)
-        self._write_fleet_snapshot()
+        self._write_fleet_snapshot(trace=trace, parent=parent)
         return code, out, {}
 
     def _remaining_ms(self, deadline: Optional[float]) -> Optional[float]:
@@ -462,7 +480,7 @@ class Router:
         tried: set = set()
         last_err: Optional[Exception] = None
         while True:
-            candidates = self._candidates(exclude=tried)
+            candidates = self._candidates(exclude=tried, trace=trace, parent=parent)
             if not candidates:
                 if last_err is not None:
                     raise last_err
@@ -484,7 +502,7 @@ class Router:
             except Exception as err:
                 last_err = err
                 self._inc("forward_errors")
-                if self._candidates(exclude=tried):
+                if self._candidates(exclude=tried, trace=trace, parent=parent):
                     self._inc("failover")
                     self._log_fleet(
                         "failover", worker=worker.host, error=repr(err),
@@ -596,7 +614,12 @@ class Router:
                 ) from err
             outcome, err_name = "error", type(err).__name__
             worker.failures += 1
-            worker.breaker.record_failure()
+            if isinstance(getattr(err, "reason", err), ConnectionRefusedError):
+                # nothing listens at the worker's address: it is down, and
+                # every forward to it can only fail
+                worker.breaker.trip()
+            else:
+                worker.breaker.record_failure()
             raise _ForwardError(f"worker {worker.host} unreachable: {err}") from err
         finally:
             worker.inflight = max(worker.inflight - 1, 0)
@@ -919,20 +942,26 @@ class Router:
             pass
 
     def _write_fleet_snapshot(self, force: bool = False,
-                              min_interval_s: float = 0.5) -> None:
+                              min_interval_s: float = 0.5, trace=None,
+                              parent=None) -> None:
         """Rolling ``fleet.json`` in the run dir (atomic rename via
         `live_snapshot`) — what ``report fleet`` reads on a RUNNING or
-        finished router."""
+        finished router. A traced request that writes it records the
+        write as a ``router.snapshot`` span under ``parent``."""
         if self._run is None:
             return
         now = time.monotonic()
         if not force and now - self._last_write < min_interval_s:
             return
         self._last_write = now
+        t0w = time.time()
         try:
             self._run.live_snapshot(self.statz(), name="fleet.json")
         except Exception:
             pass
+        if trace is not None:
+            trace.add("router.snapshot", t0w, time.monotonic() - now, parent=parent,
+                      span_id=trace.alloc_id())
 
 
 def main(argv=None) -> int:

@@ -50,8 +50,10 @@ an overflow anywhere. The collectives are those of
 hold a collective of a gloo group.
 
 ``engine="measure"`` in `prepare_agent_graph` times each candidate engine
-on the graph and keeps the faster. Not ported: the "foldin" RNG stream,
-which raises ``NotImplementedError``.
+on the graph and keeps the faster. Both RNG streams run on every engine
+(``AgentSimConfig.rng_stream``, `rng._agent_uniforms`), and every float
+type of the reference: float16 and bfloat16 round where XLA on the CPU
+rounds the reference's step (`social.fused`, `_next_times`, `_fractions`).
 """
 
 from __future__ import annotations
@@ -69,14 +71,21 @@ from sbr_tpu_torch.native import sort_edges_by_dst
 from sbr_tpu_torch.parallel import collectives as C
 from sbr_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
 from sbr_tpu_torch.social import recount
-from sbr_tpu_torch.social.fused import MODES, infection_update
+from sbr_tpu_torch.social.fused import MODES, host_round, infection_update
 from sbr_tpu_torch.social.rng import prng_key
+
+try:  # numpy's bfloat16 (the JAX package's jnp.bfloat16) comes from ml_dtypes
+    import ml_dtypes as _ml_dtypes
+except ImportError:  # pragma: no cover - then bfloat16 runs take torch tensors only
+    _ml_dtypes = None
 
 _TORCH_DTYPE = {
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
 }
+if _ml_dtypes is not None:
+    _TORCH_DTYPE[np.dtype(_ml_dtypes.bfloat16)] = torch.bfloat16
 
 
 def default_device() -> torch.device:
@@ -150,7 +159,9 @@ class AgentSimConfig:
       unchunked run.
     - compact_impl: lowering of the incremental engine's change compaction
       ("searchsorted" | "searchsorted_blocked" | "scatter"; bit-identical).
-    - rng_stream: "counter" (ported) or "foldin" (raises at run time).
+    - rng_stream: "counter" (one Threefry block an agent, fused into the
+      infection kernel) or "foldin" (two chained blocks, run unfused in
+      every mode, as the reference runs it).
     - fused: lowering of the infection step (see `social.fused`).
     """
 
@@ -211,6 +222,10 @@ class AgentSimResult:
 
 
 def _withdrawn(informed, t_inf, t, exit_delay, reentry_delay):
+    # the delays rounded to the state's dtype first, as the reference's
+    # weakly typed scalars are (it matters below 32 bits)
+    exit_delay = host_round(exit_delay, t_inf.dtype)
+    reentry_delay = host_round(reentry_delay, t_inf.dtype)
     return informed & (t >= t_inf + exit_delay) & (t < t_inf + reentry_delay)
 
 
@@ -422,12 +437,32 @@ def _step_times(config: AgentSimConfig, k0: int, np_dtype) -> np.ndarray:
     return ks.astype(np_dtype) * np_dtype.type(config.dt)
 
 
+def _next_times(config: AgentSimConfig, k0: int, np_dtype) -> np.ndarray:
+    """The informed time of an agent newly informed in step k, for the
+    call's global steps: the JAX package's ``t + dt`` with t = dtype(k)·dt,
+    rounded as XLA on the CPU rounds it. It contracts the multiply-add into
+    one fused multiply-add in float64, float32 and float16 (the last
+    through a float32 fma), which is dtype(k+1)·dt rounded once; bfloat16
+    rounds the product and the sum each."""
+    ks = np.arange(config.n_steps, dtype=np.int64) + k0
+    dt = np_dtype.type(config.dt)
+    if _TORCH_DTYPE.get(np_dtype) == torch.bfloat16:
+        return ks.astype(np_dtype) * dt + dt  # each operation rounded
+    if np_dtype == np.float16:
+        exact = ks.astype(np_dtype).astype(np.float64) * float(dt) + float(dt)
+        return exact.astype(np.float32).astype(np_dtype)
+    return (ks + 1).astype(np_dtype) * dt
+
+
 def _fractions(counts: torch.Tensor, n: int, np_dtype) -> torch.Tensor:
     """Integer counts as fractions of n, rounded as the JAX package's
     ``mean`` of a 0/1 vector rounds them: XLA turns the division by the
-    constant n into a product with its reciprocal, rounded in the dtype."""
-    recip = np_dtype.type(1) / np_dtype.type(n)
-    return counts.to(_TORCH_DTYPE[np_dtype]) * float(recip)
+    constant n into a product with its reciprocal, rounded in the dtype of
+    the sum, which is float32 for the half types (then rounded once to
+    the dtype)."""
+    acc = np.dtype(np.float32) if np_dtype.itemsize < 4 else np_dtype
+    recip = acc.type(1) / acc.type(n)
+    return (counts.to(_TORCH_DTYPE[acc]) * float(recip)).to(_TORCH_DTYPE[np_dtype])
 
 
 def _run_engine(prepared, config: AgentSimConfig, informed0, t_init, key, k0: int):
@@ -439,6 +474,7 @@ def _run_engine(prepared, config: AgentSimConfig, informed0, t_init, key, k0: in
     dtype = prepared.betas.dtype
     betas, src, row_ptr = prepared.betas, prepared.src, prepared.row_ptr
     ts = _step_times(config, k0, prepared.dtype)
+    t_next = _next_times(config, k0, prepared.dtype)
     t_inf = torch.where(informed0, t_init, float("inf")).to(dtype)
     informed = informed0
     safe_deg = torch.clamp(prepared.indeg, min=1.0)
@@ -487,7 +523,7 @@ def _run_engine(prepared, config: AgentSimConfig, informed0, t_init, key, k0: in
         w_counts[j] = wd.sum()
         # agents informed in step k get t_{k+1} (see social.fused)
         informed, t_inf = infection_update(
-            informed, t_inf, counts, betas, safe_deg, key, k, 0, float(ts[j + 1]),
+            informed, t_inf, counts, betas, safe_deg, key, k, 0, float(t_next[j]),
             config.dt, config.rng_stream, config.fused,
         )
     if incremental:
@@ -495,7 +531,7 @@ def _run_engine(prepared, config: AgentSimConfig, informed0, t_init, key, k0: in
     else:
         recount_flags = torch.ones(config.n_steps, dtype=torch.bool, device=dev)
     return AgentSimResult(
-        t_grid=torch.from_numpy(ts[:-1]).to(dev),
+        t_grid=_tensor(ts[:-1], dev),
         informed_frac=_fractions(g_counts, n, prepared.dtype),
         withdrawn_frac=_fractions(w_counts, n, prepared.dtype),
         informed=informed,
@@ -547,6 +583,7 @@ def _run_sharded(prepared, config: AgentSimConfig, informed0, t_init, key, k0: i
     offset = axis_index(mesh, axis) * nb  # global id of this block's first agent
     betas, src, row_ptr = prepared.betas, prepared.src, prepared.row_ptr
     ts = _step_times(config, k0, prepared.dtype)
+    t_next = _next_times(config, k0, prepared.dtype)
     t_inf = torch.where(informed0, t_init, float("inf")).to(dtype)
     informed = informed0
     safe_deg = torch.clamp(prepared.indeg, min=1.0)
@@ -601,7 +638,7 @@ def _run_sharded(prepared, config: AgentSimConfig, informed0, t_init, key, k0: i
         g_local[j] = informed.sum()
         w_local[j] = wd.sum()
         informed, t_inf = infection_update(
-            informed, t_inf, counts, betas, safe_deg, key, k, offset, float(ts[j + 1]),
+            informed, t_inf, counts, betas, safe_deg, key, k, offset, float(t_next[j]),
             config.dt, config.rng_stream, config.fused,
         )
     n = prepared.n
@@ -612,7 +649,7 @@ def _run_sharded(prepared, config: AgentSimConfig, informed0, t_init, key, k0: i
     # the trajectories are integer counts, so one psum at the end equals the
     # reference's psum a step; normalized by the true N
     return AgentSimResult(
-        t_grid=torch.from_numpy(ts[:-1]).to(dev),
+        t_grid=_tensor(ts[:-1], dev),
         informed_frac=_fractions(C.psum(g_local, mesh, axis), n, prepared.dtype),
         withdrawn_frac=_fractions(C.psum(w_local, mesh, axis), n, prepared.dtype),
         informed=C.all_gather(informed, mesh, axis)[:n],
@@ -668,9 +705,13 @@ class PreparedAgentGraph:
 
 
 def _tensor(a, device) -> torch.Tensor:
+    """A numpy array on ``device``. ``torch.from_numpy`` refuses bfloat16
+    arrays, so those cross as their 16-bit words."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # e.g. a view of another framework's buffer
         a = a.copy()
+    if _TORCH_DTYPE.get(a.dtype) == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
 
 

@@ -46,7 +46,18 @@ across: "auto" (or ``SBR_FUSED``) takes the kernel for CUDA tensors and the
 plain version for CPU tensors; "pallas" names the kernel and raises on CPU
 tensors; "lax", "unfused" and "interpret" name the plain version. Nothing
 falls back from a kernel to its plain version: a build or launch failure
-raises.
+raises. ``rng_stream="foldin"`` runs the plain version in every mode, by
+the reference's own rule: its draw (two chained Threefry blocks through
+``fold_in``) has no counter form to fuse.
+
+**Types.** Both kernels take float32, float64, float16 and bfloat16. Below
+32 bits the plain version rounds as XLA on the CPU rounds the reference's
+step, which the tests hold it to: every operation in float32 rounded to
+the dtype (PyTorch's CPU and CUDA half operations do the same), with the
+scalars (dt, the llr constants, the delays) rounded to the dtype first
+(`host_round`). The belief step's two multiply-adds are the exception:
+XLA contracts them into fused multiply-adds in float16 (each a float32
+fma rounded to float16), and in bfloat16 it rounds each operation.
 """
 
 from __future__ import annotations
@@ -54,16 +65,43 @@ from __future__ import annotations
 import ctypes
 import os
 
+import numpy as np
 import torch
 
 from sbr_tpu_torch import _build
-from sbr_tpu_torch.social.rng import _MASK32, _threefry2x32, _uniform_from_bits, fold_in
+from sbr_tpu_torch.social.rng import (
+    _MASK32,
+    _scalar_uniform,
+    _threefry2x32,
+    _uniform_from_bits,
+    fold_in,
+)
 
 MODES = ("auto", "unfused", "lax", "pallas", "interpret")
 
 KERNEL = "infection_update"
 
-_KERNEL_FN = {torch.float32: "sbr_infection_update_f32", torch.float64: "sbr_infection_update_f64"}
+_KERNEL_FN = {
+    torch.float32: "sbr_infection_update_f32",
+    torch.float64: "sbr_infection_update_f64",
+    torch.float16: "sbr_infection_update_f16",
+    torch.bfloat16: "sbr_infection_update_bf16",
+}
+
+
+def host_round(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` on the host, as a Python float that the
+    dtype holds exactly. The reference rounds its weakly typed scalars (dt,
+    the delays, the llr constants) to the state's dtype before an operation
+    uses them; PyTorch would carry a Python scalar into a float16 or
+    bfloat16 operation unrounded, in float32."""
+    if dtype == torch.float64:
+        return float(x)
+    if dtype == torch.float16:
+        return float(np.float16(x))
+    if dtype == torch.float32:
+        return float(np.float32(x))
+    return float(torch.tensor(float(x), dtype=torch.float64).to(dtype))
 
 
 def resolve_mode(mode: str, device: torch.device, rng_stream: str) -> str:
@@ -71,10 +109,6 @@ def resolve_mode(mode: str, device: torch.device, rng_stream: str) -> str:
     ``AgentSimConfig.fused`` value on tensors on ``device``."""
     if mode not in MODES:
         raise ValueError(f"fused must be one of {MODES}, got {mode!r}")
-    if rng_stream != "counter":
-        raise NotImplementedError(
-            f"rng_stream={rng_stream!r} is not ported; only the 'counter' stream is"
-        )
     if mode == "auto":
         env = os.environ.get("SBR_FUSED", "").strip().lower()
         if env and env not in MODES:
@@ -82,6 +116,11 @@ def resolve_mode(mode: str, device: torch.device, rng_stream: str) -> str:
             # user believes they pinned a lowering
             raise ValueError(f"SBR_FUSED must be one of {MODES}, got {env!r}")
         mode = env or "auto"
+    if rng_stream != "counter":
+        # the reference's rule, not a fallback: the foldin draw is two
+        # chained blocks through fold_in, with no counter form for a kernel
+        # to fuse, so every mode runs it unfused
+        return "plain"
     on_cuda = torch.device(device).type == "cuda"
     if mode == "auto":
         return "kernel" if on_cuda else "plain"
@@ -93,18 +132,25 @@ def resolve_mode(mode: str, device: torch.device, rng_stream: str) -> str:
 
 
 def _update_plain(informed, t_inf, counts, betas, safe_deg, id0: int, k0: int,
-                  k1: int, t_next: float, dt: float):
+                  k1: int, t_next: float, dt: float, rng_stream: str = "counter"):
     """The infection update in PyTorch ops: the kernel's plain version, and
-    the arithmetic of ``sbr_tpu.social.fused._update_lax`` in its order.
+    the arithmetic of ``sbr_tpu.social.fused._update_lax`` in its order,
+    each operation rounded to the dtype as XLA on the CPU rounds it.
 
     ``id0`` is the global id of the first agent, (k0, k1) the step key's
     words, ``t_next`` the time written for a newly informed agent (exactly
-    representable in the sim dtype). Returns (informed', t_inf')."""
+    representable in the sim dtype). Under ``rng_stream="foldin"`` the
+    draws are `rng._scalar_uniform` of each agent's folded key (the
+    reference's unfused path). Returns (informed', t_inf')."""
     dtype = betas.dtype
+    dt = host_round(dt, dtype)
     ids = (torch.arange(informed.shape[0], dtype=torch.int64, device=informed.device)
            + id0) & _MASK32
-    x0, x1 = _threefry2x32(k0, k1, ids, torch.zeros_like(ids))
-    draws = _uniform_from_bits(x0, x1, dtype)
+    zero = torch.zeros_like(ids)
+    if rng_stream == "foldin":
+        draws = _scalar_uniform(*_threefry2x32(k0, k1, zero, ids), dtype)
+    else:
+        draws = _uniform_from_bits(*_threefry2x32(k0, k1, ids, zero), dtype)
     frac = counts.to(dtype) / safe_deg
     p_inf = 1.0 - torch.exp((-betas) * frac * dt)
     newly = ~informed & (draws < p_inf)
@@ -114,9 +160,10 @@ def _update_plain(informed, t_inf, counts, betas, safe_deg, id0: int, k0: int,
 def _check_cuda_args(what: str, dtype: torch.dtype, args) -> None:
     """Refuse what a kernel does not take: ``args`` is (name, tensor, dtype)
     triples, the first of which fixes the device and the length."""
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in _KERNEL_FN:
         raise NotImplementedError(
-            f"the CUDA {what} kernel takes float32 or float64, not {dtype}"
+            f"the CUDA {what} kernel takes float32, float64, float16 or bfloat16, "
+            f"not {dtype}"
         )
     first = args[0][1]
     n = first.shape[0]
@@ -155,6 +202,7 @@ def _update_cuda(informed, t_inf, counts, betas, safe_deg, id0: int, k0: int,
         ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
         ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
     ])
+    dt = host_round(dt, dtype)
     informed2 = torch.empty_like(informed)
     t_inf2 = torch.empty_like(t_inf)
     rc = fn(
@@ -179,8 +227,11 @@ def infection_update(informed, t_inf, counts, betas, safe_deg, key, step_k: int,
     Returns (informed', t_inf')."""
     lowering = resolve_mode(mode, informed.device, rng_stream)
     k0, k1 = fold_in(key, step_k)
-    update = _update_cuda if lowering == "kernel" else _update_plain
-    return update(informed, t_inf, counts, betas, safe_deg, id0, k0, k1, t_next, dt)
+    if lowering == "kernel":
+        return _update_cuda(informed, t_inf, counts, betas, safe_deg, id0, k0, k1,
+                            t_next, dt)
+    return _update_plain(informed, t_inf, counts, betas, safe_deg, id0, k0, k1, t_next,
+                         dt, rng_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +242,12 @@ BELIEF_MODES = ("auto", "lax", "pallas", "interpret")
 
 BELIEF_KERNEL = "belief_update"
 
-_BELIEF_FN = {torch.float32: "sbr_belief_update_f32", torch.float64: "sbr_belief_update_f64"}
+_BELIEF_FN = {
+    torch.float32: "sbr_belief_update_f32",
+    torch.float64: "sbr_belief_update_f64",
+    torch.float16: "sbr_belief_update_f16",
+    torch.bfloat16: "sbr_belief_update_bf16",
+}
 
 
 def resolve_belief_mode(mode: str, device: torch.device) -> str:
@@ -285,10 +341,22 @@ def _belief_plain(informed, t_inf, belief, counts, awareness, safe_deg,
     Returns (informed', t_inf', belief')."""
     dtype = belief.dtype
     dev = belief.device
+    dt, llr0, llr1 = (host_round(v, dtype) for v in (dt, llr0, llr1))
     # filled on the device, so that a CUDA graph can capture the step
     dt_, llr0_, llr1_ = (torch.full((), v, dtype=dtype, device=dev) for v in (dt, llr0, llr1))
     w = counts.to(dtype) / safe_deg
-    belief2 = _fma(dt_, _fma(w, llr1_, (1.0 - w) * llr0_), belief)
+    if dtype == torch.bfloat16:
+        # bfloat16: XLA rounds every operation, contracting none
+        belief2 = belief + dt_ * (w * llr1_ + (1.0 - w) * llr0_)
+    elif dtype == torch.float16:
+        # float16: both multiply-adds contracted, each a float32 fma rounded
+        # to float16
+        def fma16(a, b, c):
+            return _fma(a.float(), b.float(), c.float()).to(dtype)
+
+        belief2 = fma16(dt_, fma16(w, llr1_, (1.0 - w) * llr0_), belief)
+    else:
+        belief2 = _fma(dt_, _fma(w, llr1_, (1.0 - w) * llr0_), belief)
     newly = ~informed & (awareness * belief2 >= thresholds)
     return informed | newly, torch.where(newly, t_next, t_inf), belief2
 
@@ -308,6 +376,7 @@ def _belief_cuda(informed, t_inf, belief, counts, awareness, safe_deg,
         ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_void_p,
     ])
+    dt, llr0, llr1 = (host_round(v, dtype) for v in (dt, llr0, llr1))
     informed2 = torch.empty_like(informed)
     t_inf2 = torch.empty_like(t_inf)
     belief2 = torch.empty_like(belief)

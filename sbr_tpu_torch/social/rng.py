@@ -15,9 +15,11 @@ the consuming computation draws the same bits. This module reproduces
 - ``_uniform_from_bits`` builds the [0, 1) draw from the block's words
   exactly as the JAX package does (mantissa-or trick, both words for
   float64, the half-precision clamp below 1.0).
-
-Only the "counter" stream is ported; "foldin" (two chained blocks plus
-``jax.random.uniform``) raises ``NotImplementedError``.
+- ``_agent_uniforms`` draws either stream of ``AgentSimConfig.rng_stream``:
+  "counter" (one block an agent, the id as its counter) and "foldin"
+  (``uniform(fold_in(fold_in(key, step), id))``: one more block an agent,
+  and the bits ``jax.random.uniform`` takes from a scalar key,
+  `_scalar_uniform`).
 """
 
 from __future__ import annotations
@@ -94,17 +96,50 @@ def _uniform_from_bits(x0, x1, dtype: torch.dtype) -> torch.Tensor:
     return u
 
 
+def _scalar_uniform(a0, a1, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.random.uniform(key, (), dtype)`` for a batch of threefry keys
+    with words (a0, a1) (int64 tensors), as jax 0.9 computes it under its
+    default ``jax_threefry_partitionable``: one block of the key on the
+    counter (0, 0) gives words (b0, b1); a 64-bit draw takes b0 as its
+    high word and b1 as its low one, narrower draws take b0 ^ b1, cut to
+    the dtype's width, or to 8 bits for bfloat16, whose 7-bit mantissa is
+    narrower than 8. The mantissa-or trick then gives [1, 2), minus 1; the
+    scaling to [0, 1) and the ``max`` with 0 change no value."""
+    zero = torch.zeros_like(a0)
+    b0, b1 = _threefry2x32(a0, a1, zero, zero)
+    if dtype == torch.float64:
+        return _uniform_from_bits(b0, b1, dtype)
+    bits = b0 ^ b1
+    if dtype == torch.float32:
+        one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.float16:
+        one = (((bits & 0xFFFF) >> 6) | 0x3C00).to(torch.int16).view(torch.float16)
+    elif dtype == torch.bfloat16:
+        one = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16)
+    else:
+        raise TypeError(f"no uniform draw of {dtype}")
+    return one - 1.0
+
+
 def _agent_uniforms(key, step_k: int, ids: torch.Tensor, dtype: torch.dtype,
                     impl: str = "counter") -> torch.Tensor:
-    """Per-agent uniform draw as a pure function of (key, step, GLOBAL id):
-    the step's key words hash the id directly as the block counter.
+    """Per-agent uniform draw as a pure function of (key, step, GLOBAL id),
+    so every engine and sharding draws the same bits.
+
+    - "counter": the step's key words hash the id directly as the block
+      counter (one block an agent).
+    - "foldin": ``uniform(fold_in(fold_in(key, step), id))``: the agent's
+      key is the block of the step's key on the counter (0, id), and its
+      draw `_scalar_uniform` (two blocks an agent). The two streams are
+      different realizations.
 
     ``key`` is a ``prng_key`` pair; ``ids`` any integer tensor of ids."""
-    if impl != "counter":
-        raise NotImplementedError(
-            f"rng_stream={impl!r} is not ported; only the 'counter' stream is"
-        )
+    if impl not in ("counter", "foldin"):
+        raise ValueError(f"rng_stream must be 'foldin' or 'counter', got {impl!r}")
     k0, k1 = fold_in(key, step_k)
     c0 = ids.to(torch.int64) & _MASK32
+    if impl == "foldin":
+        a0, a1 = _threefry2x32(k0, k1, torch.zeros_like(c0), c0)
+        return _scalar_uniform(a0, a1, dtype)
     x0, x1 = _threefry2x32(k0, k1, c0, torch.zeros_like(c0))
     return _uniform_from_bits(x0, x1, dtype)

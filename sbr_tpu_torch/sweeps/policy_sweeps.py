@@ -45,6 +45,93 @@ class PolicySweepResult:
     health: Optional[Health] = None  # per cell, leaves (B, U, R)
 
 
+def _policy_program(base: ModelParamsInterest, config: SolverConfig, dtype, dev):
+    """The grid's one batched solve, ``program(betas, us, rs)`` on a block
+    of the (β, u, r) axes: Stage 1 per β row, then every cell at once."""
+    econ = base.economic
+
+    def tensor(v):
+        return torch.as_tensor(np.asarray(v, dtype=np.float64)).to(dtype=dtype, device=dev)
+
+    t0, t1 = (tensor(v) for v in base.learning.tspan)
+
+    def program(beta_values, u_values, r_values):
+        block = (beta_values.shape[0], u_values.shape[0], r_values.shape[0])
+        learning = _RowLearning(beta_values.reshape(-1, 1, 1), (t0, t1),
+                                tensor(base.learning.x0))
+        ls = solve_learning(learning, config, dtype=dtype, device=dev)
+        return solve_equilibrium_interest_core(
+            ls,
+            u_values.reshape(1, -1, 1).expand(block),
+            *(tensor(v) for v in (econ.p, econ.kappa, econ.lam, econ.eta)),
+            r_values.reshape(1, 1, -1).expand(block),
+            tensor(econ.delta),
+            t1,
+            config,
+        ).base
+
+    return program
+
+
+_FOOTPRINT_CACHE: dict = {}
+
+# the two grids the preflight measures to model a larger one
+_PROBE_SHAPES = ((2, 2, 2), (4, 4, 4))
+
+
+def policy_tile_footprint(n_b: int, n_u: int, n_r: int, config: Optional[SolverConfig] = None,
+                          dtype=None, device=None) -> dict:
+    """Measured memory footprint of ONE (n_b × n_u × n_r) policy-grid
+    dispatch (``arg_bytes``, ``out_bytes``, ``temp_bytes``, ``total_bytes``):
+    the (β, u, r) analogue of `baseline_sweeps.grid_tile_footprint`. The
+    reference estimates it ahead of time from the compiled program; the port
+    runs the program once on probe axes of that shape
+    (`obs.mem.measure_footprint`). ``config=None`` is the sweep default.
+    Cached per (shape, config, dtype, device)."""
+    if config is None:
+        config = SolverConfig(refine_crossings=False)
+    dtype = torch.float64 if dtype is None else dtype
+    dev = _mesh_device(None, device)
+    key = ((int(n_b), int(n_u), int(n_r)), config, dtype, str(dev))
+    fp = _FOOTPRINT_CACHE.get(key)
+    if fp is None:
+        from sbr_tpu_torch.models.params import make_interest_params
+
+        base = make_interest_params()
+        delta = base.economic.delta
+        axes = (np.linspace(0.5, 2.0, int(n_b)), np.linspace(0.01, 0.5, int(n_u)),
+                np.linspace(0.0, 0.5 * delta, int(n_r)))
+        args = [torch.as_tensor(a).to(dtype=dtype, device=dev) for a in axes]
+        with obs.program():  # the probe leaves no trace in the run's events
+            fp = obs.mem.measure_footprint(_policy_program(base, config, dtype, dev), *args)
+        _FOOTPRINT_CACHE[key] = fp
+    return dict(fp)
+
+
+def _capacity(dev: torch.device):
+    """The memory the grid's device holds: the card's, or None for a grid
+    on the CPU, which has no budget to hold it to (even in a process that
+    uses a card)."""
+    return obs.mem.device_capacity() if dev.type == "cuda" else None
+
+
+def _preflight_footprint(n_b: int, n_u: int, n_r: int, config, dtype, dev) -> dict:
+    """The grid's footprint for the OOM preflight, without running a grid
+    that may not fit: measured where the grid is no larger than the larger
+    probe, else the linear model (fixed + per-cell bytes) of the two
+    probes' measured footprints, as the tiled sweep's planner models a
+    tile."""
+    cells = n_b * n_u * n_r
+    big = _PROBE_SHAPES[-1]
+    if cells <= big[0] * big[1] * big[2]:
+        return policy_tile_footprint(n_b, n_u, n_r, config, dtype, dev)
+    points = [(b * u * r, policy_tile_footprint(b, u, r, config, dtype, dev)["total_bytes"])
+              for b, u, r in _PROBE_SHAPES]
+    fixed, per_cell = obs.mem.fit_linear_model(points)
+    return {"total_bytes": int(fixed + per_cell * cells), "source": "planner-model",
+            "model_fixed_bytes": int(fixed), "model_per_cell_bytes": per_cell}
+
+
 def policy_sweep_interest(
     beta_values,
     u_values,
@@ -69,9 +156,12 @@ def policy_sweep_interest(
 
     With telemetry on, the grid runs as one program through `obs.jit_call`
     inside the ``sweeps.policy_interest`` span, followed by the status and
-    health censuses. The OOM preflight logs its record as the reference's
-    does; the port measures no footprint for this grid, so on the card the
-    verdict is "skipped" ("not-measured")."""
+    health censuses. Before it, the OOM preflight (`obs.mem`), the grid's
+    only memory check: on the card the grid's footprint
+    (`_preflight_footprint`) against the card's budget, failing closed with
+    `obs.mem.MemoryPreflightError`; "skipped" without a capacity (the CPU)
+    and, under a mesh, "skipped" with reason "sharded" (the unsharded
+    measure would overstate a rank's share)."""
     if config is None:
         config = SolverConfig(refine_crossings=False)
     econ = base.economic
@@ -87,26 +177,17 @@ def policy_sweep_interest(
     cells = (beta_values.shape[0], u_values.shape[0], r_values.shape[0])
     n_b, n_u, n_r = (int(c) for c in cells)
     if obs.mem.preflight_enabled():
-        obs.mem.preflight(f"policy[{n_b}x{n_u}x{n_r}]", None,
-                          skip_reason=None if obs.mem.device_capacity() is None
-                          else "not-measured")
+        label = f"policy[{n_b}x{n_u}x{n_r}]"
+        capacity = _capacity(dev)
+        if capacity is None or mesh is not None:
+            obs.mem.preflight(label, None, capacity=None,
+                              skip_reason="sharded" if mesh is not None else "no-capacity")
+        else:
+            obs.mem.check_preflight(obs.mem.preflight(
+                label, _preflight_footprint(n_b, n_u, n_r, config, dtype, dev),
+                capacity=capacity))
     faults.fire("sweep.dispatch", target="policy_interest[{}x{}x{}]".format(*cells))
-    t0, t1 = (tensor(v) for v in base.learning.tspan)
-
-    def program(beta_values, u_values, r_values):
-        block = (beta_values.shape[0], u_values.shape[0], r_values.shape[0])
-        learning = _RowLearning(beta_values.reshape(-1, 1, 1), (t0, t1),
-                                tensor(base.learning.x0))
-        ls = solve_learning(learning, config, dtype=dtype, device=dev)
-        return solve_equilibrium_interest_core(
-            ls,
-            u_values.reshape(1, -1, 1).expand(block),
-            *(tensor(v) for v in (econ.p, econ.kappa, econ.lam, econ.eta)),
-            r_values.reshape(1, 1, -1).expand(block),
-            tensor(econ.delta),
-            t1,
-            config,
-        ).base
+    program = _policy_program(base, config, dtype, dev)
 
     b_local, u_local = beta_values, u_values
     if mesh is not None:

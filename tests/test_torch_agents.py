@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
+from ml_dtypes import bfloat16  # noqa: E402
 
 from sbr_tpu.social import agents as ja  # noqa: E402
 from sbr_tpu_torch.social import agents as ta  # noqa: E402
@@ -32,14 +33,19 @@ FIELDS = ("informed", "t_inf", "informed_frac", "withdrawn_frac", "full_recount_
 
 
 def _np(x):
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:  # numpy has no bfloat16 of its own
+            return x.cpu().view(torch.int16).numpy().view(bfloat16)
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def assert_same(want, got, fields=FIELDS):
     for f in fields:
         w, g = _np(getattr(want, f)), _np(getattr(got, f))
         assert w.dtype == g.dtype, f
-        np.testing.assert_array_equal(w, g, err_msg=f)
+        # compared as bytes: bit for bit, and numpy compares no bfloat16
+        np.testing.assert_array_equal(w.view(np.uint8), g.view(np.uint8), err_msg=f)
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +192,43 @@ def test_simulate_matches_sbr_tpu(graph, dtype, engine, window, betas):
     assert got.agent_steps == want.agent_steps == N * STEPS
     g = _np(got.informed_frac)
     assert g[-1] > g[0]  # the contagion actually spreads
+
+
+@pytest.mark.parametrize("dtype", [np.float16, bfloat16, np.float32])
+@pytest.mark.parametrize("engine", ["gather", "incremental"])
+@pytest.mark.parametrize("stream", ["counter", "foldin"])
+def test_half_types_and_foldin_match_sbr_tpu(graph, dtype, engine, stream):
+    """float16 and bfloat16 (each rounded where XLA on the CPU rounds the
+    reference's step) and the foldin stream: bit for bit, heterogeneous β
+    and a withdrawal window."""
+    src, dst = graph
+    jc, tc = _configs((0.5, 2.0), rng_stream=stream)
+    b = _betas("hetero")
+    want = ja.simulate_agents(b, src, dst, N, x0=0.01, config=jc, seed=3, engine=engine,
+                              dtype=dtype)
+    got = ta.simulate_agents(b, src, dst, N, x0=0.01, config=tc, seed=3, engine=engine,
+                             dtype=dtype, device=CPU)
+    assert_same(want, got)
+    g = _np(got.informed_frac).astype(np.float64)
+    assert g[-1] > g[0]
+
+
+def test_foldin_chunking_and_resume_match_sbr_tpu(graph):
+    """foldin under max_steps_per_launch and across a resume equals the
+    reference's unchunked run."""
+    src, dst = graph
+    jc, tc = _configs((0.5, 2.0), rng_stream="foldin")
+    want = ja.simulate_agents(1.0, src, dst, N, x0=0.01, config=jc, seed=3, engine="incremental")
+    pg = ta.prepare_agent_graph(1.0, src, dst, N, engine="incremental", device=CPU)
+    chunked = ta.simulate_agents(
+        prepared=pg, x0=0.01, config=dataclasses.replace(tc, max_steps_per_launch=9), seed=3)
+    assert_same(want, chunked, FIELDS[:4] + ("t_grid",))
+    half = dataclasses.replace(tc, n_steps=STEPS // 2)
+    first = ta.simulate_agents(prepared=pg, x0=0.01, config=half, seed=3)
+    second = ta.simulate_agents(prepared=pg, config=half, seed=3, informed0=first.informed,
+                                t_inf0=first.t_inf, step_offset=STEPS // 2)
+    for f in ("informed", "t_inf"):
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)), _np(getattr(second, f)))
 
 
 @pytest.mark.parametrize("compact_impl", ["searchsorted", "searchsorted_blocked", "scatter"])
@@ -423,9 +466,14 @@ def test_unported_options_raise(graph):
     # mesh= is ported (tests/test_torch_sharded_agents.py); its comm is checked
     with pytest.raises(ValueError, match="comm"):
         ta.prepare_agent_graph(1.0, src, dst, N, comm="ring", device=CPU)
-    with pytest.raises(NotImplementedError):
-        ta.simulate_agents(1.0, src, dst, N, device=CPU,
-                           config=ta.AgentSimConfig(n_steps=2, rng_stream="foldin"))
+    # the foldin stream is ported: it runs, as the reference's does
+    got = ta.simulate_agents(1.0, src, dst, N, device=CPU,
+                             config=ta.AgentSimConfig(n_steps=2, rng_stream="foldin"))
+    assert_same(ja.simulate_agents(1.0, src, dst, N,
+                                   config=ja.AgentSimConfig(n_steps=2, rng_stream="foldin")),
+                got)
+    with pytest.raises(ValueError, match="rng_stream"):
+        ta.AgentSimConfig(rng_stream="philox")
     with pytest.raises(ValueError):
         ta.AgentSimConfig(compact_impl="nonzero")
     with pytest.raises(ValueError):

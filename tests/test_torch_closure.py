@@ -204,6 +204,29 @@ def test_close_loop_host_graph_is_bitwise(social_fp, monkeypatch):
     assert b.err_aw_rms < 0.1 and b.aw_seeds is None
 
 
+def test_close_loop_foldin_stream_is_bitwise(social_fp, monkeypatch):
+    """`close_loop` takes no stream argument: its members draw with the
+    default config's stream. With "foldin" made the default in both
+    packages, the loop is bit for bit the reference's, and differs from the
+    counter run (the streams are different realizations)."""
+    import functools
+
+    from sbr_tpu.social import agents as ja
+    from sbr_tpu_torch.social import agents as ta
+
+    monkeypatch.setenv("SBR_NATIVE", "0")
+    want_fp, got_fp = social_fp
+    counter = tc.close_loop(tmodel(**FIG12), fp=got_fp, device=CPU, **SMALL)
+    monkeypatch.setattr(jc, "AgentSimConfig",
+                        functools.partial(ja.AgentSimConfig, rng_stream="foldin"))
+    monkeypatch.setattr(tc, "AgentSimConfig",
+                        functools.partial(ta.AgentSimConfig, rng_stream="foldin"))
+    a = jc.close_loop(jmodel(**FIG12), fp=want_fp, **SMALL)
+    b = tc.close_loop(tmodel(**FIG12), fp=got_fp, device=CPU, **SMALL)
+    _assert_same_loop(a, b)
+    assert not np.array_equal(np.asarray(counter.aw_sim), np.asarray(b.aw_sim))
+
+
 def test_close_loop_from_scratch_is_bitwise(social_fp, monkeypatch):
     monkeypatch.setenv("SBR_NATIVE", "0")
     want_fp, got_fp = social_fp

@@ -65,10 +65,15 @@ def test_simulation_on_card_equals_cpu_in_float64(cuda_device, engine):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
+    # float16 has a kernel of its own now: it runs, equal to its plain version
     ts = [torch.zeros(8, dtype=d, device=cuda_device) for d in (
         torch.bool, torch.float16, torch.int32, torch.float16, torch.float16)]
+    for w, k in zip(fused._update_plain(*ts, 0, 1, 2, 0.1, 0.1),
+                    fused._update_cuda(*ts, 0, 1, 2, 0.1, 0.1)):
+        assert torch.equal(w, k)
+    ints = [t.to(torch.int16) if t.is_floating_point() else t for t in ts]
     with pytest.raises(NotImplementedError):
-        fused._update_cuda(*ts, 0, 1, 2, 0.1, 0.1)
+        fused._update_cuda(*ints, 0, 1, 2, 0.1, 0.1)
     ts = [torch.zeros(8, dtype=d, device=cuda_device) for d in (
         torch.bool, torch.float32, torch.int64, torch.float32, torch.float32)]
     with pytest.raises(ValueError, match="counts"):
@@ -100,6 +105,103 @@ def test_belief_kernel_matches_plain(cuda_device, np_dtype, n):
     assert _build.LAUNCHES[fused.BELIEF_KERNEL] == before + 1
     for w, k in zip(want, got):
         assert torch.equal(w, k)
+
+
+HALF_TYPES = [torch.float16, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+@pytest.mark.parametrize("n", [1, 1000, 100_003])
+def test_half_infection_kernel_matches_plain(cuda_device, dtype, n):
+    """float16 and bfloat16: every operation rounded to the type in both,
+    the uniform clamped below 1.0; bit for bit."""
+    g = np.random.default_rng(n + 7)
+    informed = g.random(n) < 0.3
+    deg = g.integers(0, 9, n)
+    arrays = (informed, np.where(informed, g.uniform(-1.0, 2.0, n), np.inf),
+              np.minimum(g.integers(0, 9, n), deg).astype(np.int32),
+              g.lognormal(0.5, 0.5, n), np.maximum(deg, 1).astype(np.float64))
+    ts = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    ts = [t.to(dtype) if t.is_floating_point() else t for t in ts]
+    k0, k1 = rng.fold_in(rng.prng_key(5), 17)
+    t_next = fused.host_round(1.8, dtype)
+    before = _build.LAUNCHES[fused.KERNEL]
+    got = fused._update_cuda(*ts, 7, k0, k1, t_next, 0.1)
+    want = fused._update_plain(*ts, 7, k0, k1, t_next, 0.1)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fused.KERNEL] == before + 1
+    assert got[1].dtype == dtype
+    for w, k in zip(want, got):
+        assert torch.equal(w, k)
+
+
+@pytest.mark.parametrize("dtype", HALF_TYPES)
+@pytest.mark.parametrize("n", [1, 1000, 100_003])
+def test_half_belief_kernel_matches_plain(cuda_device, dtype, n):
+    """float16 (the two multiply-adds each a float32 fma rounded to
+    float16) and bfloat16 (every operation rounded): bit for bit."""
+    ts = [t.to(dtype) if t.is_floating_point() else t
+          for t in _belief_inputs(n, np.float32, cuda_device)]
+    llr0, llr1 = (fused.host_round(v, dtype) for v in st.InfoModelSpec(channel="bayes").llr)
+    args = (fused.host_round(1.8, dtype), 0.05, llr0, llr1)
+    before = _build.LAUNCHES[fused.BELIEF_KERNEL]
+    got = fused._belief_cuda(*ts, *args)
+    want = fused._belief_plain(*ts, *args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fused.BELIEF_KERNEL] == before + 1
+    for w, k in zip(want, got):
+        assert torch.equal(w, k)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_simulation_on_card_equals_cpu(cuda_device, dtype):
+    """A float16 or bfloat16 run on the card through the kernel equals the
+    CPU's plain run bit for bit."""
+    ml_dtypes = pytest.importorskip("ml_dtypes")  # numpy's bfloat16
+    np_dtype = np.dtype(getattr(ml_dtypes, dtype) if dtype == "bfloat16" else dtype)
+    n = 3000
+    src, dst = st.erdos_renyi_edges(n, 8.0, seed=2)
+    cfg = st.AgentSimConfig(n_steps=30, dt=0.1, exit_delay=0.5, reentry_delay=2.0)
+    kw = dict(x0=0.01, config=cfg, seed=1, dtype=np_dtype)
+    cpu = st.simulate_agents(1.0, src, dst, n, device="cpu", **kw)
+    before = _build.LAUNCHES[fused.KERNEL]
+    card = st.simulate_agents(1.0, src, dst, n, device=cuda_device, **kw)
+    assert _build.LAUNCHES[fused.KERNEL] == before + cfg.n_steps
+    for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac"):
+        assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
+
+
+@pytest.mark.parametrize("engine", ["gather", "incremental"])
+def test_foldin_on_card_equals_cpu(cuda_device, engine):
+    """The foldin stream runs unfused on the card too (the reference's
+    rule): no kernel launch, and the CPU's run bit for bit."""
+    n = 3000
+    src, dst = st.erdos_renyi_edges(n, 8.0, seed=2)
+    cfg = st.AgentSimConfig(n_steps=25, dt=0.1, exit_delay=0.5, reentry_delay=2.0,
+                            rng_stream="foldin")
+    kw = dict(x0=0.01, config=cfg, seed=1, engine=engine, dtype=np.float32)
+    cpu = st.simulate_agents(1.0, src, dst, n, device="cpu", **kw)
+    before = _build.LAUNCHES[fused.KERNEL]
+    card = st.simulate_agents(1.0, src, dst, n, device=cuda_device, **kw)
+    assert _build.LAUNCHES[fused.KERNEL] == before
+    for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac"):
+        assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
+
+
+def test_engine_captures_every_bucket_before_it_serves(cuda_device):
+    """A fleet worker's warm start: one capture a bucket, none later."""
+    from sbr_tpu_torch.serve import Engine, ServeConfig
+
+    eng = Engine(config=st.SolverConfig(n_grid=64, bisect_iters=20, refine_crossings=False),
+                 serve=ServeConfig(buckets=(1, 8)), device=cuda_device)
+    try:
+        assert eng.capture_programs() == 2
+        assert dict(eng.graphs.captured) == {1: 1, 8: 1}
+        assert eng.capture_programs() == 0
+        r = eng.query(st.make_model_params())
+        assert dict(eng.graphs.captured) == {1: 1, 8: 1} and r.status in (0, 1, 2, 3, 4)
+    finally:
+        eng.close()
 
 
 @pytest.mark.parametrize("np_dtype", [np.float32, np.float64])
@@ -137,9 +239,13 @@ def test_generated_graph_on_card_equals_cpu(cuda_device, kind, engine):
 def test_belief_kernel_refuses_what_it_does_not_take(cuda_device):
     args = (1.0, 0.1, -0.4, 5.8)
     ts = _belief_inputs(8, np.float32, cuda_device)
+    # float16 has a kernel of its own now: it runs, equal to its plain version
     half = [t.to(torch.float16) if t.is_floating_point() else t for t in ts]
+    for w, k in zip(fused._belief_plain(*half, *args), fused._belief_cuda(*half, *args)):
+        assert torch.equal(w, k)
+    ints = [t.to(torch.int16) if t.is_floating_point() else t for t in ts]
     with pytest.raises(NotImplementedError):
-        fused._belief_cuda(*half, *args)
+        fused._belief_cuda(*ints, *args)
     wrong = list(ts)
     wrong[3] = wrong[3].to(torch.int64)
     with pytest.raises(ValueError, match="counts"):

@@ -424,6 +424,106 @@ def test_drifted_heartbeat_quarantines_and_clears(pkg, tmp_path):
         rt.close()
 
 
+def test_first_requests_wait_for_the_first_scan(tmp_path, monkeypatch):
+    """One thread makes a due heartbeat scan under the worker table's lock;
+    the others wait for it and route on its table (none finds "no
+    admissible workers", none scans again), as the reference's router
+    does."""
+    fleet.WorkerAnnouncer(tmp_path, "http://127.0.0.1:1", host="w0").beat()
+    real = router.live_workers
+    scans = []
+
+    def slow_scan(root):
+        scans.append(threading.current_thread().name)
+        time.sleep(0.2)
+        return real(root)
+
+    monkeypatch.setattr(router, "live_workers", slow_scan)
+    rt = router.Router(tmp_path, poll_s=0.05)
+    try:
+        seen = {}
+
+        def pick(i):
+            seen[i] = [w.host for w in rt._candidates()]
+
+        threads = [threading.Thread(target=pick, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert seen == {i: ["w0"] for i in range(6)} and len(scans) == 1
+        time.sleep(0.06)  # a rescan is due: one thread makes it, the rest wait
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=pick, args=(i,)) for i in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert len(scans) == 2 and all(v == ["w0"] for v in seen.values())
+        assert time.monotonic() - t0 < 0.6
+    finally:
+        rt.close()
+
+
+def test_refused_connection_opens_the_breaker_at_once(tmp_path):
+    """A worker whose address refuses connections (its process is gone) is
+    down: one refused forward opens its breaker, the query fails over; a
+    worker that answers 5xx still gets the threshold's grace."""
+    import socket
+
+    with socket.socket() as sock:  # a port nothing listens on
+        sock.bind(("127.0.0.1", 0))
+        dead_port = sock.getsockname()[1]
+    fleet.WorkerAnnouncer(tmp_path, f"http://127.0.0.1:{dead_port}", host="a-dead").beat()
+    log: list = []
+    live = _StubWorker(tmp_path, "b-live", log, xi=3.0)
+    rt = router.Router(tmp_path, poll_s=0.05).start()
+    try:
+        rt.refresh_workers(force=True)
+        rt._workers["a-dead"].ewma_ms = 0.0  # ranked first
+        code, xi, _ = _post(rt)
+        assert (code, xi) == (200, 3.0)
+        dead = rt._workers["a-dead"].breaker
+        assert dead.state == "open" and dead.consecutive_failures >= dead.threshold
+        assert rt.statz()["counters"]["failover"] == 1
+    finally:
+        rt.close()
+        live.close()
+
+
+def test_traced_router_spans_time_their_own_calls(tmp_path):
+    """A traced query's router spans are children of its root and time
+    their own calls: the first ranking holds the heartbeat scan it made,
+    the forward starts after the ranking ended, and the fleet.json write
+    follows the forward."""
+    from sbr_tpu_torch.obs import trace as qtrace
+
+    log: list = []
+    stub = _StubWorker(tmp_path, "w0", log)
+    rt = router.Router(tmp_path, run_dir=tmp_path / "run", poll_s=0.05)
+    try:
+        ctx = qtrace.TraceContext("0123456789abcdef", service="router")
+        root = ctx.alloc_id()
+        code, _, _ = rt._handle_routed(b'{"beta": 1.0, "u": 0.1}', None, time.monotonic(),
+                                       trace=ctx, parent=root)
+        assert code == 200
+        spans = {s["name"]: s for s in ctx.spans}
+        assert "router.admission" not in spans
+        assert {"router.refresh", "router.rank", "router.forward", "router.snapshot"} <= set(spans)
+        h, r, f, w = (spans[n] for n in ("router.refresh", "router.rank", "router.forward",
+                                         "router.snapshot"))
+
+        def end(s):
+            return s["ts"] + s["dur_ms"] / 1e3
+
+        assert r["ts"] <= h["ts"] and end(h) <= end(r) + 1e-6
+        assert f["ts"] >= end(r) - 1e-6 and w["ts"] >= end(f) - 1e-6
+        assert all(s["parent"] == root for s in (h, r, f, w))
+    finally:
+        rt.close()
+        stub.close()
+
+
 def test_healthz_reports_quarantine_as_the_reference(tmp_path):
     bad = fleet.WorkerAnnouncer(tmp_path, "http://127.0.0.1:1", host="w0")
     good = fleet.WorkerAnnouncer(tmp_path, "http://127.0.0.1:2", host="w1")

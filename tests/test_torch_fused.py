@@ -12,9 +12,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from ml_dtypes import bfloat16  # noqa: E402
+
 from sbr_tpu.social import fused as jfused  # noqa: E402
 from sbr_tpu_torch.social import fused as tfused  # noqa: E402
 from sbr_tpu_torch.social import rng as trng  # noqa: E402
+from sbr_tpu_torch.social.agents import _tensor  # noqa: E402
 
 N = 3001  # a ragged tail against the Pallas kernel's 1024-agent block
 DT = 0.1
@@ -102,8 +105,12 @@ def test_mode_resolution_contract(monkeypatch):
         tfused.resolve_mode("pallas", cpu, "counter")
     with pytest.raises(ValueError, match="fused must be one of"):
         tfused.resolve_mode("triton", cpu, "counter")
-    with pytest.raises(NotImplementedError):
-        tfused.resolve_mode("auto", cpu, "foldin")
+    # the foldin stream runs unfused in every mode, as the reference's rule says
+    for mode in ("auto", "pallas", "lax", "unfused", "interpret"):
+        for dev in (cpu, cuda):
+            assert tfused.resolve_mode(mode, dev, "foldin") == "plain"
+    with pytest.raises(ValueError, match="fused must be one of"):
+        tfused.resolve_mode("triton", cpu, "foldin")
     # SBR_FUSED overrides "auto" only
     monkeypatch.setenv("SBR_FUSED", "lax")
     assert tfused.resolve_mode("auto", cuda, "counter") == "plain"
@@ -121,6 +128,64 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     ts = [torch.from_numpy(a) for a in _inputs(np.float32, n=16)]
     with pytest.raises(ValueError, match="CUDA"):
         tfused._update_cuda(*ts, 0, 1, 2, 0.1, 0.1)
-    half = [t.to(torch.float16) if t.is_floating_point() else t for t in ts]
-    with pytest.raises(NotImplementedError):
-        tfused._update_cuda(*half, 0, 1, 2, 0.1, 0.1)
+    for half_type in (torch.float16, torch.bfloat16):  # kernels of their own now
+        half = [t.to(half_type) if t.is_floating_point() else t for t in ts]
+        with pytest.raises(ValueError, match="CUDA"):
+            tfused._update_cuda(*half, 0, 1, 2, 0.1, 0.1)
+    ints = [t.to(torch.int16) if t.is_floating_point() else t for t in ts]
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfused._update_cuda(*ints, 0, 1, 2, 0.1, 0.1)
+
+
+HALF_DTYPES = [(np.float16, torch.float16), (bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("np_dtype, t_dtype", HALF_DTYPES)
+@pytest.mark.parametrize("stream", ["counter", "foldin"])
+def test_half_types_match_sbr_tpu_under_jit(np_dtype, t_dtype, stream):
+    """float16 and bfloat16: the step as the reference's simulation runs it
+    (jitted, so XLA decides where it rounds) equals the plain version bit
+    for bit, hazard included, on both streams."""
+    arrays = _inputs(np_dtype, seed=2, n=20_000)
+    informed, t_inf, counts, betas, safe_deg = arrays
+    n = informed.shape[0]
+    t = np_dtype(T)
+
+    @jax.jit
+    def ref(informed, t_inf, counts, betas, safe_deg):
+        out = jfused.infection_update(
+            informed, t_inf, counts, betas, safe_deg, jax.random.PRNGKey(SEED), STEP,
+            jnp.arange(n, dtype=jnp.uint32), jnp.asarray(t, np_dtype), DT, stream, "lax")
+        frac = counts.astype(np_dtype) / safe_deg
+        return out + (1.0 - jnp.exp(-betas * frac * DT),)
+
+    want_i, want_t, want_p = ref(*(jnp.asarray(a) for a in arrays))
+    ts = [_tensor(a, "cpu") for a in arrays]
+    t_next = float(np_dtype(t + np_dtype(DT)))
+    got_i, got_t = tfused.infection_update(*ts, trng.prng_key(SEED), STEP, 0, t_next, DT,
+                                           stream, "auto")
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    assert torch.equal(got_t.view(torch.int16), _tensor(np.asarray(want_t), "cpu").view(torch.int16))
+    dt_ = tfused.host_round(DT, t_dtype)
+    p = 1.0 - torch.exp((-ts[3]) * (ts[2].to(t_dtype) / ts[4]) * dt_)
+    assert torch.equal(p.view(torch.int16), _tensor(np.asarray(want_p), "cpu").view(torch.int16))
+    newly = np.asarray(want_i) & ~informed
+    assert newly.any() and (~np.asarray(want_i)).any()
+
+
+@pytest.mark.parametrize("np_dtype, t_dtype", DTYPES + HALF_DTYPES)
+def test_foldin_stream_matches_sbr_tpu_unfused(np_dtype, t_dtype):
+    """rng_stream="foldin" in every mode is the reference's unfused step."""
+    arrays = _inputs(np_dtype, seed=3)
+    ja = [jnp.asarray(a) for a in arrays]
+    want_i, want_t = jfused.infection_update(
+        *ja, jax.random.PRNGKey(SEED), STEP, jnp.arange(N, dtype=jnp.uint32),
+        jnp.asarray(T, np_dtype), DT, "foldin", "pallas")
+    t_next = float(np_dtype(np_dtype(T) + np_dtype(DT)))
+    for mode in ("auto", "lax", "interpret"):
+        got_i, got_t = tfused.infection_update(
+            *(_tensor(a, "cpu") for a in arrays), trng.prng_key(SEED), STEP, 0, t_next, DT,
+            "foldin", mode)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        w = _tensor(np.asarray(want_t), "cpu")
+        assert torch.equal(got_t.view(torch.uint8), w.view(torch.uint8)), mode

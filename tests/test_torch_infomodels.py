@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from ml_dtypes import bfloat16  # noqa: E402
 
 from sbr_tpu.infomodels import engine as je  # noqa: E402
 from sbr_tpu.infomodels import spec as js  # noqa: E402
@@ -48,12 +49,24 @@ from sbr_tpu_torch.social import graphgen as tg  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 DTYPES = [(np.float32, torch.float32), (np.float64, torch.float64)]
+HALF_DTYPES = [(np.float16, torch.float16), (bfloat16, torch.bfloat16)]
 LLR = js.InfoModelSpec(channel="bayes").llr
 HETERO = ((0.3, 2.0, 1.0), (0.5, 3.0, 3.0), (0.2, 4.5, 0.5))
 
 
 def _np(x):
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:  # numpy has no bfloat16 of its own
+            return x.cpu().view(torch.int16).numpy().view(bfloat16)
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def _assert_bits(want, got, err_msg=""):
+    """Bit for bit, as bytes (numpy compares no bfloat16)."""
+    w, g = np.asarray(want), _np(got)
+    assert w.dtype == g.dtype, err_msg
+    np.testing.assert_array_equal(w.view(np.uint8), g.view(np.uint8), err_msg=err_msg)
 
 
 def _bits(a):
@@ -151,7 +164,7 @@ T, DT = 0.3, 0.1
 def _port_belief(arrays, np_dtype, mode="auto"):
     llr0, llr1 = (float(np_dtype(v)) for v in LLR)
     t_next = float(np_dtype(T + DT))  # the reference's `t + dt` on Python floats
-    return tf.belief_update(*(torch.from_numpy(a) for a in arrays), t_next, DT, llr0, llr1,
+    return tf.belief_update(*(ta._tensor(a, CPU) for a in arrays), t_next, DT, llr0, llr1,
                             mode)
 
 
@@ -163,14 +176,16 @@ def _jax_belief(arrays, np_dtype, mode, jit):
     return [np.asarray(o) for o in out]
 
 
-@pytest.mark.parametrize("np_dtype, t_dtype", DTYPES)
+@pytest.mark.parametrize("np_dtype, t_dtype", DTYPES + HALF_DTYPES)
 def test_belief_plain_equals_compiled_lax_bitwise(np_dtype, t_dtype):
+    """Below 32 bits too: XLA contracts both multiply-adds in float16 (a
+    float32 fma each, rounded to float16) and none in bfloat16."""
     arrays = _belief_inputs(1500, np_dtype)
     want = _jax_belief(arrays, np_dtype, "lax", jit=True)
-    got = [g.numpy() for g in _port_belief(arrays, np_dtype)]
+    got = [_np(g) for g in _port_belief(arrays, np_dtype)]
     for w, g in zip(want, got):
         assert w.dtype == g.dtype
-        np.testing.assert_array_equal(w, g)
+        np.testing.assert_array_equal(w.view(np.uint8), g.view(np.uint8))
     assert got[2].dtype == np_dtype
     newly = got[0] & ~arrays[0]
     assert newly.any() and (~got[0]).any()
@@ -266,9 +281,13 @@ def test_belief_kernel_wrapper_refuses_cpu_tensors_and_other_types():
     args = (1.0, 0.1, LLR[0], LLR[1])
     with pytest.raises(ValueError, match="CUDA"):
         tf._belief_cuda(*ts_, *args)
-    half = [t.to(torch.float16) if t.is_floating_point() else t for t in ts_]
-    with pytest.raises(NotImplementedError):
-        tf._belief_cuda(*half, *args)
+    for half_type in (torch.float16, torch.bfloat16):  # kernels of their own now
+        half = [t.to(half_type) if t.is_floating_point() else t for t in ts_]
+        with pytest.raises(ValueError, match="CUDA"):
+            tf._belief_cuda(*half, *args)
+    ints = [t.to(torch.int16) if t.is_floating_point() else t for t in ts_]
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tf._belief_cuda(*ints, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +445,45 @@ def test_gossip_static_bitwise(np_dtype, t_dtype, engine):
         np.testing.assert_array_equal(np.asarray(getattr(want, f)), _np(getattr(got, f)),
                                       err_msg=f)
     assert got.belief is None and got.epochs == 1
+
+
+@pytest.mark.parametrize("np_dtype, t_dtype", HALF_DTYPES)
+@pytest.mark.parametrize("stream", ["counter", "foldin"])
+def test_half_types_bayes_with_carried_fields_bitwise(np_dtype, t_dtype, stream):
+    """simulate_info's bayes channel in float16 and bfloat16, the
+    reference's fields carried across: bit for bit, on either stream (the
+    belief step draws nothing, so the stream changes no bit)."""
+    spec_kw = dict(channel="bayes", groups=HETERO)
+    cfg_kw = dict(n_steps=STEPS, dt=0.1, reentry_delay=1.5, rng_stream=stream)
+    graph = dict(n=GRAPH_N, avg_degree=8.0)
+    want = je.simulate_info(js.InfoModelSpec(**spec_kw), jg.ErdosRenyiSpec(**graph),
+                            x0=0.03, config=ja.AgentSimConfig(**cfg_kw), seed=4,
+                            dtype=np_dtype)
+    fields = ti.agent_fields_from_numpy(
+        *(np.asarray(x) for x in je._agent_fields(js.InfoModelSpec(**spec_kw), GRAPH_N, 4,
+                                                 0.9, np_dtype)), CPU)
+    got = ti.simulate_info(ts.InfoModelSpec(**spec_kw), tg.ErdosRenyiSpec(**graph),
+                           x0=0.03, config=ta.AgentSimConfig(**cfg_kw), seed=4,
+                           dtype=np_dtype, device=CPU, fields=fields)
+    for f in ("informed_frac", "withdrawn_frac", "informed", "t_inf", "belief", "t_grid"):
+        _assert_bits(getattr(want, f), getattr(got, f), f)
+    assert got.belief.dtype == t_dtype and bool(got.informed.any())
+
+
+@pytest.mark.parametrize("np_dtype, t_dtype", HALF_DTYPES + DTYPES[:1])
+@pytest.mark.parametrize("stream", ["counter", "foldin"])
+def test_half_types_and_foldin_gossip_bitwise(np_dtype, t_dtype, stream):
+    """The gossip channel in float16, bfloat16 and float32 on both streams:
+    the agent simulation, bit for bit."""
+    graph = dict(n=500, avg_degree=8.0)
+    kw = dict(beta=1.2, x0=0.02, seed=5, dtype=np_dtype)
+    cfg = dict(n_steps=20, dt=0.1, exit_delay=0.2, reentry_delay=1.5, rng_stream=stream)
+    want = je.simulate_info(js.InfoModelSpec(), jg.ErdosRenyiSpec(**graph),
+                            config=ja.AgentSimConfig(**cfg), **kw)
+    got = ti.simulate_info(ts.InfoModelSpec(), tg.ErdosRenyiSpec(**graph),
+                           config=ta.AgentSimConfig(**cfg), device=CPU, **kw)
+    for f in GOSSIP_FIELDS:
+        _assert_bits(getattr(want, f), getattr(got, f), f)
 
 
 def test_gossip_groups_bitwise():

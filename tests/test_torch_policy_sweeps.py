@@ -174,3 +174,91 @@ def test_policy_sweep_events_equal_the_reference(tmp_path):
                  for d in ("port", "ref")]
     assert [m["metrics"]["counters"]["sweeps.policy_interest.cells"] for m in manifests] == \
         [8, 8]
+
+
+def _recorded_preflights(monkeypatch):
+    """Every preflight record the sweep makes, in order."""
+    from sbr_tpu_torch.obs import mem
+
+    records = []
+    real = mem.preflight
+
+    def spy(*args, **kwargs):
+        rec = real(*args, **kwargs)
+        records.append(rec)
+        return rec
+
+    monkeypatch.setattr(mem, "preflight", spy)
+    return records
+
+
+def test_policy_preflight_verdicts_cpu_and_mesh(monkeypatch):
+    """Without a card the preflight skips and measures nothing ("skipped",
+    "no-capacity"), as the reference's does on the CPU; under a mesh it
+    skips with reason "sharded", even with a capacity."""
+    import torch_mesh as tm
+    from sbr_tpu_torch import parallel
+    from sbr_tpu_torch.obs import mem
+
+    records = _recorded_preflights(monkeypatch)
+    base = tp.make_interest_params(u=0.0, delta=0.1)
+    tps._FOOTPRINT_CACHE.clear()
+    # a card in the process does not give a grid on the CPU its budget
+    monkeypatch.setattr(mem, "device_capacity", lambda stats=None: 80 * 2**30)
+    tps.policy_sweep_interest(BETAS[:2], US[:2], RS[:2], base, _config("fixed"), device=CPU)
+    assert records[-1]["verdict"] == "skipped" and records[-1]["reason"] == "no-capacity"
+    assert records[-1]["label"] == "policy[2x2x2]" and not tps._FOOTPRINT_CACHE
+    with tm.world_one():
+        mesh = parallel.make_grid_mesh(device="cpu")
+        got = tps.policy_sweep_interest(BETAS[:2], US[:2], RS[:2], base, _config("fixed"),
+                                        mesh=mesh)
+    assert records[-1]["verdict"] == "skipped" and records[-1]["reason"] == "sharded"
+    assert not tps._FOOTPRINT_CACHE
+    assert got.status.shape == (2, 2, 2)
+
+
+def test_policy_preflight_measures_and_fails_closed(monkeypatch, tmp_path):
+    """With a capacity (stubbed here: a grid on the CPU has none) the grid's
+    footprint is measured (two probe grids, modelled out to a larger grid)
+    and held to the budget: an oversized grid raises before it runs; one
+    that fits runs and equals the grid without the preflight."""
+    from sbr_tpu_torch import obs
+    from sbr_tpu_torch.obs import mem
+    from sbr_tpu_torch.resilience import faults
+
+    records = _recorded_preflights(monkeypatch)
+    dispatched = []
+    real_fire = faults.fire
+    monkeypatch.setattr(faults, "fire", lambda point, **kw: (
+        dispatched.append(point) if point == "sweep.dispatch" else None,
+        real_fire(point, **kw))[1])
+    base = tp.make_interest_params(u=0.0, delta=0.1)
+    axes = (np.linspace(0.5, 3.0, 5), np.linspace(0.0, 0.45, 5), RS)
+    tps._FOOTPRINT_CACHE.clear()
+    monkeypatch.setattr(tps, "_capacity", lambda dev: 4096)
+    with pytest.raises(mem.MemoryPreflightError, match=r"policy\[5x5x3\]"):
+        tps.policy_sweep_interest(*axes, base, _config("fixed"), device=CPU)
+    assert records[-1]["verdict"] == "exceeds" and not dispatched
+    # the two probes were measured, each once (cached per shape and config)
+    assert sorted(k[0] for k in tps._FOOTPRINT_CACHE) == [(2, 2, 2), (4, 4, 4)]
+    probes = [tps._FOOTPRINT_CACHE[k] for k in sorted(tps._FOOTPRINT_CACHE)]
+    assert all(p["source"] == "measured" and p["total_bytes"] > 0 for p in probes)
+    assert probes[1]["total_bytes"] > probes[0]["total_bytes"]
+    assert records[-1]["footprint_bytes"] > probes[1]["total_bytes"]
+    monkeypatch.setattr(tps, "_capacity", lambda dev: 80 * 2**30)
+    tps._FOOTPRINT_CACHE.clear()
+    with obs.run_context(run_dir=str(tmp_path / "measured")):
+        fits = tps.policy_sweep_interest(*axes, base, _config("fixed"), device=CPU)
+    assert records[-1]["verdict"] == "ok" and dispatched == ["sweep.dispatch"]
+    monkeypatch.setenv("SBR_MEM_PREFLIGHT", "0")
+    with obs.run_context(run_dir=str(tmp_path / "off")):
+        plain = tps.policy_sweep_interest(*axes, base, _config("fixed"), device=CPU)
+    # the probes run silently: the run's events are those of the grid alone
+    # and the preflight record
+    kinds = [[e["kind"] for e in events(tmp_path / d)] for d in ("measured", "off")]
+    assert [k for k in kinds[0] if k != "preflight"] == kinds[1] and "preflight" in kinds[0]
+    for f in ("xi", "aw_max", "status"):
+        assert _np(getattr(fits, f)).tobytes() == _np(getattr(plain, f)).tobytes()
+    # a grid no larger than the larger probe is measured as it is
+    assert tps._preflight_footprint(2, 2, 2, _config("fixed"), torch.float64,
+                                    torch.device(CPU))["source"] == "measured"

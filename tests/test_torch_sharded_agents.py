@@ -48,6 +48,10 @@ AGENT_CASES = [
                                   betas="lognormal", dtype="float64")),
     ("gather-chunked", dict(comm="scatter", engine="gather", launch_cap=7)),
     ("auto", dict(comm="scatter", engine="auto")),
+    # the foldin stream, keyed by global id like the counter one
+    ("foldin-scatter-gather", dict(comm="scatter", engine="gather", rng_stream="foldin")),
+    ("foldin-incremental-chunked", dict(comm="scatter", engine="incremental",
+                                        rng_stream="foldin", launch_cap=11)),
 ]
 WORLD4_CASES = [
     ("scatter-gather", dict(comm="scatter", engine="gather")),
@@ -90,7 +94,8 @@ def _graph(kw):
 def _config(pkg, kw):
     return pkg.AgentSimConfig(n_steps=STEPS, dt=0.1, exit_delay=WINDOW[0],
                               reentry_delay=WINDOW[1],
-                              max_steps_per_launch=kw.get("launch_cap"))
+                              max_steps_per_launch=kw.get("launch_cap"),
+                              rng_stream=kw.get("rng_stream", "counter"))
 
 
 def _port_single(kw):

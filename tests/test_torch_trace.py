@@ -103,6 +103,22 @@ def _ctx(mod, tid="0123456789abcdef", keep=True, n=3):
 # -- the writer ----------------------------------------------------------------
 
 
+def test_span_ids_keep_the_reference_form_without_a_syscall(monkeypatch):
+    """A span id is eight hex digits, as the reference's, drawn from the
+    interpreter's generator: `os.urandom` lets go of the interpreter lock,
+    and a forward of the router waited milliseconds to take it back."""
+    ref = jtrace.TraceContext("0" * 16).alloc_id()
+
+    def refused(n):
+        raise AssertionError("os.urandom called for a span id")
+
+    monkeypatch.setattr(trace.os, "urandom", refused)
+    ctx = trace.TraceContext("0" * 16)
+    ids = [ctx.alloc_id() for _ in range(2000)]
+    assert all(len(i) == len(ref) == 8 and int(i, 16) >= 0 for i in ids)
+    assert len(set(ids)) > 1990
+
+
 def test_writer_lines_byte_equal_and_sampling(tmp_path):
     out = {}
     for mod, name in ((jtrace, "ref"), (trace, "port")):

@@ -127,7 +127,8 @@ def _betas(kind: str, n: int):
 
 def case_agents(n: int, deg: float, steps: int, comm: str, engine: str, window, dtype: str,
                 budget=None, max_degree=None, graph: str = "er", betas: str = "scalar",
-                devices=None, launch_cap=None, measure: bool = False) -> dict:
+                devices=None, launch_cap=None, measure: bool = False,
+                rng_stream: str = "counter") -> dict:
     """The sharded agent simulation on a 1-D mesh of ``devices`` (default:
     every rank)."""
     from sbr_tpu_torch.parallel import make_agent_mesh
@@ -136,7 +137,8 @@ def case_agents(n: int, deg: float, steps: int, comm: str, engine: str, window, 
     src, dst = (A.erdos_renyi_edges(n, deg, seed=1) if graph == "er"
                 else A.scale_free_edges(n, deg, gamma=2.2, seed=1))
     cfg = A.AgentSimConfig(n_steps=steps, dt=0.1, exit_delay=window[0],
-                           reentry_delay=window[1], max_steps_per_launch=launch_cap)
+                           reentry_delay=window[1], max_steps_per_launch=launch_cap,
+                           rng_stream=rng_stream)
     mesh = make_agent_mesh(devices, device="cpu")
     kw = dict(config=cfg, mesh=mesh, dtype=np.dtype(dtype), comm=comm,
               incremental_budget=budget, incremental_max_degree=max_degree)
