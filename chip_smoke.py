@@ -4,9 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``sbr_tpu_torch/csrc``, holds each against its
-plain PyTorch version on the card, and drives both ported paths at full
-width: the explicit-agent simulation (10^6 agents on a ~10^7-edge
-Erdős–Rényi graph, 200 steps, both engines) and the Bayesian-observer
+plain PyTorch version on the card (the infection kernel also at an empty and
+a full frontier, each row with its bound from its frontier and the SASS
+counts of the kernel's one-agent loop, read from the built library), and
+drives both ported paths at full width: the explicit-agent simulation (10^6 agents on a ~10^7-edge
+Erdős–Rényi graph, 200 steps, both engines, and the infection kernel's
+device time summed over one run's 200 launches beside their bound) and the
+Bayesian-observer
 channel of the information models (2×10^6 agents on a ~2×10^7-edge graph
 generated on the card, 100 steps). It checks the card against the CPU end
 to end for both paths and for the graph generator, and the dense-graph
@@ -136,12 +140,36 @@ import numpy as np
 import torch
 
 # Published peaks of one H100 SXM: HBM rate, and the float32 rate outside
-# the tensor cores, which stands in for the kernel's integer operations.
+# the tensor cores (a fused multiply-add counted as two operations), which
+# the belief and recount bounds use.
 HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
-# Threefry-2x32 (20 rounds × 3 operations + key schedule) plus the hazard
-# and the update: an estimate of the operations per agent.
-OPS_PER_AGENT = 120
+
+# The infection kernel's operations bound: the instructions it issues for
+# one frontier agent (not informed, counts != 0; every other agent keeps its
+# state without a draw), read from the SASS of this run's build by
+# `sbr_tpu_torch.benchmarks.sass_count` (the innermost loop that holds the
+# exponential), on the busiest of the SM's pipes, at that pipe's lanes a
+# clock (INT32 ALU 64, FP32 128, IMAD 64, FP64 64, MUFU and conversions 16,
+# every instruction's issue slot 128) on every SM at `clocks.max.sm`.
+# `phase_sass` fills INFECTION_SASS (type: counts by pipe) from the build;
+# `bound_ms` reads nothing else, so the bound follows the kernel's source.
+#
+# What it read for csrc/infection_update.cu's one-agent loop in PR 18 (nvcc
+# of CUDA 12.8 for sm_90a), by pipe; every type's busiest is the issue slot:
+#   float32  115 instructions: 57 ALU (19 SHF, 21 LOP3, 9 IADD3...), 25
+#            IMAD (17 IMAD.IADD of the Threefry adds), 15 FP32, 2 MUFU
+#            (RCP, EX2), 7 shared-memory, 9 branch and move
+#   float64  174: 64 ALU, 36 IMAD, 32 FP64 (21 DFMA), 2 MUFU/conversion,
+#            7 shared-memory, 32 other (22 UMOV)
+#   float16  129: 64 ALU, 24 IMAD, 22 FP32 (7 HADD2.F32), 3 MUFU/F2F, 7
+#            shared-memory, 9 other
+#   bfloat16 129: 58 ALU, 31 IMAD, 15 FP32, 9 MUFU/F2F (7 F2F.BF16), 7
+#            shared-memory, 9 other
+INFECTION_SASS: dict = {}
+# the card's, read by phase_device
+SM_CLOCK_HZ = 1.98e9
+N_SMS = 132
 
 N_FULL = 1_000_000
 STEPS_FULL = 200
@@ -195,15 +223,39 @@ def time_ms(fn, reps: int = 100) -> float:
     return ms
 
 
-def bound_ms(n: int, dtype: torch.dtype):
-    """Least time for the infection step on n agents: the larger of its bytes
-    (informed 1 B, t_inf, counts 4 B, beta, deg read; informed' 1 B and
-    t_inf' written) over the memory rate and its operations over the
-    vector rate."""
+def bound_ms(n: int, dtype: torch.dtype, frontier: int, uninformed: int,
+             pipes: dict | None = None) -> dict:
+    """Least time for the infection step on n agents, ``uninformed`` of them
+    not informed and ``frontier`` of those with a nonzero count: the larger
+    of the bytes these inputs need over the memory rate (informed 1 B and
+    t_inf read, informed' 1 B and t_inf' written for every agent; counts 4
+    B for an agent not informed, whose output is decided by its count;
+    beta and deg for frontier agents only) and the frontier agents'
+    instructions on the busiest pipe (``pipes``, by default this run's SASS
+    reading in INFECTION_SASS)."""
+    from sbr_tpu_torch.benchmarks.sass_count import busiest
+
     size = torch.finfo(dtype).bits // 8
-    bytes_ms = n * (1 + size + 4 + size + size + 1 + size) / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * OPS_PER_AGENT / VECTOR_OPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    name = str(dtype).removeprefix("torch.")
+    if pipes is None:
+        if name not in INFECTION_SASS:
+            raise AssertionError(f"no SASS reading of the {name} kernel: phase_sass runs first")
+        pipes = INFECTION_SASS[name]
+    nbytes = n * (1 + size + 1 + size) + uninformed * 4 + frontier * 2 * size
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pipe, per_sm = busiest(pipes)
+    ops_ms = frontier * per_sm / (N_SMS * SM_CLOCK_HZ) * 1e3
+    return {"frontier_share": frontier / n, "uninformed_share": uninformed / n,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "ops_pipe": pipe,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def frontier_of(informed, counts) -> tuple:
+    """(frontier, uninformed): the agents whose state the infection step
+    can change (not informed, with a nonzero count), and those not
+    informed, whose count it reads."""
+    return int(((~informed) & (counts != 0)).sum()), int((~informed).sum())
 
 
 def belief_bound_ms(n: int, dtype: torch.dtype):
@@ -224,12 +276,21 @@ def phase_device() -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global SM_CLOCK_HZ, N_SMS
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    SM_CLOCK_HZ = float(clock) * 1e6
+    N_SMS = torch.cuda.get_device_properties(0).multi_processor_count
     info = {
         "name": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
         "nvidia_smi": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
+        "clocks_max_sm_mhz": float(clock),
+        "sms": N_SMS,
     }
     emit("device", **info)
     return info
@@ -248,6 +309,31 @@ def phase_build() -> None:
         if path.with_suffix(".log").exists()
     }
     emit("build", seconds=seconds, kernels=sorted(paths), ptxas=ptxas)
+    phase_sass()
+
+
+def phase_sass() -> None:
+    """The infection kernel's instructions per frontier agent, by pipe,
+    from this run's SASS, into INFECTION_SASS, which `bound_ms` reads."""
+    from sbr_tpu_torch.benchmarks import sass_count
+
+    funcs = sass_count.kernel_counts("infection_update")
+    names = {"f": "float32", "d": "float64", "6__half": "float16",
+             "13__nv_bfloat16": "bfloat16"}
+    for fn, c in funcs.items():
+        if c is None:
+            continue
+        # the template argument's mangled name ends the symbol: ...IfEEvPKh...
+        dtype = next((d for k, d in names.items() if f"I{k}E" in fn), None)
+        if dtype is None:
+            continue
+        INFECTION_SASS[dtype] = c["pipes"]
+        emit("sass", kernel="infection_update", dtype=dtype, function=fn, span=c["span"],
+             pipes=c["pipes"], busiest=c["busiest"],
+             clocks_per_agent_sm=c["clocks_per_agent_sm"], opcodes=c["opcodes"])
+    missing = sorted(set(names.values()) - set(INFECTION_SASS))
+    if missing:
+        raise AssertionError(f"no one-agent loop found in the SASS of the {missing} kernels")
 
 
 # The four types of both agent kernels, as (numpy type the inputs are drawn
@@ -263,13 +349,23 @@ def _dtype_ops_per_s(dtype: torch.dtype) -> float:
     return F64_OPS_PER_S if dtype == torch.float64 else VECTOR_OPS_PER_S
 
 
-def _kernel_inputs(n: int, np_dtype, seed: int = 0, dtype=None):
+def _kernel_inputs(n: int, np_dtype, seed: int = 0, dtype=None, frontier: str = "mixed"):
+    """The infection step's inputs: 30% informed, counts the least of two
+    uniforms on 0..20 (a frontier of ~63%); ``frontier="none"`` informs
+    every agent, ``"all"`` none, with every count at least 1."""
     rng = np.random.default_rng(seed)
     informed = rng.random(n) < 0.3
     t_inf = np.where(informed, rng.uniform(-1.0, 5.0, n), np.inf).astype(np_dtype)
     counts = rng.integers(0, 21, n).astype(np.int32)
     deg = rng.integers(0, 21, n)
     counts = np.minimum(counts, deg).astype(np.int32)
+    if frontier == "none":
+        informed[:] = True
+        t_inf = rng.uniform(-1.0, 5.0, n).astype(np_dtype)
+    elif frontier == "all":
+        informed[:] = False
+        counts = np.maximum(counts, 1)
+        deg = np.maximum(deg, counts)
     safe_deg = np.maximum(deg, 1).astype(np_dtype)
     betas = rng.lognormal(0.0, 0.5, n).astype(np_dtype)
     dev = torch.device("cuda")
@@ -279,51 +375,60 @@ def _kernel_inputs(n: int, np_dtype, seed: int = 0, dtype=None):
     return tuple(out)
 
 
+# The rows of the infection kernel's phase: (agents, frontier) in every
+# type, then the two frontier extremes at 10^7 in float32 and float16 (the
+# stream alone, and a draw for every agent).
+KERNEL_ROWS = tuple((n, "mixed", np_dtype, dtype) for n in (1_000_003, 10_000_019)
+                    for np_dtype, dtype in KERNEL_DTYPES) + tuple(
+    (10_000_019, frontier, np.float32, dtype) for dtype in (torch.float32, torch.float16)
+    for frontier in ("none", "all"))
+
+
 def phase_kernel_vs_plain() -> list:
     from sbr_tpu_torch.social import fused, rng
 
     k0, k1 = rng.fold_in(rng.prng_key(0), 17)
     rows = []
-    for n in (1_000_003, 10_000_019):
-        for np_dtype, dtype in KERNEL_DTYPES:
-            informed, t_inf, counts, betas, safe_deg = _kernel_inputs(n, np_dtype, dtype=dtype)
-            dt = 0.1
-            t_next = fused.host_round(18 * fused.host_round(dt, dtype), dtype)
-            args = (informed, t_inf, counts, betas, safe_deg, 0, k0, k1, t_next, dt)
-            got_i, got_t = fused._update_cuda(*args)
-            want_i, got_p = fused._update_plain(*args)
-            torch.cuda.synchronize()
-            mism = int(((got_i != want_i) | (got_t != got_p)).sum())
-            both = torch.isfinite(got_t) & torch.isfinite(got_p)
-            err_t = float((got_t - got_p)[both].abs().max()) if bool(both.any()) else 0.0
-            err_i = float((got_i.to(torch.int32) - want_i.to(torch.int32)).abs().max())
-            # lanes whose decision an exp one ulp off could have flipped
-            ids = torch.arange(n, dtype=torch.int64, device="cuda")
-            x0, x1 = rng._threefry2x32(k0, k1, ids, torch.zeros_like(ids))
-            u = rng._uniform_from_bits(x0, x1, dtype).double()
-            p = (1.0 - torch.exp((-betas) * (counts.to(dtype) / safe_deg)
-                                 * fused.host_round(dt, dtype))).double()
-            ulp = torch.finfo(dtype).eps * p.abs()
-            near = int(((u - p).abs() <= 4 * ulp).sum())
-            del x0, x1, u, p, ulp, ids
-            kernel_ms = time_ms(lambda: fused._update_cuda(*args))
-            plain_ms = time_ms(lambda: fused._update_plain(*args))
-            b_ms, b_by = bound_ms(n, dtype)
-            row = {
-                "n": n, "dtype": str(dtype).removeprefix("torch."),
-                "mismatches": mism, "max_abs_err": max(err_t, err_i),
-                "near_boundary_lanes": near,
-                "ms": kernel_ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "memory": "L2-resident (working set under 50 MB)" if n < 2_000_000
-                else "DRAM (working set over 50 MB)",
-            }
-            emit("kernel_vs_plain", **row)
-            if mism:
-                raise AssertionError(f"kernel and plain version disagree on {mism} lanes: {row}")
-            rows.append(row)
-            del informed, t_inf, counts, betas, safe_deg, got_i, got_t, want_i, got_p
-            torch.cuda.empty_cache()
+    for n, frontier, np_dtype, dtype in KERNEL_ROWS:
+        informed, t_inf, counts, betas, safe_deg = _kernel_inputs(n, np_dtype, dtype=dtype,
+                                                                  frontier=frontier)
+        dt = 0.1
+        t_next = fused.host_round(18 * fused.host_round(dt, dtype), dtype)
+        args = (informed, t_inf, counts, betas, safe_deg, 0, k0, k1, t_next, dt)
+        got_i, got_t = fused._update_cuda(*args)
+        want_i, got_p = fused._update_plain(*args)
+        torch.cuda.synchronize()
+        mism = int(((got_i != want_i) | (got_t != got_p)).sum())
+        both = torch.isfinite(got_t) & torch.isfinite(got_p)
+        err_t = float((got_t - got_p)[both].abs().max()) if bool(both.any()) else 0.0
+        err_i = float((got_i.to(torch.int32) - want_i.to(torch.int32)).abs().max())
+        # lanes whose decision an exp one ulp off could have flipped
+        ids = torch.arange(n, dtype=torch.int64, device="cuda")
+        x0, x1 = rng._threefry2x32(k0, k1, ids, torch.zeros_like(ids))
+        u = rng._uniform_from_bits(x0, x1, dtype).double()
+        p = (1.0 - torch.exp((-betas) * (counts.to(dtype) / safe_deg)
+                             * fused.host_round(dt, dtype))).double()
+        ulp = torch.finfo(dtype).eps * p.abs()
+        near = int(((u - p).abs() <= 4 * ulp).sum())
+        del x0, x1, u, p, ulp, ids
+        kernel_ms = time_ms(lambda: fused._update_cuda(*args))
+        plain_ms = time_ms(lambda: fused._update_plain(*args))
+        row = {
+            "n": n, "dtype": str(dtype).removeprefix("torch."), "frontier": frontier,
+            "mismatches": mism, "max_abs_err": max(err_t, err_i),
+            "near_boundary_lanes": near,
+            "newly": int((got_i & ~informed).sum()),
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            **bound_ms(n, dtype, *frontier_of(informed, counts)), "library_ms": None,
+            "memory": "L2-resident (working set under 50 MB)" if n < 2_000_000
+            else "DRAM (working set over 50 MB)",
+        }
+        emit("kernel_vs_plain", **row)
+        if mism:
+            raise AssertionError(f"kernel and plain version disagree on {mism} lanes: {row}")
+        rows.append(row)
+        del informed, t_inf, counts, betas, safe_deg, got_i, got_t, want_i, got_p
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -334,7 +439,7 @@ def _same(a, b) -> bool:
                 and torch.equal(a.withdrawn_frac.cpu(), b.withdrawn_frac.cpu()))
 
 
-def phase_main_path() -> int:
+def phase_main_path() -> tuple:
     import sbr_tpu_torch as st
     from sbr_tpu_torch import _build
     from sbr_tpu_torch.social.fused import KERNEL
@@ -389,7 +494,56 @@ def phase_main_path() -> int:
     if not _same(results["auto"], results["gather"]):
         raise AssertionError("auto and gather engines differ at full width")
     emit("main_path_engines_identical", ok=True)
-    return main_launches
+    return main_launches, main_sequence(src, dst, cfg, results["gather"])
+
+
+def main_sequence(src, dst, cfg, want) -> dict:
+    """The infection kernel on the main path's own sequence: its device ms
+    summed over the launches of one steady float32 gather run at 10^6
+    agents (from the profiler's raw device events), and the bound of each
+    launch from its frontier, read in a second run whose kernel wrapper
+    counts each launch's frontier first. Both runs equal the main path's."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch.social import fused
+
+    pg = st.prepare_agent_graph(1.0, src, dst, N_FULL, config=cfg, engine="gather",
+                                dtype=np.float32)
+    run = lambda: st.simulate_agents(prepared=pg, x0=1e-4, config=cfg, seed=0)  # noqa: E731
+    prof = _profiled(run, "infection_update_kernel")
+    frontiers = []
+    launch = fused._update_cuda
+
+    def counted(informed, t_inf, counts, *rest):
+        frontiers.append(frontier_of(informed, counts))
+        return launch(informed, t_inf, counts, *rest)
+
+    fused._update_cuda = counted
+    try:
+        res = run()
+    finally:
+        fused._update_cuda = launch
+    if not _same(res, want):
+        raise AssertionError("the counted run differs from the main path's")
+    fr = np.array([f for f, _ in frontiers])
+    if len(fr) != STEPS_FULL:
+        raise AssertionError(f"{len(fr)} counted launches, want {STEPS_FULL}")
+    per = [bound_ms(N_FULL, torch.float32, f, u) for f, u in frontiers]
+    row = dict(
+        n=N_FULL, steps=STEPS_FULL, engine="gather", dtype="float32",
+        launches=prof["kernel_calls"], kernel_ms=prof["kernel_ms"],
+        ms_per_launch=prof["kernel_ms"] / prof["kernel_calls"],
+        frontier_share=float(fr.mean() / N_FULL),
+        frontier_share_max=float(fr.max() / N_FULL),
+        uninformed_share=float(np.mean([u for _, u in frontiers]) / N_FULL),
+        bytes_ms=sum(b["bytes_ms"] for b in per), ops_ms=sum(b["ops_ms"] for b in per),
+        bound_ms=sum(b["bound_ms"] for b in per),
+        launches_bound_by_operations=sum(b["bound_by"] == "operations" for b in per),
+        run_device_ms=prof["device_s"] * 1e3,
+    )
+    row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+    emit("main_path_sequence", **row)
+    del pg
+    return row
 
 
 def _device_rows(prof) -> dict:
@@ -6047,12 +6201,12 @@ def _sharded_kernel_rows(canonical) -> tuple:
         off_i, _ = fused._update_plain(informed, t_inf, counts, betas, safe_deg, 0, k0, k1,
                                        t_next, dt)
         offset_live = id0 == 0 or bool((off_i != want_i).any())
-        b_ms, b_by = bound_ms(nb, torch.float32)
         row = dict(world=world, rank=rank, n=nb, id0=id0, dtype="float32", mismatches=mism,
                    max_abs_err=0.0 if mism == 0 else float("nan"), offset_live=offset_live,
                    ms=time_ms(lambda: fused._update_cuda(*args)),
                    plain_ms=time_ms(lambda: fused._update_plain(*args)),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                   **bound_ms(nb, torch.float32, *frontier_of(informed, counts)),
+                   library_ms=None)
         emit("sharded_kernel_vs_plain", kernel="infection_update", **row)
         if mism or not offset_live:
             raise AssertionError(f"infection kernel on the sharded shape: {row}")
@@ -6852,7 +7006,7 @@ def main(argv) -> int:
     info = phase_device()
     phase_build()
     rows = phase_kernel_vs_plain() if "kernel" in wanted else []
-    launches = phase_main_path() if "main" in wanted else None
+    launches, sequence = phase_main_path() if "main" in wanted else (None, None)
     if "cpu" in wanted:
         phase_cpu_vs_card()
     if "physics" in wanted:
@@ -6955,9 +7109,14 @@ def main(argv) -> int:
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
+        "frontier_share": main_row["frontier_share"],
+        "uninformed_share": main_row["uninformed_share"],
+        "bytes_ms": main_row["bytes_ms"],
+        "ops_ms": main_row["ops_ms"],
         "library_ms": None,
         "shapes": rows,
         "sharded_shapes": sharded["infection_rows"],
+        "main_path_sequence": sequence,
     }, {
         "name": "belief_update",
         "route": "cuda",

@@ -35,7 +35,9 @@ rounds every operation instead and differs in the last bit.
 Two lowerings compute each step:
 
 - a CUDA kernel (``csrc/infection_update.cu``, ``csrc/belief_update.cu``:
-  one pass over the agents, no materialised draw, fraction or mask), for
+  one pass over the agents, no materialised draw, fraction or mask; the
+  infection kernel draws only for the frontier, the agents not informed
+  with a nonzero count, since no other agent's state can change), for
   tensors on the card;
 - a plain version (``_update_plain``, ``_belief_plain``): the same
   arithmetic in PyTorch ops, for tensors on the CPU and for holding the

@@ -80,6 +80,116 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
         fused._update_cuda(*ts, 0, 1, 2, 0.1, 0.1)
 
 
+ALL_TYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16]
+
+
+def _frontier_inputs(n, dtype, frontier, device, seed=0, pad=0):
+    """The infection step's inputs with the frontier (not informed, counts
+    != 0) "mixed", "late" (97% informed, as late in a run: most lanes
+    hold no frontier agent), "none" (every agent informed) or "all" (none
+    informed, every count at least 1). ``pad`` > 0 makes informed, counts
+    and t_inf views that start ``pad`` elements into a larger buffer, so
+    none of them is 16-byte aligned."""
+    g = np.random.default_rng(seed)
+    informed = g.random(n) < (0.97 if frontier == "late" else 0.3)
+    deg = g.integers(0, 9, n)
+    counts = np.minimum(g.integers(0, 9, n), deg).astype(np.int32)
+    if frontier == "none":
+        informed[:] = True
+    elif frontier == "all":
+        informed[:] = False
+        counts = np.maximum(counts, 1)
+        deg = np.maximum(deg, counts)
+    t_inf = np.where(informed, g.uniform(-1.0, 2.0, n), np.inf)
+    arrays = (informed, t_inf, counts, g.lognormal(0.5, 0.5, n),
+              np.maximum(deg, 1).astype(np.float64))
+    ts = [torch.from_numpy(a).to(device) for a in arrays]
+    ts = [t.to(dtype) if t.is_floating_point() else t for t in ts]
+    if pad:
+        for k in (0, 1, 2):
+            buf = torch.zeros(n + pad, dtype=ts[k].dtype, device=device)
+            buf[pad:] = ts[k]
+            ts[k] = buf[pad:]
+            assert ts[k].data_ptr() % 16 != 0 and ts[k].is_contiguous()
+    return ts
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _kernel_equals_plain(ts, id0, dtype):
+    k0, k1 = rng.fold_in(rng.prng_key(5), 17)
+    t_next = fused.host_round(1.8, dtype)
+    before = _build.LAUNCHES[fused.KERNEL]
+    got_i, got_t = fused._update_cuda(*ts, id0, k0, k1, t_next, 0.1)
+    want_i, want_t = fused._update_plain(*ts, id0, k0, k1, t_next, 0.1)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fused.KERNEL] == before + 1
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(_bits(got_t), _bits(want_t))
+    return want_i, want_t
+
+
+# ragged lengths: one under and over a multiple of a lane's 4 agents and of
+# 8 and 16, of a warp's 32 lanes, of a warp's tile (128 agents) and a
+# block's (1,024), and of 512 and 4,096
+RAGGED_N = [1, 3, 5, 7, 9, 15, 17, 31, 33, 127, 129, 511, 513, 1023, 1025, 4095, 4097]
+
+
+@pytest.mark.parametrize("frontier", ["none", "all", "mixed", "late"])
+@pytest.mark.parametrize("dtype", ALL_TYPES)
+@pytest.mark.parametrize("n", RAGGED_N + [100_003])
+def test_infection_kernel_frontier_extremes_and_ragged_n(cuda_device, dtype, n, frontier):
+    """Bit for bit the plain version, which computes every lane, at an
+    empty and a full frontier and at every ragged tail."""
+    ts = _frontier_inputs(n, dtype, frontier, cuda_device, seed=n)
+    want_i, _ = _kernel_equals_plain(ts, 7, dtype)
+    if frontier == "none":
+        assert bool(want_i.all())
+
+
+@pytest.mark.parametrize("pad", [1, 3])
+@pytest.mark.parametrize("dtype", ALL_TYPES)
+@pytest.mark.parametrize("n", [33, 4097, 100_003])
+def test_infection_kernel_on_unaligned_views(cuda_device, dtype, n, pad):
+    """informed, counts and t_inf as views that start off a 16-byte
+    boundary (as the sharded gather's counts slice may) take the scalar
+    path, bit for bit the plain version."""
+    ts = _frontier_inputs(n, dtype, "mixed", cuda_device, seed=n + pad, pad=pad)
+    _kernel_equals_plain(ts, 7, dtype)
+
+
+@pytest.mark.parametrize("frontier", ["mixed", "late"])
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_infection_kernel_walks_several_tiles_a_warp(cuda_device, dtype, pad, frontier):
+    """Past 2 x 128 agents for every warp the card holds at once, each warp
+    of the persistent grid takes two tiles or more, so the next tile's
+    loads fly while it decides one: aligned and on unaligned views, on a
+    wide and a sparse frontier."""
+    n = 3_000_017
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert n > 2 * 128 * 64 * sms  # 64 warps an SM at most
+    ts = _frontier_inputs(n, dtype, frontier, cuda_device, seed=n + pad, pad=pad)
+    _kernel_equals_plain(ts, 7, dtype)
+
+
+@pytest.mark.parametrize("dtype", ALL_TYPES)
+def test_infection_kernel_id_wraps_at_two_to_the_32(cuda_device, dtype):
+    """The draw's counter id0 + i wraps modulo 2^32 inside the launch."""
+    n = 5000
+    ts = _frontier_inputs(n, dtype, "all", cuda_device, seed=11)
+    want_i, want_t = _kernel_equals_plain(ts, 2**32 - 2000, dtype)
+    # past the wrap, agent 2000 + j draws with the counter j
+    k0, k1 = rng.fold_in(rng.prng_key(5), 17)
+    tail_i, tail_t = fused._update_plain(*(t[2000:] for t in ts), 0, k0, k1,
+                                         fused.host_round(1.8, dtype), 0.1)
+    assert torch.equal(want_i[2000:], tail_i)
+    assert torch.equal(_bits(want_t[2000:]), _bits(tail_t))
+
+
 def _belief_inputs(n, np_dtype, device):
     g = np.random.default_rng(n + 1)
     informed = g.random(n) < 0.1

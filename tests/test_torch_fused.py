@@ -12,7 +12,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from ml_dtypes import bfloat16  # noqa: E402
+from ml_dtypes import bfloat16, finfo  # noqa: E402
 
 from sbr_tpu.social import fused as jfused  # noqa: E402
 from sbr_tpu_torch.social import fused as tfused  # noqa: E402
@@ -189,3 +189,129 @@ def test_foldin_stream_matches_sbr_tpu_unfused(np_dtype, t_dtype):
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
         w = _tensor(np.asarray(want_t), "cpu")
         assert torch.equal(got_t.view(torch.uint8), w.view(torch.uint8)), mode
+
+
+# ---------------------------------------------------------------------------
+# The skip rule of the CUDA kernel: only frontier agents (not informed, with
+# counts != 0) can change, so the kernel draws and decides them alone
+# ---------------------------------------------------------------------------
+
+SKIP_DTYPES = DTYPES + HALF_DTYPES
+# dt: zero, tiny (the type's least subnormal), large (1e30, infinite in
+# float16)
+SKIP_DTS = ("zero", "tiny", "large")
+
+
+def _skip_dt(kind, np_dtype):
+    if kind == "zero":
+        return 0.0
+    if kind == "tiny":
+        return float(finfo(np_dtype).smallest_subnormal)
+    return 1e30
+
+
+def _skip_lanes(np_dtype, seed):
+    """Every combination of the special values (beta: 0, -0, negative, NaN,
+    ±inf, the least subnormal, a normal value; deg: 1, large, 0 and NaN
+    passed straight in, inf; counts 0, 1, 7; informed or not), then random
+    lanes, shuffled; t_inf holds finite values, inf and a NaN."""
+    g = np.random.default_rng(seed)
+    sub = float(finfo(np_dtype).smallest_subnormal)
+    big = float(finfo(np_dtype).max)
+    b_vals = [0.0, -0.0, -1.5, np.nan, np.inf, -np.inf, sub, 1.3]
+    d_vals = [1.0, big, 0.0, np.nan, np.inf, 3.0]
+    grid = np.array(np.meshgrid(np.arange(len(b_vals)), np.arange(len(d_vals)), [0, 1, 7],
+                                [0, 1], indexing="ij")).reshape(4, -1)
+    n_rand = 400
+    betas = np.concatenate([np.take(b_vals, grid[0]), g.lognormal(0.5, 1.0, n_rand)])
+    deg = np.concatenate([np.take(d_vals, grid[1]), g.integers(0, 9, n_rand)])
+    counts = np.concatenate([grid[2], g.integers(0, 9, n_rand)]).astype(np.int32)
+    informed = np.concatenate([grid[3].astype(bool), g.random(n_rand) < 0.3])
+    n = informed.shape[0]
+    t_inf = g.uniform(-1.0, 2.0, n)
+    t_inf[g.random(n) < 0.2] = np.inf
+    t_inf[g.random(n) < 0.05] = np.nan
+    order = g.permutation(n)
+    return (informed[order], t_inf[order].astype(np_dtype), counts[order],
+            betas[order].astype(np_dtype), deg[order].astype(np_dtype))
+
+
+def _skip_case(np_dtype, t_dtype, kind, seed):
+    """Inputs on the CPU, a random step key and id0 (some near the uint32
+    wrap), dt, and t_next, which the type holds."""
+    g = np.random.default_rng(1000 + seed)
+    arrays = _skip_lanes(np_dtype, seed)
+    ts = [_tensor(a, "cpu") for a in arrays]
+    k0, k1 = (int(w) for w in g.integers(0, 2**32, 2))
+    id0 = int(g.integers(0, 2**32)) if seed % 2 else 2**32 - 100
+    t_next = tfused.host_round(1.7, t_dtype)
+    return arrays, ts, (k0, k1, id0), _skip_dt(kind, np_dtype), t_next
+
+
+def _bits(t):
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.parametrize("kind", SKIP_DTS)
+@pytest.mark.parametrize("np_dtype, t_dtype", SKIP_DTYPES)
+def test_plain_step_keeps_every_lane_off_the_frontier(np_dtype, t_dtype, kind):
+    """Off the frontier (informed, or counts == 0, whatever beta, deg and dt
+    are, NaN and infinities included) the plain step writes informed and
+    t_inf back bit for bit, for any key."""
+    for seed in range(4):
+        arrays, ts, (k0, k1, id0), dt, t_next = _skip_case(np_dtype, t_dtype, kind, seed)
+        informed, t_inf, counts = ts[0], ts[1], ts[2]
+        got_i, got_t = tfused._update_plain(*ts, id0, k0, k1, t_next, dt)
+        off = informed | (counts == 0)
+        assert bool(off.any()) and bool((~off).any())
+        assert torch.equal(got_i[off], informed[off])
+        assert torch.equal(_bits(got_t)[off], _bits(t_inf)[off])
+
+
+@pytest.mark.parametrize("kind", SKIP_DTS)
+@pytest.mark.parametrize("np_dtype, t_dtype", SKIP_DTYPES)
+def test_reference_step_keeps_every_lane_off_the_frontier(np_dtype, t_dtype, kind):
+    """The reference's arithmetic (`_update_lax` under ``jax.jit``), fed any
+    draws in [0, 1), 0.0 and the largest value below 1.0 included, writes
+    every lane off the frontier back bit for bit."""
+    step = jax.jit(jfused._update_lax)
+    below_one = np.nextafter(np_dtype(1.0), np_dtype(0.0))
+    for seed in range(4):
+        arrays, _, _, dt, _ = _skip_case(np_dtype, t_dtype, kind, seed)
+        informed, t_inf, counts, betas, deg = arrays
+        g = np.random.default_rng(seed)
+        draws = g.random(informed.shape[0]).astype(np_dtype)
+        draws = np.minimum(draws, below_one)
+        draws[g.random(draws.shape[0]) < 0.3] = 0.0
+        draws[g.random(draws.shape[0]) < 0.1] = below_one
+        got_i, got_t = step(*(jnp.asarray(a) for a in arrays), jnp.asarray(draws),
+                            jnp.asarray(np_dtype(1.6)), dt)
+        got_i, got_t = np.asarray(got_i), np.asarray(got_t)
+        off = informed | (counts == 0)
+        np.testing.assert_array_equal(got_i[off], informed[off])
+        width = {2: np.int16, 4: np.int32, 8: np.int64}[t_inf.dtype.itemsize]
+        np.testing.assert_array_equal(got_t.view(width)[off], t_inf.view(width)[off])
+
+
+@pytest.mark.parametrize("kind", SKIP_DTS)
+@pytest.mark.parametrize("np_dtype, t_dtype", SKIP_DTYPES)
+def test_frontier_only_step_equals_the_plain_step(np_dtype, t_dtype, kind):
+    """What the kernel computes: the plain step on the frontier lanes only
+    (each run of consecutive frontier lanes with its own id0), scattered
+    back into a copy of the state, equals the plain step on every lane bit
+    for bit."""
+    for seed in range(4):
+        arrays, ts, (k0, k1, id0), dt, t_next = _skip_case(np_dtype, t_dtype, kind, seed)
+        informed, t_inf, counts = ts[0], ts[1], ts[2]
+        want_i, want_t = tfused._update_plain(*ts, id0, k0, k1, t_next, dt)
+        got_i, got_t = informed.clone(), t_inf.clone()
+        front = (~informed & (counts != 0)).numpy()
+        edges = np.flatnonzero(np.diff(np.concatenate([[0], front.astype(np.int8), [0]])))
+        for a, b in zip(edges[::2], edges[1::2]):
+            run_i, run_t = tfused._update_plain(*(t[a:b] for t in ts), (id0 + int(a)) % 2**32,
+                                                k0, k1, t_next, dt)
+            got_i[a:b], got_t[a:b] = run_i, run_t
+        assert len(edges) > 2
+        assert torch.equal(got_i, want_i)
+        assert torch.equal(_bits(got_t), _bits(want_t))
