@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``sbr_tpu_torch/csrc``, holds each against its
+Builds the CUDA kernels from ``sbr_tpu_torch/csrc`` and the host library
+from ``sbr_tpu_torch/native`` (with ``g++``), holds each kernel against its
 plain PyTorch version on the card (the infection kernel also at an empty and
 a full frontier, each row with its bound from its frontier and the SASS
 counts of the kernel's one-agent loop, read from the built library), and
-drives both ported paths at full width: the explicit-agent simulation (10^6 agents on a ~10^7-edge
-Erdős–Rényi graph, 200 steps, both engines, and the infection kernel's
-device time summed over one run's 200 launches beside their bound) and the
+drives both ported paths at full width: the explicit-agent simulation (10^6
+agents on a ~10^7-edge Erdős–Rényi graph from the native sampler, 200 steps,
+both engines, and the infection kernel's device time summed over one run's
+200 launches beside their bound), then the host graph on both routes (the
+native library and ``SBR_NATIVE=0``'s numpy: generation and preparation
+times at 10^6 and 10^7 agents, the native sort held to the plain sort on
+the main path's edges, the native stream to its numpy version), and the
 Bayesian-observer
 channel of the information models (2×10^6 agents on a ~2×10^7-edge graph
 generated on the card, 100 steps). It checks the card against the CPU end
@@ -302,13 +307,18 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     paths = _build.build_all()
     seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = _build.build_host("graphgen")
+    host_seconds = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                if "registers" in ln or "spill" in ln]
         for name, path in paths.items()
         if path.with_suffix(".log").exists()
     }
-    emit("build", seconds=seconds, kernels=sorted(paths), ptxas=ptxas)
+    emit("build", seconds=seconds, kernels=sorted(paths), ptxas=ptxas,
+         host_library=host.name, host_seconds=host_seconds, host_cxx=_build.HOST_CXX,
+         host_flags=list(_build.HOST_FLAGS))
     phase_sass()
 
 
@@ -441,9 +451,11 @@ def _same(a, b) -> bool:
 
 def phase_main_path() -> tuple:
     import sbr_tpu_torch as st
-    from sbr_tpu_torch import _build
+    from sbr_tpu_torch import _build, native
     from sbr_tpu_torch.social.fused import KERNEL
 
+    if not native.native_available():
+        raise AssertionError("the main path must run on the native host graph (SBR_NATIVE=0?)")
     t0 = time.perf_counter()
     src, dst = st.erdos_renyi_edges(N_FULL, 10.0, seed=0)
     graph_s = time.perf_counter() - t0
@@ -484,7 +496,7 @@ def phase_main_path() -> tuple:
         results[engine] = res
         emit(
             "main_path", engine_requested=engine, engine=pg.engine, n=N_FULL,
-            edges=pg.n_edges, steps=STEPS_FULL, dtype="float32",
+            edges=pg.n_edges, steps=STEPS_FULL, dtype="float32", graph_route="native",
             recount_steps=int(res.full_recount_steps.sum()), kernel_launches=launches,
             graph_gen_s=graph_s, prepare_s=prepare_s, simulate_s=steady_s,
             agent_steps_per_s=N_FULL * STEPS_FULL / steady_s,
@@ -544,6 +556,93 @@ def main_sequence(src, dst, cfg, want) -> dict:
     emit("main_path_sequence", **row)
     del pg
     return row
+
+
+# The host layer under the main path (sbr_tpu_torch/native): the
+# Erdős–Rényi sampler and the counting sort, timed on both routes in this
+# process, one after the other: the native library (the default) and the
+# numpy routes (SBR_NATIVE=0). At the main path's 10^6 agents and at 10^7
+# agents (~10^8 edges: the graph, its host preparation and its upload, no
+# simulation), each with engine="auto" as the main path prepares.
+HOST_AGENTS = (N_FULL, 10_000_000)
+# the native stream against its numpy version on a graph of this size
+HOST_STREAM_AGENTS = 100_000
+
+
+@contextlib.contextmanager
+def _graph_route(route: str):
+    """``SBR_NATIVE`` for one route ("native": unset; "numpy": "0"),
+    restored after."""
+    old = os.environ.pop("SBR_NATIVE", None)
+    if route == "numpy":
+        os.environ["SBR_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("SBR_NATIVE", None)
+        if old is not None:
+            os.environ["SBR_NATIVE"] = old
+
+
+def _host_stream_check() -> None:
+    """The native pair stream equals its numpy version, `_er_edges_plain`,
+    on a 10^5-agent graph, and fewer edges of one seed are its prefix."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import native
+
+    n = HOST_STREAM_AGENTS
+    e = len(st.erdos_renyi_edges(n, 10.0, seed=0)[0])
+    got = native.er_edges_native(n, e, 0)
+    plain_equal = all(np.array_equal(a, b) for a, b in zip(native._er_edges_plain(n, e, 0), got))
+    prefix_equal = all(np.array_equal(a[:e // 2], b)
+                       for a, b in zip(got, native.er_edges_native(n, e // 2, 0)))
+    emit("host_er_stream", n=n, edges=e, seed=0, plain_equal=plain_equal,
+         prefix_equal=prefix_equal)
+    if not (plain_equal and prefix_equal):
+        raise AssertionError("the native Erdős–Rényi stream differs from its numpy version")
+
+
+def phase_host_graph(card: str) -> None:
+    """The host graph of the main path on both routes: ``graph_gen_s``
+    (`erdos_renyi_edges`) and ``prepare_s`` (`prepare_agent_graph`, engine
+    "auto", to the card) at 10^6 and 10^7 agents, and at 10^6 the sort
+    alone (``sort_s``), where the native sort's four outputs are held to
+    the plain sort's on the main path's edges."""
+    import sbr_tpu_torch as st
+    from sbr_tpu_torch import native
+
+    _host_stream_check()
+    cfg = st.AgentSimConfig(n_steps=STEPS_FULL, dt=0.1)
+    for n in HOST_AGENTS:
+        for route in ("native", "numpy"):
+            with _graph_route(route):
+                t0 = time.perf_counter()
+                src, dst = st.erdos_renyi_edges(n, 10.0, seed=0)
+                graph_s = time.perf_counter() - t0
+                row = {}
+                if n == N_FULL:
+                    t0 = time.perf_counter()
+                    out = native.sort_edges_by_dst(src, dst, n)
+                    row["sort_s"] = time.perf_counter() - t0
+                    if route == "native":
+                        plain = native._sort_edges_by_dst_plain(src, dst, n)
+                        same = [bool(np.array_equal(a, b) and a.dtype == b.dtype)
+                                for a, b in zip(out, plain)]
+                        emit("host_sort_vs_plain", n=n, edges=len(src),
+                             outputs=["src", "dst", "indeg", "row_ptr"], equal=same)
+                        if not all(same):
+                            raise AssertionError(f"the native sort differs from the plain: {same}")
+                        del plain
+                    del out
+                t0 = time.perf_counter()
+                pg = st.prepare_agent_graph(1.0, src, dst, n, config=cfg, engine="auto",
+                                            dtype=np.float32)
+                torch.cuda.synchronize()
+                prepare_s = time.perf_counter() - t0
+                emit("host_graph", route=route, n=n, edges=len(src), engine=pg.engine,
+                     graph_gen_s=graph_s, prepare_s=prepare_s, **row, card=card)
+                del pg, src, dst
+        torch.cuda.empty_cache()
 
 
 def _device_rows(prof) -> dict:
@@ -6945,9 +7044,9 @@ def _lane_join(lane) -> dict:
     return json.loads(results[-1])["lane"]
 
 
-PHASES = ("kernel", "main", "cpu", "physics", "belief", "bayes", "bayes_cpu", "graphgen",
-          "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu", "serve",
-          "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
+PHASES = ("kernel", "main", "host", "cpu", "physics", "belief", "bayes", "bayes_cpu",
+          "graphgen", "equilibrium", "sweeps", "sweeps_cpu", "social", "closure", "social_cpu",
+          "serve", "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
           "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu", "audit",
           "audit_cpu", "fleet", "fleet_cpu", "sharded", "sharded_cpu", "chaos")
@@ -7007,6 +7106,8 @@ def main(argv) -> int:
     phase_build()
     rows = phase_kernel_vs_plain() if "kernel" in wanted else []
     launches, sequence = phase_main_path() if "main" in wanted else (None, None)
+    if "host" in wanted:
+        phase_host_graph(info["nvidia_smi"])
     if "cpu" in wanted:
         phase_cpu_vs_card()
     if "physics" in wanted:

@@ -11,6 +11,7 @@ from sbr_tpu_torch.core.rootfind import (
     chandrupatla,
     first_upcrossing,
     last_downcrossing,
+    threshold_crossings,
     threshold_crossings_masked,
 )
 
@@ -28,6 +29,7 @@ __all__ = [
     "last_downcrossing",
     "linspace",
     "rk4",
+    "threshold_crossings",
     "threshold_crossings_masked",
     "trapz",
 ]

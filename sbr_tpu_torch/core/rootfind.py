@@ -172,6 +172,16 @@ def last_downcrossing(x, y, level, default, return_flag: bool = False, with_heal
     return out if len(out) > 1 else out[0]
 
 
+def threshold_crossings(x, y, level, default):
+    """(first up-crossing, last down-crossing) of ``y`` against ``level``:
+    (default, default) when the curve never exceeds ``level``, (x[0],
+    x[-1]) when it always does."""
+    return (
+        first_upcrossing(x, y, level, default),
+        last_downcrossing(x, y, level, default),
+    )
+
+
 def bisect(f, lo, hi, num_iters: int = 90, x0=None, with_health: bool = False):
     """Fixed-iteration bisection for a root of ``f`` in [lo, hi], the
     reference's update rule: positive error contracts the upper bound,

@@ -592,6 +592,10 @@ class Engine:
                 self.flight.maybe_write(self._run)
 
     # -- deadlines / admission ----------------------------------------------
+    def service_estimate_s(self) -> Optional[float]:
+        """EWMA of measured dispatch durations (None before any dispatch)."""
+        return self._service_ewma_s
+
     def _retry_after(self) -> float:
         return round(max(self._service_ewma_s or 0.05, 0.05), 3)
 

@@ -67,7 +67,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sbr_tpu_torch.native import sort_edges_by_dst
+from sbr_tpu_torch.native import er_edges_native, sort_edges_by_dst
 from sbr_tpu_torch.parallel import collectives as C
 from sbr_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
 from sbr_tpu_torch.social import recount
@@ -101,21 +101,27 @@ def default_device() -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# Graph generation (host-side numpy)
+# Graph generation (host-side: the native library, or numpy)
 # ---------------------------------------------------------------------------
 
 
 def erdos_renyi_edges(n: int, avg_degree: float, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """Sparse directed Erdős–Rényi G(n, p) with p = avg_degree/(n-1).
 
-    Draws E ~ Binomial(n(n-1), p) directed pairs uniformly, with self-loops
-    resampled away. Returns (src, dst) int32 arrays: the numpy stream of
-    ``sbr_tpu.social.agents.erdos_renyi_edges`` (its path without the
-    native sampler), so a seed gives the same graph.
+    Draws E ~ Binomial(n(n-1), p) from numpy's generator seeded with
+    ``seed``, then E directed pairs uniformly, with self-loops resampled
+    away. Returns (src, dst) int32 arrays. The pairs come from the native
+    sampler's splitmix64 stream (`native.er_edges_native`), unless
+    ``SBR_NATIVE=0``, which draws them from numpy's generator after E. Each
+    is the stream ``sbr_tpu.social.agents.erdos_renyi_edges`` draws under
+    the same setting, so a seed gives the JAX package's graph.
     """
     rng = np.random.default_rng(seed)
     p = avg_degree / max(n - 1, 1)
     e = int(rng.binomial(n * (n - 1), p))
+    pair = er_edges_native(n, e, seed)
+    if pair is not None:
+        return pair
     src = rng.integers(0, n, size=e, dtype=np.int32)
     dst = rng.integers(0, n, size=e, dtype=np.int32)
     loops = src == dst

@@ -70,8 +70,8 @@ def _betas(kind):
 
 
 def test_erdos_renyi_and_scale_free_match_numpy_streams(monkeypatch):
-    # sbr_tpu's ER sampler prefers its native library; its numpy stream is
-    # the one the port reproduces
+    # the numpy streams (SBR_NATIVE=0); the default native pair stream is
+    # held in tests/test_torch_native.py
     monkeypatch.setenv("SBR_NATIVE", "0")
     for want, got in (
         (ja.erdos_renyi_edges(3000, 6.0, seed=4), ta.erdos_renyi_edges(3000, 6.0, seed=4)),
@@ -96,6 +96,33 @@ def test_prepared_layout_bitwise(graph, dtype):
         assert w.dtype == g.dtype, name
         np.testing.assert_array_equal(w, g, err_msg=name)
     assert (want.budget, want.max_degree, want.n_edges) == (got.budget, got.max_degree, got.n_edges)
+
+
+@pytest.mark.parametrize("engine", ["gather", "incremental"])
+@pytest.mark.parametrize("stream", ["default", "numpy"])
+def test_prepared_layout_bitwise_from_each_packages_graph(stream, engine, monkeypatch):
+    """Each package draws its own graph from one seed and prepares it: the
+    default stream (no ``SBR_NATIVE``: the native sampler and the counting
+    sort in both) and the numpy one (``SBR_NATIVE=0``) give the reference's
+    layout bit for bit."""
+    monkeypatch.delenv("SBR_NATIVE", raising=False)
+    if stream == "numpy":
+        monkeypatch.setenv("SBR_NATIVE", "0")
+    betas = _betas("hetero")
+    jsrc, jdst = ja.erdos_renyi_edges(N, DEG, seed=3)
+    tsrc, tdst = ta.erdos_renyi_edges(N, DEG, seed=3)
+    want = ja.prepare_agent_graph(betas, jsrc, jdst, N, dtype=np.float32, engine=engine)
+    got = ta.prepare_agent_graph(betas, tsrc, tdst, N, dtype=np.float32, engine=engine,
+                                 device=CPU)
+    pairs = [("src", want.src, got.src), ("row_ptr", want.row_ptr, got.row_ptr),
+             ("indeg", want.indeg, got.indeg)]
+    if engine == "incremental":
+        pairs += [(k, w, g) for k, w, g in zip(("dst2", "out_ptr", "outdeg"), want.inc, got.inc)]
+    for name, w, g in pairs:
+        w, g = _np(w), _np(g)
+        assert w.dtype == g.dtype, name
+        np.testing.assert_array_equal(w, g, err_msg=name)
+    assert (want.engine, want.n_edges) == (got.engine, got.n_edges) == (engine, len(tsrc))
 
 
 def test_sort_edges_rejects_out_of_range():

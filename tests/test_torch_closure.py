@@ -15,11 +15,12 @@ Contracts, in float64:
 - `close_loop` from a fixed point carried across
   (`fixed_point_from_numpy`): the window, ``aw_sim``, ``g_sim`` and the
   per-member rows equal the reference's bit for bit, on the host
-  Erdős–Rényi graph (the reference's numpy edge stream, ``SBR_NATIVE=0``),
-  on a generated graph, with the ``seeds=`` axis, from scratch
-  (``g0=None``), and for bayes with the reference's per-agent fields
-  patched in (the thresholds' float32 ``log`` rounds apart between the
-  frameworks, tests/test_torch_infomodels.py).
+  Erdős–Rényi graph (both packages' default native edge stream, and the
+  numpy stream under ``SBR_NATIVE=0``), on a generated graph, with the
+  ``seeds=`` axis, from scratch (``g0=None``), and for bayes with the
+  reference's per-agent fields patched in (the thresholds' float32
+  ``log`` rounds apart between the frameworks,
+  tests/test_torch_infomodels.py).
 """
 
 import dataclasses
@@ -202,6 +203,23 @@ def test_close_loop_host_graph_is_bitwise(social_fp, monkeypatch):
     # the Figure-12 window: exits ~ξ−τ̄_OUT after learning, re-entry later
     assert 0.0 <= b.exit_delay < b.reentry_delay < np.inf
     assert b.err_aw_rms < 0.1 and b.aw_seeds is None
+
+
+def test_close_loop_host_graph_is_bitwise_on_the_default_stream(social_fp, monkeypatch):
+    """With no ``SBR_NATIVE`` both packages draw the host graph's pairs from
+    the native splitmix64 stream: the loop is the reference's bit for bit,
+    and another loop than the numpy stream's (another graph)."""
+    from sbr_tpu import native as jnative
+
+    monkeypatch.delenv("SBR_NATIVE", raising=False)
+    assert jnative.native_available()  # else the reference draws numpy's stream
+    want_fp, got_fp = social_fp
+    a = jc.close_loop(jmodel(**FIG12), fp=want_fp, **SMALL)
+    b = tc.close_loop(tmodel(**FIG12), fp=got_fp, device=CPU, **SMALL)
+    _assert_same_loop(a, b)
+    monkeypatch.setenv("SBR_NATIVE", "0")
+    numpy_stream = tc.close_loop(tmodel(**FIG12), fp=got_fp, device=CPU, **SMALL)
+    assert not np.array_equal(numpy_stream.aw_sim, b.aw_sim)
 
 
 def test_close_loop_foldin_stream_is_bitwise(social_fp, monkeypatch):

@@ -169,6 +169,38 @@ def test_quadrature_health_flags_nan():
 # -- crossings ----------------------------------------------------------------
 
 
+def test_threshold_crossings_interior():
+    """tests/test_core.py's interior case: the hump 1 − (t − 2)²/2 crosses
+    0.5 at t = 1 and t = 3; the pair equals the reference's bit for bit."""
+    x = np.linspace(0.0, 4.0, 4001)
+    y = 1.0 - (x - 2.0) ** 2 / 2.0
+    t_in, t_out = tr.threshold_crossings(_t(x), _t(y), 0.5, 99.0)
+    assert abs(float(t_in) - 1.0) < 1e-5
+    assert abs(float(t_out) - 3.0) < 1e-5
+    want = jr.threshold_crossings(jnp.asarray(x), jnp.asarray(y), 0.5, 99.0)
+    assert [_bits(v) for v in (t_in, t_out)] == [_bits(v) for v in want]
+
+
+@pytest.mark.parametrize("curve, want", [("low", (42.0, 42.0)), ("high", (0.0, 1.0))])
+def test_threshold_crossings_boundaries(curve, want):
+    """tests/test_core.py's boundary cases: never above the level gives
+    (default, default), always above (x[0], x[-1])."""
+    x = np.linspace(0.0, 1.0, 100)
+    y = np.zeros(100) if curve == "low" else np.ones(100)
+    got = tr.threshold_crossings(_t(x), _t(y), 0.5, 42.0)
+    assert tuple(float(v) for v in got) == want
+    ref = jr.threshold_crossings(jnp.asarray(x), jnp.asarray(y), 0.5, 42.0)
+    assert [_bits(v) for v in got] == [_bits(v) for v in ref]
+
+
+def test_threshold_crossings_is_exported():
+    import sbr_tpu.core as jcore
+    import sbr_tpu_torch.core as tcore
+
+    assert tcore.threshold_crossings is tr.threshold_crossings
+    assert "threshold_crossings" in tcore.__all__ and hasattr(jcore, "threshold_crossings")
+
+
 def _scan_pair(x, y, level, default):
     t_in, has_up, h_in = tr.first_upcrossing(x, y, level, default, return_flag=True, with_health=True)
     t_out, has_dn, h_out = tr.last_downcrossing(x, y, level, default, return_flag=True, with_health=True)

@@ -18,10 +18,10 @@ Contracts, in float64 (conftest pins fixed numerics):
   summaries, the fixed-point iterations at Figure 12 — 50 under the
   suite's fixed numerics, 45 adaptive — ξ and Δξ) line for
   line, figure data within 1e-12, the closure's agent curves bit for bit
-  (the host graph needs the reference's numpy edge stream,
-  ``SBR_NATIVE=0``; where the two fixed points' windows round apart, the
-  reference's fixed point is carried across, as in
-  tests/test_torch_closure.py);
+  (both runs under ``SBR_NATIVE=0``, the numpy edge stream; where the two
+  fixed points' windows round apart, the reference's fixed point is
+  carried across, as in tests/test_torch_closure.py); the closure figure
+  alone is also held on the default native edge stream;
 - ``--f32`` (Section 1) against the reference with x64 off: statuses equal,
   floats within F32_TOL = 2e-5 (the slice-3 float32 contract);
 - the paper path as tests/test_master_cli.py drives it: 9 tiles, a resume
@@ -334,6 +334,26 @@ def test_plot_agent_closure(monkeypatch):
     small = dict(n_agents=2000, avg_degree=15.0, dt=0.1, t_max=12.0)
     jc = jclosure.close_loop(jm, fp=want_fp, **small)
     tc = tclosure.close_loop(tm, fp=got_fp, device=CPU, **small)
+    want = _close(jplot.plot_agent_closure(jc))
+    got = _close(tplot.plot_agent_closure(tc))
+    assert assert_same_figure(got, want, F64_TOL) == 0.0
+
+
+def test_plot_agent_closure_on_the_default_stream(monkeypatch):
+    """The closure figure with no ``SBR_NATIVE``: both packages' host graph
+    from the native splitmix64 stream, from the reference's fixed point
+    carried across, the agents' curves bit for bit."""
+    from sbr_tpu import native as jnative
+
+    monkeypatch.delenv("SBR_NATIVE", raising=False)
+    assert jnative.native_available()  # else the reference draws numpy's stream
+    jm, tm = jparams.make_model_params(**FIG12), tparams.make_model_params(**FIG12)
+    want_fp = jsocial.solve_equilibrium_social(jm, JCFG, max_iter=500)
+    got_fp = tsocial.fixed_point_from_numpy(as_numpy(want_fp), device=CPU)
+    small = dict(n_agents=2000, avg_degree=15.0, dt=0.1, t_max=12.0)
+    jc = jclosure.close_loop(jm, fp=want_fp, **small)
+    tc = tclosure.close_loop(tm, fp=got_fp, device=CPU, **small)
+    assert np.array_equal(tc.aw_sim, jc.aw_sim) and np.array_equal(tc.g_sim, jc.g_sim)
     want = _close(jplot.plot_agent_closure(jc))
     got = _close(tplot.plot_agent_closure(tc))
     assert assert_same_figure(got, want, F64_TOL) == 0.0
@@ -691,6 +711,7 @@ def test_master_with_the_builtin_backend(fast_runs, monkeypatch, tmp_path):
 
     _, (_, mfigs, _, _), _, _ = fast_runs
     monkeypatch.setattr(backend, "_matplotlib", lambda: None)  # as on the GPU machine
+    monkeypatch.setenv("SBR_NATIVE", "0")  # the fixture's runs' edge stream (one closure graph)
     out = tmp_path / "out"
     rc, figs, lines, _ = _run(tmaster, ["--sections", "1,2,4", "--fast", "--device", CPU,
                                         "--output", str(out)], monkeypatch, out)

@@ -313,6 +313,27 @@ def test_expired_and_unmeetable_deadlines_are_shed():
         engine.close()
 
 
+def test_service_estimate_is_none_until_a_dispatch():
+    """`service_estimate_s` as the reference engine's: None before any
+    dispatch, then the dispatch durations' EWMA, a positive float."""
+    ref = jengine.Engine(config=_cfg(jparams), serve=jengine.ServeConfig(buckets=(1,)))
+    engine = _engine(buckets=(1,))
+    try:
+        assert ref.service_estimate_s() is None and engine.service_estimate_s() is None
+        ref.query(jparams.make_model_params(), timeout=WAIT)
+        engine.query(tparams.make_model_params(), timeout=WAIT)
+        for e in (ref, engine):
+            est = e.service_estimate_s()
+            assert isinstance(est, float) and est > 0.0 and est == e._service_ewma_s
+        first = engine.service_estimate_s()
+        engine.query(tparams.make_model_params(u=0.3), timeout=WAIT)
+        # 0.3 of the second dispatch's duration over 0.7 of the first estimate
+        assert engine.service_estimate_s() > 0.7 * first
+    finally:
+        ref.close()
+        engine.close()
+
+
 def test_dispatch_failure_fails_tickets_and_counts_errors(monkeypatch):
     engine = _engine(buckets=(1,))
     try:
