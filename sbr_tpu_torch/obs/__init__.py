@@ -1,7 +1,7 @@
 """Run telemetry of the port: the port of ``sbr_tpu.obs``'s run-log core.
 
-- ``obs.timing``  — `fence` (waits for the CUDA devices of its tensors),
-  `StageTimer`, and ``obs.timing.trace``, a `torch.profiler` capture.
+- ``obs.timing``  — `fence` (waits for the CUDA devices of its tensors)
+  and `StageTimer`.
 - ``obs.metrics`` — the process-global counters/gauges/timers registry
   (``obs.metrics.metrics()``) and the log-bucketed latency histograms
   that the serving engine folds.
@@ -11,8 +11,9 @@
   `log_health`), memory snapshots and run-directory retention (`gc_runs`,
   ``SBR_OBS_KEEP``).
 - ``obs.prof``    — the trace registry (`note_trace`, `note_call`, the
-  ``retrace`` warning) and opt-in profiler capture (`profile`,
-  ``SBR_OBS_PROFILE=1``) with `annotate` / `step_annotation` ranges.
+  ``retrace`` warning), the port's one profiler capture (`profile`,
+  ``SBR_OBS_PROFILE=1``), and the `annotate` / `step_annotation` ranges
+  that every span opens while any torch profiler records.
 - ``obs.mem``     — memory attribution (``mem`` events), the fail-closed
   OOM preflight over measured footprints, and the ``tile_shape="auto"``
   capacity planner.
@@ -43,7 +44,7 @@
   stuck open), ``summary`` folds every gate over one run directory.
 
 As in the reference, ``obs.trace`` is the request-tracing module; the
-profiler capture lives at ``obs.timing.trace``. Unlike the reference,
+profiler capture is ``obs.prof.profile``. Unlike the reference,
 ``obs.metrics`` here is the module; the registry is
 ``obs.metrics.metrics()``. ``trace``, ``flight``, ``demand``, ``audit``,
 ``history`` and ``report`` import no torch (nor does this package until

@@ -18,19 +18,25 @@ Three concerns, all host-side and all free when dormant:
   active and the within-run count exceeds the name's budget
   (``SBR_OBS_RETRACE_BUDGET``, default 3), a ``retrace`` warning event
   lands in the log: the signature of argument shape/dtype churn.
-- **Profiler capture** (`profile`): a `torch.profiler` capture gated on
-  ``SBR_OBS_PROFILE=1`` (or ``force=``), written as a Chrome trace inside
-  the active run directory, so run retention prunes it; a capture larger
-  than ``SBR_OBS_PROFILE_MAX_MB`` (default 256) is deleted on the spot and
-  recorded as pruned. `annotate` / `step_annotation` put the pipeline's
-  stage names on the timeline (`torch.profiler.record_function` plus an
-  NVTX range on the card), and are no-ops unless profiling is enabled.
+- **Profiler capture** (`profile`): the port's one `torch.profiler`
+  capture, gated on ``SBR_OBS_PROFILE=1`` (or ``force=``), written as a
+  Chrome trace inside the active run directory, so run retention prunes
+  it; a capture larger than ``SBR_OBS_PROFILE_MAX_MB`` (default 256) is
+  deleted on the spot and recorded as pruned.
+- **Ranges** (`annotate`, `step_annotation`, `ranges`): the pipeline's
+  stage names on the timeline (a profiler record function plus an NVTX
+  range on the card) while any torch profiler records in the process,
+  this module's or another's; silent otherwise and inside a CUDA-graph
+  capture. `ranges_on` is the one query that gates them. A range's name
+  never begins with ``cu``: trace readers take host events named so for
+  the CUDA runtime's calls.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Optional
@@ -166,8 +172,8 @@ def reset_trace_counts() -> None:
 
 
 def profiling_enabled() -> bool:
-    """Opt-in flag for profiler capture and annotations (SBR_OBS_PROFILE=1),
-    read per call so a shell or a test can toggle it live."""
+    """Opt-in flag for `profile`'s capture (SBR_OBS_PROFILE=1), read per
+    call so a shell or a test can toggle it live."""
     return os.environ.get("SBR_OBS_PROFILE", "").strip() not in ("", "0")
 
 
@@ -189,45 +195,64 @@ def _summarize_dir(d: Path) -> dict:
     return {"files": files, "bytes": total}
 
 
-def _nvtx_ok() -> bool:
-    try:
-        import torch
+def ranges_on() -> bool:
+    """Whether a torch profiler is recording in this process: the one
+    query (a fraction of a microsecond) that gates every range. False
+    while torch is not loaded, since then nothing can record."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
 
-        return torch.cuda.is_available() and not torch.cuda.is_current_stream_capturing()
-    except Exception:
-        return False
+
+def _capturing() -> bool:
+    import torch
+
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+_NULL_RANGE = contextlib.nullcontext()
+
+
+def _null_range(name: str):
+    return _NULL_RANGE
 
 
 @contextlib.contextmanager
-def annotate(name: str):
-    """A named range around a host-side stage: `record_function` on the
-    profiler's timeline and an NVTX range on the card. No-op unless
-    profiling is enabled."""
-    if not profiling_enabled():
-        yield
-        return
+def _range(name: str):
     import torch
 
-    nvtx = _nvtx_ok()
+    nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
-        with torch.profiler.record_function(name):
+        # a host operation on the profiler's timeline (category cpu_op), as
+        # an aten operation is: `torch.profiler.record_function` makes a
+        # user annotation, which the CUDA profiler copies as a device event
+        # spanning the range's kernels, and trace readers would count it
+        with torch._C._profiler._RecordFunctionFast(name):
             yield
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
 
 
-@contextlib.contextmanager
+def ranges():
+    """The range maker for a hot loop, read once a call: ``ranges()(name)``
+    is `annotate`'s range while a profiler records outside a CUDA-graph
+    capture, and otherwise one shared null context, so a loop that no
+    profiler watches creates no range and queries nothing more."""
+    return _range if ranges_on() and not _capturing() else _null_range
+
+
+def annotate(name: str):
+    """A named range around a host-side stage: a record function on the
+    profiler's timeline and an NVTX range on the card, while a profiler
+    records (`ranges`); a shared null context otherwise."""
+    return ranges()(name)
+
+
 def step_annotation(step: int, name: str = "step"):
-    """Per-rep/step framing in bench loops (``name#step``). No-op unless
-    profiling is enabled."""
-    if not profiling_enabled():
-        yield
-        return
-    with annotate(f"{name}#{int(step)}"):
-        yield
+    """Per-rep/step framing in bench loops (``name#step``), as `annotate`."""
+    return annotate(f"{name}#{int(step)}")
 
 
 @contextlib.contextmanager

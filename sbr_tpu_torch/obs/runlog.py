@@ -46,6 +46,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from sbr_tpu_torch.obs import prof
 from sbr_tpu_torch.obs.metrics import metrics
 
 SCHEMA = "sbr-obs/1"
@@ -300,16 +301,14 @@ class RunContext:
         """Stage span: emits stage_start/stage_end events and accumulates
         per-stage totals. Yields a handle whose `.sync(*arrays)` registers
         arrays to fence before the end timestamp (device-honest timing)."""
-        from sbr_tpu_torch.obs import prof
-
         self.event("stage_start", stage=name, **attrs)
         handle = _Span()
         _SPAN_NAMES.append(name)
         t0 = time.monotonic()
         err = None
         try:
-            # With SBR_OBS_PROFILE=1 the stage also lands as a
-            # TraceAnnotation on the xplane timeline; otherwise free.
+            # while a profiler records, the stage is also a range on its
+            # timeline; otherwise free
             with prof.annotate(name):
                 yield handle
         except BaseException as e:
@@ -945,12 +944,15 @@ def suspended():
 
 @contextlib.contextmanager
 def span(name: str, **attrs):
-    """Module-level stage span: delegates to the active run; yields a no-op
-    handle (still exposing `.sync`) when telemetry is off or in a program
-    region or a CUDA-graph capture."""
+    """Module-level stage span: delegates to the active run. When telemetry
+    is off or in a program region it yields a no-op handle (still exposing
+    `.sync`): no event, no span name, no fence, only the profiler range
+    that `prof.annotate` opens while a profiler records (none inside a
+    CUDA-graph capture)."""
     run = current_run()
     if run is None or not _trace_clean():
-        yield _NULL_SPAN
+        with prof.annotate(name):
+            yield _NULL_SPAN
         return
     with run.span(name, **attrs) as handle:
         yield handle

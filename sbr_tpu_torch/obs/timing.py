@@ -4,18 +4,16 @@
   tensors live on (a no-op for CPU tensors, whose ops have finished when
   they return).
 - `StageTimer` — named wall-clock stages over that fence.
-- `trace` — a `torch.profiler` capture of the enclosed block, written as a
-  Chrome trace (``trace.json``) under ``log_dir``.
 
 The structured layer on top (`RunContext` event logs and per-stage spans)
-lives in `sbr_tpu_torch.obs.runlog`.
+lives in `sbr_tpu_torch.obs.runlog`; the profiler capture is
+`sbr_tpu_torch.obs.prof.profile`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from pathlib import Path
 from typing import Dict
 
 import torch
@@ -85,20 +83,3 @@ class StageTimer:
         lines = [f"  {k:<{width}} {v * 1e3:10.1f} ms" for k, v in self.times.items()]
         lines.append(f"  {'total':<{width}} {self.total() * 1e3:10.1f} ms")
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Capture a `torch.profiler` trace (the CPU, and CUDA when available)
-    of the enclosed block and write it to ``log_dir/trace.json``, which
-    chrome://tracing and Perfetto open. Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    out = Path(log_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(str(out / "trace.json"))

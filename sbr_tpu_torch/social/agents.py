@@ -26,6 +26,13 @@ come from the same numpy calls as in the JAX package, and the per-(agent,
 step) draw from the same Threefry stream, so the two packages agree bit for
 bit on the same inputs (tested).
 
+While a torch profiler records, the single-device loop puts ranges on its
+timeline (`obs.prof.ranges`): ``agents.prologue`` around a call's seed
+draw and state upload, then a step ``agents.step`` holding
+``agents.counts``, ``agents.recount_full`` around each full recount,
+``agents.sync`` around each host read of a device value, and
+``agents.infection``. With none recording the loop opens no range.
+
 **Sharding** (``mesh=``, a ``DeviceMesh`` of `parallel.mesh`): every rank
 of the mesh axis runs the same program on its block of agents
 (block-sharded by id, padded with inert agents to a multiple of the axis
@@ -68,6 +75,7 @@ import numpy as np
 import torch
 
 from sbr_tpu_torch.native import er_edges_native, sort_edges_by_dst
+from sbr_tpu_torch.obs import prof
 from sbr_tpu_torch.parallel import collectives as C
 from sbr_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
 from sbr_tpu_torch.social import recount
@@ -496,42 +504,54 @@ def _run_engine(prepared, config: AgentSimConfig, informed0, t_init, key, k0: in
         counts = torch.zeros(n, dtype=torch.int32, device=dev)
         wd_prev = torch.zeros(n, dtype=torch.bool, device=dev)
 
+    # the profiler's ranges (`obs.prof.ranges`), read once: each host read
+    # of a device value in the loop is an "agents.sync" range, and each
+    # full recount an "agents.recount_full" one
+    mark = prof.ranges()
     for j in range(config.n_steps):
-        k = k0 + j
-        t = float(ts[j])
-        wd = _withdrawn(informed, t_inf, t, config.exit_delay, config.reentry_delay)
-        if incremental:
-            dwd = wd.to(torch.int32) - wd_prev.to(torch.int32)
-            changed = dwd != 0
-            n_changed = changed.sum()
-            cids = _compact_ids(changed, budget_agents, n, config.compact_impl)
-            valid = cids < n
-            cids_c = torch.clamp(cids, max=n - 1)
-            degs = torch.where(valid, outdeg[cids_c], 0)
-            overflow = (n_changed > budget_agents) | (degs.max() > budget_deg)
-            # the host `if` that stands for lax.cond: one small sync per step
-            if bool(overflow):
-                counts = _seg_counts(wd[src], row_ptr)
+        with mark("agents.step"):
+            k = k0 + j
+            t = float(ts[j])
+            wd = _withdrawn(informed, t_inf, t, config.exit_delay, config.reentry_delay)
+            if incremental:
+                with mark("agents.counts"):
+                    dwd = wd.to(torch.int32) - wd_prev.to(torch.int32)
+                    changed = dwd != 0
+                    n_changed = changed.sum()
+                    cids = _compact_ids(changed, budget_agents, n, config.compact_impl)
+                    valid = cids < n
+                    cids_c = torch.clamp(cids, max=n - 1)
+                    degs = torch.where(valid, outdeg[cids_c], 0)
+                    overflow = (n_changed > budget_agents) | (degs.max() > budget_deg)
+                    # the host `if` that stands for lax.cond: one small sync per step
+                    with mark("agents.sync"):
+                        full = bool(overflow)
+                    if full:
+                        with mark("agents.recount_full"):
+                            counts = _seg_counts(wd[src], row_ptr)
+                    else:
+                        starts = out_ptr[cids_c]
+                        emask = d_lane < degs[:, None]
+                        eidx = torch.clamp(starts[:, None] + d_lane, max=e - 1)
+                        dsts = dst2[eidx]
+                        sign = torch.where(valid, dwd[cids_c], 0)
+                        delta = torch.where(emask, sign[:, None], 0)
+                        # integer adds commute, so the atomic order cannot matter
+                        counts = counts.index_add(0, dsts.reshape(-1), delta.reshape(-1))
+                with mark("agents.sync"):
+                    recounts.append(bool(overflow))
+                wd_prev = wd
             else:
-                starts = out_ptr[cids_c]
-                emask = d_lane < degs[:, None]
-                eidx = torch.clamp(starts[:, None] + d_lane, max=e - 1)
-                dsts = dst2[eidx]
-                sign = torch.where(valid, dwd[cids_c], 0)
-                delta = torch.where(emask, sign[:, None], 0)
-                # integer adds commute, so the atomic order cannot matter
-                counts = counts.index_add(0, dsts.reshape(-1), delta.reshape(-1))
-            recounts.append(bool(overflow))
-            wd_prev = wd
-        else:
-            counts = _seg_counts(wd[src], row_ptr)
-        g_counts[j] = informed.sum()
-        w_counts[j] = wd.sum()
-        # agents informed in step k get t_{k+1} (see social.fused)
-        informed, t_inf = infection_update(
-            informed, t_inf, counts, betas, safe_deg, key, k, 0, float(t_next[j]),
-            config.dt, config.rng_stream, config.fused,
-        )
+                with mark("agents.counts"), mark("agents.recount_full"):
+                    counts = _seg_counts(wd[src], row_ptr)
+            g_counts[j] = informed.sum()
+            w_counts[j] = wd.sum()
+            # agents informed in step k get t_{k+1} (see social.fused)
+            with mark("agents.infection"):
+                informed, t_inf = infection_update(
+                    informed, t_inf, counts, betas, safe_deg, key, k, 0, float(t_next[j]),
+                    config.dt, config.rng_stream, config.fused,
+                )
     if incremental:
         recount_flags = torch.tensor(recounts, dtype=torch.bool, device=dev)
     else:
@@ -1133,14 +1153,15 @@ def simulate_agents(
                 f"simulate_agents: {name} has length {np.shape(arr)[0]} "
                 f"but the graph has n = {n} agents"
             )
-    if informed0 is None:
-        informed0 = _draw_seeds(np.random.default_rng(seed), n, x0, exact_seeds)
-    informed0_d = _state_tensor(informed0, torch.bool, bool, dev)
-    if t_inf0 is None:
-        t_init_d = torch.zeros(n, dtype=prepared.betas.dtype, device=dev)
-    else:
-        t_init_d = _state_tensor(t_inf0, prepared.betas.dtype, np_dtype, dev)
-    key = prng_key(seed)
+    with prof.annotate("agents.prologue"):
+        if informed0 is None:
+            informed0 = _draw_seeds(np.random.default_rng(seed), n, x0, exact_seeds)
+        informed0_d = _state_tensor(informed0, torch.bool, bool, dev)
+        if t_inf0 is None:
+            t_init_d = torch.zeros(n, dtype=prepared.betas.dtype, device=dev)
+        else:
+            t_init_d = _state_tensor(t_inf0, prepared.betas.dtype, np_dtype, dev)
+        key = prng_key(seed)
 
     launch_cap = config.max_steps_per_launch
     if launch_cap is not None and launch_cap < config.n_steps:

@@ -64,6 +64,40 @@ def test_simulation_on_card_equals_cpu_in_float64(cuda_device, engine):
         assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f
 
 
+@pytest.mark.parametrize("engine", ["gather", "incremental"])
+def test_ranges_put_no_event_on_the_device(cuda_device, monkeypatch, engine):
+    """Under a CPU and CUDA profiler the step loop's ranges are host
+    operations only: the device's timeline holds the same kernels as with
+    the ranges off, none named after a range, and the answer is the same."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sbr_tpu_torch.obs import prof
+
+    n = 20_000
+    src, dst = st.erdos_renyi_edges(n, 8.0, seed=3)
+    cfg = st.AgentSimConfig(n_steps=20, dt=0.1, exit_delay=0.5, reentry_delay=2.0)
+    pg = st.prepare_agent_graph(1.0, src, dst, n, config=cfg, engine=engine, device=cuda_device)
+
+    def traced():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            r = st.simulate_agents(prepared=pg, x0=0.01, config=cfg, seed=4)
+            torch.cuda.synchronize()
+        events = list(p.profiler.kineto_results.events())
+        device = [e.name() for e in events
+                  if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0]
+        return r, device, [e.name() for e in events if e.name().startswith("agents.")]
+
+    with monkeypatch.context() as m:
+        m.setattr(prof, "ranges_on", lambda: False)
+        plain, device_off, host_off = traced()
+    ranged, device_on, host_on = traced()
+    assert host_off == [] and host_on.count("agents.step") == cfg.n_steps
+    assert not [name for name in device_on if name.startswith("agents.")]
+    assert sorted(device_on) == sorted(device_off)
+    for f in ("informed", "t_inf", "informed_frac", "withdrawn_frac", "full_recount_steps"):
+        assert torch.equal(getattr(plain, f), getattr(ranged, f)), f
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
     # float16 has a kernel of its own now: it runs, equal to its plain version
     ts = [torch.zeros(8, dtype=d, device=cuda_device) for d in (

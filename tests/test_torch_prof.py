@@ -9,7 +9,11 @@ on the CPU, mirroring tests/test_prof.py where it is not XLA's.
 - `profile` off is a no-op; a capture on the CPU records a summary inside
   the run directory; the size bound prunes.
 - The compile block says ``monitoring: false`` (no compile listeners).
-- Solver outputs are bit for bit the same under ``SBR_OBS_PROFILE=1``.
+- The ranges (`annotate`, `step_annotation`, spans) fire whenever a torch
+  profiler records, whoever started it, also in a program region or with
+  no run (then with no event), and create nothing when none records.
+- Solver and agent outputs are bit for bit the same under
+  ``SBR_OBS_PROFILE=1``.
 """
 
 import json
@@ -173,12 +177,100 @@ def test_profile_size_bound_prunes_capture(tmp_path, monkeypatch):
     assert not Path(ev["trace_dir"]).exists()
 
 
-def test_timing_trace_writes_a_chrome_trace(tmp_path):
-    from sbr_tpu_torch.obs.timing import trace
+# -- ranges: on while any torch profiler records ------------------------------
 
-    with trace(str(tmp_path / "t")):
-        float(torch.ones(8).sum())
-    assert json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
+
+def _range_names(p, prefix=""):
+    return [e.name() for e in p.profiler.kineto_results.events() if e.name().startswith(prefix)]
+
+
+def _count_record_functions(monkeypatch):
+    """Count every record function made from here on, of either kind."""
+    made = []
+    for owner, name in ((torch.profiler, "record_function"),
+                        (torch.autograd.profiler, "record_function"),
+                        (torch._C._profiler, "_RecordFunctionFast")):
+        def counted(*args, _real=getattr(owner, name), **kwargs):
+            made.append(args)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(owner, name, counted)
+    return made
+
+
+def test_ranges_are_host_operations_not_user_annotations(monkeypatch):
+    """A range is a host operation of the trace (``cpu_op``), as an aten
+    operation is: the CUDA profiler copies user annotations to the device's
+    timeline, where trace readers would count them as kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    made = _count_record_functions(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        with obs.annotate("stage.host"):
+            float(torch.ones(4).sum())
+    assert made == [("stage.host",)]
+    (event,) = [e for e in p.profiler.kineto_results.events() if e.name() == "stage.host"]
+    assert not event.is_user_annotation()
+
+
+def test_annotate_fires_under_a_bare_profiler(monkeypatch):
+    """Another profiler than `obs.profile`, with SBR_OBS_PROFILE unset and
+    no run active, still gets the ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.delenv("SBR_OBS_PROFILE", raising=False)
+    assert not prof.ranges_on()
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        assert prof.ranges_on()
+        with obs.annotate("stage.outer"), obs.step_annotation(3, "stage.rep"):
+            float(torch.ones(4).sum())
+    assert not prof.ranges_on()
+    assert sorted(_range_names(p, "stage.")) == ["stage.outer", "stage.rep#3"]
+
+
+def test_annotate_makes_no_record_function_without_a_profiler(monkeypatch):
+    monkeypatch.setenv("SBR_OBS_PROFILE", "1")  # the capture's switch, not the ranges'
+    made = _count_record_functions(monkeypatch)
+    with obs.annotate("stage"), obs.step_annotation(0), obs.span("stage.span") as sp:
+        sp.sync(torch.ones(2))
+    mark = prof.ranges()
+    with mark("a"), mark("b"):
+        pass
+    assert made == []
+    assert prof.annotate("x") is prof.annotate("y") is mark("c")  # one shared null context
+
+
+def test_span_in_a_program_gives_a_range_and_no_event(tmp_path):
+    """Inside a program region, or with no run, `obs.span` writes no event,
+    pushes no span name and fences nothing, but the profiler sees it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with obs.run_context(run_dir=str(tmp_path / "r")) as run:
+        with profile(activities=[ProfilerActivity.CPU]) as p:
+            with obs.program(), obs.span("stage.in_program") as sp:
+                assert sp is obs.runlog._NULL_SPAN and obs.active_span() is None
+                float(torch.ones(4).sum())
+            with obs.span("stage.in_run"):
+                float(torch.ones(4).sum())
+    with profile(activities=[ProfilerActivity.CPU]) as q:
+        with obs.span("stage.no_run") as sp:
+            assert sp is obs.runlog._NULL_SPAN
+    stages = [e.get("stage") for e in _events(run.run_dir) if e["kind"].startswith("stage")]
+    assert stages == ["stage.in_run", "stage.in_run"]
+    assert sorted(_range_names(p, "stage.")) == ["stage.in_program", "stage.in_run"]
+    assert _range_names(q, "stage.") == ["stage.no_run"]
+
+
+def test_range_names_never_begin_with_cu():
+    """Trace readers take host events named ``cu…`` for the CUDA runtime's
+    calls: no span or range the port names may begin so."""
+    import re
+
+    root = Path(__file__).resolve().parents[1] / "sbr_tpu_torch"
+    pattern = re.compile(r"""(?:\bspan|annotate|step_annotation|mark)\(\s*f?["']([^"']+)["']""")
+    names = {m for f in root.rglob("*.py") for m in pattern.findall(f.read_text())}
+    assert {"agents.step", "agents.sync", "baseline.xi", "sweeps.beta_u_grid"} <= names
+    assert not [n for n in names if n.startswith("cu")]
 
 
 # -- acceptance: the observatory perturbs nothing ----------------------------
@@ -209,3 +301,30 @@ def test_solver_outputs_identical_under_profiling_env(tmp_path, monkeypatch):
             profiled = solve()
     for a, b in zip(tensor_leaves(plain), tensor_leaves(profiled)):
         assert torch.equal(a.nan_to_num(3.0), b.nan_to_num(3.0))
+
+
+@pytest.mark.parametrize("engine", ["gather", "incremental"])
+def test_agents_identical_under_profiling_env(tmp_path, monkeypatch, engine):
+    """A simulation in either engine, its step loop's ranges on under the
+    profiler, is bit for bit the plain run (a small change budget makes the
+    incremental engine recount fully on some steps)."""
+    from sbr_tpu_torch.obs.timing import tensor_leaves
+    from sbr_tpu_torch.social import agents as ta
+
+    src, dst = ta.erdos_renyi_edges(1500, 8.0, seed=2)
+    cfg = ta.AgentSimConfig(n_steps=30, dt=0.1, exit_delay=0.5, reentry_delay=2.0)
+    budget = 6 if engine == "incremental" else None
+
+    def simulate():
+        return ta.simulate_agents(1.0, src, dst, 1500, x0=0.01, config=cfg, seed=5,
+                                  engine=engine, incremental_budget=budget, device=CPU)
+
+    plain = simulate()
+    monkeypatch.setenv("SBR_OBS_PROFILE", "1")
+    with obs.run_context(run_dir=str(tmp_path / "r")):
+        with obs.profile("simulate") as trace_dir:
+            assert trace_dir is not None and prof.ranges_on()
+            profiled = simulate()
+    assert 0 < int(plain.full_recount_steps.sum()) <= cfg.n_steps
+    for a, b in zip(tensor_leaves(plain), tensor_leaves(profiled)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
