@@ -117,8 +117,11 @@ foldin stream and the half types run on the card against the CPU, the
 policy sweep's measured OOM preflight, and the five recovery drills of
 ``python -m sbr_tpu_torch.resilience.chaos`` on the card (``chaos``: four
 of them beside ``fleet_cpu``, which times nothing, then the fleet drill,
-whose trace coverage is a check of the router's host time, alone). The
-phases up to the recount gather's, which time the kernels, run alone;
+whose trace coverage is a check of the router's host time, alone). Then
+the ξ stage's kernel (``xi``): a 500×500 Figure-5 tile in float32 and
+float64, bit for bit the eager route, its time beside its SASS-counted
+bound and the eager route's device time, and the tile's host time on both
+routes. The phases up to the ξ kernel's, which time the kernels, run alone;
 after them two more processes of this script run the extensions,
 scenario, population, rewire and grad phases, and the tiled, figures and
 obs phases (LANES), beside the telemetry, audit and fleet phases and the
@@ -1116,12 +1119,15 @@ def _sweep_shapes():
     ]
 
 
-def phase_sweeps_main_path() -> None:
+def phase_sweeps_main_path() -> int:
     """Each shape of the flagship path in both numerics modes: cells/s of
     one fenced call and sustained, status counts, fixed against adaptive,
-    mean adaptive iterations, peak memory. The path launches no kernel of
-    the port; the counts, set to 0 before it and read after, say so."""
+    mean adaptive iterations, peak memory. The path launches neither agent
+    kernel; the counts, set to 0 before it and read after, say so. Each
+    fixed call launches the ξ kernel once and each adaptive call never,
+    read around each shape's calls; returns the ξ kernel's launches."""
     from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
     from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
     from sbr_tpu_torch.utils.status import status_counts
 
@@ -1129,11 +1135,15 @@ def phase_sweeps_main_path() -> None:
     for name, dtype, cells, make_run in _sweep_shapes():
         out = {}
         for numerics in ("adaptive", "fixed"):
+            before = _build.LAUNCHES[XI_KERNEL]
             res, timing = _timed(make_run(numerics), cells)
+            xi_launches = _build.LAUNCHES[XI_KERNEL] - before
+            # `_timed` calls the run 2 + SUSTAINED_REPS times
+            want = 2 + SUSTAINED_REPS if numerics == "fixed" else 0
             out[numerics] = res
             status, xi, aw, health = _sweep_outputs(res)
             emit("sweeps_main_path", shape=name, dtype=_dtype_name(dtype), numerics=numerics,
-                 **timing, status_counts=status_counts(status),
+                 **timing, xi_launches=xi_launches, status_counts=status_counts(status),
                  mean_iterations=float(health.iterations.double().mean()),
                  max_iterations=int(health.iterations.max()),
                  finite_xi=int(torch.isfinite(xi).sum()))
@@ -1142,6 +1152,9 @@ def phase_sweeps_main_path() -> None:
                 torch.isfinite(aw[run_cells]).all())
             if not finite_on_run or bool(torch.isfinite(xi[~run_cells]).any()):
                 raise AssertionError(f"{name}: ξ/AW_max finite exactly on RUN cells fails")
+            if xi_launches != want:
+                raise AssertionError(f"{name} {numerics}: {xi_launches} xi kernel launches, "
+                                     f"not {want}")
         sa, sf = out["adaptive"].status, out["fixed"].status
         differ = torch.nonzero(sa != sf)
         xa, xf = _sweep_outputs(out["adaptive"])[1], _sweep_outputs(out["fixed"])[1]
@@ -1161,9 +1174,10 @@ def phase_sweeps_main_path() -> None:
         if dtype == torch.float64 and len(differ):
             raise AssertionError(f"{name}: fixed and adaptive statuses differ on {len(differ)} cells")
     launches = {k: _build.LAUNCHES[k] for k in (KERNEL, BELIEF_KERNEL)}
-    emit("sweeps_kernel_launches", launches=launches)
+    emit("sweeps_kernel_launches", launches=launches, xi_launches=_build.LAUNCHES[XI_KERNEL])
     if any(launches.values()):
         raise AssertionError(f"the flagship path launched a kernel: {launches}")
+    return _build.LAUNCHES[XI_KERNEL]
 
 
 def phase_sweeps_cpu_vs_card() -> None:
@@ -1245,6 +1259,152 @@ def _stage_split(betas, us, cfg, dtype) -> dict:
     torch.cuda.synchronize()
     names = ("stage1_and_hazard_ms", "buffer_crossings_ms", "xi_rootfind_ms", "classification_ms")
     return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(names)}
+
+
+# The ξ stage's kernel (csrc/xi_bisect.cu) on one 500×500 tile of the
+# paper's 5000×5000 Figure-5 grid (portbench's paper_grid: n_grid 4096, 90
+# steps, crossing refinement off), the tile of rows 500-999 and columns
+# 4500-4999, where roots, cells without one and cells without a crossing
+# mix. Its bytes a cell: τ̄_IN and τ̄_OUT read; ξ, err, residual and width
+# written in the type, root_ok and increasing 1 B each, iterations and flags
+# 4 B each (β, x0 and κ are a row's or the tile's).
+XI_TILE = (slice(500, 1000), slice(4500, 5000))
+XI_BYTES_PER_CELL = {torch.float32: 34, torch.float64: 58}
+XI_TILE_REPS = 20
+
+
+def _xi_inputs(dtype):
+    """(ls, τ̄_IN, τ̄_OUT, κ, config) of XI_TILE on the card, as
+    `solve_param_cell` builds them (β a column against the u row)."""
+    from sbr_tpu_torch.baseline.learning import solve_learning
+    from sbr_tpu_torch.baseline.solver import solve_equilibrium_core
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+    from sbr_tpu_torch.sweeps.baseline_sweeps import _RowLearning
+
+    betas, us = _figure5_axes(5000)
+    dev = torch.device("cuda")
+    cfg = SolverConfig(n_grid=4096, bisect_iters=90, refine_crossings=False, numerics="fixed")
+    m = make_model_params()
+    e = m.economic
+    t0, t1, x0, p, kappa, lam, eta = (
+        torch.tensor(v, dtype=dtype, device=dev)
+        for v in (*m.learning.tspan, m.learning.x0, e.p, e.kappa, e.lam, e.eta))
+    b = torch.as_tensor(betas[XI_TILE[0]], dtype=dtype, device=dev).unsqueeze(-1)
+    ls = solve_learning(_RowLearning(b, (t0, t1), x0), cfg, dtype=dtype, device=dev)
+    u = torch.as_tensor(us[XI_TILE[1]], dtype=dtype, device=dev)
+    r = solve_equilibrium_core(ls, u, p, kappa, lam, eta, t1, cfg, curves=False)
+    return ls, r.tau_bar_in_unc, r.tau_bar_out_unc, kappa, cfg
+
+
+def _xi_tile_ms(dtype) -> dict:
+    """Host ms of the whole tile through `beta_u_grid` (the benchmark's
+    call, outputs copied to the host), the kernel route against the eager
+    route (`xi_kernel.takes` made to refuse), in turns; medians of
+    XI_TILE_REPS each. The ξ kernel's launches on each route, read around
+    each tile: one a tile on the kernel route, none on the eager route."""
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline import xi_kernel
+    from sbr_tpu_torch.models.params import SolverConfig, make_model_params
+    from sbr_tpu_torch.sweeps.baseline_sweeps import beta_u_grid
+
+    betas, us = _figure5_axes(5000)
+    cfg = SolverConfig(n_grid=4096, bisect_iters=90, refine_crossings=False, numerics="fixed")
+    base = make_model_params()
+    takes = xi_kernel.takes
+
+    def tile():
+        g = beta_u_grid(betas[XI_TILE[0]], us[XI_TILE[1]], base, cfg, dtype=dtype)
+        return g.status.cpu(), g.xi.cpu(), g.max_aw.cpu()
+
+    times = {"kernel": [], "eager": []}
+    launches = {"kernel": [], "eager": []}
+    outs = {}
+    try:
+        for rep in range(XI_TILE_REPS + 1):
+            for route in ("kernel", "eager", "eager", "kernel")[rep % 2 * 2:][:2]:
+                xi_kernel.takes = takes if route == "kernel" else (lambda *a: False)
+                before = _build.LAUNCHES[xi_kernel.KERNEL]
+                t0 = time.perf_counter()
+                outs[route] = tile()
+                if rep:  # the first turn warms both routes
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+                launches[route].append(_build.LAUNCHES[xi_kernel.KERNEL] - before)
+    finally:
+        xi_kernel.takes = takes
+    same = all(_bits_equal(a.numpy(), b.numpy()) for a, b in zip(outs["kernel"], outs["eager"]))
+    return {"tile_ms_kernel": float(np.median(times["kernel"])),
+            "tile_ms_eager": float(np.median(times["eager"])), "tile_outputs_equal": same,
+            "tiles": XI_TILE_REPS + 1, "tile_launches_kernel": sum(launches["kernel"]),
+            "tile_launches_eager": sum(launches["eager"]),
+            "one_launch_a_tile": (set(launches["kernel"]) == {1}
+                                  and set(launches["eager"]) == {0})}
+
+
+def phase_xi(card: str) -> list:
+    """The ξ stage's kernel on XI_TILE in float32 and float64: every output
+    bit for bit the eager route's (`compute_xi` with an explicit bracket
+    equal to the default one), one launch a call; kernel ms and the eager
+    route's device ms (`time_ms`, the eager route 5 calls a graph); the
+    bound, the larger of the bytes over the memory rate and the bisection
+    loop's instructions (its SASS, one step a trip) times the steps on the
+    busiest pipe; and the whole tile's host ms through `beta_u_grid` on
+    both routes, whose ξ launches, read around each tile, are one a tile
+    on the kernel route and none on the eager route."""
+    from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline import xi_kernel
+    from sbr_tpu_torch.baseline.solver import compute_xi
+    from sbr_tpu_torch.benchmarks import sass_count
+
+    loops = {}
+    for fn, c in sass_count.kernel_counts(xi_kernel.KERNEL).items():
+        dtype = next((d for k, d in (("f", "float32"), ("d", "float64")) if f"I{k}E" in fn), None)
+        if c is None or dtype is None:
+            continue
+        loops[dtype] = c
+        emit("sass", kernel=xi_kernel.KERNEL, dtype=dtype, function=fn, span=c["span"],
+             pipes=c["pipes"], busiest=c["busiest"], clocks_per_step_sm=c["clocks_per_agent_sm"],
+             opcodes=c["opcodes"])
+    if set(loops) != {"float32", "float64"}:
+        raise AssertionError(f"no bisection loop found in the SASS of {sorted(loops)} missing")
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        name = _dtype_name(dtype)
+        ls, ti, to, kappa, cfg = _xi_inputs(dtype)
+        n = ti.numel()
+        before = _build.LAUNCHES[xi_kernel.KERNEL]
+        got = compute_xi(ti, to, ls, kappa, cfg, with_health=True)
+        launches = _build.LAUNCHES[xi_kernel.KERNEL] - before
+        want = compute_xi(ti, to, ls, kappa, cfg, lo=ti, hi=to, with_health=True)
+        fields = ("xi", "err", "root_ok", "increasing", "residual", "bracket_width",
+                  "iterations", "flags")
+
+        def flat(out):
+            h = out[4]
+            return [*out[:4], h.residual, h.bracket_width, h.iterations, h.flags]
+
+        equal = {f: _bits_equal(a.cpu().numpy(), b.cpu().numpy())
+                 for f, a, b in zip(fields, flat(got), flat(want))}
+        kernel_ms = time_ms(lambda: compute_xi(ti, to, ls, kappa, cfg, with_health=True))
+        plain_ms = time_ms(lambda: compute_xi(ti, to, ls, kappa, cfg, lo=ti, hi=to,
+                                              with_health=True), reps=5)
+        pipe, per_sm = sass_count.busiest(loops[name]["pipes"])
+        ops_ms = n * cfg.bisect_iters * per_sm / (N_SMS * SM_CLOCK_HZ) * 1e3
+        bytes_ms = n * XI_BYTES_PER_CELL[dtype] / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        row = dict(kernel=xi_kernel.KERNEL, dtype=name, cells=n, steps=cfg.bisect_iters,
+                   check_launches=launches, equal=equal, root_ok_share=float(got[2].float().mean()),
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, ops_ms=ops_ms, ops_pipe=pipe,
+                   bytes_ms=bytes_ms, bound_ms=bound,
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   share_of_bound=bound / kernel_ms, **_xi_tile_ms(dtype), card=card)
+        emit("xi_kernel", **row)
+        rows.append(row)
+        if launches != 1 or not all(equal.values()) or not row["tile_outputs_equal"]:
+            raise AssertionError(f"the {name} xi kernel differs from the eager route: {row}")
+        if not row["one_launch_a_tile"]:
+            raise AssertionError(f"beta_u_grid's {name} tile did not launch the xi kernel "
+                                 f"once on the kernel route and never on the eager route: {row}")
+    return rows
 
 
 def phase_sweeps_profile() -> None:
@@ -1869,26 +2029,28 @@ def _serve_prefix_sums(card: str) -> dict:
     return row
 
 
-def phase_serve(card: str) -> dict:
+def phase_serve(card: str) -> int:
     """The serving engine on the card: the per-bucket programs, bench.py's
     serving shape, a cold stream and the HTTP endpoint. The serving path
-    launches neither kernel of the port; the counts, set to 0 before it
-    and read after, say so."""
+    launches no agent kernel; the counts, set to 0 before it and read
+    after, say so. Returns the ξ kernel's launches (one a captured bucket
+    or an eager solve of fixed numerics; a replay launches through the
+    graph and counts none)."""
     from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
 
     _build.reset_launches()
-    out = {
-        "prefix_sum": _serve_prefix_sums(card),
-        "buckets": _serve_bucket_rows(card),
-        "bench": _serve_bench_shape(card),
-        "cold": _serve_cold_stream(card),
-        "endpoint": _serve_endpoint(card),
-    }
+    _serve_prefix_sums(card)
+    _serve_bucket_rows(card)
+    _serve_bench_shape(card)
+    _serve_cold_stream(card)
+    _serve_endpoint(card)
     launches = dict(_build.LAUNCHES)
-    emit("serve", kernel_launches=launches, card=card)
+    xi_launches = launches.pop(XI_KERNEL, 0)
+    emit("serve", kernel_launches=launches, xi_launches=xi_launches, card=card)
     if any(launches.values()):
-        raise AssertionError(f"the serving path launched a kernel: {launches}")
-    return out
+        raise AssertionError(f"the serving path launched an agent kernel: {launches}")
+    return xi_launches
 
 
 def phase_serve_cpu_vs_card() -> None:
@@ -2181,7 +2343,7 @@ def _policy_preflight_row() -> None:
         raise AssertionError(f"policy preflight: {rec}, oversized {refused}, probes {probes}")
 
 
-def phase_extensions() -> dict:
+def phase_extensions() -> int:
     """Sections 2 and 3 and the stretch-shape policy sweep on the card at
     full width (n_grid 4096), in both numerics modes (the sweep in float32
     and float64): one cold call, then one fenced call (ms, equilibria/s,
@@ -2189,9 +2351,11 @@ def phase_extensions() -> dict:
     cells, fixed and adaptive statuses equal in float64. Then the interest
     scan's kernels and device time from the profiler at n_grid
     EXT_PROFILE_GRID, in both numerics, and the device's share of the
-    same call's wall time unprofiled. The path launches no kernel of the port; the
-    counts, set to 0 before it and read after, say so."""
+    same call's wall time unprofiled. The path launches no agent kernel;
+    the counts, set to 0 before it and read after, say so. Returns the ξ
+    kernel's launches (the fixed calls of the interest solver)."""
     from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
     from sbr_tpu_torch.diag.health import flag_names, or_reduce_flags
     from sbr_tpu_torch.utils.status import status_counts
 
@@ -2256,10 +2420,11 @@ def phase_extensions() -> dict:
              kernels_per_interval=prof["kernels"] / (EXT_PROFILE_GRID - 1),
              wall_ms_unprofiled=wall_ms, busy_share_unprofiled=prof["device_ms"] / wall_ms)
     launches = dict(_build.LAUNCHES)
-    emit("extensions_kernel_launches", launches=launches)
+    xi_launches = launches.pop(XI_KERNEL, 0)
+    emit("extensions_kernel_launches", launches=launches, xi_launches=xi_launches)
     if any(launches.values()):
-        raise AssertionError(f"the extensions launched a kernel: {launches}")
-    return out
+        raise AssertionError(f"the extensions launched an agent kernel: {launches}")
+    return xi_launches
 
 
 def phase_extensions_cpu_vs_card() -> None:
@@ -2507,20 +2672,24 @@ def _scenario_family_rows(card: str) -> None:
             raise AssertionError(f"scenario {name}: ξ finite exactly on RUN fails")
 
 
-def phase_scenario(card: str) -> None:
-    """Composed scenarios on the card (they run no kernel of the port: the
+def phase_scenario(card: str) -> int:
+    """Composed scenarios on the card (they run no agent kernel: the
     counts, set to 0 before and read after, say so): bench_scenario's grid
-    and contagion shapes, then one solve of each composition family."""
+    and contagion shapes, then one solve of each composition family.
+    Returns the ξ kernel's launches."""
     from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
 
     _build.reset_launches()
     _scenario_grid_rows(card)
     _scenario_multibank_rows(card)
     _scenario_family_rows(card)
     launches = dict(_build.LAUNCHES)
-    emit("scenario_kernel_launches", launches=launches)
+    xi_launches = launches.pop(XI_KERNEL, 0)
+    emit("scenario_kernel_launches", launches=launches, xi_launches=xi_launches)
     if any(launches.values()):
-        raise AssertionError(f"the scenario path launched a kernel: {launches}")
+        raise AssertionError(f"the scenario path launched an agent kernel: {launches}")
+    return xi_launches
 
 
 def _busy_profile(run) -> dict:
@@ -3471,12 +3640,14 @@ def phase_tiled(card: str) -> dict:
     """Slice 10 on the card: the paper heatmap, the fault drill, bench_sweep's
     elastic shape with the tile cache, the served tile-cache rung and the
     tiled scenario sweep. The kernel counts are set to 0 before and read
-    after: this path launches none of the three kernels. Returns them."""
+    after: this path launches none of the three agent kernels. Returns
+    them and the ξ kernel's."""
     import shutil
     import tempfile
     from pathlib import Path
 
     from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
 
     scratch = Path(tempfile.mkdtemp(prefix="sbr_tiled_"))
     _build.reset_launches()
@@ -3489,10 +3660,10 @@ def phase_tiled(card: str) -> dict:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     launches = _launches()
-    emit("tiled", kernel_launches=launches)
+    emit("tiled", kernel_launches=launches, xi_launches=_build.LAUNCHES[XI_KERNEL])
     if any(launches.values()):
         raise AssertionError(f"the tiled path launched kernels: {launches}")
-    return launches
+    return {**launches, XI_KERNEL: _build.LAUNCHES[XI_KERNEL]}
 
 
 def phase_tiled_cpu_vs_card() -> None:
@@ -3655,13 +3826,14 @@ def phase_figures(card: str, tiled_paper_counts) -> dict:
     own solves, the paper heatmap's status counts against the tiled
     phase's, the run log's spans and censuses, and the kernel counts: the
     infection kernel once a simulated closure step, the other two never.
-    Returns the launches."""
+    Returns the launches, the ξ kernel's among them."""
     import shutil
     import tempfile
     from pathlib import Path
 
     from sbr_tpu_torch import _build
     from sbr_tpu_torch.baseline import solver as bsolver
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
     from sbr_tpu_torch.figures import master
     from sbr_tpu_torch.hetero import solver as hsolver
     from sbr_tpu_torch.social import closure
@@ -3682,7 +3854,7 @@ def phase_figures(card: str, tiled_paper_counts) -> dict:
             rc, lines, _ = _run_master(["--output", str(out), "--paper", "--obs",
                                         "--device", "cuda"])
         wall_s = time.perf_counter() - t0
-        launches = _launches()
+        launches = {**_launches(), XI_KERNEL: _build.LAUNCHES[XI_KERNEL]}
         calls = recorded.calls
         figdir = out / "figures"
         expected = [f for sec in master.MANIFEST for f in master.MANIFEST[sec]]
@@ -5968,13 +6140,15 @@ def phase_fleet(card: str) -> dict:
     failovers, sheds, 0 lost), its answers bit for bit an in-process
     engine's; the routed populations (`_fleet_population`, whose launches
     are returned); bench_prewarm's three phases, the drained tiles bit for
-    bit `beta_u_grid`'s; and ``report fleet``, ``prewarm`` and ``summary``
-    on the clean and the breached runs. The kill and audit drills are the
-    chaos phase's."""
+    bit `beta_u_grid`'s (the ξ kernel's launches in them returned beside the
+    populations'); and ``report fleet``, ``prewarm`` and ``summary`` on the
+    clean and the breached runs. The kill and audit drills are the chaos
+    phase's."""
     import tempfile
     from pathlib import Path
 
     from sbr_tpu_torch import _build
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
 
     _build.build_all()  # published once, before any worker process starts
     with tempfile.TemporaryDirectory(prefix="sbr_fleet_") as tmp, \
@@ -6008,11 +6182,14 @@ def phase_fleet(card: str) -> dict:
         _fleet_hops(card, root)
         pop_launches = _fleet_population(card, root)
 
+        xi_before = _build.LAUNCHES[XI_KERNEL]
         pw = _prewarm_drive(card, root / "prewarm", "cuda", PREWARM["reps"])
         tiles = _prewarm_tiles_equal_grid(pw, "cuda")
         _prewarm_embedded(card, root / "prewarm_embedded")
+        xi_launches = _build.LAUNCHES[XI_KERNEL] - xi_before
         emit("fleet_prewarm", pool=PREWARM["pool"], plan_tiles=PREWARM["tiles"],
-             n_grid=PREWARM["n_grid"], reps=PREWARM["reps"], cold_hits=pw["cold_hits"],
+             n_grid=PREWARM["n_grid"], reps=PREWARM["reps"], xi_launches=xi_launches,
+             cold_hits=pw["cold_hits"],
              cold_answered=pw["cold_answered"], status=pw["snapshot"]["status"],
              tiles_total=pw["snapshot"]["tiles_total"], tiles_done=pw["snapshot"]["tiles_done"],
              warm=pw["snapshot"]["warm"], drain_s=pw["drain_s"], tiles_per_s=pw["tiles_per_s"],
@@ -6057,7 +6234,7 @@ def phase_fleet(card: str) -> dict:
                                       "prewarm_outage_p99_ms": pw["warm_outage_p99_ms"]},
                                "chip_smoke_fleet", "gpu")
         emit("fleet_history", metrics=history.load(path)[-1]["metrics"])
-    return pop_launches
+    return {**pop_launches, XI_KERNEL: xi_launches}
 
 
 def phase_fleet_cpu_vs_card() -> None:
@@ -6942,14 +7119,17 @@ _LANE_RESULT = '{"lane": '
 def _lane_phases(card: str, wanted) -> dict:
     """The phases of LANES in ``wanted``, each lane's in its order; returns
     the launches by kernel of the population, rewire, tiled, figures and
-    obs phases that ran."""
+    obs phases that ran, and the ξ kernel's of the extensions and scenario
+    phases."""
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
+
     out = {}
     if "extensions" in wanted:
-        phase_extensions()
+        out["extensions"] = {XI_KERNEL: phase_extensions()}
     if "extensions_cpu" in wanted:
         phase_extensions_cpu_vs_card()
     if "scenario" in wanted:
-        phase_scenario(card)
+        out["scenario"] = {XI_KERNEL: phase_scenario(card)}
     if "population" in wanted:
         out["population"] = phase_population(card)
     if "scenario_cpu" in wanted:
@@ -7049,7 +7229,7 @@ PHASES = ("kernel", "main", "host", "cpu", "physics", "belief", "bayes", "bayes_
           "serve", "serve_cpu", "recount", "extensions", "extensions_cpu", "scenario", "population",
           "scenario_cpu", "rewire", "rewire_cpu", "grad", "grad_cpu", "tiled", "tiled_cpu",
           "figures", "figures_cpu", "obs", "obs_cpu", "telemetry", "telemetry_cpu", "audit",
-          "audit_cpu", "fleet", "fleet_cpu", "sharded", "sharded_cpu", "chaos")
+          "audit_cpu", "fleet", "fleet_cpu", "sharded", "sharded_cpu", "chaos", "xi")
 
 
 def _recount_kernel_entry(recount: dict, tiled_launches: dict, fig_launches: dict,
@@ -7120,24 +7300,24 @@ def main(argv) -> int:
         phase_graphgen_cpu_vs_card()
     if "equilibrium" in wanted:
         phase_equilibrium()
-    if "sweeps" in wanted:
-        phase_sweeps_main_path()
+    grid_xi = phase_sweeps_main_path() if "sweeps" in wanted else None
     if "sweeps_cpu" in wanted:
         phase_sweeps_cpu_vs_card()
     fp = phase_social() if "social" in wanted else None
     loop_launches = phase_closure(fp) if "closure" in wanted else {}
     if "social_cpu" in wanted:
         phase_social_cpu_vs_card()
-    if "serve" in wanted:
-        phase_serve(info["nvidia_smi"])
+    served_xi = phase_serve(info["nvidia_smi"]) if "serve" in wanted else None
     if "serve_cpu" in wanted:
         phase_serve_cpu_vs_card()
     recount = phase_recount() if "recount" in wanted else None
+    xi_rows = phase_xi(info["nvidia_smi"]) if "xi" in wanted else []
     # the kernels' timed phases above ran alone; the rest run in the two
     # lanes and here, beside the sharded ranks, and the fleet drill (whose
     # trace coverage is a check of the router's host time) after all of
     # them have ended
-    lanes, out = [], {"population": {}, "rewire": {}, "tiled": {}, "figures": {}, "obs": {}}
+    lanes, out = [], {"population": {}, "rewire": {}, "tiled": {}, "figures": {}, "obs": {},
+                      "extensions": {}, "scenario": {}}
     parts = tuple(p for p, ph in (("card", "sharded"), ("cpu", "sharded_cpu")) if ph in wanted)
     ranks = chaos = None
     try:
@@ -7181,6 +7361,7 @@ def main(argv) -> int:
         phase_profile()
     if wanted != set(PHASES):
         return 0
+    from sbr_tpu_torch.baseline.xi_kernel import KERNEL as XI_KERNEL
     from sbr_tpu_torch.social.fused import BELIEF_KERNEL, KERNEL
 
     main_row = next(r for r in rows if r["n"] == 1_000_003 and r["dtype"] == "float32")
@@ -7247,6 +7428,23 @@ def main(argv) -> int:
         "shapes": belief_rows,
     }, _recount_kernel_entry(recount, tiled_launches, fig_launches, obs_launches,
                              telem_launches, audit_launches, fleet_launches, sharded)]
+    # the ξ kernel's launches on the paths that reach `compute_xi`: the
+    # benchmark's `beta_u_grid` tile (`phase_xi`, one a tile), the flagship
+    # shapes' fixed calls, and the paths read around their phases
+    xi_row = xi_rows[0]
+    xi_by_path = {"tile": sum(r["tile_launches_kernel"] for r in xi_rows), "grid": grid_xi,
+                  "extensions": out["extensions"][XI_KERNEL],
+                  "scenario": out["scenario"][XI_KERNEL], "tiled": tiled_launches[XI_KERNEL],
+                  "figures": fig_launches[XI_KERNEL], "prewarm": fleet_launches[XI_KERNEL],
+                  "served": served_xi}
+    kernels.append({
+        "name": "xi_bisect", "route": "cuda", "source": "sbr_tpu_torch/csrc/xi_bisect.cu",
+        "replaces": None, "replaces_function": None, "launches": sum(xi_by_path.values()),
+        "launches_by_path": xi_by_path,
+        "mismatches": sum(not all(r["equal"].values()) for r in xi_rows),
+        "ms": xi_row["kernel_ms"], "plain_ms": xi_row["plain_ms"], "bound_ms": xi_row["bound_ms"],
+        "bound_by": xi_row["bound_by"], "library_ms": None, "shapes": xi_rows,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"],

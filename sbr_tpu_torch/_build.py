@@ -153,3 +153,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of kernel ``name``'s library, built and
+    loaded on first use, with its argument types set and an int result
+    (the launch's CUDA error)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from sbr_tpu_torch import obs
+from sbr_tpu_torch.baseline import xi_kernel
 from sbr_tpu_torch.baseline.learning import logistic_cdf, logistic_pdf
 from sbr_tpu_torch.core.integrate import cumtrapz, cumulative_gauss_legendre
 from sbr_tpu_torch.core.interp import linspace, searchsorted_right, take_last
@@ -279,11 +280,20 @@ def compute_xi(
     reference's finite difference), else the finite difference with ε the
     learning-grid spacing. With ``with_health`` the root-find's `Health` is
     appended. Fixed numerics bisect ``bisect_iters`` times; adaptive runs
-    Chandrupatla with that budget."""
+    Chandrupatla with that budget.
+
+    On the card, fixed numerics over closed-form Stage 1 with the default
+    bracket and start run as one kernel (`xi_kernel`, where
+    `xi_kernel.takes` holds), bit for bit these operations."""
     if config is None:
         config = SolverConfig()
     dtype, device = ls.dtype, ls.device
     kappa = torch.as_tensor(kappa, dtype=dtype, device=device)
+    if (lo is None and hi is None and x0 is None
+            and xi_kernel.takes(tau_bar_in_unc, tau_bar_out_unc, ls, kappa, config)):
+        out = xi_kernel.xi_bisect(tau_bar_in_unc, tau_bar_out_unc, ls.beta, ls.x0, kappa,
+                                  config.bisect_iters, _root_tol(dtype))
+        return out if with_health else out[:4]
     lo = tau_bar_in_unc if lo is None else lo
     hi = tau_bar_out_unc if hi is None else hi
 

@@ -180,16 +180,6 @@ def _check_cuda_args(what: str, dtype: torch.dtype, args) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel_fn(kernel: str, symbol: str, argtypes):
-    """The C entry point ``symbol`` of kernel library ``kernel``, built and
-    loaded on first use, with its argument types set."""
-    fn = getattr(_build.load(kernel), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _update_cuda(informed, t_inf, counts, betas, safe_deg, id0: int, k0: int,
                  k1: int, t_next: float, dt: float):
     """Launch the CUDA kernel on the current stream. Same contract as
@@ -200,7 +190,7 @@ def _update_cuda(informed, t_inf, counts, betas, safe_deg, id0: int, k0: int,
         ("counts", counts, torch.int32), ("betas", betas, dtype),
         ("safe_deg", safe_deg, dtype),
     ))
-    fn = _kernel_fn(KERNEL, _KERNEL_FN[dtype], [ctypes.c_void_p] * 7 + [
+    fn = _build.entry(KERNEL, _KERNEL_FN[dtype], [ctypes.c_void_p] * 7 + [
         ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
         ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
     ])
@@ -374,7 +364,7 @@ def _belief_cuda(informed, t_inf, belief, counts, awareness, safe_deg,
         ("awareness", awareness, dtype), ("safe_deg", safe_deg, dtype),
         ("thresholds", thresholds, dtype),
     ))
-    fn = _kernel_fn(BELIEF_KERNEL, _BELIEF_FN[dtype], [ctypes.c_void_p] * 10 + [
+    fn = _build.entry(BELIEF_KERNEL, _BELIEF_FN[dtype], [ctypes.c_void_p] * 10 + [
         ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, ctypes.c_void_p,
     ])

@@ -479,6 +479,110 @@ def test_u_sweep_on_card_equals_cpu(cuda_device):
     assert torch.equal(torch.isnan(a), torch.isnan(b)) and float((a[ok] - b[ok]).abs().max()) <= 1e-12
 
 
+# -- the ξ stage's kernel (csrc/xi_bisect.cu) against the eager route --
+
+
+def _xi_eager(ti, to, ls, kappa, cfg):
+    """The eager route on the card: an explicit bracket equal to the
+    default one, which the kernel's dispatch leaves to PyTorch."""
+    return st.baseline.compute_xi(ti, to, ls, kappa, cfg, lo=ti, hi=to, with_health=True)
+
+
+@pytest.mark.parametrize("dtype, rows, cols", [
+    (torch.float32, slice(500, 1000), slice(4500, 5000)),
+    (torch.float32, slice(2000, 2500), slice(1000, 1500)),
+    (torch.float64, "sub64", "sub64"),
+])
+def test_xi_kernel_equals_eager_bit_for_bit(cuda_device, dtype, rows, cols):
+    """A 500×500 tile of the paper's Figure-5 grid (n_grid 4096, 90 steps)
+    in float32 (two tiles where roots, cells without one and cells without
+    a crossing mix), and a 64×64 subgrid of the grid in float64: xi, err,
+    root_ok, is_increasing and every Health field carry the eager route's
+    bits."""
+    from sbr_tpu_torch.baseline import xi_kernel
+    from xi_cases import assert_same_stage, grid_inputs, subgrid
+
+    if rows == "sub64":
+        rows = cols = subgrid(64)
+    else:
+        rows, cols = np.arange(5000)[rows], np.arange(5000)[cols]
+    ls, ti, to, kappa, cfg = grid_inputs(rows, cols, dtype, cuda_device, n_grid=4096, iters=90)
+    before = _build.LAUNCHES[xi_kernel.KERNEL]
+    got = st.baseline.compute_xi(ti, to, ls, kappa, cfg, with_health=True)
+    assert _build.LAUNCHES[xi_kernel.KERNEL] == before + 1
+    want = _xi_eager(ti, to, ls, kappa, cfg)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[xi_kernel.KERNEL] == before + 1
+    assert got[0].shape == (len(rows), len(cols))
+    assert_same_stage(got, want)
+    assert bool(got[2].any()) and not bool(got[2].all())
+
+
+@pytest.mark.parametrize("iters", [1, 90])
+@pytest.mark.parametrize("column", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_xi_kernel_edge_lanes_equal_eager(cuda_device, dtype, column, iters):
+    """NaN ends, τ̄_IN = τ̄_OUT, no bracket and an infinite end, against a
+    scalar β and a column of three, after one step and after 90."""
+    from xi_cases import assert_same_stage, edge_inputs
+
+    ls, ti, to, kappa = edge_inputs(dtype, column, cuda_device)
+    cfg = st.SolverConfig(n_grid=64, bisect_iters=iters, numerics="fixed")
+    got = st.baseline.compute_xi(ti, to, ls, kappa, cfg, with_health=True)
+    assert_same_stage(got, _xi_eager(ti, to, ls, kappa, cfg))
+    short = st.baseline.compute_xi(ti, to, ls, kappa, cfg)
+    assert len(short) == 4
+    for a, b in zip(short, got):
+        assert torch.equal(torch.isnan(a) if a.is_floating_point() else a,
+                           torch.isnan(b) if b.is_floating_point() else b)
+
+
+def test_xi_kernel_launches_only_where_it_takes(cuda_device):
+    """One launch a fixed closed-form call; none under adaptive numerics,
+    sampled (ODE-backed) Stage 1, a half type or an input that requires
+    grad, whose answers stay the eager route's."""
+    import dataclasses
+
+    from sbr_tpu_torch.baseline import xi_kernel
+    from sbr_tpu_torch.baseline.learning import learning_solution_from_samples
+    from xi_cases import grid_inputs, subgrid
+
+    ls, ti, to, kappa, cfg = grid_inputs(subgrid(24), subgrid(24), torch.float32, cuda_device)
+    compute = st.baseline.compute_xi
+    before = _build.LAUNCHES[xi_kernel.KERNEL]
+    compute(ti, to, ls, kappa, cfg, with_health=True)
+    assert _build.LAUNCHES[xi_kernel.KERNEL] == before + 1
+    half = dataclasses.replace(ls, **{f: getattr(ls, f).half() for f in (
+        "grid", "cdf", "pdf", "t0", "dt", "beta", "x0")})
+    eager = [
+        (ti, to, ls, kappa, dataclasses.replace(cfg, numerics="adaptive")),
+        (ti, to, learning_solution_from_samples(ls.grid, ls.cdf, ls.pdf), kappa, cfg),
+        (ti.half(), to.half(), half, kappa.half(), cfg),
+        (ti.clone().requires_grad_(True), to, ls, kappa, cfg),
+    ]
+    for args in eager:
+        assert not xi_kernel.takes(*args)
+        compute(*args, with_health=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[xi_kernel.KERNEL] == before + 1
+
+
+def test_xi_kernel_refuses_what_it_does_not_take(cuda_device):
+    from sbr_tpu_torch.baseline import xi_kernel
+
+    ts = [torch.full((4, 4), 0.5, dtype=torch.float32, device=cuda_device) for _ in range(5)]
+    with pytest.raises(NotImplementedError):
+        xi_kernel.xi_bisect(*(t.half() for t in ts), 90, 1e-4)
+    with pytest.raises(ValueError, match="kappa"):
+        xi_kernel.xi_bisect(*ts[:4], ts[4].double(), 90, 1e-4)
+    with pytest.raises(ValueError, match="kappa"):
+        xi_kernel.xi_bisect(*ts[:4], ts[4].cpu(), 90, 1e-4)
+    with pytest.raises(ValueError, match="dims"):
+        xi_kernel.xi_bisect(ts[0].reshape(1, 1, 1, 4, 4), *ts[1:], 90, 1e-4)
+    with pytest.raises(ValueError, match="iters"):
+        xi_kernel.xi_bisect(*ts, 0, 1e-4)
+
+
 FIG12 = dict(beta=0.9, eta_bar=30.0, u=0.5, p=0.99, kappa=0.25, lam=0.25)
 
 
