@@ -16,12 +16,20 @@ spec):
   each epoch regenerates the edge set, born dst-sorted, with the source
   marginal tilted toward the agents withdrawing at its start
   (`graphgen.tilt_threshold_table`, `generate_tilted_sources`,
-  `epoch_indegrees`), then runs ``epoch_steps`` steps carrying (informed,
+  `epoch_indegrees_on`), then runs ``epoch_steps`` steps carrying (informed,
   t_inf[, belief]) across the boundary. Gossip epochs ride
   `simulate_agents` with the global step offset (so its counter stream
   continues as under launch chunking), bayes epochs `_bayes_sim`; every
   step still ends in the channel's CUDA kernel. One scalar read fences
   each epoch.
+
+While a torch profiler records, the loops put ranges on its timeline
+(`obs.prof.ranges`): a rewired run an ``info.epoch`` an epoch, holding
+``info.regen`` (the tilt table through the row pointers, with
+``info.sources`` around the tilted draw and ``info.indegrees`` around
+the in-degree draw) and ``info.sync`` (the epoch's scalar fence); the
+bayes step loop an ``info.step`` a step, holding ``info.counts`` and
+``info.belief``. With none recording no range is made.
 
 The per-agent fields (group, threshold, awareness) come from one Threefry
 block per agent keyed by SeedSequence((seed, 31)), as in the reference.
@@ -30,6 +38,9 @@ XLA's ``log`` differ in the last bit on about a tenth of the lanes, so the
 thresholds agree to within that; groups, awareness and β are equal bit for
 bit. `agent_fields_from_numpy` carries fields from elsewhere (the JAX
 package, or another device), so that two runs compute the same simulation.
+The bayes and rewired runs' initial informed mask is numpy's Bernoulli
+draw from ``default_rng(seed)``; on the card the card draws that stream
+(`agents._seeds_on`), as it draws each rewired epoch's in-degrees.
 
 A rewire run equals ``sbr_tpu``'s bit for bit in both channels (the bayes
 channel with the fields carried), fractions, final state and epochs alike
@@ -46,6 +57,7 @@ import torch
 
 from sbr_tpu_torch import obs
 from sbr_tpu_torch.infomodels.spec import InfoModelSpec
+from sbr_tpu_torch.obs import prof
 from sbr_tpu_torch.social import agents as A
 from sbr_tpu_torch.social import graphgen as G
 from sbr_tpu_torch.social.fused import belief_update
@@ -147,17 +159,21 @@ def _bayes_sim(prepared: A.PreparedAgentGraph, awareness, thr, llr01, informed0,
     safe_deg = torch.clamp(prepared.indeg, min=1.0)
     g_counts = torch.empty(config.n_steps, dtype=torch.int64, device=dev)
     w_counts = torch.empty(config.n_steps, dtype=torch.int64, device=dev)
+    mark = prof.ranges()
     for j in range(config.n_steps):
-        wd = A._withdrawn(informed, t_inf, float(ts[j]), config.exit_delay,
-                          config.reentry_delay)
-        counts = A._seg_counts(wd[src], row_ptr)
-        g_counts[j] = informed.sum()
-        w_counts[j] = wd.sum()
-        # agents crossing in step k get t_{k+1} (see social.fused)
-        informed, t_inf, belief = belief_update(
-            informed, t_inf, belief, counts, awareness, safe_deg, thr,
-            float(t_next[j]), config.dt, llr0, llr1, config.fused,
-        )
+        with mark("info.step"):
+            wd = A._withdrawn(informed, t_inf, float(ts[j]), config.exit_delay,
+                              config.reentry_delay)
+            with mark("info.counts"):
+                counts = A._seg_counts(wd[src], row_ptr)
+            g_counts[j] = informed.sum()
+            w_counts[j] = wd.sum()
+            # agents crossing in step k get t_{k+1} (see social.fused)
+            with mark("info.belief"):
+                informed, t_inf, belief = belief_update(
+                    informed, t_inf, belief, counts, awareness, safe_deg, thr,
+                    float(t_next[j]), config.dt, llr0, llr1, config.fused,
+                )
     return (
         A._fractions(g_counts, n, prepared.dtype),
         A._fractions(w_counts, n, prepared.dtype),
@@ -214,41 +230,51 @@ def _simulate_rewire(spec: InfoModelSpec, graph, seed: int, config: A.AgentSimCo
     t_inf = torch.where(informed, t_init, float("inf")).to(tdtype)
     gs_parts, aws_parts = [], []
     done = n_epochs = 0
+    mark = prof.ranges()
     while done < config.n_steps:
-        this_len = min(spec.epoch_steps, config.n_steps - done)
-        # the epoch's start time rounds from the float64 product, as the
-        # reference's jnp.asarray(done * dt, dtype) does
-        t_now = float(dtype.type(done * config.dt))
-        wd_now = A._withdrawn(informed, t_inf, t_now, config.exit_delay, config.reentry_delay)
-        thr_table = G.tilt_threshold_table(base_w, wd_now, spec.rewire_bias)
-        src = G.generate_tilted_sources(
-            n, e, G.epoch_key_words(seed, n_epochs), thr_table, chunk_edges
-        )
-        indeg_h = G.epoch_indegrees(graph, seed, n_epochs, e)
-        row_ptr = torch.from_numpy(G._row_ptr_host(indeg_h)).to(device)
-        indeg = A._tensor(indeg_h.astype(dtype), device)
-        pg = _gather_prepared(n, e, betas_d, src, row_ptr, indeg, dtype, device)
-        cfg_ep = dataclasses.replace(config, n_steps=this_len, max_steps_per_launch=None)
-        t_start = torch.where(torch.isfinite(t_inf), t_inf, 0.0).to(tdtype)
-        if spec.channel == "gossip":
-            part = A.simulate_agents(
-                prepared=pg, config=cfg_ep, seed=seed, informed0=informed,
-                t_inf0=t_start, step_offset=done,
-            )
-            informed, t_inf = part.informed, part.t_inf
-            gs, aws = part.informed_frac, part.withdrawn_frac
-        else:
-            gs, aws, informed, t_inf, belief = _bayes_sim(
-                pg, aware_d, thr_d, llr01, informed, t_start, belief, done, cfg_ep
-            )
-        gs_parts.append(gs)
-        aws_parts.append(aws)
-        if obs.enabled():
-            obs.log_infomodel("rewire_epoch", epoch=n_epochs, channel=spec.channel,
-                              steps=this_len, edges=e, withdrawing=int(wd_now.sum()))
-        done += this_len
-        n_epochs += 1
-        float(gs[-1])  # one scalar fence an epoch boundary
+        with mark("info.epoch"):
+            this_len = min(spec.epoch_steps, config.n_steps - done)
+            # the epoch's start time rounds from the float64 product, as the
+            # reference's jnp.asarray(done * dt, dtype) does
+            t_now = float(dtype.type(done * config.dt))
+            wd_now = A._withdrawn(informed, t_inf, t_now, config.exit_delay,
+                                  config.reentry_delay)
+            with mark("info.regen"):
+                thr_table = G.tilt_threshold_table(base_w, wd_now, spec.rewire_bias)
+                with mark("info.sources"):
+                    src = G.generate_tilted_sources(
+                        n, e, G.epoch_key_words(seed, n_epochs), thr_table, chunk_edges
+                    )
+                with mark("info.indegrees"):
+                    indeg_d = G.epoch_indegrees_on(graph, seed, n_epochs, e, device)
+                row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                                     torch.cumsum(indeg_d, 0)]).to(torch.int32)
+                indeg = indeg_d.to(tdtype)
+                # not held into the next epoch's draw, whose sources set the peak
+                del indeg_d
+            pg = _gather_prepared(n, e, betas_d, src, row_ptr, indeg, dtype, device)
+            cfg_ep = dataclasses.replace(config, n_steps=this_len, max_steps_per_launch=None)
+            t_start = torch.where(torch.isfinite(t_inf), t_inf, 0.0).to(tdtype)
+            if spec.channel == "gossip":
+                part = A.simulate_agents(
+                    prepared=pg, config=cfg_ep, seed=seed, informed0=informed,
+                    t_inf0=t_start, step_offset=done,
+                )
+                informed, t_inf = part.informed, part.t_inf
+                gs, aws = part.informed_frac, part.withdrawn_frac
+            else:
+                gs, aws, informed, t_inf, belief = _bayes_sim(
+                    pg, aware_d, thr_d, llr01, informed, t_start, belief, done, cfg_ep
+                )
+            gs_parts.append(gs)
+            aws_parts.append(aws)
+            if obs.enabled():
+                obs.log_infomodel("rewire_epoch", epoch=n_epochs, channel=spec.channel,
+                                  steps=this_len, edges=e, withdrawing=int(wd_now.sum()))
+            done += this_len
+            n_epochs += 1
+            with mark("info.sync"):
+                float(gs[-1])  # one scalar fence an epoch boundary
     bayes = spec.channel == "bayes"
     if bayes and obs.enabled():
         _log_belief_census("rewire", int(informed.sum()), belief)
@@ -358,8 +384,9 @@ def simulate_info(
     _, thr_d, aware_d = fields
     llr01 = tuple(dtype.type(v) for v in spec.llr)
     if informed0 is None:
-        informed0 = A._draw_seeds(np.random.default_rng(seed), n, x0, exact_seeds)
-    informed_d = A._state_tensor(informed0, torch.bool, bool, device)
+        informed_d = A._seeds_on(np.random.default_rng(seed), n, x0, exact_seeds, device)
+    else:
+        informed_d = A._state_tensor(informed0, torch.bool, bool, device)
     if t_inf0 is None:
         t_init_d = torch.zeros(n, dtype=tdtype, device=device)
     else:

@@ -78,7 +78,7 @@ from sbr_tpu_torch.native import er_edges_native, sort_edges_by_dst
 from sbr_tpu_torch.obs import prof
 from sbr_tpu_torch.parallel import collectives as C
 from sbr_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
-from sbr_tpu_torch.social import recount
+from sbr_tpu_torch.social import pcg64, recount
 from sbr_tpu_torch.social.fused import MODES, host_round, infection_update
 from sbr_tpu_torch.social.rng import prng_key
 
@@ -285,6 +285,21 @@ def _draw_seeds(rng, n: int, x0: float, exact_seeds: bool) -> np.ndarray:
     informed0 = rng.random(n) < x0
     if x0 > 0 and not informed0.any():
         informed0[rng.integers(0, n)] = True
+    return informed0
+
+
+def _seeds_on(rng, n: int, x0: float, exact_seeds: bool, device) -> torch.Tensor:
+    """`_draw_seeds` as a bool tensor on ``device``, entry for entry. On a
+    CUDA device the card draws the Bernoulli seeds (`pcg64.bernoulli`), and
+    the guaranteed seed, drawn from the stream after them, is set there
+    only if none was drawn, so the host reads nothing back."""
+    device = torch.device(device)
+    if exact_seeds or device.type != "cuda":
+        return _state_tensor(_draw_seeds(rng, n, x0, exact_seeds), torch.bool, bool, device)
+    informed0 = pcg64.bernoulli(rng, n, x0, device)
+    if x0 > 0:
+        k = int(pcg64.advanced(rng, n).integers(0, n))
+        informed0[k] |= ~informed0.any()
     return informed0
 
 

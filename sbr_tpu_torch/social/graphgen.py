@@ -26,7 +26,8 @@ draws are kept in int64 tensors, as in ``social.rng``.
 
 Panic rewiring (`infomodels.engine`'s ``dynamics="rewire"``) regenerates
 the edge set every epoch from the same factoring: `epoch_indegrees` redraws
-the destination marginal, `tilt_threshold_table` tilts the source marginal
+the destination marginal (`epoch_indegrees_on` draws the same in-degrees
+on the card, `pcg64.uniform_indegrees`), `tilt_threshold_table` tilts the source marginal
 toward the withdrawing agents, and `generate_tilted_sources` draws the
 dst-sorted sources against it, keyed by `epoch_key_words`. The table and
 the sources equal ``sbr_tpu``'s bit for bit (tested).
@@ -55,6 +56,7 @@ import torch
 from sbr_tpu_torch import obs
 from sbr_tpu_torch.core.integrate import xla_cumsum
 from sbr_tpu_torch.social import agents as A
+from sbr_tpu_torch.social import pcg64
 from sbr_tpu_torch.social.rng import _threefry2x32
 
 __all__ = [
@@ -62,6 +64,7 @@ __all__ = [
     "ScaleFreeSpec",
     "StochasticBlockSpec",
     "epoch_indegrees",
+    "epoch_indegrees_on",
     "epoch_key_words",
     "generate_edges",
     "generate_tilted_sources",
@@ -186,23 +189,28 @@ def _spec_weights(spec) -> Optional[np.ndarray]:
     return None
 
 
+def _uniform_ids(rng, n: int, e: int):
+    """The ``e`` destination ids of a uniform marginal's in-degree draw,
+    at most 2^24 at a time, as the reference draws them (a numpy Generator
+    continues one stream of 32-bit words across calls, so the chunks give
+    the ids of one draw). They are drawn as uint32 and viewed as int32 (n < 2^31): below
+    2^32 numpy's bounded draw takes 32-bit words whatever the output type,
+    so the ids, and the stream after them, are the reference's int64 draw's
+    (tested), in half the memory."""
+    for done in range(0, e, 1 << 24):
+        yield rng.integers(0, n, size=min(1 << 24, e - done), dtype=np.uint32).view(np.int32)
+
+
 def _indeg_host(spec, seed: int, e: int) -> np.ndarray:
     """The in-degree vector: one host multinomial draw over the spec's
     destination marginal, seeded from SeedSequence((seed, 1)). Uniform
-    marginals draw it as a bincount of uniform integers, consumed in
-    bounded chunks (a numpy Generator continues one bit stream across
-    calls, so the chunking is bitwise the full draw)."""
+    marginals draw it as a bincount of uniform integers (`_uniform_ids`)."""
     rng = np.random.default_rng(np.random.SeedSequence((seed, 1)))
     w = _spec_weights(spec)
     if w is None:
         indeg = np.zeros(spec.n, np.int64)
-        done = 0
-        while done < e:
-            take = min(1 << 24, e - done)
-            indeg += np.bincount(
-                rng.integers(0, spec.n, size=take), minlength=spec.n
-            )
-            done += take
+        for ids in _uniform_ids(rng, spec.n, e):
+            indeg += np.bincount(ids, minlength=spec.n)
         return indeg.astype(np.int32)
     return rng.multinomial(e, w / w.sum()).astype(np.int32)
 
@@ -216,23 +224,35 @@ def epoch_key_words(seed: int, epoch: int) -> Tuple[np.uint32, np.uint32]:
     return np.uint32(k0), np.uint32(k1)
 
 
+def _epoch_rng(seed: int, epoch: int) -> np.random.Generator:
+    return np.random.default_rng(np.random.SeedSequence((seed, 1, epoch)))
+
+
 def epoch_indegrees(spec, seed: int, epoch: int, e: int) -> np.ndarray:
     """The in-degree vector of one rewiring epoch: the base spec's
     destination marginal, redrawn from SeedSequence((seed, 1, epoch)), so
     epoch graphs are independent realizations, deterministic in (seed,
     epoch). Uniform marginals draw at most 2^24 integers at a time, as the
-    reference does (the chunking is part of the stream)."""
-    rng = np.random.default_rng(np.random.SeedSequence((seed, 1, epoch)))
+    reference does (`_uniform_ids`)."""
+    rng = _epoch_rng(seed, epoch)
     w = _spec_weights(spec)
     if w is None:
         indeg = np.zeros(spec.n, np.int64)
-        done = 0
-        while done < e:
-            take = min(1 << 24, e - done)
-            indeg += np.bincount(rng.integers(0, spec.n, size=take), minlength=spec.n)
-            done += take
+        for ids in _uniform_ids(rng, spec.n, e):
+            indeg += np.bincount(ids, minlength=spec.n)
         return indeg.astype(np.int32)
     return rng.multinomial(e, w / w.sum()).astype(np.int32)
+
+
+def epoch_indegrees_on(spec, seed: int, epoch: int, e: int, device) -> torch.Tensor:
+    """`epoch_indegrees` as an int64 tensor on ``device``, entry for entry.
+    On a CUDA device a uniform marginal's in-degrees are drawn by the card
+    (`pcg64.uniform_indegrees`): at 10^8 edges numpy's draw of the ids on
+    one host thread is most of a rewired epoch, and the part of it that
+    varies most from draw to draw."""
+    if _spec_weights(spec) is None and torch.device(device).type == "cuda":
+        return pcg64.uniform_indegrees(_epoch_rng(seed, epoch), spec.n, e, device)
+    return torch.from_numpy(epoch_indegrees(spec, seed, epoch, e).astype(np.int64)).to(device)
 
 
 def tilt_threshold_table(base_weights: torch.Tensor, wd: torch.Tensor, bias) -> torch.Tensor:

@@ -1660,3 +1660,73 @@ def test_sharded_world_one_on_card_equals_single_device(cuda_device, engine, com
         assert launched == int(sh.full_recount_steps.sum()) > 0
     else:
         assert launched == 0
+
+
+@pytest.mark.parametrize("n,e,seed,epoch", [
+    (3000, 18_013, 0, 0), (97, 4_500, 3, 2), (1, 300, 11, 7), (1000, 0, 4, 4),
+    (2**31 - 5, 100_000, 9, 1), (10_000_000, (1 << 24) + 12_345, 5, 3),
+])
+def test_pcg64_indegrees_equal_the_host_draw(cuda_device, n, e, seed, epoch):
+    """The card's in-degrees of an epoch are numpy's bincount of the host
+    draw entry for entry: one and many threads, a range of one, none
+    drawn, a range near 2^31 (rejections near their most likely), and a
+    draw across the host's 2^24-id chunks. Two launches a draw."""
+    from sbr_tpu_torch.social import graphgen as gg
+    from sbr_tpu_torch.social import pcg64
+
+    before = _build.LAUNCHES[pcg64.KERNEL]
+    got = pcg64.uniform_indegrees(gg._epoch_rng(seed, epoch), n, e, cuda_device)
+    assert _build.LAUNCHES[pcg64.KERNEL] == before + 2
+    assert got.dtype == torch.int64 and int(got.sum()) == e
+    if n < 2**24:
+        want = (gg.epoch_indegrees(st.ErdosRenyiSpec(n=n, avg_degree=1.0), seed, epoch, e)
+                if n > 1 else np.array([e]))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    else:  # compare the nonzero entries: a 2^31-entry host table is 8 GiB
+        ids = np.concatenate([np.zeros(0, np.int32)] + list(
+            gg._uniform_ids(gg._epoch_rng(seed, epoch), n, e)))
+        nodes, counts = np.unique(ids, return_counts=True)
+        nz = torch.nonzero(got).flatten()
+        np.testing.assert_array_equal(nz.cpu().numpy(), nodes)
+        np.testing.assert_array_equal(got[nz].cpu().numpy(), counts)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 100_003, 10_000_000])
+@pytest.mark.parametrize("p", [0.0, 1e-4, 0.01, 0.5, 1.0])
+def test_pcg64_bernoulli_equals_the_host_draw(cuda_device, n, p):
+    from sbr_tpu_torch.social import pcg64
+
+    rng = np.random.default_rng(n + 7)
+    got = pcg64.bernoulli(rng, n, p, cuda_device)
+    np.testing.assert_array_equal(got.cpu().numpy(), rng.random(n) < p)
+
+
+@pytest.mark.parametrize("n,x0,seed", [(1000, 1e-9, 4), (1000, 0.0, 4), (20_000, 0.01, 8),
+                                       (10_000_000, 0.01, 123)])
+def test_seeds_on_card_equal_the_host_draw(cuda_device, n, x0, seed):
+    """The initial informed mask on the card is the host's, the seed that
+    the host guarantees when none was drawn included (x0 1e-9)."""
+    from sbr_tpu_torch.social import agents
+
+    got = agents._seeds_on(np.random.default_rng(seed), n, x0, False, cuda_device)
+    want = agents._draw_seeds(np.random.default_rng(seed), n, x0, False)
+    assert want.any() == (x0 > 0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_rewired_bayes_on_card_equals_cpu(cuda_device):
+    """A rewired bayes run on the card, its in-degrees and seeds drawn by
+    the card, is the CPU run bit for bit."""
+    from sbr_tpu_torch.infomodels import InfoModelSpec, simulate_info
+    from sbr_tpu_torch.social import pcg64
+
+    spec = InfoModelSpec(channel="bayes", dynamics="rewire", epoch_steps=5)
+    graph = st.ErdosRenyiSpec(n=30_000, avg_degree=6.0)
+    cfg = st.AgentSimConfig(n_steps=12, dt=0.05, reentry_delay=3.0)
+    kw = dict(x0=0.01, config=cfg, seed=21, dtype=np.float32)
+    cpu = simulate_info(spec, graph, device="cpu", **kw)
+    before = _build.LAUNCHES[pcg64.KERNEL]
+    card = simulate_info(spec, graph, device=cuda_device, **kw)
+    assert _build.LAUNCHES[pcg64.KERNEL] == before + 1 + 2 * card.epochs == before + 7
+    for f in ("informed", "t_inf", "belief", "informed_frac", "withdrawn_frac"):
+        assert torch.equal(getattr(cpu, f), getattr(card, f).cpu()), f

@@ -303,11 +303,12 @@ def test_solver_outputs_identical_under_profiling_env(tmp_path, monkeypatch):
         assert torch.equal(a.nan_to_num(3.0), b.nan_to_num(3.0))
 
 
-@pytest.mark.parametrize("engine", ["gather", "incremental"])
+@pytest.mark.parametrize("engine", ["gather", "incremental", "info"])
 def test_agents_identical_under_profiling_env(tmp_path, monkeypatch, engine):
     """A simulation in either engine, its step loop's ranges on under the
     profiler, is bit for bit the plain run (a small change budget makes the
-    incremental engine recount fully on some steps)."""
+    incremental engine recount fully on some steps); so is a rewired bayes
+    information model (``info``), its epoch and step ranges on."""
     from sbr_tpu_torch.obs.timing import tensor_leaves
     from sbr_tpu_torch.social import agents as ta
 
@@ -316,6 +317,8 @@ def test_agents_identical_under_profiling_env(tmp_path, monkeypatch, engine):
     budget = 6 if engine == "incremental" else None
 
     def simulate():
+        if engine == "info":
+            return _rewired_bayes(cfg)
         return ta.simulate_agents(1.0, src, dst, 1500, x0=0.01, config=cfg, seed=5,
                                   engine=engine, incremental_budget=budget, device=CPU)
 
@@ -325,6 +328,18 @@ def test_agents_identical_under_profiling_env(tmp_path, monkeypatch, engine):
         with obs.profile("simulate") as trace_dir:
             assert trace_dir is not None and prof.ranges_on()
             profiled = simulate()
-    assert 0 < int(plain.full_recount_steps.sum()) <= cfg.n_steps
+    if engine == "info":
+        assert plain.epochs == profiled.epochs == 5 and plain.belief is not None
+    else:
+        assert 0 < int(plain.full_recount_steps.sum()) <= cfg.n_steps
     for a, b in zip(tensor_leaves(plain), tensor_leaves(profiled)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _rewired_bayes(cfg):
+    from sbr_tpu_torch.infomodels import InfoModelSpec, simulate_info
+    from sbr_tpu_torch.social.graphgen import ErdosRenyiSpec
+
+    spec = InfoModelSpec(channel="bayes", dynamics="rewire", epoch_steps=7)
+    return simulate_info(spec, ErdosRenyiSpec(n=1500, avg_degree=8.0), x0=0.01, config=cfg,
+                         seed=5, device=CPU)

@@ -1,6 +1,7 @@
 """The profiler ranges inside the port's hot paths, on the CPU: the step
 loop of both agent engines (`social.agents._run_engine`) and its prologue,
-and the stages of a β×u grid tile (`sweeps.beta_u_grid` with the solver's
+the epoch and step loops of a rewired bayes information model
+(`infomodels.engine`'s ``info.*`` ranges), and the stages of a β×u grid tile (`sweeps.beta_u_grid` with the solver's
 ``baseline.*`` spans, silent as run-log spans inside the program). The
 benchmark's per-layer readers count and time these ranges, so their
 number, names and nesting are held here; with no profiler recording the
@@ -8,6 +9,7 @@ paths create no range and query the profiler's state once a call.
 """
 
 import collections
+import math
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from sbr_tpu_torch.infomodels import InfoModelSpec, simulate_info  # noqa: E402
 from sbr_tpu_torch.models.params import SolverConfig, make_model_params  # noqa: E402
 from sbr_tpu_torch.obs import prof  # noqa: E402
 from sbr_tpu_torch.social import agents as ta  # noqa: E402
@@ -25,6 +28,8 @@ CPU = "cpu"
 N, STEPS = 2000, 30
 CFG = ta.AgentSimConfig(n_steps=STEPS, dt=0.1, exit_delay=0.5, reentry_delay=2.0)
 ENGINES = {"gather": {}, "incremental": {"incremental_budget": 6}}
+# a rewired bayes run whose epoch length does not divide its steps
+REWIRE = InfoModelSpec(channel="bayes", dynamics="rewire", epoch_steps=7)
 
 
 @pytest.fixture(scope="module")
@@ -42,6 +47,13 @@ def _grid():
     return beta_u_grid(np.array([0.5, 1.0, 2.0]), np.array([0.05, 0.5]), make_model_params(),
                        config=SolverConfig(n_grid=96, bisect_iters=30, refine_crossings=False),
                        device=CPU)
+
+
+def _rewire():
+    from sbr_tpu_torch.social.graphgen import ErdosRenyiSpec
+
+    return simulate_info(REWIRE, ErdosRenyiSpec(n=N, avg_degree=8.0), x0=0.01, config=CFG,
+                         seed=3, device=CPU)
 
 
 def _ranges(p, prefixes):
@@ -83,6 +95,35 @@ def test_step_loop_ranges(graph, engine):
     assert inside == [True, False] * (len(inside) // 2)
 
 
+def test_rewired_bayes_epoch_and_step_ranges():
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        r = _rewire()
+    ranges = _ranges(p, ("info.",))
+    counts = collections.Counter(name for name, _, _ in ranges)
+    epochs = math.ceil(STEPS / REWIRE.epoch_steps)
+    assert r.epochs == epochs == 5
+    for name in ("info.epoch", "info.regen", "info.indegrees", "info.sources", "info.sync"):
+        assert counts[name] == epochs, name
+    for name in ("info.step", "info.counts", "info.belief"):
+        assert counts[name] == STEPS, name
+    by = collections.defaultdict(list)
+    for rng in ranges:
+        by[rng[0]].append(rng)
+    for name in ("info.regen", "info.step", "info.sync"):
+        assert all(_inside(rng, by["info.epoch"]) for rng in by[name]), name
+    for name in ("info.indegrees", "info.sources"):
+        assert all(_inside(rng, by["info.regen"]) for rng in by[name]), name
+    for name in ("info.counts", "info.belief"):
+        assert all(_inside(rng, by["info.step"]) for rng in by[name]), name
+    # each epoch rebuilds its graph before its steps, and fences after them
+    for epoch, regen, sync in zip(by["info.epoch"], by["info.regen"], by["info.sync"]):
+        steps = [rng for rng in by["info.step"] if _inside(rng, [epoch])]
+        assert steps and regen[2] <= min(s for _, s, _ in steps)
+        assert sync[1] >= max(e for _, _, e in steps)
+    assert sum(len([s for s in by["info.step"] if _inside(s, [ep])])
+               for ep in by["info.epoch"]) == STEPS
+
+
 def test_grid_stage_ranges():
     with profile(activities=[ProfilerActivity.CPU]) as p:
         _grid()
@@ -92,6 +133,20 @@ def test_grid_stage_ranges():
     assert counts["baseline.buffers"] == counts["baseline.xi"] == 1
     tile = [rng for rng in ranges if rng[0] == "sweeps.beta_u_grid"]
     assert all(_inside(rng, tile) for rng in ranges if rng[0].startswith("baseline."))
+
+
+def test_rewired_bayes_makes_no_range_without_a_profiler(monkeypatch):
+    made = []
+
+    def counted(*args, **kwargs):
+        made.append(args)
+        raise AssertionError("a range was made with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counted)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", counted)
+    r = _rewire()
+    assert made == [] and r.epochs == 5
 
 
 @pytest.mark.parametrize("path", ["gather", "incremental", "grid"])

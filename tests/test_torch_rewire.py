@@ -9,7 +9,8 @@ Contracts, all bit for bit:
 - `tilt_threshold_table` is the reference's uint32 table, the saturated
   last entries (XLA's float → uint32 conversion clamps 2^32 to 2^32 − 1)
   and bias 0 included; `epoch_key_words` and `epoch_indegrees` are the
-  reference's draws;
+  reference's draws, and `epoch_indegrees_on` is the same draw on a
+  device (on the card, its kernel's: tests/test_torch_cuda.py);
 - `generate_tilted_sources` is the reference's, for Erdős–Rényi and
   scale-free tables, and does not depend on the chunk;
 - `simulate_info(dynamics="rewire")`: fractions, ``informed``, ``t_inf``,
@@ -55,6 +56,7 @@ from sbr_tpu_torch.models.params import make_model_params as tmodel  # noqa: E40
 from sbr_tpu_torch.social import agents as ta  # noqa: E402
 from sbr_tpu_torch.social import closure as tc  # noqa: E402
 from sbr_tpu_torch.social import graphgen as tg  # noqa: E402
+from sbr_tpu_torch.social import pcg64  # noqa: E402
 from sbr_tpu_torch.social.solver import fixed_point_from_numpy  # noqa: E402
 from torch_events import assert_same_events, events  # noqa: E402
 
@@ -169,6 +171,53 @@ def test_epoch_draws_equal_the_reference(kind):
         assert got.dtype == want.dtype and int(got.sum()) == e
         np.testing.assert_array_equal(got, want)
     assert tg.epoch_key_words(3, 1) != tg.epoch_key_words(3, 2)
+
+
+@pytest.mark.parametrize("kind", ["er", "sf"])
+def test_epoch_indegrees_on_the_device_equal_the_host_draw(kind):
+    """On the CPU `epoch_indegrees_on` is the host draw entry for entry, as
+    int64 (tests/test_torch_cuda.py holds the card's kernel to it). The
+    draw's ids are one stream of 32-bit words however it is chunked, the
+    premise of the card's kernel, which draws an epoch in one pass; and
+    the uint32 draw is the reference's int64 one, and leaves the stream as
+    it does."""
+    _, tgraph = _graphs(kind)
+    r64, r32, rsmall = (tg._epoch_rng(3, 2) for _ in range(3))
+    ids = np.concatenate(list(tg._uniform_ids(r32, tgraph.n, 40_000)))
+    np.testing.assert_array_equal(ids, r64.integers(0, tgraph.n, size=40_000))
+    assert r64.bit_generator.state == r32.bit_generator.state
+    small = [rsmall.integers(0, tgraph.n, size=k) for k in (1, 999, 7, 13_000, 25_993)]
+    np.testing.assert_array_equal(np.concatenate(small), ids)
+    for seed, epoch, e in ((0, 0, 18_013), (3, 2, 4_500), (11, 7, 0)):
+        want = tg.epoch_indegrees(tgraph, seed, epoch, e)
+        got = tg.epoch_indegrees_on(tgraph, seed, epoch, e, CPU)
+        assert got.dtype == torch.int64 and int(got.sum()) == e
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_the_card_draws_start_from_the_host_stream():
+    """The host side of the card's PCG64 draws (`social.pcg64`): the
+    stream after ``n`` doubles, which the guaranteed seed comes from, is
+    where ``rng.random(n)`` leaves the generator, and the caller's
+    generator does not move; a generator holding a 32-bit half is refused.
+    On the CPU `_seeds_on` is `_draw_seeds`, the guaranteed seed included
+    (tests/test_torch_cuda.py holds the card's kernels to the host)."""
+    for seed, n in ((0, 1), (4, 1000), (9, 123_457)):
+        rng = np.random.default_rng(seed)
+        state = rng.bit_generator.state
+        after = pcg64.advanced(rng, n).integers(0, n)
+        assert rng.bit_generator.state == state
+        rng.random(n)
+        assert after == rng.integers(0, n)
+    held = np.random.default_rng(3)
+    held.integers(0, 10, dtype=np.uint32)
+    with pytest.raises(ValueError, match="32-bit half"):
+        pcg64._head(held)
+    for n, x0, seed in ((1000, 1e-9, 4), (5000, 0.01, 8)):
+        want = ta._draw_seeds(np.random.default_rng(seed), n, x0, False)
+        got = ta._seeds_on(np.random.default_rng(seed), n, x0, False, CPU)
+        assert got.dtype == torch.bool and int(want.sum()) >= 1
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("kind", ["er", "sf"])
